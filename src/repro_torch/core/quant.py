@@ -1,0 +1,351 @@
+"""Quantization and digit-plane decomposition for L2R arithmetic.
+
+The port of ``repro/core/quant.py``.  An n-bit integer tensor splits into
+D = n / log2(radix) planes of small digits such that
+
+    x = sum_i plane[i] * radix**i            (exact, two's complement)
+
+Low planes hold unsigned digits in [0, radix); the **top plane is signed**
+(arithmetic shift) so the reconstruction is exact for negative values.
+
+The formulas and their order are the reference's, so the same float input
+gives the same integers (``torch.round`` and ``jnp.round`` both round half
+to even).  Window padding and sharded weight caches belong to later
+slices and are not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.analysis.overflow import check_or_raise
+
+__all__ = [
+    "QuantConfig",
+    "QuantizedWeights",
+    "PlaneOperands",
+    "quantize",
+    "quantize_weights",
+    "dequantize",
+    "digit_planes",
+    "shifted_planes",
+    "stack_planes_lhs",
+    "stack_planes_rhs",
+    "plane_count",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Configuration of the L2R digit-plane arithmetic.
+
+    Attributes:
+      n_bits:      operand precision (the paper evaluates n = 8).
+      log2_radix:  bits per digit; 1 -> bit-serial (paper's datapath),
+                   2 -> radix-4 (default), 4 -> radix-16.
+      per_channel: quantize scales per output channel (axis -1) instead of
+                   per tensor.
+    """
+
+    n_bits: int = 8
+    log2_radix: int = 2
+    per_channel: bool = True
+
+    def __post_init__(self):
+        if self.n_bits % self.log2_radix:
+            raise ValueError(
+                f"n_bits={self.n_bits} must be divisible by "
+                f"log2_radix={self.log2_radix}"
+            )
+
+    @property
+    def planes(self) -> int:
+        return self.n_bits // self.log2_radix
+
+    @property
+    def radix(self) -> int:
+        return 1 << self.log2_radix
+
+    @property
+    def qmax(self) -> int:
+        return (1 << (self.n_bits - 1)) - 1
+
+    @property
+    def qmin(self) -> int:
+        return -(1 << (self.n_bits - 1))
+
+
+def plane_count(n_bits: int, log2_radix: int) -> int:
+    return n_bits // log2_radix
+
+
+def _int_dtype(n_bits: int) -> torch.dtype:
+    return torch.int8 if n_bits <= 8 else torch.int16
+
+
+def _symmetric_quant(xf: torch.Tensor, amax: torch.Tensor, cfg: QuantConfig):
+    """Shared scale/round/clip core: the ONE place the quantization
+    formula lives, so load-time weight caches (quantize_weights) stay
+    bit-identical to on-the-fly quantization (quantize).
+
+    The scale is ``amax * f32(1/qmax)``: XLA folds the reference's
+    ``/ qmax`` into that multiply, and the port computes what the
+    reference computes."""
+    inv_qmax = torch.tensor(1.0 / cfg.qmax, dtype=torch.float32)
+    scale = torch.clamp(amax, min=1e-30) * inv_qmax.to(amax.device)
+    q = torch.clamp(torch.round(xf / scale), cfg.qmin, cfg.qmax)
+    return q.to(_int_dtype(cfg.n_bits)), scale
+
+
+def _amax(xf: torch.Tensor, keep: set[int]) -> torch.Tensor:
+    reduce_dims = tuple(a for a in range(xf.ndim) if a not in keep)
+    return torch.amax(xf.abs(), dim=reduce_dims, keepdim=True)
+
+
+def quantize(x: torch.Tensor, cfg: QuantConfig = QuantConfig(),
+             axis: int | None = None):
+    """Symmetric quantization to n-bit signed integers.
+
+    Returns (q, scale) with x ~= q * scale.  ``axis`` selects the axis
+    kept for the scale; ``None`` uses cfg.per_channel (scale per trailing
+    axis) or per-tensor.
+    """
+    xf = x.to(torch.float32)
+    if axis is None and cfg.per_channel and x.ndim >= 2:
+        amax = _amax(xf, {x.ndim - 1})
+    elif axis is not None:
+        amax = _amax(xf, {axis % x.ndim})
+    else:
+        amax = xf.abs().amax()
+    return _symmetric_quant(xf, amax, cfg)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def digit_planes(x: torch.Tensor, n_bits: int = 8,
+                 log2_radix: int = 2) -> torch.Tensor:
+    """Decompose signed integers into digit planes, **least significant
+    plane first**: (D, *x.shape) int8, low planes unsigned in
+    [0, radix), the top plane the (signed) arithmetic shift."""
+    d = plane_count(n_bits, log2_radix)
+    r_mask = (1 << log2_radix) - 1
+    xi = x.to(torch.int32)
+    planes = [(xi >> (log2_radix * i)) & r_mask for i in range(d - 1)]
+    planes.append(xi >> (log2_radix * (d - 1)))  # arithmetic shift: signed top
+    return torch.stack(planes).to(torch.int8)
+
+
+def _shifted_plane(x: torch.Tensor, i: int, n_bits: int, log2_radix: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """Pre-shifted plane ``i`` of ``x`` (already in the operand dtype):
+    a bit-field of x, so it is computed in that dtype with no upcast."""
+    d = plane_count(n_bits, log2_radix)
+    if i < d - 1:
+        mask = ((1 << log2_radix) - 1) << (log2_radix * i)
+        return torch.bitwise_and(x, mask, out=out)
+    # signed top bit-field: clear the low bits, keep the sign extension
+    return torch.sub(x, x & ((1 << (log2_radix * (d - 1))) - 1), out=out)
+
+
+def shifted_planes(x: torch.Tensor, n_bits: int = 8,
+                   log2_radix: int = 2) -> torch.Tensor:
+    """Digit planes pre-shifted to their significance:
+    ``out[i] = plane_i << b*i``, each a bit-field of ``x`` (the top one
+    sign-extended), in the operand's own n-bit dtype; ``sum_i out[i] == x``.
+    """
+    x = x.to(_int_dtype(n_bits))
+    return torch.stack([_shifted_plane(x, i, n_bits, log2_radix)
+                        for i in range(plane_count(n_bits, log2_radix))])
+
+
+def _stack_shifted(x: torch.Tensor, n_bits: int, log2_radix: int, axis: int,
+                   descending: bool) -> torch.Tensor:
+    """Pre-shifted planes written straight into their blocks of the stack
+    along ``axis`` (no per-plane tensors, no concatenation)."""
+    d = plane_count(n_bits, log2_radix)
+    x = x.to(_int_dtype(n_bits))
+    k = x.shape[axis]
+    shape = list(x.shape)
+    shape[axis] = d * k
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for i in range(d):
+        blk = d - 1 - i if descending else i
+        _shifted_plane(x, i, n_bits, log2_radix,
+                       out=out.narrow(axis, blk * k, k))
+    return out
+
+
+def stack_planes_lhs(xq: torch.Tensor, n_bits: int = 8, log2_radix: int = 2,
+                     shifted: bool = True) -> torch.Tensor:
+    """LHS plane stack: (..., M, K) -> (..., M, D*K), plane i at columns
+    ``[i*K, (i+1)*K)`` (ascending significance).  ``shifted`` picks
+    pre-shifted bit-fields (the kernel's operand format) or raw digits
+    (the guarded f32 format)."""
+    if shifted:
+        return _stack_shifted(xq, n_bits, log2_radix, xq.ndim - 1, False)
+    return torch.cat(list(digit_planes(xq, n_bits, log2_radix)), dim=-1)
+
+
+def stack_planes_rhs(wq: torch.Tensor, n_bits: int = 8, log2_radix: int = 2,
+                     axis: int = 0, shifted: bool = True) -> torch.Tensor:
+    """RHS plane stack: (K, N) -> (D*K, N), plane j at rows
+    ``[(D-1-j)*K, (D-j)*K)`` (descending significance), so every level
+    pairs a contiguous LHS column slice with a contiguous RHS row slice
+    (online.py:msdf_level_slices).  ``axis`` is the contraction axis
+    (conv weights (kh, kw, cin, cout) stack cin, axis=-2)."""
+    if shifted:
+        return _stack_shifted(wq, n_bits, log2_radix, axis % wq.ndim, True)
+    sp = digit_planes(wq, n_bits, log2_radix)
+    return torch.cat(list(sp)[::-1], dim=axis % wq.ndim)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneOperands:
+    """A digit-plane stack as a first-class operand.
+
+    Fields:
+      stack:   the stack tensor.
+      side:    "lhs" (ascending planes on the last axis) or "rhs"
+               (descending planes on the contraction axis).
+      k:       the un-stacked contraction length (stack axis is D*k).
+      axis:    the stacking axis, counted FROM THE END (negative).
+      shifted: True -> pre-shifted bit-field planes (the kernel's operand
+               format); False -> raw digits in [0, radix).
+
+    The two layouts convert exactly in both directions
+    (:meth:`with_layout`), so every consumer accepts either.
+    """
+
+    stack: torch.Tensor
+    side: str
+    n_bits: int
+    log2_radix: int
+    k: int
+    axis: int
+    shifted: bool
+
+    @property
+    def d(self) -> int:
+        return plane_count(self.n_bits, self.log2_radix)
+
+    @classmethod
+    def prepare_lhs(cls, aq: torch.Tensor, n_bits: int = 8,
+                    log2_radix: int = 2,
+                    shifted: bool = False) -> "PlaneOperands":
+        """Stack LHS planes once: (..., M, K) -> (..., M, D*K) operand."""
+        st = stack_planes_lhs(aq, n_bits, log2_radix, shifted=shifted)
+        return cls(st, "lhs", n_bits, log2_radix, aq.shape[-1], -1, shifted)
+
+    @classmethod
+    def prepare_rhs(cls, wq: torch.Tensor, n_bits: int = 8,
+                    log2_radix: int = 2, axis: int = 0,
+                    shifted: bool = False) -> "PlaneOperands":
+        """Stack RHS planes once: contraction ``axis`` grows to D*K."""
+        ax = axis if axis < 0 else axis - wq.ndim
+        st = stack_planes_rhs(wq, n_bits, log2_radix, axis=ax,
+                              shifted=shifted)
+        return cls(st, "rhs", n_bits, log2_radix, wq.shape[ax], ax, shifted)
+
+    def describe(self) -> str:
+        """One-line layout summary for mismatch errors."""
+        return (f"PlaneOperands(side={self.side!r}, n_bits={self.n_bits}, "
+                f"log2_radix={self.log2_radix}, k={self.k}, "
+                f"axis={self.axis}, shifted={self.shifted}, "
+                f"stack.shape={tuple(self.stack.shape)})")
+
+    def matches(self, n_bits: int, log2_radix: int, ndim: int | None = None,
+                side: str | None = None,
+                contract_axis: int | None = None) -> bool:
+        """Is this stack usable for a call with the given digit config
+        (and optionally rank / side / contraction-axis position)?"""
+        if (self.n_bits, self.log2_radix) != (n_bits, log2_radix):
+            return False
+        if ndim is not None and self.stack.ndim != ndim:
+            return False
+        if side is not None and self.side != side:
+            return False
+        if contract_axis is not None \
+                and self.axis % self.stack.ndim != contract_axis:
+            return False
+        return True
+
+    def with_layout(self, shifted: bool) -> "PlaneOperands":
+        """Exact raw-digit <-> pre-shifted conversion (chunk-wise shifts)."""
+        if shifted == self.shifted:
+            return self
+        ax = self.axis % self.stack.ndim
+        shp = self.stack.shape
+        r = self.stack.reshape(*shp[:ax], self.d, self.k, *shp[ax + 1:])
+        if self.side == "lhs":
+            amt = [self.log2_radix * i for i in range(self.d)]
+        else:
+            amt = [self.log2_radix * (self.d - 1 - i) for i in range(self.d)]
+        # raw low digits are non-negative and the top chunk is a sign-
+        # extended bit-field, so arithmetic shifts are exact both ways;
+        # cast BEFORE the left shift so high-significance chunks don't wrap
+        if shifted:
+            r = r.to(_int_dtype(self.n_bits))
+        sh = torch.tensor(amt, dtype=r.dtype, device=r.device).reshape(
+            (1,) * ax + (self.d,) + (1,) * (r.ndim - ax - 1))
+        out = (r << sh) if shifted else (r >> sh).to(torch.int8)
+        return dataclasses.replace(self, stack=out.reshape(shp),
+                                   shifted=shifted)
+
+    def core_stack(self, shifted: bool) -> torch.Tensor:
+        """The D-plane stack in the requested layout."""
+        return self.with_layout(shifted).stack
+
+
+@dataclasses.dataclass
+class QuantizedWeights:
+    """Pre-quantized matmul/conv weights, built ONCE at model load.
+
+    ``q`` keeps the weight's natural shape ((K, N) dense, (kh, kw, cin,
+    cout) conv); ``scale`` broadcasts against the output channels;
+    ``planes`` optionally caches the reversed RHS plane stack.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    planes: PlaneOperands | None = None
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.q.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+
+def quantize_weights(
+    w: torch.Tensor,
+    cfg: QuantConfig = QuantConfig(),
+    channel_axes: tuple[int, ...] = (-1,),
+    prestack: bool = False,
+    plane_axis: int | None = None,
+    plane_shifted: bool = False,
+) -> QuantizedWeights:
+    """Symmetric per-channel weight quantization -> :class:`QuantizedWeights`.
+
+    ``channel_axes`` KEEP independent scales (default: the trailing
+    output-channel axis).  ``prestack=True`` also caches the reversed RHS
+    plane stack along ``plane_axis`` (default 0; conv weights pass -2) in
+    the layout ``plane_shifted`` picks — True is the kernel's own operand
+    format, so the conversion happens once here instead of per call.
+    """
+    wf = w.to(torch.float32)
+    q, scale = _symmetric_quant(
+        wf, _amax(wf, {a % w.ndim for a in channel_axes}), cfg)
+    planes = None
+    if prestack:
+        axis = 0 if plane_axis is None else plane_axis
+        check_or_raise(cfg.n_bits, cfg.log2_radix, int(w.shape[axis]),
+                       where="quantize_weights")
+        planes = PlaneOperands.prepare_rhs(q, cfg.n_bits, cfg.log2_radix,
+                                           axis=axis, shifted=plane_shifted)
+    return QuantizedWeights(q, scale, planes)

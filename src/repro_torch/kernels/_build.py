@@ -1,0 +1,101 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` under ``repro_torch/kernels`` compiles to its own
+shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o lib<name>.so <name>.cu
+
+into ``build/repro_torch/<name>-<hash>/`` at the repository root, keyed by
+a hash of the source and the flags, at first use.  :func:`build_all`
+starts one ``nvcc`` per source, all at once.  A failed build raises with
+``nvcc``'s stderr; nothing falls back.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["sources", "build_all", "load", "BUILD_DIR"]
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def sources() -> dict[str, Path]:
+    """Every CUDA source of the package, by library name."""
+    return {p.stem: p for p in sorted(_KERNELS.glob("**/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
+                       "the CUDA kernels cannot be built on this host")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
+
+
+def _start(src: Path) -> tuple[Path, subprocess.Popen | None]:
+    out = _target(src)
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _finish(src: Path, out: Path, proc: subprocess.Popen | None) -> None:
+    if proc is None:
+        return
+    stdout, stderr = proc.communicate()
+    tmp = Path(proc.args[proc.args.index("-o") + 1])
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                           f"{stderr}{stdout}")
+    # ptxas -v: registers, shared memory and spills of every kernel
+    out.with_suffix(".log").write_text(stderr + stdout)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source that has no library yet, one ``nvcc`` each,
+    all started together.  Returns the library path per name."""
+    started = {name: (src, *_start(src)) for name, src in sources().items()}
+    for src, out, proc in started.values():
+        _finish(src, out, proc)
+    return {name: out for name, (_, out, _) in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            src = sources()[name]
+            out, proc = _start(src)
+            _finish(src, out, proc)
+            lib = _LIBS[name] = ctypes.CDLL(str(out))
+        return lib

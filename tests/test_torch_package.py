@@ -1,0 +1,106 @@
+"""The port stands alone and follows the device rule.
+
+* ``repro_torch`` imports neither jax nor any module of ``repro``;
+* entry points with no ``device=`` on a host without CUDA raise rather
+  than run on the CPU;
+* kernel B1's wrapper on a CPU tensor takes the plain version and never
+  builds the kernel.  (A CUDA tensor cannot be tried on a host without a
+  card: tests/test_torch_cuda.py and chip_smoke.py cover that route.)
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.l2r_gemm import kernel
+from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
+                "repro_torch.core.l2r_gemm", "repro_torch.analysis.overflow",
+                "repro_torch.kernels.l2r_gemm.ops",
+                "repro_torch.kernels.l2r_gemm.ref",
+                "repro_torch.configs.vgg16_l2r", "repro_torch.models.cnn",
+                "repro_torch.models.convert"]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import sys\n"
+            f"for m in {PORT_MODULES!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+            "or m.startswith(('jax.', 'repro.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_have_no_jax_or_repro_imports():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert len(files) > 10 and not hits, hits
+
+
+def test_entry_points_without_device_raise_on_a_host_without_cuda(
+        monkeypatch):
+    from repro_torch.models.cnn import vgg16_apply, vgg16_build
+    from repro_torch.models.convert import params_from_jax
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = torch.zeros(1, 32, 32, 3)
+    for call in (lambda: vgg16_apply({}, img), lambda: vgg16_build(10),
+                 lambda: params_from_jax({}),
+                 lambda: vgg16_apply({}, img, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_wrapper_on_cpu_takes_plain_version_without_building(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"tried to build {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(kernel, "_FN", None)
+    before = kernel.LAUNCHES
+    a = torch.randint(-128, 128, (6, 5), dtype=torch.int8)
+    b = torch.randint(-128, 128, (5, 4), dtype=torch.int8)
+    got = kernel.l2r_gemm_stacked_planes(stack_planes_lhs(a), stack_planes_rhs(b))
+    assert torch.equal(got, a.to(torch.int32) @ b.to(torch.int32))
+    assert kernel.LAUNCHES == before and kernel._FN is None
+
+
+def test_build_finds_the_sources_and_builds_into_an_ignored_directory():
+    srcs = _build.sources()
+    assert srcs["l2r_stacked_gemm"].name == "l2r_stacked_gemm.cu"
+    assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_chip_smoke_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result on a host
+    without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: chip_smoke.py would run")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       env=_env(), cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

@@ -1,0 +1,78 @@
+"""The slice end to end: full-width VGG-16 (all 13 convs and fc6-fc8 at
+their published widths, 10 classes) at 32x32, batch 2, through the port
+and through the reference, with the reference test's own fixture
+(tests/test_vgg16.py) passed across by value.
+
+Tolerances: the L2R path's integer accumulators are bit-identical, so
+the logits can differ only through float rounding in the dequantize and
+bias steps: max|Δ| <= 1e-5 * max|logit|, same argmax.  The float path's
+conv sums run in another order (oneDNN vs XLA), so it holds to rtol
+1e-4.  The 32x32 map reaches the head at 1x1 and is upsampled to 7x7:
+``jax.image.resize(..., "linear")`` and the port's antialiased
+``F.interpolate`` both copy the pixel exactly (plain bilinear would be
+off by an ulp), so on this input the L2R logits agree bit for bit; the
+tolerance above is what the test holds."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import QuantConfig as JCfg
+from repro.models.cnn import vgg16_apply as j_apply
+from repro.models.cnn import vgg16_build as j_build
+from repro.models.common import materialize
+from repro_torch.configs.vgg16_l2r import SMOKE
+from repro_torch.models.cnn import VGG16, _resize_7x7, vgg16_apply, vgg16_shapes
+from repro_torch.models.convert import params_from_jax
+
+
+@pytest.fixture(scope="module")
+def run():
+    params = materialize(j_build(n_classes=10), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    ref_l2r = np.asarray(j_apply(params, jnp.asarray(img), l2r=JCfg()))
+    ref_f = np.asarray(j_apply(params, jnp.asarray(img)))
+    tp = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    model = VGG16(tp, l2r=SMOKE.quant)
+    got_l2r = model(torch.from_numpy(img)).numpy()
+    got_f = vgg16_apply(tp, torch.from_numpy(img), device="cpu").numpy()
+    return ref_l2r, got_l2r, ref_f, got_f, params, tp
+
+
+def test_param_tree_crosses_by_value(run):
+    *_, params, tp = run
+    assert set(tp) == set(params)
+    for name, shape in vgg16_shapes(10).items():
+        assert tuple(tp[name]["w"].shape) == shape == params[name]["w"].shape
+        np.testing.assert_array_equal(tp[name]["w"].numpy(),
+                                      np.asarray(params[name]["w"]))
+
+
+def test_l2r_logits_match_reference(run):
+    ref, got, *_ = run
+    assert got.shape == (2, 10) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_float_logits_match_reference(run):
+    _, _, ref, got, *_ = run
+    assert got.shape == (2, 10) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 7, 9, 14])
+def test_head_resize_matches_reference(size):
+    """The head's 7x7 resize against jax.image.resize "linear": a copy of
+    a 1x1 map is exact in both, other sizes agree to a few f32 ulps."""
+    x = np.random.default_rng(size).standard_normal(
+        (2, size, size, 8)).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(x), (2, 7, 7, 8), "linear"))
+    got = _resize_7x7(torch.from_numpy(x)).numpy()
+    if size in (1, 7):
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
