@@ -60,14 +60,22 @@ def l2r_matmul_int(
 ) -> torch.Tensor:
     """Exact (or MSDF-truncated) integer matmul via digit planes: the pair
     loop.  aq: (..., M, K), bq: (K, N) signed ints -> int32 (..., M, N);
-    with levels=None this equals ``aq @ bq`` exactly (modulo 2^32)."""
+    with levels=None this equals ``aq @ bq`` exactly (modulo 2^32).
+    On a CUDA tensor the pair dots run as guarded true-f32 dots."""
     d = n_bits // log2_radix
     ap = digit_planes(aq, n_bits, log2_radix)  # (D, ..., M, K) int8
     bp = digit_planes(bq, n_bits, log2_radix)  # (D, K, N) int8
     acc = torch.zeros((*aq.shape[:-1], bq.shape[-1]), dtype=torch.int64,
                       device=aq.device)
+    if aq.is_cuda and _f32_dot_exact(aq.shape[-1], 1, log2_radix):
+        ap, bp = ap.to(torch.float32), bp.to(torch.float32)
     for (i, j) in msdf_pairs(d, levels):
-        acc += _int_dot(ap[i], bp[j]) << (log2_radix * (i + j))
+        if ap.is_floating_point():
+            with no_tf32():
+                term = torch.matmul(ap[i], bp[j]).to(torch.int64)
+        else:
+            term = _int_dot(ap[i], bp[j])
+        acc += term << (log2_radix * (i + j))
     return wrap_int32(acc)
 
 
@@ -105,6 +113,7 @@ def stacked_gemm_planes(
     log2_radix: int = 2,
     levels: int | None = None,
     shifted: bool = True,
+    first_level: int = 0,
 ) -> torch.Tensor:
     """Level-stacked contraction over pre-stacked digit planes.
 
@@ -113,9 +122,12 @@ def stacked_gemm_planes(
     pre-shifted bit-field planes (one integer dot per level, no shifts);
     ``shifted=False`` takes raw digits, shifts once per level, and runs
     the level dots in true f32 when :func:`_f32_dot_exact` holds.
+    ``first_level`` skips the walk's leading levels: the result is the
+    sum of levels ``[first_level, levels)`` (one level of an early-exit
+    walk).
     """
     d = n_bits // log2_radix
-    slices = msdf_level_slices(d, levels)
+    slices = msdf_level_slices(d, levels)[first_level:]
     acc = torch.zeros((*a_stack.shape[:-1], b_rev.shape[-1]),
                       dtype=torch.int64, device=a_stack.device)
     if not slices:  # levels=0: empty MSDF prefix, same as the pair loop

@@ -1,0 +1,291 @@
+"""Per-request precision classes: the one decision fold of every
+streaming walk.
+
+The port of ``repro/core/policy.py`` (single device).  A row of a
+streaming walk commits by its class:
+
+  * ``exact``      — never early-commits; the walk runs full depth for
+                     it and the committed value is the full-precision
+                     fallback;
+  * ``budget(L)``  — force-commits after L levels: the argmax of the
+                     dequantized prefix, bit-identical to a run
+                     truncated at ``levels=L``;
+  * ``bounded(tol)`` — margin early exit: commits once the top-1 lower
+                     confidence bound beats every other entry's upper
+                     bound minus ``tol`` (``tol=0`` is the plain
+                     early-exit walk bit for bit).
+
+:class:`LevelPolicy` holds per-row ``(mode, clamp, tol)`` tensors, so one
+mixed batch serves each row by its own rule inside one level loop.
+:func:`head_walk_machinery` builds the head-argmax fold that
+``core/progressive.py:streaming_argmax`` runs over the MSDF prefix
+stream.  The cross-shard reductions of the reference's consensus walk
+(``model_ax``/``dp``) and the decode-attention fold come with later
+slices of the port.
+
+Every float operation keeps the reference's operands and order, so the
+decisions, committed classes and exit levels are bit-identical to it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "MODE_EXACT",
+    "MODE_BUDGET",
+    "MODE_BOUNDED",
+    "NO_CLAMP",
+    "PrecisionClass",
+    "LevelPolicy",
+    "decision_state",
+    "policy_commit",
+    "head_walk_machinery",
+]
+
+MODE_EXACT = 0
+MODE_BUDGET = 1
+MODE_BOUNDED = 2
+# BUDGET clamp sentinel for non-budget rows: larger than any level index
+# a walk can reach, so `idx >= clamp - 1` never fires
+NO_CLAMP = 2**31 - 1
+
+# |fl(v) - v| <= ~3 ulp(|v|) across the cast, the two scale products and
+# the bias add; 8 ulp of the row max is the reference's envelope
+_EPS = np.float32(8.0 * np.finfo(np.float32).eps)
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionClass:
+    """Host-side precision class of one request.
+
+    ``kind`` is "exact" | "budget" | "bounded"; ``levels`` is the budget
+    clamp, ``tol`` the bounded margin slack in the scaled score domain.
+    """
+
+    kind: str
+    levels: int | None = None
+    tol: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in ("exact", "budget", "bounded"):
+            raise ValueError(f"unknown precision class kind: {self.kind!r}")
+        if self.kind == "budget" and (self.levels is None or self.levels < 1):
+            raise ValueError("budget class needs levels >= 1 "
+                             f"(got {self.levels})")
+
+    @classmethod
+    def exact(cls) -> "PrecisionClass":
+        return cls("exact")
+
+    @classmethod
+    def budget(cls, levels: int) -> "PrecisionClass":
+        return cls("budget", levels=int(levels))
+
+    @classmethod
+    def bounded(cls, tol: float = 0.0) -> "PrecisionClass":
+        return cls("bounded", tol=float(tol))
+
+    def label(self) -> str:
+        """Stable string key of the per-class exit histograms."""
+        if self.kind == "exact":
+            return "exact"
+        if self.kind == "budget":
+            return f"budget({self.levels})"
+        return f"bounded({self.tol:g})"
+
+    def row(self) -> tuple[int, int, float]:
+        """(mode, clamp, tol) row values of this class."""
+        if self.kind == "exact":
+            return MODE_EXACT, NO_CLAMP, 0.0
+        if self.kind == "budget":
+            return MODE_BUDGET, int(self.levels), 0.0
+        return MODE_BOUNDED, NO_CLAMP, float(self.tol)
+
+
+class LevelPolicy(NamedTuple):
+    """Per-row precision policy of one streaming walk.
+
+    mode:  (rows,) int32 — MODE_EXACT / MODE_BUDGET / MODE_BOUNDED.
+    clamp: (rows,) int32 — budget rows force-commit at level index
+           ``clamp - 1``; NO_CLAMP on other rows.
+    tol:   (rows,) float32 — bounded rows' margin slack; 0 elsewhere.
+    """
+
+    mode: torch.Tensor
+    clamp: torch.Tensor
+    tol: torch.Tensor
+
+    @classmethod
+    def from_classes(cls, classes, device: str | torch.device = "cpu"
+                     ) -> "LevelPolicy":
+        rows = [c.row() for c in classes]
+        return cls(
+            torch.tensor([r[0] for r in rows], dtype=torch.int32,
+                         device=device),
+            torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                         device=device),
+            torch.from_numpy(np.asarray([r[2] for r in rows], np.float32))
+            .to(device))
+
+    @classmethod
+    def exact(cls, rows: int) -> "LevelPolicy":
+        return cls.from_classes([PrecisionClass.exact()] * rows)
+
+    @classmethod
+    def budget(cls, levels: int, rows: int) -> "LevelPolicy":
+        return cls.from_classes([PrecisionClass.budget(levels)] * rows)
+
+    @classmethod
+    def bounded(cls, rows: int, tol: float = 0.0) -> "LevelPolicy":
+        return cls.from_classes([PrecisionClass.bounded(tol)] * rows)
+
+    @property
+    def rows(self) -> int:
+        return int(self.mode.shape[0])
+
+    def set_row(self, i: int, pc: PrecisionClass) -> "LevelPolicy":
+        """Row ``i`` becomes class ``pc`` (a new policy; this one is
+        unchanged)."""
+        m, c, t = pc.row()
+        mode, clamp, tol = (x.clone() for x in self)
+        mode[i], clamp[i], tol[i] = m, c, float(np.float32(t))
+        return LevelPolicy(mode, clamp, tol)
+
+    def to(self, device: str | torch.device) -> "LevelPolicy":
+        return LevelPolicy(*(x.to(device) for x in self))
+
+
+def decision_state(values: torch.Tensor, bvec: torch.Tensor):
+    """Is the argmax of ``values`` invariant to any ±bvec perturbation?
+
+    values: (..., N) scores; bvec: per-entry bound, broadcastable to
+    values.  Decided iff the top-1 lower confidence bound strictly beats
+    every other entry's upper bound.  Returns (decided (...,), argmax).
+    """
+    top = values.argmax(-1)  # first maximal index, as jnp.argmax
+    lb = values - bvec
+    ub = values + bvec
+    lb_top = torch.gather(lb, -1, top[..., None])[..., 0]
+    one_hot = torch.nn.functional.one_hot(top, values.shape[-1]).bool()
+    ub_others = torch.where(one_hot, -torch.inf, ub)
+    return lb_top > ub_others.amax(-1), top.to(torch.int32)
+
+
+def policy_commit(policy: LevelPolicy | None, decided: torch.Tensor,
+                  idx: int, done: torch.Tensor):
+    """The one mode/clamp gate of every policy walk.
+
+    ``decided`` is this level's margin decision per row, ``done`` the
+    rows already committed.  Returns ``(newly, forced)``: rows committing
+    by margin this level (never exact rows), and budget rows reaching
+    their clamp without a margin decision (the caller commits them from
+    the dequantized prefix).  Both imply ``~done``.
+    """
+    if policy is None:
+        newly = decided & ~done
+        return newly, torch.zeros_like(newly)
+    eligible = policy.mode != MODE_EXACT
+    newly = decided & eligible & ~done
+    forced = (policy.mode == MODE_BUDGET) & (idx >= policy.clamp - 1) \
+        & ~done & ~newly
+    return newly, forced
+
+
+def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
+                        safety: float, n_levels: int, m_global: int,
+                        policy: LevelPolicy | None = None,
+                        early_exit: bool = False):
+    """The head-argmax decision fold of a single-device walk.
+
+    Returns ``(fold, init, done_fn, finalize)`` for the streaming
+    emitters (``streaming_matmul_scan`` / ``streaming_matmul_while``):
+    ``fold`` carries ``(tok, lv, done, all_done)``, ``done_fn`` reads
+    ``all_done`` (a 0-d bool tensor on the walk's device), and
+    ``finalize(acc, carry)`` dequantizes exactly like ``l2r_matmul_f``
+    and falls undecided rows back to the full argmax, returning
+    ``(logits, tok, lv)``.
+
+    ``bounds_f32`` (L,) float32 tail bounds, ``xsf`` (M, 1) row scales
+    and ``wsr`` (1, N) column scales share the device of the stream.
+    Float order follows the reference: ``values = acc * xsf * wsr (+
+    bias)``, ``bvec = bound * xsf * wsr * f32(1 + safety) + 8 eps *
+    max|values|``.
+    """
+    dev = xsf.device
+    m_l = xsf.shape[0]
+    n_l = wsr.shape[-1]
+    bounds_f32 = bounds_f32.to(dev)
+    # JAX folds the Python scalar 1 + safety into float32 once
+    widen = torch.tensor(np.float32(1.0 + safety), device=dev)
+    eps = torch.tensor(_EPS, device=dev)
+    col = torch.arange(n_l, dtype=torch.int32, device=dev)
+
+    def gmax_first(vals):
+        """(max, FIRST index achieving it): jnp.argmax's tie-break."""
+        return vals.amax(-1), vals.argmax(-1).to(torch.int32)
+
+    def dequant_roundtrip(partial):
+        """The l2r_matmul_f dequantization: f32 product, output cast,
+        back to f32 for the argmax."""
+        logits = (partial.to(torch.float32) * xsf * wsr).to(out_dtype)
+        full = logits.to(torch.float32)
+        if bias is not None:
+            logits = logits + bias.to(logits.dtype)
+            full = full + bias.to(torch.float32)
+        return logits, full
+
+    def fold(carry, partial, idx):
+        tok, lv, done, _ = carry
+        values = partial.to(torch.float32) * xsf * wsr
+        if bias is not None:
+            values = values + bias.to(torch.float32)
+        vmax_abs = values.abs().amax(-1, keepdim=True)
+        bvec = bounds_f32[idx] * xsf * wsr * widen + eps * vmax_abs
+        _, gtop = gmax_first(values)
+        own = col[None, :] == gtop[:, None]
+        lb_top = torch.where(own, values - bvec, -torch.inf).amax(-1)
+        ub_others = torch.where(own, -torch.inf, values + bvec).amax(-1)
+        if policy is None:
+            decided = lb_top > ub_others
+        else:
+            decided = lb_top > ub_others - policy.tol
+        newly, forced = policy_commit(policy, decided, idx, done)
+        tok = torch.where(newly, gtop, tok)
+        if policy is not None:
+            # budget clamp: commit the row from the out_dtype round-trip
+            # of THIS prefix, the value a levels=clamp run would commit
+            _, full = dequant_roundtrip(partial)
+            _, ftok = gmax_first(full)
+            tok = torch.where(forced, ftok, tok)
+        commit = newly | forced
+        lv = torch.where(commit, idx, lv)
+        done = done | commit
+        # only the early-exit loop reads the flag; the scan skips the sum
+        all_done = (done.sum() == m_global) if early_exit \
+            else torch.zeros((), dtype=torch.bool, device=dev)
+        return tok, lv, done, all_done
+
+    init = (torch.zeros((m_l,), dtype=torch.int32, device=dev),
+            torch.full((m_l,), max(n_levels - 1, 0), dtype=torch.int32,
+                       device=dev),
+            torch.zeros((m_l,), dtype=torch.bool, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+    def done_fn(carry):
+        return carry[3]
+
+    def finalize(acc, carry):
+        # whenever an undecided row exists the loop exhausted its stream,
+        # so `acc` is the full (or levels-truncated) result on both flows
+        tok, lv, done, _ = carry
+        logits, full = dequant_roundtrip(acc)
+        _, fallback = gmax_first(full)
+        tok = torch.where(done, tok, fallback)
+        return logits, tok, lv
+
+    return fold, init, done_fn, finalize

@@ -10,8 +10,7 @@ Low planes hold unsigned digits in [0, radix); the **top plane is signed**
 
 The formulas and their order are the reference's, so the same float input
 gives the same integers (``torch.round`` and ``jnp.round`` both round half
-to even).  Window padding and sharded weight caches belong to later
-slices and are not here.
+to even).  Sharded weight caches belong to a later slice and are not here.
 """
 
 from __future__ import annotations
@@ -203,6 +202,15 @@ def stack_planes_rhs(wq: torch.Tensor, n_bits: int = 8, log2_radix: int = 2,
     return torch.cat(list(sp)[::-1], dim=axis % wq.ndim)
 
 
+def _pad_blocks(st: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """``st`` with ``n`` zero elements appended along ``axis``."""
+    if n <= 0:
+        return st
+    shape = list(st.shape)
+    shape[axis] = n
+    return torch.cat([st, st.new_zeros(shape)], dim=axis)
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneOperands:
     """A digit-plane stack as a first-class operand.
@@ -215,6 +223,9 @@ class PlaneOperands:
       axis:    the stacking axis, counted FROM THE END (negative).
       shifted: True -> pre-shifted bit-field planes (the kernel's operand
                format); False -> raw digits in [0, radix).
+      pad_planes: trailing zero plane blocks after the D real planes (the
+               streaming walk reads fixed-width windows of a (2D-1)-block
+               stack; ``window_pad=True`` caches carry the zeros).
 
     The two layouts convert exactly in both directions
     (:meth:`with_layout`), so every consumer accepts either.
@@ -227,6 +238,7 @@ class PlaneOperands:
     k: int
     axis: int
     shifted: bool
+    pad_planes: int = 0
 
     @property
     def d(self) -> int:
@@ -234,27 +246,37 @@ class PlaneOperands:
 
     @classmethod
     def prepare_lhs(cls, aq: torch.Tensor, n_bits: int = 8,
-                    log2_radix: int = 2,
-                    shifted: bool = False) -> "PlaneOperands":
-        """Stack LHS planes once: (..., M, K) -> (..., M, D*K) operand."""
+                    log2_radix: int = 2, shifted: bool = False,
+                    window_pad: bool = False) -> "PlaneOperands":
+        """Stack LHS planes once: (..., M, K) -> (..., M, D*K) operand
+        (plus D-1 zero blocks with ``window_pad``)."""
         st = stack_planes_lhs(aq, n_bits, log2_radix, shifted=shifted)
-        return cls(st, "lhs", n_bits, log2_radix, aq.shape[-1], -1, shifted)
+        k = aq.shape[-1]
+        pad = plane_count(n_bits, log2_radix) - 1 if window_pad else 0
+        st = _pad_blocks(st, st.ndim - 1, pad * k)
+        return cls(st, "lhs", n_bits, log2_radix, k, -1, shifted, pad)
 
     @classmethod
     def prepare_rhs(cls, wq: torch.Tensor, n_bits: int = 8,
                     log2_radix: int = 2, axis: int = 0,
-                    shifted: bool = False) -> "PlaneOperands":
-        """Stack RHS planes once: contraction ``axis`` grows to D*K."""
+                    shifted: bool = False,
+                    window_pad: bool = False) -> "PlaneOperands":
+        """Stack RHS planes once: contraction ``axis`` grows to D*K
+        (plus D-1 zero blocks with ``window_pad``)."""
         ax = axis if axis < 0 else axis - wq.ndim
         st = stack_planes_rhs(wq, n_bits, log2_radix, axis=ax,
                               shifted=shifted)
-        return cls(st, "rhs", n_bits, log2_radix, wq.shape[ax], ax, shifted)
+        k = wq.shape[ax]
+        pad = plane_count(n_bits, log2_radix) - 1 if window_pad else 0
+        st = _pad_blocks(st, ax % st.ndim, pad * k)
+        return cls(st, "rhs", n_bits, log2_radix, k, ax, shifted, pad)
 
     def describe(self) -> str:
         """One-line layout summary for mismatch errors."""
         return (f"PlaneOperands(side={self.side!r}, n_bits={self.n_bits}, "
                 f"log2_radix={self.log2_radix}, k={self.k}, "
                 f"axis={self.axis}, shifted={self.shifted}, "
+                f"pad_planes={self.pad_planes}, "
                 f"stack.shape={tuple(self.stack.shape)})")
 
     def matches(self, n_bits: int, log2_radix: int, ndim: int | None = None,
@@ -274,30 +296,45 @@ class PlaneOperands:
         return True
 
     def with_layout(self, shifted: bool) -> "PlaneOperands":
-        """Exact raw-digit <-> pre-shifted conversion (chunk-wise shifts)."""
+        """Exact raw-digit <-> pre-shifted conversion (chunk-wise shifts;
+        zero pad blocks are unaffected)."""
         if shifted == self.shifted:
             return self
         ax = self.axis % self.stack.ndim
+        n_chunks = self.d + self.pad_planes
         shp = self.stack.shape
-        r = self.stack.reshape(*shp[:ax], self.d, self.k, *shp[ax + 1:])
+        r = self.stack.reshape(*shp[:ax], n_chunks, self.k, *shp[ax + 1:])
         if self.side == "lhs":
-            amt = [self.log2_radix * i for i in range(self.d)]
+            amt = [self.log2_radix * i if i < self.d else 0
+                   for i in range(n_chunks)]
         else:
-            amt = [self.log2_radix * (self.d - 1 - i) for i in range(self.d)]
+            amt = [self.log2_radix * (self.d - 1 - i) if i < self.d else 0
+                   for i in range(n_chunks)]
         # raw low digits are non-negative and the top chunk is a sign-
         # extended bit-field, so arithmetic shifts are exact both ways;
         # cast BEFORE the left shift so high-significance chunks don't wrap
         if shifted:
             r = r.to(_int_dtype(self.n_bits))
         sh = torch.tensor(amt, dtype=r.dtype, device=r.device).reshape(
-            (1,) * ax + (self.d,) + (1,) * (r.ndim - ax - 1))
+            (1,) * ax + (n_chunks,) + (1,) * (r.ndim - ax - 1))
         out = (r << sh) if shifted else (r >> sh).to(torch.int8)
         return dataclasses.replace(self, stack=out.reshape(shp),
                                    shifted=shifted)
 
     def core_stack(self, shifted: bool) -> torch.Tensor:
-        """The D-plane stack in the requested layout."""
-        return self.with_layout(shifted).stack
+        """The D-plane stack (window padding sliced off) in the requested
+        layout: the stacked-schedule operand."""
+        st = self.with_layout(shifted).stack
+        if self.pad_planes == 0:
+            return st
+        return st.narrow(self.axis % st.ndim, 0, self.d * self.k)
+
+    def window_stack(self) -> torch.Tensor:
+        """Raw-digit stack zero-padded to the fixed (2D-1)-block streaming
+        window: the plain streaming walk's operand (core/progressive.py)."""
+        st = self.with_layout(False).stack
+        return _pad_blocks(st, self.axis % st.ndim,
+                           (self.d - 1 - self.pad_planes) * self.k)
 
 
 @dataclasses.dataclass
@@ -328,6 +365,7 @@ def quantize_weights(
     channel_axes: tuple[int, ...] = (-1,),
     prestack: bool = False,
     plane_axis: int | None = None,
+    window_pad: bool = False,
     plane_shifted: bool = False,
 ) -> QuantizedWeights:
     """Symmetric per-channel weight quantization -> :class:`QuantizedWeights`.
@@ -337,6 +375,8 @@ def quantize_weights(
     plane stack along ``plane_axis`` (default 0; conv weights pass -2) in
     the layout ``plane_shifted`` picks — True is the kernel's own operand
     format, so the conversion happens once here instead of per call.
+    ``window_pad`` appends the D-1 zero plane blocks of the plain
+    streaming window to that cache.
     """
     wf = w.to(torch.float32)
     q, scale = _symmetric_quant(
@@ -347,5 +387,6 @@ def quantize_weights(
         check_or_raise(cfg.n_bits, cfg.log2_radix, int(w.shape[axis]),
                        where="quantize_weights")
         planes = PlaneOperands.prepare_rhs(q, cfg.n_bits, cfg.log2_radix,
-                                           axis=axis, shifted=plane_shifted)
+                                           axis=axis, shifted=plane_shifted,
+                                           window_pad=window_pad)
     return QuantizedWeights(q, scale, planes)

@@ -7,7 +7,7 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
 
 into ``build/repro_torch/<name>-<hash>/`` at the repository root, keyed by
-a hash of the source and the flags, at first use.  :func:`build_all`
+a hash of the source, the headers beside it and the flags, at first use.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.  A failed build raises with
 ``nvcc``'s stderr; nothing falls back.  Nothing here runs at import time.
 """
@@ -51,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):  # what the source includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
 

@@ -1,14 +1,25 @@
-"""Kernel B1: the level-stacked MSDF digit-plane GEMM, and its plain version.
+"""Kernels B1, B2 and B3: the MSDF digit-plane GEMMs, and their plain
+versions.
 
-Replaces ``repro/kernels/l2r_gemm/kernel.py:_l2r_stacked_kernel`` (entry
-``l2r_gemm_pallas_stacked_planes``).  The CUDA source is
-``csrc/l2r_stacked_gemm.cu``; its header says how the TPU's sequential
-(level, k-block) grid became a level loop inside each thread block.
+* B1 (``csrc/l2r_stacked_gemm.cu``) replaces
+  ``repro/kernels/l2r_gemm/kernel.py:_l2r_stacked_kernel`` (entry
+  ``l2r_gemm_pallas_stacked_planes``): the level-stacked GEMM over
+  pre-shifted plane stacks -> (M, N).
+* B2 (``csrc/l2r_streaming_gemm.cu``) replaces ``_l2r_streaming_kernel``
+  (entry ``l2r_gemm_pallas_streaming_planes``): the same walk writing
+  the running accumulator at every level boundary -> (L, M, N) snapshot
+  stream, with a dynamic level count read from device memory.
+* B3 (``csrc/l2r_pairs_gemm.cu``) replaces ``_l2r_gemm_kernel`` (entry
+  ``l2r_gemm_pallas``): the D² pair loop over raw int8 operands, digit
+  planes extracted inside the kernel -> (M, N).
 
-:func:`l2r_gemm_stacked_planes` dispatches on the operands' device: a
-CUDA tensor launches the kernel (or raises), a CPU tensor takes
-:func:`l2r_gemm_stacked_planes_plain`.  ``LAUNCHES`` counts kernel
-launches and nothing else.
+The three share one level-walk kernel template (``csrc/l2r_walk.cuh``);
+its header says how the TPU's sequential (level, k-block) grid became a
+level loop inside each thread block.
+
+Each wrapper dispatches on the operands' device: a CUDA tensor launches
+the kernel (or raises), a CPU tensor takes the plain version.
+``LAUNCHES[name]`` counts one kernel's launches and nothing else.
 """
 
 from __future__ import annotations
@@ -18,17 +29,29 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core.l2r_gemm import stacked_gemm_planes
-from repro_torch.core.online import msdf_level_slices
+from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
+from repro_torch.core.online import msdf_level_slices, msdf_pairs
 from repro_torch.core.quant import PlaneOperands
 
-__all__ = ["LAUNCHES", "stacked_schedule", "level_table",
-           "l2r_gemm_stacked_planes", "l2r_gemm_stacked_planes_plain"]
+__all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
+           "level_table", "l2r_gemm_stacked_planes",
+           "l2r_gemm_stacked_planes_plain", "l2r_gemm_streaming_planes",
+           "l2r_gemm_streaming_planes_plain", "l2r_gemm_pairs",
+           "l2r_gemm_pairs_plain"]
 
-#: kernel launches since the count was last reset (plain calls not counted)
-LAUNCHES = 0
+#: kernel launches per library since the counts were last reset (plain
+#: calls are not counted)
+LAUNCHES = {"l2r_stacked_gemm": 0, "l2r_streaming_gemm": 0,
+            "l2r_pairs_gemm": 0}
 
-_FN = None
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _P],
+    "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+}
 
 
 def stacked_schedule(d: int, k_blocks: int, levels: int | None
@@ -36,8 +59,8 @@ def stacked_schedule(d: int, k_blocks: int, levels: int | None
     """The TPU kernel's static (level, k-block) walk, MSDF order:
     ``a_blocks[t]`` is the block column into A_stack (plane i, chunk c ->
     i * k_blocks + c), ``b_blocks[t]`` the block row into B_rev (plane
-    j = s - i at reversed offset (d-1-j) * k_blocks).  The CUDA kernel
-    walks the same order with each level's chunks fused (see
+    j = s - i at reversed offset (d-1-j) * k_blocks).  The CUDA kernels
+    walk the same order with each level's chunks fused (see
     :func:`level_table`)."""
     a_blocks: list[int] = []
     b_blocks: list[int] = []
@@ -47,6 +70,18 @@ def stacked_schedule(d: int, k_blocks: int, levels: int | None
                 a_blocks.append(i * k_blocks + c)
                 b_blocks.append((d - 1 - s + i) * k_blocks + c)
     return (np.asarray(a_blocks, np.int32), np.asarray(b_blocks, np.int32))
+
+
+def streaming_schedule(d: int, k_blocks: int, levels: int | None
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The stacked walk plus each step's level index: the snapshot plane
+    that step's write goes to (kernel B2 flushes at the same level
+    boundaries)."""
+    a_blocks, b_blocks = stacked_schedule(d, k_blocks, levels)
+    steps = [(i_hi - i_lo + 1) * k_blocks
+             for (_, i_lo, i_hi) in msdf_level_slices(d, levels)]
+    lv_idx = np.repeat(np.arange(len(steps), dtype=np.int32), steps)
+    return a_blocks, b_blocks, np.asarray(lv_idx, np.int32)
 
 
 def level_table(d: int, k: int, levels: int | None
@@ -69,6 +104,62 @@ def _unshift(stack: torch.Tensor, side: str, n_bits: int, log2_radix: int,
     return po.core_stack(shifted=False)
 
 
+def _kernel_fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        from repro_torch.kernels._build import load
+
+        fn = getattr(load(name), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _launch(name: str, dev: torch.device, shape: str, *args) -> None:
+    err = _kernel_fn(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name(dev)}, {shape})")
+    LAUNCHES[name] += 1
+
+
+def _require_int8(n_bits: int, log2_radix: int, which: str, **tensors):
+    if n_bits > 8:
+        raise ValueError(
+            f"kernel {which} takes int8 operands only; the config n_bits="
+            f"{n_bits}, log2_radix={log2_radix} has int16 planes and has no "
+            f"CUDA route")
+    dev = next(iter(tensors.values())).device
+    for name, x in tensors.items():
+        if x.dtype != torch.int8 or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be a contiguous int8 tensor on "
+                             f"{dev}, got {x.dtype} on {x.device}"
+                             f"{'' if x.is_contiguous() else ', strided'}")
+
+
+def _check(a_stack, b_rev, n_bits, log2_radix):
+    d = n_bits // log2_radix
+    if a_stack.ndim != 2 or b_rev.ndim != 2:
+        raise ValueError(f"plane stacks must be 2-D, got {tuple(a_stack.shape)}"
+                         f" and {tuple(b_rev.shape)}")
+    m, dk = a_stack.shape
+    if dk % d or b_rev.shape[0] != dk:
+        raise ValueError(
+            f"stacks ({m}, {dk}) x {tuple(b_rev.shape)} do not hold D={d} "
+            f"plane chunks of one contraction length")
+    return m, dk // d, b_rev.shape[1]
+
+
+def _check_out(out, shape, dev):
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.int32
+                            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 {shape} tensor on "
+                         f"{dev}")
+
+
+# ------------------------------------------------------------- B1: stacked
 def l2r_gemm_stacked_planes_plain(
     a_stack: torch.Tensor,
     b_rev: torch.Tensor,
@@ -76,6 +167,7 @@ def l2r_gemm_stacked_planes_plain(
     log2_radix: int = 2,
     levels: int | None = None,
     out: torch.Tensor | None = None,
+    first_level: int = 0,
 ) -> torch.Tensor:
     """Plain version of kernel B1 on the same pre-shifted stacks.
 
@@ -91,43 +183,12 @@ def l2r_gemm_stacked_planes_plain(
     res = stacked_gemm_planes(
         _unshift(a_stack, "lhs", n_bits, log2_radix, k),
         _unshift(b_rev, "rhs", n_bits, log2_radix, k),
-        k, n_bits, log2_radix, levels, shifted=False)
+        k, n_bits, log2_radix, levels, shifted=False,
+        first_level=first_level)
     if out is None:
         return res
     out += res
     return out
-
-
-def _check(a_stack, b_rev, n_bits, log2_radix, out):
-    d = n_bits // log2_radix
-    if a_stack.ndim != 2 or b_rev.ndim != 2:
-        raise ValueError(f"plane stacks must be 2-D, got {tuple(a_stack.shape)}"
-                         f" and {tuple(b_rev.shape)}")
-    m, dk = a_stack.shape
-    if dk % d or b_rev.shape[0] != dk:
-        raise ValueError(
-            f"stacks ({m}, {dk}) x {tuple(b_rev.shape)} do not hold D={d} "
-            f"plane chunks of one contraction length")
-    if out is not None and (out.shape != (m, b_rev.shape[1])
-                            or out.dtype != torch.int32
-                            or out.device != a_stack.device
-                            or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous int32 ({m}, "
-                         f"{b_rev.shape[1]}) tensor on {a_stack.device}")
-    return m, dk // d, b_rev.shape[1]
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from repro_torch.kernels._build import load
-
-        fn = load("l2r_stacked_gemm").l2r_stacked_gemm
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
 
 
 def l2r_gemm_stacked_planes(
@@ -137,6 +198,7 @@ def l2r_gemm_stacked_planes(
     log2_radix: int = 2,
     levels: int | None = None,
     out: torch.Tensor | None = None,
+    first_level: int = 0,
 ) -> torch.Tensor:
     """Level-stacked MSDF GEMM over pre-shifted plane stacks: kernel B1.
 
@@ -144,41 +206,164 @@ def l2r_gemm_stacked_planes(
     (core/quant.py:stack_planes_lhs/rhs, ``shifted=True``) -> int32
     (M, N), bit-identical to ``l2r_matmul_int(levels)``.  With ``out``
     the product is added into it (the conv's tap sum) and returned.
+    ``first_level`` walks only levels ``[first_level, levels)``: one
+    level of an early-exit walk is a one-row level table.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel: int8 contiguous stacks only (n_bits <= 8; wider configs have
     int16 planes and no int16 tensor-core path, so they raise).
     """
-    global LAUNCHES
-    m, k, n = _check(a_stack, b_rev, n_bits, log2_radix, out)
+    m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
+    _check_out(out, (m, n), a_stack.device)
     if not a_stack.is_cuda:
         return l2r_gemm_stacked_planes_plain(a_stack, b_rev, n_bits,
-                                             log2_radix, levels, out)
-    if n_bits > 8:
-        raise ValueError(
-            f"kernel B1 takes int8 plane stacks only; the config n_bits="
-            f"{n_bits}, log2_radix={log2_radix} has int16 planes and has no "
-            f"CUDA route")
-    for name, x in (("a_stack", a_stack), ("b_rev", b_rev)):
-        if x.dtype != torch.int8 or not x.is_contiguous() \
-                or x.device != a_stack.device:
-            raise ValueError(f"{name} must be a contiguous int8 tensor on "
-                             f"{a_stack.device}, got {x.dtype} on {x.device}"
-                             f"{'' if x.is_contiguous() else ', strided'}")
+                                             log2_radix, levels, out,
+                                             first_level)
+    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack, b_rev=b_rev)
     # the kernel adds into its output (atomically where it splits the walk)
     c = torch.zeros((m, n), dtype=torch.int32, device=a_stack.device) \
         if out is None else out
-    a_col, b_row, depth = level_table(n_bits // log2_radix, k, levels)
+    a_col, b_row, depth = (x[first_level:] for x in
+                           level_table(n_bits // log2_radix, k, levels))
     if not depth or 0 in (m, n, k):  # levels=0: empty MSDF prefix
         return c
     arr = ctypes.c_int * len(depth)
-    err = _kernel_fn()(
-        a_stack.data_ptr(), b_rev.data_ptr(), c.data_ptr(), m, n,
-        a_stack.shape[1], n, len(depth), arr(*a_col), arr(*b_row),
-        arr(*depth), torch.cuda.current_stream(a_stack.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"l2r_stacked_gemm launch failed: CUDA error {err} "
-                           f"({torch.cuda.get_device_name(a_stack.device)}, "
-                           f"M={m} K={k} N={n})")
-    LAUNCHES += 1
+    _launch("l2r_stacked_gemm", a_stack.device, f"M={m} K={k} N={n}",
+            a_stack.data_ptr(), b_rev.data_ptr(), c.data_ptr(), m, n,
+            a_stack.shape[1], n, len(depth), arr(*a_col), arr(*b_row),
+            arr(*depth))
+    return c
+
+
+# ----------------------------------------------------------- B2: streaming
+def l2r_gemm_streaming_planes_plain(
+    a_stack: torch.Tensor,
+    b_rev: torch.Tensor,
+    n_bits: int = 8,
+    log2_radix: int = 2,
+    levels: int | None = None,
+    level_count=None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of kernel B2 on the same pre-shifted stacks: the
+    reference's streaming scan over zero-padded raw-digit windows
+    (core/progressive.py), every level emitted.
+
+    The window dots run in true f32 where the guard holds (every VGG-16
+    shape; the only form that runs on a CUDA tensor) and in int64
+    narrowed to int32 otherwise.  It computes every level:
+    ``level_count`` only marks planes at or above it as unspecified, as
+    in the kernel.  With ``out`` the stream is added to it in place.
+    """
+    # core.progressive routes CUDA tensors to this module, so it is
+    # imported here rather than at the top
+    from repro_torch.core.progressive import scan_plain
+
+    del level_count
+    d = n_bits // log2_radix
+    k = a_stack.shape[-1] // d
+    a = PlaneOperands(a_stack, "lhs", n_bits, log2_radix, k, -1, True)
+    b = PlaneOperands(b_rev, "rhs", n_bits, log2_radix, k, -2, True)
+    _, _, stream = scan_plain(a, b, None, None, n_bits, log2_radix, levels,
+                              emit=True)
+    if out is None:
+        return stream
+    out += stream
+    return out
+
+
+def l2r_gemm_streaming_planes(
+    a_stack: torch.Tensor,
+    b_rev: torch.Tensor,
+    n_bits: int = 8,
+    log2_radix: int = 2,
+    levels: int | None = None,
+    level_count: int | torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-level snapshot stream over pre-shifted plane stacks: kernel B2.
+
+    Same operands as :func:`l2r_gemm_stacked_planes`; returns (L, M, N)
+    int32 whose plane l is bit-identical to B1 truncated at
+    ``levels=l+1``.  With ``out`` the stream is added into it (the
+    progressive conv's tap sum).
+
+    ``level_count`` is the number of levels to run: an int, or a
+    one-element int32 tensor on the card that the kernel reads from
+    device memory (so an early-exit consumer can set it without a host
+    sync).  Levels at or above it skip their products and writes; their
+    planes are unspecified.  ``None`` runs every level.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (int8 stacks only, as B1).
+    """
+    m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
+    n_lv = len(msdf_level_slices(n_bits // log2_radix, levels))
+    dev = a_stack.device
+    _check_out(out, (n_lv, m, n), dev)
+    if not a_stack.is_cuda:
+        return l2r_gemm_streaming_planes_plain(a_stack, b_rev, n_bits,
+                                               log2_radix, levels,
+                                               level_count, out)
+    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack, b_rev=b_rev)
+    c = torch.zeros((n_lv, m, n), dtype=torch.int32, device=dev) \
+        if out is None else out
+    if n_lv == 0 or 0 in (m, n, k):
+        return c
+    if level_count is None:
+        level_count = n_lv
+    if isinstance(level_count, torch.Tensor):
+        cnt = level_count
+        if cnt.dtype != torch.int32 or cnt.numel() != 1 or cnt.device != dev:
+            raise ValueError(f"level_count must be a one-element int32 "
+                             f"tensor on {dev}")
+    else:
+        cnt = torch.full((1,), int(level_count), dtype=torch.int32,
+                         device=dev)
+    a_col, b_row, depth = level_table(n_bits // log2_radix, k, levels)
+    arr = ctypes.c_int * n_lv
+    _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
+            a_stack.data_ptr(), b_rev.data_ptr(), c.data_ptr(), m, n,
+            a_stack.shape[1], n, n_lv, arr(*a_col), arr(*b_row), arr(*depth),
+            cnt.data_ptr())
+    return c
+
+
+# ---------------------------------------------------------- B3: pair loop
+def l2r_gemm_pairs_plain(aq: torch.Tensor, bq: torch.Tensor,
+                         n_bits: int = 8, log2_radix: int = 2,
+                         levels: int | None = None) -> torch.Tensor:
+    """Plain version of kernel B3: the pair loop of ``ref.py:l2r_gemm_ref``
+    (``core/l2r_gemm.py:l2r_matmul_int``), whose pair dots run in true
+    f32 on a CUDA tensor (guarded) and in int64 on the CPU."""
+    return l2r_matmul_int(aq, bq, n_bits, log2_radix, levels)
+
+
+def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
+                   log2_radix: int = 2, levels: int | None = None
+                   ) -> torch.Tensor:
+    """D² pair-loop MSDF GEMM over raw operands: kernel B3.
+
+    ``aq`` (M, K) and ``bq`` (K, N) signed ints -> int32 (M, N),
+    bit-identical to ``l2r_matmul_int(levels)``.  The kernel extracts
+    the pre-shifted digit planes of each tile itself.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (int8
+    operands only, n_bits <= 8).
+    """
+    if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
+        raise ValueError(f"operands must be (M, K) x (K, N), got "
+                         f"{tuple(aq.shape)} x {tuple(bq.shape)}")
+    if not aq.is_cuda:
+        return l2r_gemm_pairs_plain(aq, bq, n_bits, log2_radix, levels)
+    _require_int8(n_bits, log2_radix, "B3", aq=aq, bq=bq)
+    (m, k), n = aq.shape, bq.shape[1]
+    c = torch.zeros((m, n), dtype=torch.int32, device=aq.device)
+    pairs = msdf_pairs(n_bits // log2_radix, levels)
+    if not pairs or 0 in (m, n, k):  # levels=0: empty MSDF prefix
+        return c
+    arr = ctypes.c_int * len(pairs)
+    _launch("l2r_pairs_gemm", aq.device, f"M={m} K={k} N={n}",
+            aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m, n, k,
+            n_bits // log2_radix, log2_radix, len(pairs),
+            arr(*(i for i, _ in pairs)), arr(*(j for _, j in pairs)))
     return c

@@ -1,39 +1,55 @@
 """Public L2R GEMM/conv ops: plane stacking, dispatch, quant/dequant.
 
-The port of ``repro/kernels/l2r_gemm/ops.py`` for the main path.  Every
-integer GEMM here feeds pre-shifted plane stacks to
-:func:`~repro_torch.kernels.l2r_gemm.kernel.l2r_gemm_stacked_planes`
-(kernel B1), which follows the tensors' device: the CUDA kernel on the
-card, its plain version on the CPU.  There is no backend switch.
+The port of ``repro/kernels/l2r_gemm/ops.py`` for the VGG-16 path.
+Every integer GEMM here goes to a kernel wrapper of
+:mod:`~repro_torch.kernels.l2r_gemm.kernel`, which follows the tensors'
+device: the CUDA kernel on the card, its plain version on the CPU.
+There is no backend switch.
+
+* ``l2r_gemm``: ``schedule="stacked"`` on kernel B1, ``"pairs"`` on
+  kernel B3, ``"streaming"`` (the per-level stream's final prefix) on B1
+  on the card, or as the streaming walk (core/progressive.py) on the CPU
+  and wherever ``early_exit`` asks for the level loop;
+* ``l2r_gemm_progressive`` / ``l2r_conv2d_progressive``: the per-level
+  snapshot stream with tail bounds, kernel B2 on the card;
+  ``l2r_conv2d_progressive_while``: the early-exit conv stream, one B1
+  level slab per tap and level on the card.
 
 ``l2r_conv2d`` performs implicit im2col: activation planes are extracted
 once per feature map, and each of the kh*kw taps feeds a shifted
 (stride-stepped, dilation-spaced) view of the stacked map through the
 GEMM, adding into one int32 accumulator.  No TPU block padding is done:
-the kernel masks ragged edges itself.
+the kernels mask ragged edges themselves.
 
-The progressive (streaming) entries and the attention scores come with
-later slices of the port.
+The attention scores come with a later slice of the port.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis.overflow import check_or_raise
+from repro_torch.core.l2r_gemm import _f32_dot_exact, wrap_int32
+from repro_torch.core.progressive import (ProgressiveResult, _level_walk,
+                                          _shift_add, _while_emitter,
+                                          _window_dot,
+                                          l2r_matmul_int_streaming,
+                                          level_bounds, progressive_matmul)
 from repro_torch.core.quant import (PlaneOperands, QuantConfig,
                                     QuantizedWeights, quantize,
                                     quantize_weights, stack_planes_lhs,
                                     stack_planes_rhs)
 
 from . import kernel
-from .ref import l2r_gemm_ref
 
-__all__ = ["l2r_gemm", "l2r_matmul_f", "l2r_conv2d", "PlaneOperands",
-           "SCHEDULES"]
+__all__ = ["l2r_gemm", "l2r_matmul_f", "l2r_conv2d", "l2r_gemm_progressive",
+           "l2r_conv2d_progressive", "l2r_conv2d_progressive_while",
+           "PlaneOperands", "SCHEDULES"]
 
-SCHEDULES = ("stacked", "pairs")
+SCHEDULES = ("stacked", "streaming", "pairs")
 
 
 def _lhs_stack(a, n_bits: int, log2_radix: int) -> torch.Tensor:
@@ -83,19 +99,29 @@ def l2r_gemm(
     log2_radix: int = 2,
     levels: int | None = None,
     schedule: str = "stacked",
+    early_exit: bool = False,
 ) -> torch.Tensor:
     """Integer MSDF GEMM. (M,K)x(K,N) -> int32, any shape.
 
     ``schedule="stacked"`` runs kernel B1 on CUDA tensors (its plain
     version on CPU tensors); either operand may be a pre-stacked
-    :class:`PlaneOperands`.  ``schedule="pairs"`` is the D² pair-loop
-    baseline on raw operands; its kernel (B3) is not ported yet, so it
-    runs on CPU tensors only.  Bit-identical across schedules, including
-    truncated ``levels``.
+    :class:`PlaneOperands`.  ``schedule="streaming"`` asks for the final
+    prefix of the per-level stream: on the card that IS B1's stacked
+    result (same walk, no snapshot planes), on the CPU the streaming
+    walk computes it.  ``early_exit=True`` (streaming only) runs the walk
+    as the early-exit level loop, one B1 level slab per level on the
+    card; with no consumer fold it runs every level.  ``schedule="pairs"``
+    is the D² pair-loop baseline on raw operands, kernel B3 on the card.
+    Bit-identical across schedules, including truncated ``levels``.
     """
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; valid: "
                          f"{', '.join(SCHEDULES)}")
+    if early_exit and schedule != "streaming":
+        raise ValueError(
+            f"early_exit is a streaming-schedule control flow; "
+            f"schedule={schedule!r} has no level loop to stop short "
+            f"(it would be silently dropped)")
     _check_plane_operand(aq, "lhs", n_bits, log2_radix, other=bq)
     _check_plane_operand(bq, "rhs", n_bits, log2_radix, other=aq)
     k = aq.k if isinstance(aq, PlaneOperands) else (
@@ -106,17 +132,31 @@ def l2r_gemm(
         if isinstance(aq, PlaneOperands) or isinstance(bq, PlaneOperands):
             raise TypeError(
                 "schedule='pairs' (the D²-pass baseline) consumes raw int "
-                "operands; pre-stacked PlaneOperands are a stacked-"
-                "schedule format")
-        if aq.is_cuda:
-            raise NotImplementedError(
-                "schedule='pairs' has no CUDA kernel yet (kernel B3, "
-                "repro/kernels/l2r_gemm/kernel.py:l2r_gemm_pallas); use "
-                "schedule='stacked' on the card")
-        return l2r_gemm_ref(aq, bq, n_bits, log2_radix, levels)
+                "operands; pre-stacked PlaneOperands are a stacked/"
+                "streaming-schedule format")
+        return kernel.l2r_gemm_pairs(aq, bq, n_bits, log2_radix, levels)
+    on_card = (aq.stack if isinstance(aq, PlaneOperands) else aq).is_cuda
+    if schedule == "streaming" and (early_exit or not on_card):
+        return l2r_matmul_int_streaming(aq, bq, n_bits, log2_radix, levels,
+                                        early_exit)
     return kernel.l2r_gemm_stacked_planes(
         _lhs_stack(aq, n_bits, log2_radix), _rhs_stack(bq, n_bits, log2_radix),
         n_bits, log2_radix, levels)
+
+
+def l2r_gemm_progressive(aq, bq, n_bits: int = 8, log2_radix: int = 2,
+                         levels: int | None = None) -> ProgressiveResult:
+    """Per-level MSDF snapshot stream with tail bounds.
+
+    Level l of ``result.partial`` is bit-identical to
+    ``l2r_gemm(..., levels=l+1)``; on CUDA tensors the stream is one
+    launch of kernel B2.  Either operand may be a pre-stacked
+    :class:`PlaneOperands`.  Consumers that only fold over the stream
+    should use ``core.progressive.streaming_matmul_scan``.
+    """
+    _check_plane_operand(aq, "lhs", n_bits, log2_radix, other=bq)
+    _check_plane_operand(bq, "rhs", n_bits, log2_radix, other=aq)
+    return progressive_matmul(aq, bq, n_bits, log2_radix, levels)
 
 
 def l2r_matmul_f(
@@ -198,6 +238,34 @@ def _conv_wrev(w_in, n_bits: int, log2_radix: int, shifted: bool
                             shifted=shifted)
 
 
+def _conv_taps(xq: torch.Tensor, w_in, n_bits: int, log2_radix: int,
+               stride: tuple[int, int], dilation: tuple[int, int]):
+    """The GEMM operands of each tap of the fused conv.
+
+    Returns ``(out_shape, taps)``: ``taps()`` yields, per tap (dy, dx),
+    its (B*OH*OW, D*cin) activation copy (the shifted view of the
+    pre-shifted activation stack, built once per feature map, made
+    contiguous) and its (D*cin, cout) reversed weight stack.  One copy
+    lives at a time.
+    """
+    bsz, h, w_, cin = xq.shape
+    kh, kw, _, cout = _conv_w_geom(w_in)
+    oh, ow, (ph_lo, ph_hi), (pw_lo, pw_hi) = _conv_same_geometry(
+        h, w_, kh, kw, stride, dilation)
+    xp = F.pad(xq, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+    xsp = stack_planes_lhs(xp, n_bits, log2_radix)  # (B, H', W', D*cin)
+    wrev = _conv_wrev(w_in, n_bits, log2_radix, shifted=True)
+
+    def taps():
+        for dy in range(kh):
+            for dx in range(kw):
+                a = _tap_view(xsp, dy, dx, oh, ow, stride, dilation)
+                yield (a.reshape(bsz * oh * ow, -1).contiguous(),
+                       wrev[dy, dx].contiguous())
+
+    return (bsz, oh, ow, cout), taps
+
+
 def _l2r_conv2d_int(
     xq: torch.Tensor,
     w_in,
@@ -213,27 +281,17 @@ def _l2r_conv2d_int(
     ints OR the pre-stacked :class:`PlaneOperands` weight cache; "SAME"
     padding.  Bit-identical to quantized im2col + ``l2r_matmul_int``:
     the contraction over (kh, kw, cin) splits into kh*kw cin-contractions
-    whose int32 sums add exactly.  The activation stack is built once
-    per feature map; each tap's view is copied contiguous and the GEMM
-    adds it into the accumulator.
+    whose int32 sums add exactly.  Each tap's GEMM (kernel B1) adds into
+    one accumulator.
     """
-    bsz, h, w_, cin = xq.shape
-    kh, kw, _, cout = _conv_w_geom(w_in)
-    oh, ow, (ph_lo, ph_hi), (pw_lo, pw_hi) = _conv_same_geometry(
-        h, w_, kh, kw, stride, dilation)
-    xp = F.pad(xq, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
-    xsp = stack_planes_lhs(xp, n_bits, log2_radix)  # (B, H', W', D*cin)
-    wrev = _conv_wrev(w_in, n_bits, log2_radix, shifted=True)
-    acc = torch.zeros((bsz * oh * ow, cout), dtype=torch.int32,
-                      device=xq.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            a = _tap_view(xsp, dy, dx, oh, ow, stride, dilation)
-            kernel.l2r_gemm_stacked_planes(
-                a.reshape(bsz * oh * ow, -1).contiguous(),
-                wrev[dy, dx].contiguous(), n_bits, log2_radix, levels,
-                out=acc)
-    return acc.reshape(bsz, oh, ow, cout)
+    out_shape, taps = _conv_taps(xq, w_in, n_bits, log2_radix, stride,
+                                 dilation)
+    acc = torch.zeros((out_shape[0] * out_shape[1] * out_shape[2],
+                       out_shape[3]), dtype=torch.int32, device=xq.device)
+    for a, w2 in taps():
+        kernel.l2r_gemm_stacked_planes(a, w2, n_bits, log2_radix, levels,
+                                       out=acc)
+    return acc.reshape(out_shape)
 
 
 def _pair(v: int | tuple[int, int]) -> tuple[int, int]:
@@ -281,3 +339,176 @@ def l2r_conv2d(
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+# ------------------------------------------------------- progressive conv
+def _conv_level_term(xq, w_in, n_bits: int, log2_radix: int,
+                     stride: tuple[int, int], dilation: tuple[int, int]):
+    """Per-level term of the progressive conv's plain (CPU) walk: hoisted
+    zero-padded raw-digit plane stacks and a ``term(ao, bo)`` closure
+    summing one significance level's tap contributions, the reference's
+    window walk with the tap loop inside the level step.  ``w_in`` may
+    be the pre-stacked weight cache (its window stack is the padded
+    stack built here)."""
+    bsz, h, w_, cin = xq.shape
+    kh, kw, _, cout = _conv_w_geom(w_in)
+    d = n_bits // log2_radix
+    oh, ow, (ph_lo, ph_hi), (pw_lo, pw_hi) = _conv_same_geometry(
+        h, w_, kh, kw, stride, dilation)
+    xp = F.pad(xq, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+    xsp = PlaneOperands.prepare_lhs(xp, n_bits, log2_radix).window_stack()
+    if not isinstance(w_in, PlaneOperands):
+        w_in = PlaneOperands.prepare_rhs(w_in, n_bits, log2_radix, axis=-2)
+    wrev = w_in.window_stack()
+    use_f32 = _f32_dot_exact(cin, d, log2_radix)
+    if use_f32:
+        xsp = xsp.to(torch.float32)
+        wrev = wrev.to(torch.float32)
+    width = d * cin
+
+    def term(ao: int, bo: int) -> torch.Tensor:
+        t_sum = torch.zeros((bsz, oh, ow, cout), dtype=torch.int64,
+                            device=xq.device)
+        for dy in range(kh):
+            for dx in range(kw):
+                a = _tap_view(xsp, dy, dx, oh, ow, stride, dilation)
+                t_sum += _window_dot(a[..., ao * cin:ao * cin + width],
+                                     wrev[dy, dx, bo * cin:bo * cin + width])
+        return wrap_int32(t_sum)
+
+    return term, (bsz, oh, ow, cout)
+
+
+def _l2r_conv2d_progressive_int(
+    xq: torch.Tensor,
+    w_in,
+    n_bits: int,
+    log2_radix: int,
+    levels: int | None,
+    stride: tuple[int, int] = (1, 1),
+    dilation: tuple[int, int] = (1, 1),
+) -> torch.Tensor:
+    """Per-level prefix stream of the fused conv: (L, B, OH, OW, cout).
+
+    Level l is bit-identical to ``_l2r_conv2d_int(..., levels=l+1)``: the
+    taps share each significance level, so the per-level conv term is the
+    tap sum of per-level GEMM terms.  On CUDA tensors each tap is one
+    launch of kernel B2 adding its snapshot stream into one (L, B*OH*OW,
+    cout) stream (the reference pads to 128-blocks and sums nine streams;
+    int32 wrapping addition is associative, so the bits agree).  CPU
+    tensors take the reference's window walk.
+    """
+    a_off, b_off, svals = _level_walk(n_bits // log2_radix, levels)
+    n_steps = len(svals)
+    if xq.is_cuda:
+        (bsz, oh, ow, cout), taps = _conv_taps(xq, w_in, n_bits, log2_radix,
+                                               stride, dilation)
+        acc = torch.zeros((n_steps, bsz * oh * ow, cout), dtype=torch.int32,
+                          device=xq.device)
+        if n_steps:
+            for a, w2 in taps():
+                kernel.l2r_gemm_streaming_planes(a, w2, n_bits, log2_radix,
+                                                 levels, out=acc)
+        return acc.reshape(n_steps, bsz, oh, ow, cout)
+    term, out_shape = _conv_level_term(xq, w_in, n_bits, log2_radix, stride,
+                                       dilation)
+    acc = torch.zeros(out_shape, dtype=torch.int32, device=xq.device)
+    snaps = []
+    for ao, bo, s in zip(a_off, b_off, svals):
+        acc = _shift_add(acc, term(ao, bo), log2_radix * s)
+        snaps.append(acc)
+    return torch.stack(snaps) if snaps else \
+        torch.zeros((0, *out_shape), dtype=torch.int32, device=xq.device)
+
+
+def l2r_conv2d_progressive_while(
+    x: torch.Tensor,
+    w: torch.Tensor | None = None,
+    cfg: QuantConfig = QuantConfig(),
+    fold: Callable | None = None,
+    init=None,
+    done_fn: Callable | None = None,
+    levels: int | None = None,
+    w_q: QuantizedWeights | None = None,
+    stride: int | tuple[int, int] = 1,
+    dilation: int | tuple[int, int] = 1,
+):
+    """Early-exit fused conv stream: one significance level per
+    iteration, the consumer's ``fold(carry, partial, level_index)`` after
+    each, stopping once ``done_fn(carry)`` is true (``None`` runs every
+    level).  After ``levels_run`` levels the prefix is bit-identical to
+    ``partial[levels_run - 1]`` of :func:`l2r_conv2d_progressive`.
+
+    CPU tensors take the plain level term (the reference's window walk);
+    CUDA tensors take kernel B1, one launch per tap over that level's
+    slab (the tap copies are made again at each level), and one host
+    read of the done flag per level.
+
+    Returns ``(prefix (B, OH, OW, cout) int32, fold_carry, levels_run,
+    scale (B, 1, 1, cout))``; ``prefix * scale`` is the float feature-map
+    prefix at the exit level.
+    """
+    if w_q is None:
+        w_q = quantize_weights(w, cfg)
+    xq, xs = quantize(x, cfg, axis=0)  # per-image scales (B,1,1,1)
+    scale = xs * w_q.scale.reshape(1, 1, 1, -1)
+    w_in, stride, dilation = _conv_w_in(w_q, cfg), _pair(stride), \
+        _pair(dilation)
+    n_bits, log2_radix = cfg.n_bits, cfg.log2_radix
+    a_off, b_off, svals = _level_walk(cfg.planes, levels)
+    if xq.is_cuda:
+        out_shape, taps = _conv_taps(xq, w_in, n_bits, log2_radix, stride,
+                                     dilation)
+
+        def advance(acc, t):
+            acc = acc.clone()
+            for a, w2 in taps():
+                kernel.l2r_gemm_stacked_planes(
+                    a, w2, n_bits, log2_radix, levels=t + 1, first_level=t,
+                    out=acc.view(-1, out_shape[-1]))
+            return acc
+    else:
+        term, out_shape = _conv_level_term(xq, w_in, n_bits, log2_radix,
+                                           stride, dilation)
+
+        def advance(acc, t):
+            return _shift_add(acc, term(a_off[t], b_off[t]),
+                              log2_radix * svals[t])
+    acc0 = torch.zeros(out_shape, dtype=torch.int32, device=xq.device)
+    t, acc, fold_c = _while_emitter(advance, len(svals), acc0, fold, init,
+                                    done_fn)
+    return acc, fold_c, t, scale
+
+
+def l2r_conv2d_progressive(
+    x: torch.Tensor,
+    w: torch.Tensor | None = None,
+    cfg: QuantConfig = QuantConfig(),
+    levels: int | None = None,
+    w_q: QuantizedWeights | None = None,
+    stride: int | tuple[int, int] = 1,
+    dilation: int | tuple[int, int] = 1,
+):
+    """Progressive-precision fused conv: per-level snapshots + tail bounds.
+
+    Returns ``(result, scale)``: ``result.partial[l]`` is the integer
+    conv truncated after l+1 MSDF levels (bit-identical to
+    ``l2r_conv2d``'s core at ``levels=l+1``), with tail bounds for the
+    effective contraction K = kh*kw*cin; ``scale`` (B, 1, 1, cout) is the
+    dequantization factor, so ``partial[l] * scale`` is the float
+    feature-map prefix and ``tail_bound[l] * scale`` bounds its distance
+    from the exact W8A8 conv.
+    """
+    if w_q is None:
+        w_q = quantize_weights(w, cfg)
+    xq, xs = quantize(x, cfg, axis=0)  # per-image scales (B,1,1,1)
+    kh, kw, cin, _ = w_q.q.shape
+    stack = _l2r_conv2d_progressive_int(
+        xq, _conv_w_in(w_q, cfg), cfg.n_bits, cfg.log2_radix, levels,
+        _pair(stride), _pair(dilation))
+    bounds = level_bounds(cfg.planes, cfg.log2_radix, kh * kw * cin, levels,
+                          device=stack.device)
+    result = ProgressiveResult(partial=stack, tail_bound=bounds.f32,
+                               bound_i32=bounds.i32,
+                               decidable=bounds.decidable)
+    return result, xs * w_q.scale.reshape(1, 1, 1, -1)

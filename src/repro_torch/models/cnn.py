@@ -9,8 +9,10 @@ Convolutions run either as float (``F.conv2d`` with TF32 off) or through
 the fused L2R conv (kernels/l2r_gemm/ops.py:l2r_conv2d), whose every tap
 and every FC layer is one launch of kernel B1 on the card: 13·9 + 3 =
 120 launches per forward.  Weights quantize once per model load
-(:func:`vgg16_quantize_weights`).  The progressive classifier comes with
-a later slice of the port.
+(:func:`vgg16_quantize_weights`).  :func:`vgg16_classify_progressive`
+runs the same trunk (119 B1 launches) and streams the fc8 head level by
+level: one kernel-B2 launch on the scan path, or at most 2D-1 = 7 B1
+level launches on the early-exit path.
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.cycle_model import VGG16_CONV_LAYERS
-from repro_torch.core.quant import (QuantConfig, QuantizedWeights,
+from repro_torch.core.progressive import streaming_argmax
+from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
 from repro_torch.device import no_tf32, resolve_device
 from repro_torch.kernels.l2r_gemm.ops import l2r_conv2d, l2r_matmul_f
 
-__all__ = ["vgg16_build", "vgg16_apply", "vgg16_quantize_weights", "VGG16",
-           "VGG16_CONV_LAYERS"]
+__all__ = ["vgg16_build", "vgg16_apply", "vgg16_classify_progressive",
+           "vgg16_quantize_weights", "VGG16", "VGG16_CONV_LAYERS"]
 
 _POOL_AFTER = {1, 3, 6, 9, 12}  # conv indices followed by a 2x2 max pool
 
@@ -119,10 +122,7 @@ def vgg16_apply(
     :func:`vgg16_quantize_weights`; when omitted on the L2R path it is
     built here, once per call.
     """
-    dev = resolve_device(device)
-    if params["fc8"]["w"].device != dev:
-        raise ValueError(f"params live on {params['fc8']['w'].device}, the "
-                         f"forward runs on {dev}: build or move them there")
+    dev = _forward_device(params, device)
     with torch.no_grad(), no_tf32():
         x, weights_q = _vgg16_trunk(params, torch.as_tensor(images, device=dev),
                                     l2r, levels, weights_q)
@@ -130,6 +130,57 @@ def vgg16_apply(
             return l2r_matmul_f(x, None, l2r, levels, w_q=weights_q["fc8"]) \
                 + params["fc8"]["b"]
         return x @ params["fc8"]["w"] + params["fc8"]["b"]
+
+
+def _forward_device(params: dict, device) -> torch.device:
+    dev = resolve_device(device)
+    if params["fc8"]["w"].device != dev:
+        raise ValueError(f"params live on {params['fc8']['w'].device}, the "
+                         f"forward runs on {dev}: build or move them there")
+    return dev
+
+
+def vgg16_classify_progressive(
+    params: dict,
+    images: torch.Tensor,  # (B, H, W, 3)
+    l2r: QuantConfig = QuantConfig(),
+    weights_q: dict[str, QuantizedWeights] | None = None,
+    early_exit: bool = False,
+    device: str | torch.device | None = None,
+):
+    """Classification with online early exit on the fc8 logit stream, on
+    ``device`` (CUDA unless ``device="cpu"``).
+
+    The trunk (convs + fc6/fc7) runs exactly, all MSDF levels; the fc8
+    head streams level by level and each image commits its class as soon
+    as the top-1 logit margin beats the scaled tail bound on the unseen
+    digits.  The committed class always equals
+    ``argmax(vgg16_apply(..., l2r=l2r))``: undecided rows fall back to
+    the full stream.
+
+    ``early_exit=True`` stops the head's level loop once every image has
+    decided: classes and exit levels are unchanged, and the logits are
+    the dequantized prefix at the exit level.  With ``early_exit=False``
+    the logits are ``vgg16_apply``'s bit for bit.
+
+    Returns ``(pred (B,) int32, exit_level (B,) int32, logits (B, C))``;
+    exit_level counts MSDF levels consumed (2D-2 = needed everything).
+    """
+    dev = _forward_device(params, device)
+    with torch.no_grad(), no_tf32():
+        x, weights_q = _vgg16_trunk(params, torch.as_tensor(images, device=dev),
+                                    l2r, None, weights_q)
+        w_q = weights_q["fc8"]
+        # quantized exactly as l2r_matmul_f does, so the streamed
+        # accumulator is the one-shot fc8 accumulator
+        xq, xs = quantize(x, l2r, axis=0 if l2r.per_channel else None)
+        p = w_q.planes
+        wq_in = p if (p is not None and p.matches(
+            l2r.n_bits, l2r.log2_radix, ndim=2, side="rhs")) else w_q.q
+        logits, pred, exit_level = streaming_argmax(
+            xq, wq_in, xs, w_q.scale, l2r.n_bits, l2r.log2_radix,
+            bias=params["fc8"]["b"], out_dtype=x.dtype, early_exit=early_exit)
+    return pred, exit_level, logits
 
 
 def _vgg16_trunk(params, images, l2r, levels, weights_q):

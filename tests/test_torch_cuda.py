@@ -1,4 +1,5 @@
-"""Kernel B1 on the card, against its plain version.
+"""Kernels B1, B2 and B3 on the card, against their plain versions, and
+the progressive routes on the card against the same calls on the CPU.
 
 Every test here needs a CUDA card (a hand-written kernel has no CPU
 mode) and skips without one.  The file imports neither jax nor repro,
@@ -7,32 +8,47 @@ so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+from repro_torch.core import progressive as tp
+from repro_torch.core.quant import (QuantConfig, quantize, quantize_weights,
+                                    stack_planes_lhs, stack_planes_rhs)
 from repro_torch.kernels.l2r_gemm import kernel
+from repro_torch.kernels.l2r_gemm import ops
 
 SHAPES = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (300, 128, 96)]
 CONFIGS = [(8, 2), (8, 1), (8, 4), (4, 2)]
+# M <= 16 with K over many 64-deep chunks: the walk is split over blocks
+SPLIT_SHAPES = [(8, 4096, 1000), (16, 300, 130), (3, 1000, 77)]
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernel B1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
 
 
-def _stacks(dev, m, k, n, n_bits, log2_radix, seed=0):
+def _ints(dev, m, k, n, n_bits, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     hi = 1 << (n_bits - 1)
     a = torch.randint(-hi, hi, (m, k), generator=g, device=dev,
                       dtype=torch.int8)
     b = torch.randint(-hi, hi, (k, n), generator=g, device=dev,
                       dtype=torch.int8)
+    return a, b
+
+
+def _stacks(dev, m, k, n, n_bits, log2_radix, seed=0):
+    a, b = _ints(dev, m, k, n, n_bits, seed)
     return (stack_planes_lhs(a, n_bits, log2_radix),
             stack_planes_rhs(b, n_bits, log2_radix))
+
+
+def _levels(n_bits, log2_radix):
+    return [None] + list(range(2 * (n_bits // log2_radix)))
 
 
 @pytest.mark.cuda
@@ -40,7 +56,7 @@ def _stacks(dev, m, k, n, n_bits, log2_radix, seed=0):
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_kernel_matches_plain_every_level(dev, m, k, n, n_bits, log2_radix):
     sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix)
-    for lv in [None] + list(range(2 * (n_bits // log2_radix))):
+    for lv in _levels(n_bits, log2_radix):
         got = kernel.l2r_gemm_stacked_planes(sa, sb, n_bits, log2_radix, lv)
         ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, n_bits,
                                                    log2_radix, lv)
@@ -63,3 +79,112 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                                        16, 4)
     with pytest.raises(ValueError, match="contiguous int8"):
         kernel.l2r_gemm_stacked_planes(sa.t().contiguous().t(), sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b1_one_level_slab(dev, m, k, n):
+    """B1 over one level's slab (``first_level``) sums to the full walk."""
+    sa, sb = _stacks(dev, m, k, n, 8, 2)
+    acc = torch.zeros((m, n), dtype=torch.int32, device=dev)
+    for t in range(7):
+        kernel.l2r_gemm_stacked_planes(sa, sb, levels=t + 1, first_level=t,
+                                       out=acc)
+        assert torch.equal(acc, kernel.l2r_gemm_stacked_planes_plain(
+            sa, sb, levels=t + 1)), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b2_matches_plain_every_level_and_count(dev, m, k, n, n_bits,
+                                                log2_radix):
+    sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix)
+    n_lv = 2 * (n_bits // log2_radix) - 1
+    for lv in _levels(n_bits, log2_radix):
+        got = kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix, lv)
+        ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
+                                                     log2_radix, lv)
+        assert torch.equal(got, ref), lv
+    full = ref
+    for cnt in (1, 3, n_lv):
+        got = kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix,
+                                               level_count=cnt)
+        assert torch.equal(got[:cnt], full[:cnt]), cnt
+    # the count read from device memory
+    cnt = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    got = kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix,
+                                           level_count=cnt)
+    assert torch.equal(got[:2], full[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b2_accumulates_into_out(dev, m, k, n):
+    sa, sb = _stacks(dev, m, k, n, 8, 2)
+    acc = torch.full((7, m, n), 11, dtype=torch.int32, device=dev)
+    kernel.l2r_gemm_streaming_planes(sa, sb, out=acc)
+    assert torch.equal(acc,
+                       kernel.l2r_gemm_streaming_planes_plain(sa, sb) + 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b3_matches_plain_every_level(dev, m, k, n, n_bits, log2_radix):
+    a, b = _ints(dev, m, k, n, n_bits)
+    for lv in _levels(n_bits, log2_radix):
+        got = kernel.l2r_gemm_pairs(a, b, n_bits, log2_radix, lv)
+        ref = kernel.l2r_gemm_pairs_plain(a, b, n_bits, log2_radix, lv)
+        assert torch.equal(got, ref), lv
+
+
+@pytest.mark.cuda
+def test_b2_b3_reject_int16_planes(dev):
+    a, b = _ints(dev, 8, 16, 8, 8)
+    with pytest.raises(ValueError, match="int16 planes"):
+        kernel.l2r_gemm_pairs(a, b, 16, 4)
+    sa, sb = _stacks(dev, 8, 16, 8, 8, 2)
+    with pytest.raises(ValueError, match="int16 planes"):
+        kernel.l2r_gemm_streaming_planes(sa.to(torch.int16),
+                                         sb.to(torch.int16), 16, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_streaming_argmax_on_card_matches_cpu(dev, early_exit):
+    """The card's routes (B2 scan / B1 level loop) give the CPU's logits,
+    tokens and exit levels bit for bit."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((256, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(40).astype(np.float32))
+    cfg = QuantConfig()
+    xq, xs = quantize(x, cfg, axis=0)
+    w_q = quantize_weights(w, cfg)
+    ref = tp.streaming_argmax(xq, w_q.q, xs, w_q.scale, bias=b,
+                              early_exit=early_exit)
+    got = tp.streaming_argmax(xq.to(dev), w_q.q.to(dev), xs.to(dev),
+                              w_q.scale.to(dev), bias=b.to(dev),
+                              early_exit=early_exit)
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_progressive_on_card_matches_cpu(dev, stride):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 16, 24))
+                         .astype(np.float32))
+    w_q = quantize_weights(w, QuantConfig(), prestack=True, plane_axis=-2,
+                           plane_shifted=True)
+    ref, _ = ops.l2r_conv2d_progressive(x, w_q=w_q, stride=stride)
+    w_dev = quantize_weights(w.to(dev), QuantConfig(), prestack=True,
+                             plane_axis=-2, plane_shifted=True)
+    got, _ = ops.l2r_conv2d_progressive(x.to(dev), w_q=w_dev, stride=stride)
+    assert torch.equal(got.partial.cpu(), ref.partial)
+    acc, _, t, _ = ops.l2r_conv2d_progressive_while(x.to(dev), w_q=w_dev,
+                                                     stride=stride)
+    assert t == 7 and torch.equal(acc.cpu(), ref.partial[-1])

@@ -183,7 +183,9 @@ def test_l2r_gemm_rejects_bad_operands():
     with pytest.raises(TypeError, match="raw int"):
         tops.l2r_gemm(PlaneOperands.prepare_lhs(ta), tb, schedule="pairs")
     with pytest.raises(ValueError, match="unknown schedule"):
-        tops.l2r_gemm(ta, tb, schedule="streaming")
+        tops.l2r_gemm(ta, tb, schedule="blocked")
+    with pytest.raises(ValueError, match="streaming-schedule control flow"):
+        tops.l2r_gemm(ta, tb, schedule="stacked", early_exit=True)
 
 
 def test_sixteen_bit_wrap_matches_under_warn(monkeypatch):

@@ -3,8 +3,8 @@
 * ``repro_torch`` imports neither jax nor any module of ``repro``;
 * entry points with no ``device=`` on a host without CUDA raise rather
   than run on the CPU;
-* kernel B1's wrapper on a CPU tensor takes the plain version and never
-  builds the kernel.  (A CUDA tensor cannot be tried on a host without a
+* the kernel wrappers (B1, B2, B3) on a CPU tensor take the plain
+  versions and never build a kernel.  (A CUDA tensor cannot be tried on a host without a
   card: tests/test_torch_cuda.py and chip_smoke.py cover that route.)
 """
 
@@ -23,11 +23,13 @@ from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
-                "repro_torch.core.l2r_gemm", "repro_torch.analysis.overflow",
+                "repro_torch.core.l2r_gemm", "repro_torch.core.policy",
+                "repro_torch.core.progressive",
+                "repro_torch.analysis.overflow",
                 "repro_torch.kernels.l2r_gemm.ops",
                 "repro_torch.kernels.l2r_gemm.ref",
                 "repro_torch.configs.vgg16_l2r", "repro_torch.models.cnn",
-                "repro_torch.models.convert"]
+                "repro_torch.models.convert", "repro_torch.models.protohead"]
 
 
 def _env():
@@ -60,14 +62,21 @@ def test_port_sources_have_no_jax_or_repro_imports():
 
 def test_entry_points_without_device_raise_on_a_host_without_cuda(
         monkeypatch):
-    from repro_torch.models.cnn import vgg16_apply, vgg16_build
+    import numpy as np
+
+    from repro_torch.models.cnn import (vgg16_apply, vgg16_build,
+                                        vgg16_classify_progressive)
     from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.protohead import prototype_head
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = torch.zeros(1, 32, 32, 3)
     for call in (lambda: vgg16_apply({}, img), lambda: vgg16_build(10),
                  lambda: params_from_jax({}),
-                 lambda: vgg16_apply({}, img, device="cuda")):
+                 lambda: vgg16_apply({}, img, device="cuda"),
+                 lambda: vgg16_classify_progressive({}, img),
+                 lambda: vgg16_classify_progressive({}, img, device="cuda"),
+                 lambda: prototype_head(np.random.default_rng(0), 8, 4, 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -77,18 +86,23 @@ def test_wrapper_on_cpu_takes_plain_version_without_building(monkeypatch):
         raise AssertionError(f"tried to build {name} for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", no_build)
-    monkeypatch.setattr(kernel, "_FN", None)
-    before = kernel.LAUNCHES
+    monkeypatch.setattr(kernel, "_FNS", {})
+    before = dict(kernel.LAUNCHES)
     a = torch.randint(-128, 128, (6, 5), dtype=torch.int8)
     b = torch.randint(-128, 128, (5, 4), dtype=torch.int8)
-    got = kernel.l2r_gemm_stacked_planes(stack_planes_lhs(a), stack_planes_rhs(b))
-    assert torch.equal(got, a.to(torch.int32) @ b.to(torch.int32))
-    assert kernel.LAUNCHES == before and kernel._FN is None
+    sa, sb = stack_planes_lhs(a), stack_planes_rhs(b)
+    exact = a.to(torch.int32) @ b.to(torch.int32)
+    got = kernel.l2r_gemm_stacked_planes(sa, sb)
+    assert torch.equal(got, exact)
+    assert torch.equal(kernel.l2r_gemm_streaming_planes(sa, sb)[-1], exact)
+    assert torch.equal(kernel.l2r_gemm_pairs(a, b), exact)
+    assert kernel.LAUNCHES == before and kernel._FNS == {}
 
 
 def test_build_finds_the_sources_and_builds_into_an_ignored_directory():
     srcs = _build.sources()
-    assert srcs["l2r_stacked_gemm"].name == "l2r_stacked_gemm.cu"
+    for name in kernel.LAUNCHES:  # one library per kernel, one count each
+        assert srcs[name].name == f"{name}.cu"
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
