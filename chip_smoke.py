@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught):
      ``early_exit`` False (119 B1 + 1 B2 launches per forward) and True
      (119 B1 + at most 7 B1 level launches): classes equal
      ``argmax(vgg16_apply)``, scan logits bit-identical to it, classes
-     and exit levels identical between the two control flows;
+     and exit levels identical between the two control flows, and the
+     early-exit logits bit-identical to the scan's prefix after the
+     levels the loop ran;
   5. the pair-loop path: the FC head (fc6-fc8) through
      ``l2r_matmul_f(..., schedule="pairs")``, 3 B3 launches per forward,
      bit-identical to the stacked schedule;
@@ -229,8 +231,10 @@ def phase_kernel(dev) -> list[dict]:
         require(torch.equal(lib, kernel.l2r_gemm_stacked_planes(sa, sb)),
                 f"torch._int_mm disagrees with B1 at {sh['name']}")
         d = 4  # planes of the main path's config (n=8, radix 4)
+        # at full depth the function is aq @ bq (mod 2^32): 2*M*N*K int8
+        # operations, however many plane products the kernel runs
         bound_ms, by = bound(
-            2 * m * n * k * d * d,
+            2 * m * n * k,
             m * d * k + d * k * n + m * n * 4 * (2 if acc_mode else 1))
         row = {**sh, "ms": ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
@@ -307,6 +311,8 @@ def phase_streaming(dev) -> list[dict]:
                 f"torch._int_mm disagrees with the final plane at "
                 f"{sh['name']}")
         d = 4
+        # each plane is a different sum of pair products: the D^2 of
+        # them, 2*M*N*K int8 operations each
         bound_ms, by = bound(
             2 * m * n * k * d * d,
             m * d * k + d * k * n
@@ -362,8 +368,10 @@ def phase_pairs(dev) -> list[dict]:
         lib, lib_fn, padded = int_mm(a, b)
         require(torch.equal(lib, kernel.l2r_gemm_pairs(a, b)),
                 f"torch._int_mm disagrees with B3 at {sh['name']}")
-        d = 4
-        bound_ms, by = bound(2 * m * n * k * d * d, m * k + k * n + m * n * 4)
+        # the timed call runs every pair: the function is aq @ bq (mod
+        # 2^32), so it needs 2*M*N*K int8 operations, not the D^2 pair
+        # products the kernel runs
+        bound_ms, by = bound(2 * m * n * k, m * k + k * n + m * n * 4)
         row = {**sh, "accumulate": False, "ms": ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
                "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
@@ -486,9 +494,11 @@ def phase_vgg(dev) -> dict:
             "batches": batches, "logits": logits, "cfg": cfg}
 
 
-def poll_ms(dev, iters: int = 50) -> float:
-    """Median host time of one done-flag read (``bool()`` of a 0-d bool
-    tensor just written by a kernel): the cost of one early-exit poll."""
+def idle_sync_ms(dev, iters: int = 50) -> float:
+    """Median host time of ``bool()`` of a 0-d bool tensor just written
+    by a kernel, with nothing else queued: the floor of one done-flag
+    read.  In the forward a read also waits for all the work queued
+    before it."""
     flag = torch.zeros((), dtype=torch.bool, device=dev)
     times = []
     for _ in range(iters):
@@ -498,6 +508,25 @@ def poll_ms(dev, iters: int = 50) -> float:
         bool(flag)
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def head_scan_logits(params, x, cfg, weights_q, levels: int):
+    """The fc8 head's logits after ``levels`` levels of the scan, on the
+    same trunk as ``vgg16_classify_progressive``."""
+    from repro_torch.core.progressive import streaming_argmax
+    from repro_torch.core.quant import quantize
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels.l2r_gemm.ops import CUDA_WALK
+    from repro_torch.models.cnn import _vgg16_trunk
+
+    with torch.no_grad(), no_tf32():
+        f, _ = _vgg16_trunk(params, x, cfg, None, weights_q)
+        xq, xs = quantize(f, cfg, axis=0 if cfg.per_channel else None)
+        w_q = weights_q["fc8"]
+        logits, _, _ = streaming_argmax(
+            xq, w_q.q, xs, w_q.scale, cfg.n_bits, cfg.log2_radix, levels,
+            bias=params["fc8"]["b"], out_dtype=f.dtype, cuda_walk=CUDA_WALK)
+    return logits
 
 
 def phase_progressive(dev, vgg: dict) -> dict:
@@ -533,13 +562,24 @@ def phase_progressive(dev, vgg: dict) -> dict:
         require(torch.equal(p_s, p_e) and torch.equal(lv_s, lv_e),
                 "classes or exit levels differ between scan and while")
         require(bool(torch.isfinite(lg_e).all()), "non-finite logits")
+    for x, (_, lv_e, lg_e), (_, _, lg_s) in zip(batches, early, scan):
+        # the while loop's logits are the dequantized prefix after the
+        # levels it ran: the scan's at full depth, else a scan truncated
+        # there
+        lr = int(lv_e.max()) + 1
+        want = lg_s if lr == N_LEVELS else head_scan_logits(
+            params, x, cfg, weights_q, lr)
+        require(torch.equal(lg_e, want),
+                f"early-exit logits differ from the scan's prefix after "
+                f"{lr} levels")
     lv_all = torch.cat([lv for _, lv, _ in scan]).cpu()
     hist = torch.bincount(lv_all.to(torch.int64), minlength=N_LEVELS).tolist()
     out = {"launches_scan": n_scan, "launches_early_exit": n_early,
            "levels_run_early_exit": levels_run, "exit_level_hist": hist,
            "mean_exit_level": lv_all.double().mean().item(),
            "pred_equals_argmax_vgg16_apply": True,
-           "scan_logits_bit_identical_to_vgg16_apply": True}
+           "scan_logits_bit_identical_to_vgg16_apply": True,
+           "early_exit_logits_bit_identical_to_scan_prefix": True}
     for early_exit, key in ((False, "scan"), (True, "early_exit")):
         timed = [host_ms(lambda: vgg16_classify_progressive(
             params, x, cfg, weights_q, early_exit=early_exit, device=dev))
@@ -550,9 +590,11 @@ def phase_progressive(dev, vgg: dict) -> dict:
             lambda: vgg16_classify_progressive(
                 params, batches[0], cfg, weights_q, early_exit=early_exit,
                 device=dev))
-    polls = [lr + 1 if lr < N_LEVELS else N_LEVELS for lr in levels_run]
-    out["done_polls_per_forward"] = polls
-    out["done_poll_ms"] = poll_ms(dev)
+    # the loop reads the flag before each level and stops on the first
+    # True read: derived from the levels run, not counted
+    out["done_polls_per_forward_derived"] = [
+        lr + 1 if lr < N_LEVELS else N_LEVELS for lr in levels_run]
+    out["idle_queue_sync_ms"] = idle_sync_ms(dev)
     print("phase 4: " + json.dumps(out), flush=True)
     return out
 
@@ -596,6 +638,7 @@ def phase_pairs_path(dev, vgg: dict) -> dict:
 
 def phase_protohead(dev) -> dict:
     from repro_torch.core.progressive import streaming_argmax
+    from repro_torch.kernels.l2r_gemm.ops import CUDA_WALK
     from repro_torch.models.protohead import prototype_head
 
     xq, xs, w_q, labels = prototype_head(np.random.default_rng(44), k=4096,
@@ -604,7 +647,8 @@ def phase_protohead(dev) -> dict:
     for early_exit in (False, True):
         reset_counts()
         res[early_exit] = (streaming_argmax(xq, w_q.q, xs, w_q.scale,
-                                            early_exit=early_exit), counts())
+                                            early_exit=early_exit,
+                                            cuda_walk=CUDA_WALK), counts())
     (lg_s, tok_s, lv_s), n_s = res[False]
     (_, tok_e, lv_e), n_e = res[True]
     require(torch.equal(tok_s, tok_e) and torch.equal(lv_s, lv_e),
@@ -619,9 +663,10 @@ def phase_protohead(dev) -> dict:
            "accuracy_vs_labels": (tok_s.cpu().numpy() == labels).mean()
            .item(),
            "scan_ms": time_ms(lambda: streaming_argmax(
-               xq, w_q.q, xs, w_q.scale), iters=5),
+               xq, w_q.q, xs, w_q.scale, cuda_walk=CUDA_WALK), iters=5),
            "early_exit_ms": time_ms(lambda: streaming_argmax(
-               xq, w_q.q, xs, w_q.scale, early_exit=True), iters=5)}
+               xq, w_q.q, xs, w_q.scale, early_exit=True,
+               cuda_walk=CUDA_WALK), iters=5)}
     print("phase 6: " + json.dumps(out), flush=True)
     return out
 

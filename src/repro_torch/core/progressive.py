@@ -18,16 +18,18 @@ Routes follow the operands' device; there is no backend switch:
   raw-digit plane stacks zero-padded by D-1 blocks, one fixed-width
   window dot per level (true f32 under the exactness guard, int64
   narrowed to int32 otherwise), shifted and added in wrapping int32.
-* **CUDA tensors** take the hand-written kernels on pre-shifted stacks.
-  The scan is ONE launch of kernel B2, which writes all L snapshot
-  planes; the fold then runs over them on the card.  So on the card the
-  scan holds the L planes at once (L*M*N*4 bytes: 7*8*1000*4 B = 224 KB
-  for the VGG-16 fc8 head at batch 8), where the reference carries only
-  the accumulator.  The while loop runs one level per iteration: one
-  launch of kernel B1 over that level's slab (a one-row level table)
-  into a copy of the running accumulator, then the fold, then one host
-  read of the done flag (``bool(done_fn(carry))``, a device sync), at
-  most once per level.
+* **CUDA tensors** take the :class:`LevelWalk` the caller passes as
+  ``cuda_walk`` (the kernels' walk is
+  ``repro_torch.kernels.l2r_gemm.ops.CUDA_WALK``; this module imports
+  no kernel), and raise without one.  With the kernels' walk the scan
+  is ONE launch of kernel B2, which writes all L snapshot planes; the
+  fold then runs over them on the card.  So on the card the scan holds
+  the L planes at once (L*M*N*4 bytes: 7*8*1000*4 B = 224 KB for the
+  VGG-16 fc8 head at batch 8), where the reference carries only the
+  accumulator.  The while loop runs one level per iteration (one
+  launch of kernel B1 over that level's slab into a copy of the running
+  accumulator), then the fold, then one host read of the done flag
+  (``bool(done_fn(carry))``, a device sync), at most once per level.
 
 Decision bounds: :func:`level_bounds` gives per-level hard bounds on the
 unseen tail (core/online.py:tail_bound) as an up-rounded float32, an
@@ -42,17 +44,16 @@ import numpy as np
 import torch
 
 from repro_torch.device import no_tf32
-from repro_torch.kernels.l2r_gemm import kernel
 
 from .l2r_gemm import _f32_dot_exact, _int_dot, wrap_int32
 from .online import msdf_levels, tail_bound
 from .policy import LevelPolicy, decision_state, head_walk_machinery
-from .quant import (PlaneOperands, plane_count, stack_planes_lhs,
-                    stack_planes_rhs)
+from .quant import PlaneOperands, plane_count
 
 __all__ = [
     "ProgressiveResult",
     "LevelBounds",
+    "LevelWalk",
     "level_bounds",
     "progressive_matmul",
     "streaming_matmul_scan",
@@ -85,6 +86,22 @@ class ProgressiveResult(NamedTuple):
     tail_bound: torch.Tensor
     bound_i32: torch.Tensor
     decidable: torch.Tensor
+
+
+class LevelWalk(NamedTuple):
+    """The level walk on CUDA operands (either may be a
+    :class:`PlaneOperands`), given by the caller.
+
+    stream:  ``stream(aq, bq, n_bits, log2_radix, levels)`` -> the
+             ``(L, ..., M, N)`` int32 prefix stream, every level at once
+             (the scan).
+    stepper: ``stepper(aq, bq, n_bits, log2_radix, levels)`` ->
+             ``advance(acc, t)``, the prefix after level t from the
+             prefix before it, as a new tensor (the while loop).
+    """
+
+    stream: Callable
+    stepper: Callable
 
 
 class LevelBounds(NamedTuple):
@@ -168,17 +185,16 @@ def _streaming_operands(aq, bq, n_bits: int, log2_radix: int):
     return aq.window_stack(), bq.window_stack()
 
 
-def _kernel_stacks(aq, bq, n_bits: int, log2_radix: int):
-    """Pre-shifted 2-D stacks for the CUDA kernels: ``(a (M', D*K),
-    b (D*K, N))``, M' the product of the LHS lead."""
-    a = aq.core_stack(shifted=True) if isinstance(aq, PlaneOperands) \
-        else stack_planes_lhs(aq, n_bits, log2_radix)
-    b = bq.core_stack(shifted=True) if isinstance(bq, PlaneOperands) \
-        else stack_planes_rhs(bq, n_bits, log2_radix)
-    if b.ndim != 2:
-        raise ValueError(f"the streaming walk takes a (K, N) right operand, "
-                         f"got a stack of shape {tuple(b.shape)}")
-    return a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous()
+def _cuda_route(aq, cuda_walk: LevelWalk | None) -> LevelWalk | None:
+    """The walk the operands take: None (the plain walk) off CUDA, else
+    the caller's ``cuda_walk``; CUDA operands without one raise."""
+    if _device(aq).type != "cuda":
+        return None
+    if cuda_walk is None:
+        raise ValueError(
+            "CUDA operands take the kernels' level walk: pass "
+            "cuda_walk=repro_torch.kernels.l2r_gemm.ops.CUDA_WALK")
+    return cuda_walk
 
 
 def _level_walk(d: int, levels: int | None):
@@ -236,7 +252,7 @@ def scan_plain(aq, bq, fold: Callable | None = None, init=None,
                levels: int | None = None, emit: bool = False):
     """The plain scan on any device: the reference's fixed-width window
     walk (the CPU route of :func:`streaming_matmul_scan`, and kernel B2's
-    plain version on the card)."""
+    plain version on any device)."""
     a_off, b_off, svals = _level_walk(plane_count(n_bits, log2_radix),
                                       levels)
     acc = torch.zeros((*_lhs_lead(aq), _rhs_n(bq)), dtype=torch.int32,
@@ -266,6 +282,7 @@ def streaming_matmul_scan(
     log2_radix: int = 2,
     levels: int | None = None,
     emit: bool = False,
+    cuda_walk: LevelWalk | None = None,
 ):
     """Scan the per-level MSDF prefix stream, folding over every prefix.
 
@@ -276,24 +293,24 @@ def streaming_matmul_scan(
     ``l2r_matmul_int_stacked(..., levels=t+1)``.  Either operand may be
     a pre-stacked :class:`PlaneOperands`.
 
-    On CUDA tensors the stream is one launch of kernel B2, and the fold
-    runs over its L planes (all held at once, see the module docstring).
+    CUDA tensors take ``cuda_walk.stream`` (with the kernels' walk, one
+    launch of kernel B2), and the fold runs over its L planes (all held
+    at once, see the module docstring).
     """
     _check_operands(aq, bq, n_bits, log2_radix)
-    if _device(aq).type != "cuda":
+    walk = _cuda_route(aq, cuda_walk)
+    if walk is None:
         return scan_plain(aq, bq, fold, init, n_bits, log2_radix, levels,
                           emit)
-    a2, b2 = _kernel_stacks(aq, bq, n_bits, log2_radix)
+    stream = walk.stream(aq, bq, n_bits, log2_radix, levels)
     lead, n = _lhs_lead(aq), _rhs_n(bq)
-    stream = kernel.l2r_gemm_streaming_planes(a2, b2, n_bits, log2_radix,
-                                              levels)
-    stream = stream.reshape(stream.shape[0], *lead, n)
     fold_c = init
     if fold is not None:
         for t in range(stream.shape[0]):
             fold_c = fold(fold_c, stream[t], t)
     if stream.shape[0] == 0:
-        acc = torch.zeros((*lead, n), dtype=torch.int32, device=a2.device)
+        acc = torch.zeros((*lead, n), dtype=torch.int32,
+                          device=stream.device)
     else:
         acc = stream[-1] if emit else stream[-1].clone()
     return acc, fold_c, (stream if emit else None)
@@ -315,21 +332,11 @@ def _while_emitter(advance: Callable, n_steps: int, acc0: torch.Tensor,
     return t, acc, fold_c
 
 
-def _level_stepper(aq, bq, n_bits: int, log2_radix: int,
+def _plain_stepper(aq, bq, n_bits: int, log2_radix: int,
                    levels: int | None) -> Callable:
-    """``advance(acc, t)``: the prefix after level t from the prefix
-    before it (a new tensor; the fold may keep the old one)."""
-    if _device(aq).type == "cuda":
-        a2, b2 = _kernel_stacks(aq, bq, n_bits, log2_radix)
-
-        def advance(acc, t):
-            acc = acc.clone()
-            kernel.l2r_gemm_stacked_planes(a2, b2, n_bits, log2_radix,
-                                           levels=t + 1, first_level=t,
-                                           out=acc.view(-1, b2.shape[1]))
-            return acc
-
-        return advance
+    """``advance(acc, t)`` of the plain walk: the prefix after level t
+    from the prefix before it (a new tensor; the fold may keep the old
+    one)."""
     a_off, b_off, svals = _level_walk(plane_count(n_bits, log2_radix),
                                       levels)
     term = _stream_setup(aq, bq, n_bits, log2_radix)
@@ -346,22 +353,27 @@ def streaming_matmul_while(
     n_bits: int = 8,
     log2_radix: int = 2,
     levels: int | None = None,
+    cuda_walk: LevelWalk | None = None,
 ):
     """Early-exit streaming emitter: the same level walk as
     :func:`streaming_matmul_scan`, stopping as soon as
     ``done_fn(fold_carry)`` is true.  With ``done_fn=None`` every level
     runs.  After ``levels_run`` levels the accumulator is bit-identical
     to the scan's prefix at that depth, and so are the fold's decisions.
+    CUDA tensors take ``cuda_walk.stepper`` (with the kernels' walk, one
+    B1 launch per level).
 
     Returns ``(partial, fold_carry, levels_run)`` (``levels_run`` an int).
     """
     _check_operands(aq, bq, n_bits, log2_radix)
+    walk = _cuda_route(aq, cuda_walk)
     n_steps = len(msdf_levels(plane_count(n_bits, log2_radix))[:levels])
     acc0 = torch.zeros((*_lhs_lead(aq), _rhs_n(bq)), dtype=torch.int32,
                        device=_device(aq))
     if n_steps == 0:  # levels=0: empty MSDF prefix
         return acc0, init, 0
-    advance = _level_stepper(aq, bq, n_bits, log2_radix, levels)
+    stepper = _plain_stepper if walk is None else walk.stepper
+    advance = stepper(aq, bq, n_bits, log2_radix, levels)
     t, acc, fold_c = _while_emitter(advance, n_steps, acc0, fold, init,
                                     done_fn)
     return acc, fold_c, t
@@ -369,25 +381,33 @@ def streaming_matmul_while(
 
 def l2r_matmul_int_streaming(aq, bq, n_bits: int = 8, log2_radix: int = 2,
                              levels: int | None = None,
-                             early_exit: bool = False) -> torch.Tensor:
+                             early_exit: bool = False,
+                             cuda_walk: LevelWalk | None = None
+                             ) -> torch.Tensor:
     """Final (or ``levels``-truncated) result via the streaming schedule,
     bit-identical to ``l2r_matmul_int_stacked``.  ``early_exit=True``
     runs the while emitter (with no fold it still runs every level)."""
     if early_exit:
         acc, _, _ = streaming_matmul_while(aq, bq, None, None, None,
-                                           n_bits, log2_radix, levels)
+                                           n_bits, log2_radix, levels,
+                                           cuda_walk)
         return acc
     acc, _, _ = streaming_matmul_scan(aq, bq, None, None, n_bits,
-                                      log2_radix, levels)
+                                      log2_radix, levels,
+                                      cuda_walk=cuda_walk)
     return acc
 
 
 def progressive_matmul(aq, bq, n_bits: int = 8, log2_radix: int = 2,
-                       levels: int | None = None) -> ProgressiveResult:
+                       levels: int | None = None,
+                       cuda_walk: LevelWalk | None = None
+                       ) -> ProgressiveResult:
     """Full per-level snapshot stack of the MSDF stream with its tail
-    bounds (on CUDA tensors: one launch of kernel B2)."""
+    bounds (on CUDA tensors ``cuda_walk.stream``: with the kernels'
+    walk, one launch of kernel B2)."""
     _, _, stack = streaming_matmul_scan(aq, bq, None, None, n_bits,
-                                        log2_radix, levels, emit=True)
+                                        log2_radix, levels, emit=True,
+                                        cuda_walk=cuda_walk)
     bounds = level_bounds(plane_count(n_bits, log2_radix), log2_radix,
                           _contract_k(aq), levels, device=stack.device)
     return ProgressiveResult(partial=stack, tail_bound=bounds.f32,
@@ -408,6 +428,7 @@ def streaming_argmax(
     safety: float = 1e-5,
     early_exit: bool = False,
     policy: LevelPolicy | None = None,
+    cuda_walk: LevelWalk | None = None,
 ):
     """Stream a quantized classifier/LM-head matmul, committing the argmax
     of the *dequantized* scores at the earliest sound level.
@@ -426,7 +447,8 @@ def streaming_argmax(
     scan, and the logits are the dequantized prefix at the exit level.
     With ``early_exit=False`` the logits reproduce ``l2r_matmul_f``'s
     dequantization bit for bit.  ``policy`` gives each row its own
-    precision class (core/policy.py).
+    precision class (core/policy.py).  CUDA operands need ``cuda_walk``
+    (``repro_torch.kernels.l2r_gemm.ops.CUDA_WALK``).
 
     Returns ``(logits (M, N) out_dtype, tok (M,) int32, exit_level (M,)
     int32)``; exit_level L-1 means the full stream.
@@ -447,10 +469,12 @@ def streaming_argmax(
         n_levels=n_levels, m_global=m, policy=policy, early_exit=early_exit)
     if early_exit:
         acc, carry, _ = streaming_matmul_while(
-            xq, wq, fold, init, done_fn, n_bits, log2_radix, levels)
+            xq, wq, fold, init, done_fn, n_bits, log2_radix, levels,
+            cuda_walk)
     else:
         acc, carry, _ = streaming_matmul_scan(
-            xq, wq, fold, init, n_bits, log2_radix, levels)
+            xq, wq, fold, init, n_bits, log2_radix, levels,
+            cuda_walk=cuda_walk)
     return finalize(acc, carry)
 
 

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
 from repro_torch.core.online import msdf_level_slices, msdf_pairs
+from repro_torch.core.progressive import scan_plain
 from repro_torch.core.quant import PlaneOperands
 
 __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
@@ -255,10 +256,6 @@ def l2r_gemm_streaming_planes_plain(
     ``level_count`` only marks planes at or above it as unspecified, as
     in the kernel.  With ``out`` the stream is added to it in place.
     """
-    # core.progressive routes CUDA tensors to this module, so it is
-    # imported here rather than at the top
-    from repro_torch.core.progressive import scan_plain
-
     del level_count
     d = n_bits // log2_radix
     k = a_stack.shape[-1] // d

@@ -13,7 +13,11 @@ There is no backend switch.
 * ``l2r_gemm_progressive`` / ``l2r_conv2d_progressive``: the per-level
   snapshot stream with tail bounds, kernel B2 on the card;
   ``l2r_conv2d_progressive_while``: the early-exit conv stream, one B1
-  level slab per tap and level on the card.
+  level slab per tap and level on the card;
+* ``CUDA_WALK``: the level walk core/progressive.py takes on CUDA
+  operands (one B2 launch per scan, one B1 level slab per while-loop
+  level).  The device routing of the progressive path lives here; core
+  imports no kernel.
 
 ``l2r_conv2d`` performs implicit im2col: activation planes are extracted
 once per feature map, and each of the kh*kw taps feeds a shifted
@@ -33,9 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.analysis.overflow import check_or_raise
 from repro_torch.core.l2r_gemm import _f32_dot_exact, wrap_int32
-from repro_torch.core.progressive import (ProgressiveResult, _level_walk,
-                                          _shift_add, _while_emitter,
-                                          _window_dot,
+from repro_torch.core.progressive import (LevelWalk, ProgressiveResult,
+                                          _level_walk, _shift_add,
+                                          _while_emitter, _window_dot,
                                           l2r_matmul_int_streaming,
                                           level_bounds, progressive_matmul)
 from repro_torch.core.quant import (PlaneOperands, QuantConfig,
@@ -47,7 +51,7 @@ from . import kernel
 
 __all__ = ["l2r_gemm", "l2r_matmul_f", "l2r_conv2d", "l2r_gemm_progressive",
            "l2r_conv2d_progressive", "l2r_conv2d_progressive_while",
-           "PlaneOperands", "SCHEDULES"]
+           "CUDA_WALK", "PlaneOperands", "SCHEDULES"]
 
 SCHEDULES = ("stacked", "streaming", "pairs")
 
@@ -66,6 +70,47 @@ def _rhs_stack(b, n_bits: int, log2_radix: int) -> torch.Tensor:
     if isinstance(b, PlaneOperands):
         return b.core_stack(shifted=True)
     return stack_planes_rhs(b, n_bits, log2_radix)
+
+
+def _walk_stacks(aq, bq, n_bits: int, log2_radix: int):
+    """The kernels' 2-D stacks of a streaming walk's operands: ``(a (M',
+    D*K), b (D*K, N), lead)``, M' the product of the LHS lead."""
+    a, b = _lhs_stack(aq, n_bits, log2_radix), _rhs_stack(bq, n_bits,
+                                                          log2_radix)
+    if b.ndim != 2:
+        raise ValueError(f"the streaming walk takes a (K, N) right operand, "
+                         f"got a stack of shape {tuple(b.shape)}")
+    return (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous(),
+            tuple(a.shape[:-1]))
+
+
+def _b2_stream(aq, bq, n_bits: int, log2_radix: int, levels: int | None
+               ) -> torch.Tensor:
+    """The whole (L, ..., M, N) prefix stream: one launch of kernel B2."""
+    a, b, lead = _walk_stacks(aq, bq, n_bits, log2_radix)
+    stream = kernel.l2r_gemm_streaming_planes(a, b, n_bits, log2_radix,
+                                              levels)
+    return stream.reshape(stream.shape[0], *lead, b.shape[1])
+
+
+def _b1_stepper(aq, bq, n_bits: int, log2_radix: int, levels: int | None
+                ) -> Callable:
+    """``advance(acc, t)``: one launch of kernel B1 over level t's slab (a
+    one-row level table) into a copy of the running accumulator."""
+    a, b, _ = _walk_stacks(aq, bq, n_bits, log2_radix)
+
+    def advance(acc, t):
+        acc = acc.clone()
+        kernel.l2r_gemm_stacked_planes(a, b, n_bits, log2_radix,
+                                       levels=t + 1, first_level=t,
+                                       out=acc.view(-1, b.shape[1]))
+        return acc
+
+    return advance
+
+
+#: the level walk of core/progressive.py on CUDA operands
+CUDA_WALK = LevelWalk(stream=_b2_stream, stepper=_b1_stepper)
 
 
 def _describe_operand(x) -> str:
@@ -138,7 +183,7 @@ def l2r_gemm(
     on_card = (aq.stack if isinstance(aq, PlaneOperands) else aq).is_cuda
     if schedule == "streaming" and (early_exit or not on_card):
         return l2r_matmul_int_streaming(aq, bq, n_bits, log2_radix, levels,
-                                        early_exit)
+                                        early_exit, CUDA_WALK)
     return kernel.l2r_gemm_stacked_planes(
         _lhs_stack(aq, n_bits, log2_radix), _rhs_stack(bq, n_bits, log2_radix),
         n_bits, log2_radix, levels)
@@ -156,7 +201,8 @@ def l2r_gemm_progressive(aq, bq, n_bits: int = 8, log2_radix: int = 2,
     """
     _check_plane_operand(aq, "lhs", n_bits, log2_radix, other=bq)
     _check_plane_operand(bq, "rhs", n_bits, log2_radix, other=aq)
-    return progressive_matmul(aq, bq, n_bits, log2_radix, levels)
+    return progressive_matmul(aq, bq, n_bits, log2_radix, levels,
+                              CUDA_WALK)
 
 
 def l2r_matmul_f(

@@ -28,7 +28,8 @@ from repro_torch.core.progressive import streaming_argmax
 from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
 from repro_torch.device import no_tf32, resolve_device
-from repro_torch.kernels.l2r_gemm.ops import l2r_conv2d, l2r_matmul_f
+from repro_torch.kernels.l2r_gemm.ops import (CUDA_WALK, l2r_conv2d,
+                                              l2r_matmul_f)
 
 __all__ = ["vgg16_build", "vgg16_apply", "vgg16_classify_progressive",
            "vgg16_quantize_weights", "VGG16", "VGG16_CONV_LAYERS"]
@@ -179,7 +180,8 @@ def vgg16_classify_progressive(
             l2r.n_bits, l2r.log2_radix, ndim=2, side="rhs")) else w_q.q
         logits, pred, exit_level = streaming_argmax(
             xq, wq_in, xs, w_q.scale, l2r.n_bits, l2r.log2_radix,
-            bias=params["fc8"]["b"], out_dtype=x.dtype, early_exit=early_exit)
+            bias=params["fc8"]["b"], out_dtype=x.dtype, early_exit=early_exit,
+            cuda_walk=CUDA_WALK)
     return pred, exit_level, logits
 
 

@@ -166,9 +166,12 @@ def test_streaming_argmax_on_card_matches_cpu(dev, early_exit):
                               early_exit=early_exit)
     got = tp.streaming_argmax(xq.to(dev), w_q.q.to(dev), xs.to(dev),
                               w_q.scale.to(dev), bias=b.to(dev),
-                              early_exit=early_exit)
+                              early_exit=early_exit, cuda_walk=ops.CUDA_WALK)
     for r, g in zip(ref, got):
         assert torch.equal(g.cpu(), r)
+    with pytest.raises(ValueError, match="CUDA_WALK"):
+        tp.streaming_argmax(xq.to(dev), w_q.q.to(dev), xs.to(dev),
+                            w_q.scale.to(dev), early_exit=early_exit)
 
 
 @pytest.mark.cuda

@@ -60,6 +60,21 @@ def test_port_sources_have_no_jax_or_repro_imports():
     assert len(files) > 10 and not hits, hits
 
 
+def test_core_imports_no_kernel_module():
+    """repro_torch.core holds the plain arithmetic; the kernels' device
+    routing lives in repro_torch.kernels, which depends on core and not
+    the other way round."""
+    code = ("import sys\n"
+            "import repro_torch.core.progressive, repro_torch.core.policy\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.kernels'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_entry_points_without_device_raise_on_a_host_without_cuda(
         monkeypatch):
     import numpy as np

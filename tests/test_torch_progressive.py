@@ -94,6 +94,27 @@ def test_prefix_stream_from_prestacked_operands():
         tp.streaming_matmul_scan(ta, tq.PlaneOperands.prepare_rhs(tb, 8, 4))
 
 
+@pytest.mark.parametrize("n_bits,log2_radix", [(8, 2), (8, 4), (4, 2)])
+def test_cuda_walk_matches_reference_through_plain_versions(n_bits,
+                                                            log2_radix):
+    """ops.CUDA_WALK, the route CUDA operands take (one B2 stream, or one
+    B1 level slab per while step), on CPU tensors, where its kernel
+    wrappers take their plain versions: the reference's prefixes, with a
+    (2, 5) LHS lead and a raw or pre-stacked RHS."""
+    rng = np.random.default_rng(7 + n_bits + log2_radix)
+    a, b = _ints(rng, n_bits, (2, 5, 19)), _ints(rng, n_bits, (19, 6))
+    ref = np.asarray(jp.progressive_matmul(jnp.asarray(a), jnp.asarray(b),
+                                           n_bits, log2_radix).partial)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for rhs in (tb, tq.PlaneOperands.prepare_rhs(tb, n_bits, log2_radix)):
+        _eq(tops.CUDA_WALK.stream(ta, rhs, n_bits, log2_radix, None), ref)
+        advance = tops.CUDA_WALK.stepper(ta, rhs, n_bits, log2_radix, None)
+        acc = torch.zeros(ref.shape[1:], dtype=torch.int32)
+        for t in range(ref.shape[0]):
+            acc = advance(acc, t)
+            _eq(acc, ref[t], f"level {t}")
+
+
 @pytest.mark.parametrize("side", ["lhs", "rhs"])
 @pytest.mark.parametrize("shifted", [False, True])
 def test_window_layout_matches_reference(side, shifted):
