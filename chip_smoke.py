@@ -33,8 +33,30 @@ Phases (any failure exits non-zero; nothing is caught):
      through ``streaming_argmax``, scan against while;
   7. ``l2r_conv2d_progressive`` on full-width conv1_2 and conv4_2 at
      batch 8: plane l equals the conv at ``levels=l+1``, and each plane
-     lies within its tail bound of the last.
-Then one JSON line per kernel, the card again, and the result line.
+     lies within its tail bound of the last;
+  8. kernel B6 (the PE-array CIPU simulator): ragged cases bit for bit
+     against its plain version and the integer SOP, then one VGG-16
+     layer's SOP windows as the paper's 8x8 array runs them (conv4_2:
+     25,690,112 SOPs of k=72, n=8) through ``simulate_pe_array``, every
+     SOP equal to the plain cycle simulation and to the integer SOP,
+     timed beside the paper's cycle count for the layer (its 45 nm
+     accelerator model, not a card number);
+  9. the golden model (examples/quickstart.py acts 1 and 5): one SOP of
+     k=72 through ``simulate_cipu`` on the card equals the exact SOP; the
+     paper's Table II figures from ``hw_model``;
+ 10. kernel B5 (float flash attention) through ``ops.flash_attention``
+     and 11. kernel B4 (level-walk scores) through
+     ``flash_attention_l2r``: ragged cases (causal, window, GQA, Sq !=
+     Skv; B4 at levels 1, 3 and full) in f32 and bf16 against the plain
+     versions (f32 within 3e-5; bf16 within one ulp, 2^-7 |ref|, plus
+     ``BF16_ABS``), then SmolLM-135M's attention (H=9, Kv=3, dh=64) at a
+     2048-token prefill, batch 8 (causal f32, causal bf16, window 512
+     f32), timed beside the plain version, the bound and
+     ``scaled_dot_product_attention``.  Once, at the causal bf16 shape,
+     a plain version without the rounding of p to bf16 must fail the
+     bf16 limit: the limit sees that rounding.
+Then one JSON line per kernel (B1-B6), the card again, and the result
+line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -66,12 +88,23 @@ RAGGED = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (17, 48, 33),
           (300, 128, 96)]
 RAGGED_CONFIGS = [(8, 2), (8, 1), (8, 4), (4, 2)]
 LEVELS = [None, 0, 1, 3, 7]
-CSRC = "src/repro_torch/kernels/l2r_gemm/csrc"
-PALLAS = "src/repro/kernels/l2r_gemm/kernel.py"
-KERNELS = {  # library -> (id, Pallas body it replaces)
-    "l2r_stacked_gemm": ("B1", f"{PALLAS}:180"),
-    "l2r_streaming_gemm": ("B2", f"{PALLAS}:317"),
-    "l2r_pairs_gemm": ("B3", f"{PALLAS}:79"),
+PORT = "src/repro_torch/kernels"
+PALLAS = "src/repro/kernels"
+KERNELS = {  # library -> (id, source, Pallas body it replaces)
+    "l2r_stacked_gemm": ("B1", f"{PORT}/l2r_gemm/csrc/l2r_stacked_gemm.cu",
+                         f"{PALLAS}/l2r_gemm/kernel.py:180"),
+    "l2r_streaming_gemm": ("B2",
+                           f"{PORT}/l2r_gemm/csrc/l2r_streaming_gemm.cu",
+                           f"{PALLAS}/l2r_gemm/kernel.py:317"),
+    "l2r_pairs_gemm": ("B3", f"{PORT}/l2r_gemm/csrc/l2r_pairs_gemm.cu",
+                       f"{PALLAS}/l2r_gemm/kernel.py:79"),
+    "flash_attention_l2r": (
+        "B4", f"{PORT}/flash_attention/csrc/flash_attention_l2r.cu",
+        f"{PALLAS}/flash_attention/kernel.py:163"),
+    "flash_attention": ("B5", f"{PORT}/flash_attention/csrc/flash_attention.cu",
+                        f"{PALLAS}/flash_attention/kernel.py:39"),
+    "cipu_array": ("B6", f"{PORT}/msdf_ipu/csrc/cipu_array.cu",
+                   f"{PALLAS}/msdf_ipu/kernel.py:26"),
 }
 N_LEVELS = 7  # 2D-1 for the main path's config (n=8, radix 4)
 
@@ -88,17 +121,28 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def reset_counts() -> None:
+def launch_counts() -> list[dict[str, int]]:
+    """The kernel wrappers' launch counts, one dict per kernel module."""
+    from repro_torch.kernels import flash_attention, msdf_ipu
     from repro_torch.kernels.l2r_gemm import kernel
 
-    for name in kernel.LAUNCHES:
-        kernel.LAUNCHES[name] = 0
+    return [kernel.LAUNCHES, msdf_ipu.LAUNCHES, flash_attention.LAUNCHES]
+
+
+def reset_counts() -> None:
+    for launches in launch_counts():
+        for name in launches:
+            launches[name] = 0
 
 
 def counts() -> dict[str, int]:
-    from repro_torch.kernels.l2r_gemm import kernel
+    return {name: n for launches in launch_counts()
+            for name, n in launches.items()}
 
-    return dict(kernel.LAUNCHES)
+
+def only(**want: int) -> dict[str, int]:
+    """The counts of a run that launched ``want`` and no other kernel."""
+    return {name: want.get(name, 0) for name in KERNELS}
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -458,8 +502,7 @@ def phase_vgg(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    require(launches == {"l2r_stacked_gemm": 120 * len(batches),
-                         "l2r_streaming_gemm": 0, "l2r_pairs_gemm": 0},
+    require(launches == only(l2r_stacked_gemm=120 * len(batches)),
             f"launches {launches} for {len(batches)} forwards, expected "
             f"{120 * len(batches)} of B1 and no other")
     for lg in logits:
@@ -545,12 +588,10 @@ def phase_progressive(dev, vgg: dict) -> dict:
         run[early_exit] = (outs, counts())
     (scan, n_scan), (early, n_early) = run[False], run[True]
     b = len(batches)
-    require(n_scan == {"l2r_stacked_gemm": 119 * b, "l2r_streaming_gemm": b,
-                       "l2r_pairs_gemm": 0},
+    require(n_scan == only(l2r_stacked_gemm=119 * b, l2r_streaming_gemm=b),
             f"scan launches {n_scan}, expected 119 B1 + 1 B2 per forward")
     levels_run = [int(lv.max()) + 1 for _, lv, _ in scan]
-    require(n_early == {"l2r_stacked_gemm": 119 * b + sum(levels_run),
-                        "l2r_streaming_gemm": 0, "l2r_pairs_gemm": 0},
+    require(n_early == only(l2r_stacked_gemm=119 * b + sum(levels_run)),
             f"early-exit launches {n_early}, expected 119 B1 per forward "
             f"plus one per level run {levels_run}")
     for (p_s, lv_s, lg_s), (p_e, lv_e, lg_e), ref in zip(scan, early,
@@ -620,8 +661,7 @@ def phase_pairs_path(dev, vgg: dict) -> dict:
     got = [head(x, "pairs") for x in feats]
     torch.cuda.synchronize()
     n = counts()
-    require(n == {"l2r_stacked_gemm": 0, "l2r_streaming_gemm": 0,
-                  "l2r_pairs_gemm": 3 * len(feats)},
+    require(n == only(l2r_pairs_gemm=3 * len(feats)),
             f"pairs-path launches {n}, expected 3 B3 per forward")
     for x, lg in zip(feats, got):
         require(torch.equal(lg, head(x, "stacked")),
@@ -687,8 +727,7 @@ def phase_conv_progressive(dev, vgg: dict) -> dict:
         res, scale = ops.l2r_conv2d_progressive(x, w_q=w_q, cfg=cfg)
         torch.cuda.synchronize()
         n = counts()
-        require(n == {"l2r_stacked_gemm": 0, "l2r_streaming_gemm": 9,
-                      "l2r_pairs_gemm": 0},
+        require(n == only(l2r_streaming_gemm=9),
                 f"{name}: progressive conv launches {n}, expected 9 B2")
         xq, _ = quantize(x, cfg, axis=0)
         w_in = ops._conv_w_in(w_q, cfg)
@@ -714,16 +753,364 @@ def phase_conv_progressive(dev, vgg: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ slice 3
+# H100 SXM data sheet, dense: f32 outside the tensor cores, bf16 tensor cores
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# CUDA C++ Programming Guide, throughput of native arithmetic instructions,
+# compute capability 9.0: results per clock per SM
+INT32_PER_CLK_SM, POPC_PER_CLK_SM = 64, 16
+SMOLLM = dict(h=9, kvh=3, dh=64)  # src/repro/configs/smollm_135m.py
+ATTN_BATCH, ATTN_SEQ, ATTN_WINDOW = 8, 2048, 512
+ATTN_CASES = [  # (sq, skv, h, kvh, dh, causal, window): the JAX suite's
+    (256, 256, 4, 2, 64, True, None),  # CASES, then ragged Sq != Skv
+    (256, 256, 4, 1, 64, True, 64),
+    (200, 200, 2, 2, 32, True, None),
+    (128, 128, 8, 4, 64, False, None),
+    (64, 64, 2, 2, 128, True, 16),
+    (70, 130, 3, 1, 24, False, 40),
+]
+# |got - ref| <= rel * |ref| + abs, elementwise, against the plain version
+# (which walks the kernels' KV tiles).  f32: the JAX suite's 3e-5.  bf16:
+# one ulp (at most 2^-7 |x|) for the rounding of the output, plus BF16_ABS
+# for f32 reassociation and the rare p that rounds the other way.  On an
+# H100 at SmolLM-135M widths the kernels read at most 5e-9 beyond the ulp,
+# a plain version without p's rounding to bf16 2.0e-3.
+BF16_ABS = 1e-4
+ATTN_TOL = {torch.float32: (0.0, 3e-5), torch.bfloat16: (2.0 ** -7, BF16_ABS)}
+
+
+def sm_clock_max_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def cipu_bound(m: int, k: int, n_bits: int) -> tuple:
+    """Least time of m SOPs through the CIPU datapath on this card: the
+    int32 operands read once and the outputs written once, against the integer
+    work of the simulated cycles.  Each of the n^2 cycles needs its
+    counter (ceil(k/32) AND, popc and add) and the 6:2 compressor (four
+    3:2 CSAs of 2 XOR, 3 AND, 2 OR, 1 shift) plus the two PPR shifts:
+    2*ceil(k/32) + 34 int32 operations and ceil(k/32) popc, at the
+    issue rates per SM times the SMs times the card's max SM clock."""
+    words = -(-k // 32)
+    props = torch.cuda.get_device_properties(0)
+    clk = sm_clock_max_hz()
+    t_int = m * n_bits ** 2 * (2 * words + 34) / (
+        props.multi_processor_count * INT32_PER_CLK_SM * clk) * 1e3
+    t_popc = m * n_bits ** 2 * words / (
+        props.multi_processor_count * POPC_PER_CLK_SM * clk) * 1e3
+    t_ops = max(t_int, t_popc)
+    t_bytes = (2 * m * k * 4 + 4 * m) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_cipu(dev) -> dict:
+    """Kernel B6 against its plain version and the integer SOP: ragged
+    cases, then one VGG-16 layer's SOP windows as the paper's 8x8 array
+    runs them (conv4_2, n=8, k = 3*3*T_n = 72) through simulate_pe_array."""
+    from repro_torch.core.cycle_model import (VGG16_CONV_LAYERS,
+                                              AcceleratorConfig, layer_cycles)
+    from repro_torch.kernels import msdf_ipu
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    checked = 0
+    for k in (1, 9, 27, 72, 100):
+        for n_bits in (4, 6, 8, 10):  # every width fits: 2n + 7 <= 31
+            for m in (1, 255, 1000):
+                a = torch.randint(0, 1 << n_bits, (m, k), generator=g,
+                                  device=dev, dtype=torch.int32)
+                b = torch.randint(0, 1 << n_bits, (m, k), generator=g,
+                                  device=dev, dtype=torch.int32)
+                got = msdf_ipu.cipu_array(a, b, n_bits)
+                require(torch.equal(got, msdf_ipu.cipu_array_plain(a, b,
+                                                                   n_bits))
+                        and torch.equal(got, msdf_ipu.int_sop_ref(a, b)),
+                        f"B6 != plain / int SOP at M={m} k={k} n={n_bits}")
+                checked += 1
+    print(f"phase 8a: B6 == plain == int SOP (bit for bit) on {checked} "
+          f"ragged cases", flush=True)
+
+    cfg = AcceleratorConfig()
+    layer = next(l for l in VGG16_CONV_LAYERS if l.name == "conv4_2")
+    k = cfg.macs_per_pe  # 72 = 3*3*T_n products per SOP window
+    m = layer.R * layer.C * layer.M * -(-layer.N // cfg.T_n)
+    a = torch.randint(0, 1 << cfg.n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, 1 << cfg.n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    reset_counts()
+    out = msdf_ipu.simulate_pe_array(a, b, cfg.n_bits)
+    torch.cuda.synchronize()
+    n = counts()
+    require(n == only(cipu_array=1), f"conv4_2 launches {n}, expected 1 B6")
+    chunk = 1 << 21
+    t0 = time.perf_counter()
+    for lo in range(0, m, chunk):
+        sl = slice(lo, min(lo + chunk, m))
+        require(torch.equal(out[sl], msdf_ipu.cipu_array_plain(
+            a[sl], b[sl], cfg.n_bits)),
+            f"B6 != plain cycle simulation in SOPs [{lo}, {sl.stop})")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for lo in range(0, m, chunk):
+        sl = slice(lo, min(lo + chunk, m))
+        require(torch.equal(out[sl], msdf_ipu.int_sop_ref(a[sl], b[sl])),
+                f"B6 != int SOP in SOPs [{lo}, {sl.stop})")
+    ms = time_ms(lambda: msdf_ipu.simulate_pe_array(a, b, cfg.n_bits),
+                 iters=5, warmup=1)
+    lib_ms = time_ms(lambda: (a * b).sum(-1, dtype=torch.int32), iters=3,
+                     warmup=1)
+    bound_ms, by = cipu_bound(m, k, cfg.n_bits)
+    del a, b, out
+    torch.cuda.empty_cache()
+    row = {"name": "conv4_2", "count": 1, "m": m, "k": k,
+           "n_bits": cfg.n_bits, "operands": "int32", "ms": ms,
+           "sops_per_s": m / ms * 1e3, "plain_ms": plain_ms,
+           "plain_checked_sops": m, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": by, "max_abs_err": 0,
+           "sm_clock_max_mhz": sm_clock_max_hz() / 1e6}
+    print("phase 8b: " + json.dumps(row), flush=True)
+    cycles = layer_cycles(layer, cfg, l2r=True)
+    print(f"phase 8b: B6 == plain cycle simulation == int SOP on all {m} "
+          f"conv4_2 SOPs (k={k}, n={cfg.n_bits}); library_ms is "
+          f"(a*b).sum(-1)", flush=True)
+    print(f"phase 8b: the paper's 45 nm accelerator model, not a card "
+          f"number: conv4_2 takes {cycles} cycles "
+          f"(cycle_model.layer_cycles), {cycles / cfg.freq_hz * 1e3} ms at "
+          f"{cfg.freq_hz / 1e6:.0f} MHz", flush=True)
+    return {"rows": [row], "launches": n["cipu_array"]}
+
+
+def phase_golden(dev) -> dict:
+    """examples/quickstart.py acts 1 and 5 on the card: one SOP of k=72
+    products of 8-bit operands (seed 0) through the golden model, and the
+    paper's accelerator model (45 nm, not this card)."""
+    from repro_torch.core import hw_model
+    from repro_torch.core.cycle_model import network_cycles, peak_gops
+    from repro_torch.core.ipu import simulate_cipu
+
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 256, (1, 72))
+    b = rng.integers(0, 256, (1, 72))
+    ta, tb = (torch.from_numpy(x.astype(np.int32)) for x in (a, b))
+    reset_counts()
+    trace = simulate_cipu(ta.to(dev), tb.to(dev), 8)
+    torch.cuda.synchronize()
+    require(counts() == only(), "the golden model launched a kernel")
+    exact = int((a * b).sum())
+    require(int(trace.final[0]) == exact,
+            f"golden model SOP {int(trace.final[0])} != exact {exact}")
+    cpu = simulate_cipu(ta, tb, 8)
+    sb = trace.stable_bits[0].cpu()
+    # the card's log may round a count differently (tests/test_torch_cuda.py)
+    sb_gap = int((sb - cpu.stable_bits[0]).abs().max())
+    require(sb_gap <= 1, f"golden model: stable-bit counts on the card are "
+            f"{sb_gap} from the CPU's (at most 1 allowed)")
+    t2 = hw_model.table2()
+    out = {"exact_sop": exact, "cipu_final": int(trace.final[0]),
+           "stable_msbs_at_cycles_1_8_16_32_64":
+               [int(sb[i - 1]) for i in (1, 8, 16, 32, 64)],
+           "stable_bits_max_gap_to_cpu": sb_gap,
+           "paper_45nm_model": {
+               "peak_gops_l2r": peak_gops(), "peak_gops_baseline":
+               peak_gops(l2r=False), "vgg16_speedup":
+               network_cycles(l2r=False) / network_cycles(),
+               "tops_w_l2r": t2["l2r_cipu"]["tops_w"],
+               "gops_mm2_l2r": t2["l2r_cipu"]["gops_mm2"],
+               "paper": {"peak_gops_l2r": 48.97, "peak_gops_baseline": 14.40,
+                         "vgg16_speedup": 3.40, "tops_w_l2r": 1.20,
+                         "gops_mm2_l2r": 200.45}}}
+    print("phase 9: " + json.dumps(out), flush=True)
+    return out
+
+
+def attn_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max |got - ref|, max of |got - ref| - rel * |ref|): the second is
+    what ATTN_TOL's abs term must cover."""
+    rel, _ = ATTN_TOL[ref.dtype]
+    d = (got.float() - ref.float()).abs()
+    return d.max().item(), (d - rel * ref.float().abs()).max().item()
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    q = np.arange(sq)[:, None]
+    kv = np.arange(skv)[None, :]
+    mask = np.ones((sq, skv), bool)
+    if causal:
+        mask &= kv <= q
+    if window is not None:
+        mask &= kv > q - window
+    return int(mask.sum())
+
+
+def attn_qkv(g, dev, b, sq, skv, h, kvh, dh, dtype):
+    q = torch.randn((b, sq, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, skv, kvh, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, skv, kvh, dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def sdpa(q, k, v, causal, window):
+    """The library yardstick: one scaled_dot_product_attention call on
+    (B, H, S, dh) copies, the kv heads repeated for GQA beforehand (with
+    ``enable_gqa`` an f32 call falls back to the full-matrix route)."""
+    import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.repeat_interleave(r, dim=2).transpose(1, 2).contiguous()
+                  for x, r in ((q, 1), (k, g), (v, g)))
+    mask = None
+    if window is not None:  # a boolean mask: True where a key is seen
+        pos_q = torch.arange(q.shape[1], device=q.device)[:, None]
+        pos_k = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = pos_k > pos_q - window
+        if causal:
+            mask &= pos_k <= pos_q
+    fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None)
+    return fn().transpose(1, 2), fn
+
+
+def attn_bound(b, h, dh, pairs, dtype, nbytes, qk_int8=False) -> tuple:
+    """QK^T and PV at 2*dh operations per visible pair each, at the peak
+    of their type (f32 CUDA cores for f32, bf16 tensor cores for bf16;
+    int8 tensor cores for B4's QK^T), against the bytes moved once."""
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    per = 2 * b * h * pairs * dh
+    t_ops = (per / (PEAK_INT8_OPS if qk_int8 else peak) + per / peak) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_attention(dev, l2r: bool) -> dict:
+    """Kernel B5 (``l2r=False``, through ops.flash_attention) or B4
+    (through flash_attention_l2r) against its plain version: the ragged
+    cases in f32 and bf16 (B4 at levels 1, 3 and full depth), then
+    SmolLM-135M's attention (H=9, Kv=3, dh=64) at a 2048-token prefill,
+    batch 8: causal f32, causal bf16 and window 512 f32, timed beside the
+    plain version, the bound and scaled_dot_product_attention."""
+    from repro_torch.core.l2r_attention import quantize_per_vector
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+
+    name = "flash_attention_l2r" if l2r else "flash_attention"
+    tag = "11" if l2r else "10"
+    kernel_fn = fa.flash_attention_l2r if l2r else fa.flash_attention
+    plain_fn = fa.flash_attention_l2r_plain if l2r \
+        else fa.flash_attention_kernel_plain
+    g = torch.Generator(device=dev).manual_seed(11 if l2r else 10)
+    checked = 0
+    worst = {dt: [0.0, -1.0] for dt in ATTN_TOL}  # max |d|, max excess
+    for (sq, skv, h, kvh, dh, causal, window) in ATTN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_qkv(g, dev, 2, sq, skv, h, kvh, dh, dtype)
+            for lv in ((1, 3, None) if l2r else (None,)):
+                kw = {"levels": lv} if l2r else {}
+                got = kernel_fn(q, k, v, causal=causal, window=window, **kw)
+                ref = plain_fn(q, k, v, causal=causal, window=window, **kw)
+                err, excess = attn_err(got, ref)
+                require(got.dtype == ref.dtype
+                        and excess <= ATTN_TOL[dtype][1],
+                        f"{name} != plain by {err} (beyond the relative "
+                        f"term: {excess}) at Sq={sq} Skv={skv} H={h} "
+                        f"Kv={kvh} dh={dh} causal={causal} window={window} "
+                        f"{dtype} levels={lv}")
+                worst[dtype] = [max(worst[dtype][0], err),
+                                max(worst[dtype][1], excess)]
+                checked += 1
+    print(f"phase {tag}a: {name} == plain on {checked} ragged cases within "
+          f"3e-5 (f32) and 2^-7 |ref| + {BF16_ABS} (bf16); f32 max |d| "
+          f"{worst[torch.float32][0]}; bf16 max |d| "
+          f"{worst[torch.bfloat16][0]}, max |d| - 2^-7 |ref| "
+          f"{worst[torch.bfloat16][1]}", flush=True)
+
+    b, s = ATTN_BATCH, ATTN_SEQ
+    h, kvh, dh = SMOLLM["h"], SMOLLM["kvh"], SMOLLM["dh"]
+    runs = [("causal_f32", torch.float32, None),
+            ("causal_bf16", torch.bfloat16, None),
+            (f"window{ATTN_WINDOW}_f32", torch.float32, ATTN_WINDOW)]
+    inputs = {r[0]: attn_qkv(g, dev, b, s, s, h, kvh, dh, r[1]) for r in runs}
+    reset_counts()
+    outs = {key: kernel_fn(*inputs[key], causal=True, window=window)
+            for key, _, window in runs}
+    torch.cuda.synchronize()
+    n = counts()
+    require(n == only(**{name: len(runs)}),
+            f"SmolLM-135M attention launches {n}, expected {len(runs)} of "
+            f"{name}")
+    rows = []
+    for key, dtype, window in runs:
+        q, k, v = inputs[key]
+        got = outs[key]
+        ref = plain_fn(q, k, v, causal=True, window=window)
+        err, excess = attn_err(got, ref)
+        print(f"phase {tag}b: {key}: max |d| {err}, max |d| - "
+              f"{ATTN_TOL[dtype][0]} |ref| {excess} (limit "
+              f"{ATTN_TOL[dtype][1]})", flush=True)
+        require(got.shape == q.shape and bool(torch.isfinite(got).all())
+                and excess <= ATTN_TOL[dtype][1],
+                f"{name} at SmolLM-135M {key}: max |d| {err} from plain, "
+                f"{excess} beyond the relative term")
+        if dtype == torch.bfloat16 and not l2r:
+            # the same function with p kept in f32 for PV, rounded once at
+            # the end: the bf16 limit must tell it from the kernel
+            unrounded = plain_fn(q, k, v.float(), causal=True,
+                                 window=window).to(dtype)
+            _, mut_excess = attn_err(unrounded, ref)
+            print(f"phase {tag}b: {key}: plain without p's rounding to "
+                  f"bf16: max |d| - 2^-7 |ref| {mut_excess} (must exceed "
+                  f"{BF16_ABS})", flush=True)
+            require(mut_excess > BF16_ABS,
+                    f"the bf16 limit does not see p's rounding to bf16 "
+                    f"({mut_excess} <= {BF16_ABS})")
+            del unrounded
+        del ref
+        ms = time_ms(lambda: kernel_fn(q, k, v, causal=True, window=window),
+                     iters=5, warmup=1)
+        plain_ms = time_ms(lambda: plain_fn(q, k, v, causal=True,
+                                            window=window), iters=3, warmup=1)
+        if l2r:  # the full-depth function: attention of the dequantized q, k
+            (qq, qs), (kq, ks) = (quantize_per_vector(x, QuantConfig())
+                                  for x in (q, k))
+            lq, lk = (qq.float() * qs).to(dtype), (kq.float() * ks).to(dtype)
+        else:
+            lq, lk = q, k
+        with no_tf32():
+            _, lib_fn = sdpa(lq, lk, v, True, window)
+            lib_ms = time_ms(lib_fn, iters=5, warmup=1)
+        pairs = visible_pairs(s, s, True, window)
+        elem = q.element_size()
+        nbytes = (2 * q.numel() + 2 * k.numel()) * elem
+        bound_ms, by = attn_bound(b, h, dh, pairs, dtype, nbytes,
+                                  qk_int8=l2r)
+        row = {"name": key, "count": 1, "B": b, "S": s, "H": h, "Kv": kvh,
+               "dh": dh, "dtype": str(dtype).split(".")[-1],
+               "window": window, "visible_pairs": pairs, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+        rows.append(row)
+        print(f"phase {tag}b: " + json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    print(f"phase {tag}b: {name} at SmolLM-135M widths within tolerance of "
+          f"plain; library_ms is scaled_dot_product_attention"
+          f"{' on the dequantized q, k' if l2r else ''}", flush=True)
+    return {"rows": rows, "launches": n[name]}
+
+
 def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
                  weight=lambda r: r["count"], **extra) -> dict:
     """The JSON record of one kernel: times per run of its main path (the
     per-shape medians weighted by the launches per run)."""
-    kid, replaces = KERNELS[lib]
+    kid, source, replaces = KERNELS[lib]
     tot = lambda key: sum(r[key] * weight(r) for r in rows)  # noqa: E731
     ops_ms = sum(r["bound_ms"] * weight(r) for r in rows
                  if r["bound_by"] == "operations")
     return {"name": lib, "id": kid, "route": "cuda",
-            "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
+            "source": source, "replaces": replaces,
             "checked": True, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
@@ -764,15 +1151,22 @@ def main() -> int:
     pairs = phase_pairs_path(dev, vgg)
     phase_protohead(dev)
     phase_conv_progressive(dev, vgg)
+    b1_launches, b1_images_per_s = vgg["launches"], vgg["images_per_s"]
+    del vgg  # the VGG-16 weights and batches: room for phase 8's operands
+    torch.cuda.empty_cache()
+    b6 = phase_cipu(dev)
+    phase_golden(dev)
+    b5 = phase_attention(dev, l2r=False)
+    b4 = phase_attention(dev, l2r=True)
 
     fc8 = lambda r: 1 if r["name"] == "fc8" else 0  # noqa: E731
     fc = lambda r: 1 if r["name"] in ("fc6", "fc7", "fc8") else 0  # noqa
     print(json.dumps({"kernels": [
-        kernel_entry("l2r_stacked_gemm", b1_rows, vgg["launches"],
+        kernel_entry("l2r_stacked_gemm", b1_rows, b1_launches,
                      f"one vgg16_apply forward at batch {BATCH} (sum over "
                      f"its 120 launches of the per-shape medians); launches "
                      f"over the 3 forwards of phase 3",
-                     images_per_s=vgg["images_per_s"]),
+                     images_per_s=b1_images_per_s),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -784,6 +1178,20 @@ def main() -> int:
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
                      f"(its 3 launches); launches over the 3 heads of "
                      f"phase 5", weight=fc),
+        kernel_entry("flash_attention_l2r", b4["rows"], b4["launches"],
+                     "the three SmolLM-135M attention calls of phase 11b "
+                     "(B=8, S=2048: causal f32, causal bf16, window 512 "
+                     "f32), full depth; library_ms is "
+                     "scaled_dot_product_attention on the dequantized q, k"),
+        kernel_entry("flash_attention", b5["rows"], b5["launches"],
+                     "the three SmolLM-135M attention calls of phase 10b "
+                     "(B=8, S=2048: causal f32, causal bf16, window 512 "
+                     "f32) through ops.flash_attention; library_ms is "
+                     "scaled_dot_product_attention"),
+        kernel_entry("cipu_array", b6["rows"], b6["launches"],
+                     "one simulate_pe_array call over conv4_2's 25,690,112 "
+                     "SOP windows (k=72, n=8, int32 operands); library_ms "
+                     "is (a*b).sum(-1)"),
     ]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

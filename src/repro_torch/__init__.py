@@ -2,9 +2,9 @@
 
 ``repro`` (JAX) is the reference; this package mirrors its layout and
 names and never imports it.  Entry points run on CUDA unless called
-with ``device="cpu"`` (:mod:`repro_torch.device`); every integer
-digit-plane GEMM on a CUDA tensor goes through the hand-written Hopper
-kernel in ``kernels/l2r_gemm/csrc``.
+with ``device="cpu"`` (:mod:`repro_torch.device`); every kernel of the
+reference has a hand-written Hopper counterpart under
+``kernels/*/csrc``, which a CUDA tensor always goes through.
 """
 
 from .device import no_tf32, resolve_device

@@ -22,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["sources", "build_all", "load", "BUILD_DIR"]
+__all__ = ["sources", "build_all", "load", "launch", "BUILD_DIR"]
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -101,3 +102,21 @@ def load(name: str) -> ctypes.CDLL:
             _finish(src, out, proc)
             lib = _LIBS[name] = ctypes.CDLL(str(out))
         return lib
+
+
+def launch(name: str, argtypes: list, dev, what: str, *args) -> None:
+    """Call the C entry ``name`` of ``csrc/<name>.cu`` (built on first use)
+    with ``args`` and the current stream of the card ``dev``.  The entry
+    returns a ``cudaError_t``; anything but 0 raises, naming ``what``."""
+    import torch
+
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(load(name), name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]  # the stream last
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({torch.cuda.get_device_name(dev)}, {what})")

@@ -1,0 +1,8 @@
+"""Flash attention: kernels B5 (float) and B4 (level-walk scores), their
+plain versions, the entry point and the full-matrix oracle."""
+
+from .kernel import (LAUNCHES, flash_attention_kernel,
+                     flash_attention_kernel_plain, flash_attention_l2r,
+                     flash_attention_l2r_plain)
+from .ops import flash_attention
+from .ref import attention_ref

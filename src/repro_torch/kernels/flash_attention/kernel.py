@@ -1,0 +1,291 @@
+"""Kernels B5 and B4: flash attention, float and with the MSDF level-walk
+scores, and their plain versions.
+
+* B5 (``csrc/flash_attention.cu``) replaces
+  ``repro/kernels/flash_attention/kernel.py:_kernel`` (entry
+  ``flash_attention_pallas``): online-softmax attention over KV tiles with
+  causal, window and key-length masks and GQA.
+* B4 (``csrc/flash_attention_l2r.cu``) replaces ``_l2r_kernel`` (entry
+  ``flash_attention_l2r_pallas``): the same, with each score tile built
+  by the static MSDF level walk over per-vector-quantized, pre-shifted
+  int8 plane stacks of q and k; ``levels`` truncates the walk.
+
+The two share the online softmax (``csrc/flash_softmax.cuh``).  Layouts
+are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv, dh), out
+(B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
+
+Each wrapper dispatches on the operands' device: a CUDA tensor launches
+the kernel (or raises), a CPU tensor takes the plain version.  The plain
+versions walk KV blocks with the reference's online softmax (``bkv``
+keys at a time, by default the kernels' own KV tile, so that the running
+max and the rounding of p to v's dtype follow the kernel's steps) in
+torch, true f32 (TF32 off).  ``LAUNCHES[name]``
+counts one kernel's launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core.l2r_attention import quantize_per_vector
+from repro_torch.core.l2r_gemm import wrap_int32
+from repro_torch.core.online import msdf_level_slices
+from repro_torch.core.quant import (QuantConfig, plane_count,
+                                    stack_planes_lhs, stack_planes_rhs)
+from repro_torch.device import no_tf32
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "flash_attention_kernel",
+           "flash_attention_kernel_plain", "flash_attention_l2r",
+           "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile"]
+
+#: kernel launches per library since the counts were last reset (plain
+#: calls are not counted)
+LAUNCHES = {"flash_attention": 0, "flash_attention_l2r": 0}
+
+_NEG = -1e30
+KV_TILE = 64  # keys per KV tile of both kernels (flash_softmax.cuh: kBKV)
+_MAX_DH = 128  # the kernels' widest head tile
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _I],
+    "flash_attention_l2r": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _I, _P, _P, _P, _I],
+}
+
+
+def _shapes(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, Sq, H, dh) and k, v (B, Skv, Kv, dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, dh = q.shape
+    _, skv, kvh, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != dh or h % kvh:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}: same batch and dh, and H a "
+                         f"multiple of Kv")
+    return b, sq, h, dh, skv, kvh
+
+
+def _gqa_rows(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, w) -> (B, Kv, G, S, w): q head h = kv * G + g."""
+    b, s, h, w = x.shape
+    return x.reshape(b, s, kvh, h // kvh, w).permute(0, 2, 3, 1, 4)
+
+
+def _gqa_keys(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, Kv, w) -> (B, Kv, 1, S, w)."""
+    return x.permute(0, 2, 1, 3).unsqueeze(2)
+
+
+def _online_softmax_plain(scores, v, sq: int, h: int, causal: bool,
+                          window: int | None, bkv: int) -> torch.Tensor:
+    """The reference kernel's online softmax in torch over KV blocks of
+    ``bkv`` keys: ``scores(lo, hi)`` gives the f32 (B, Kv, G, Sq, hi-lo)
+    scores of keys [lo, hi).  Returns (B, Sq, H, dh) in v's dtype."""
+    b, skv, kvh, dh = v.shape
+    dev = v.device
+    g = h // kvh
+    m = torch.full((b, kvh, g, sq, 1), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, dh), dtype=torch.float32, device=dev)
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    vt = _gqa_keys(v)
+    for lo in range(0, skv, bkv):
+        hi = min(lo + bkv, skv)
+        if causal and lo > sq - 1:  # the whole block lies above the band
+            break
+        kv_pos = torch.arange(lo, hi, device=dev)[None, :]
+        mask = torch.ones((sq, hi - lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_pos <= q_pos
+        if window is not None:
+            mask &= kv_pos > q_pos - window
+        s = torch.where(mask, scores(lo, hi), _NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).to(torch.float32),
+                          vt[:, :, :, lo:hi].to(torch.float32))
+        acc = acc * alpha + pv
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)).to(v.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+
+def _require(which: str, dh: int, *tensors, dtypes=None) -> None:
+    dev = tensors[0].device
+    for x in tensors:
+        if (x.device != dev or not x.is_contiguous()
+                or (dtypes is not None and x.dtype not in dtypes)):
+            raise ValueError(
+                f"kernel {which} takes contiguous tensors on one card"
+                f"{'' if dtypes is None else f' of dtype {dtypes}'}, got "
+                f"{x.dtype} on {x.device}")
+    if dh > _MAX_DH:
+        raise ValueError(f"kernel {which} takes dh <= {_MAX_DH}, got {dh}")
+
+
+# ------------------------------------------------------------ B5: float
+def flash_attention_kernel_plain(q, k, v, causal: bool = True,
+                                 window: int | None = None,
+                                 scale: float | None = None,
+                                 bkv: int = KV_TILE) -> torch.Tensor:
+    """Plain version of kernel B5: the reference kernel's online softmax
+    over blocks of ``bkv`` keys, f32 QK^T, p cast to v's dtype before PV."""
+    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qt = _gqa_rows(q, kvh).to(torch.float32)
+    kt = _gqa_keys(k).to(torch.float32)
+
+    def scores(lo, hi):
+        return torch.matmul(qt, kt[:, :, :, lo:hi].transpose(-1, -2)) * scale
+
+    with no_tf32():
+        return _online_softmax_plain(scores, v, sq, h, causal, window,
+                                     min(bkv, skv))
+
+
+def flash_attention_kernel(q, k, v, causal: bool = True,
+                           window: int | None = None,
+                           scale: float | None = None) -> torch.Tensor:
+    """Flash attention: kernel B5.  q (B, Sq, H, dh), k and v (B, Skv, Kv,
+    dh) -> (B, Sq, H, dh) in v's dtype.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches the
+    kernel: q, k, v contiguous, all f32 or all bf16, dh <= 128.
+    """
+    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_kernel_plain(q, k, v, causal, window, scale)
+    _require("B5", dh, q, k, v, dtypes=(torch.float32, torch.bfloat16))
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"kernel B5 takes q, k, v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    if 0 in (b, sq, h, dh, skv):
+        return out.zero_()
+    _build.launch("flash_attention", _ARGTYPES["flash_attention"], q.device,
+                  f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh}",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, sq, skv, h, kvh, dh, int(causal),
+                  int(window is not None), window or 0, scale,
+                  int(q.dtype == torch.bfloat16))
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+# ----------------------------------------------------- B4: level-walk QK^T
+def l2r_operands(q, k, n_bits: int = 8, log2_radix: int = 2):
+    """The host-side work around kernel B4, as the reference does it:
+    per-vector quantization of q and k, then pre-shifted plane stacks,
+    ascending for q (B, Sq, H, D*dh) and descending for k
+    (B, Skv, Kv, D*dh).  Returns (q_stack, q_scale, k_stack, k_scale), the
+    scales (..., 1) f32."""
+    cfg = QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
+    qq, qs = quantize_per_vector(q, cfg)
+    kq, ks = quantize_per_vector(k, cfg)
+    return (stack_planes_lhs(qq, n_bits, log2_radix), qs,
+            stack_planes_rhs(kq, n_bits, log2_radix, axis=-1), ks)
+
+
+def l2r_score_tile(q_stack, k_stack, n_bits: int = 8, log2_radix: int = 2,
+                   levels: int | None = None) -> torch.Tensor:
+    """The int32 score tile of the level walk: q_stack (..., Q, D*dh)
+    ascending and k_stack (..., S, D*dh) descending pre-shifted stacks ->
+    (..., Q, S), every level one contraction over a contiguous slice pair
+    (``msdf_level_slices``, truncated by ``levels``).  The dots run in f64,
+    exact for integers below 2^53 on any device, and wrap to int32 as the
+    reference's int32 accumulator does."""
+    d = plane_count(n_bits, log2_radix)
+    dh = q_stack.shape[-1] // d
+    acc = torch.zeros(torch.broadcast_shapes(q_stack.shape[:-2],
+                                             k_stack.shape[:-2])
+                      + (q_stack.shape[-2], k_stack.shape[-2]),
+                      dtype=torch.float64, device=q_stack.device)
+    for (s, i_lo, i_hi) in msdf_level_slices(d, levels):
+        a_l = q_stack[..., i_lo * dh:(i_hi + 1) * dh].to(torch.float64)
+        r0 = (d - 1 - s + i_lo) * dh
+        b_l = k_stack[..., r0:r0 + (i_hi - i_lo + 1) * dh].to(torch.float64)
+        acc += torch.matmul(a_l, b_l.transpose(-1, -2))
+    return wrap_int32(acc.to(torch.int64))
+
+
+def flash_attention_l2r_plain(q, k, v, n_bits: int = 8, log2_radix: int = 2,
+                              levels: int | None = None, causal: bool = True,
+                              window: int | None = None,
+                              scale: float | None = None,
+                              bkv: int = KV_TILE) -> torch.Tensor:
+    """Plain version of kernel B4: :func:`l2r_operands`, then the
+    reference kernel's online softmax over blocks of ``bkv`` keys with
+    each score ``s_int * q_scale * k_scale * scale`` (f32, that order)."""
+    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q_stack, qs, k_stack, ks = l2r_operands(q, k, n_bits, log2_radix)
+    qst, qsc = _gqa_rows(q_stack, kvh), _gqa_rows(qs, kvh)
+    kst = _gqa_keys(k_stack)
+    ksc = _gqa_keys(ks).transpose(-1, -2)  # (B, Kv, 1, 1, Skv)
+
+    def scores(lo, hi):
+        s_int = l2r_score_tile(qst, kst[:, :, :, lo:hi], n_bits, log2_radix,
+                               levels)
+        return s_int.to(torch.float32) * qsc * ksc[..., lo:hi] * scale
+
+    with no_tf32():
+        return _online_softmax_plain(scores, v, sq, h, causal, window,
+                                     min(bkv, skv))
+
+
+def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
+                        levels: int | None = None, causal: bool = True,
+                        window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Flash attention whose QK^T is the digit-serial level walk: kernel
+    B4.  Same layouts as :func:`flash_attention_kernel`; q and k are
+    quantized per vector here (:func:`l2r_operands`), v and the softmax
+    stay float, ``levels`` truncates the MSDF walk.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches the
+    kernel: int8 planes only (n_bits <= 8; wider configs have int16
+    planes and raise), v f32 or bf16, dh <= 128.
+    """
+    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_l2r_plain(q, k, v, n_bits, log2_radix, levels,
+                                         causal, window, scale)
+    if n_bits > 8:
+        raise ValueError(
+            f"kernel B4 takes int8 planes only; the config n_bits={n_bits}, "
+            f"log2_radix={log2_radix} has int16 planes and has no CUDA route")
+    if q.device != v.device or k.device != v.device:
+        raise ValueError(f"kernel B4 takes q, k, v on one card, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    _require("B4", dh, v, dtypes=(torch.float32, torch.bfloat16))
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    d = plane_count(n_bits, log2_radix)
+    q_stack, qs, k_stack, ks = l2r_operands(q, k, n_bits, log2_radix)
+    out = torch.empty((b, sq, h, dh), dtype=v.dtype, device=v.device)
+    if 0 in (b, sq, h, dh, skv):
+        return out.zero_()
+    slices = msdf_level_slices(d, levels)
+    arr = ctypes.c_int * max(len(slices), 1)
+    _build.launch(
+        "flash_attention_l2r", _ARGTYPES["flash_attention_l2r"], q.device,
+        f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh} D={d} "
+        f"levels={levels}",
+        q_stack.data_ptr(), qs.data_ptr(), k_stack.data_ptr(), ks.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, d, int(causal),
+        int(window is not None), window or 0, scale, len(slices),
+        arr(*(i_lo for _, i_lo, _ in slices)),
+        arr(*(d - 1 - s + i_lo for s, i_lo, _ in slices)),
+        arr(*(i_hi - i_lo + 1 for _, i_lo, i_hi in slices)),
+        int(v.dtype == torch.bfloat16))
+    LAUNCHES["flash_attention_l2r"] += 1
+    return out

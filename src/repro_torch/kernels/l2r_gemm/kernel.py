@@ -33,6 +33,7 @@ from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
 from repro_torch.core.online import msdf_level_slices, msdf_pairs
 from repro_torch.core.progressive import scan_plain
 from repro_torch.core.quant import PlaneOperands
+from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
            "level_table", "l2r_gemm_stacked_planes",
@@ -45,13 +46,11 @@ __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
 LAUNCHES = {"l2r_stacked_gemm": 0, "l2r_streaming_gemm": 0,
             "l2r_pairs_gemm": 0}
 
-_FNS: dict[str, ctypes._CFuncPtr] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                           _P],
-    "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+_ARGTYPES = {  # the C entries' arguments before the stream
+    "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -105,23 +104,8 @@ def _unshift(stack: torch.Tensor, side: str, n_bits: int, log2_radix: int,
     return po.core_stack(shifted=False)
 
 
-def _kernel_fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        from repro_torch.kernels._build import load
-
-        fn = getattr(load(name), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
-
-
 def _launch(name: str, dev: torch.device, shape: str, *args) -> None:
-    err = _kernel_fn(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({torch.cuda.get_device_name(dev)}, {shape})")
+    _build.launch(name, _ARGTYPES[name], dev, shape, *args)
     LAUNCHES[name] += 1
 
 

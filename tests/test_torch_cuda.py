@@ -1,5 +1,6 @@
-"""Kernels B1, B2 and B3 on the card, against their plain versions, and
-the progressive routes on the card against the same calls on the CPU.
+"""Kernels B1-B6 on the card, against their plain versions, and the
+progressive routes and the golden model on the card against the same
+calls on the CPU.
 
 Every test here needs a CUDA card (a hand-written kernel has no CPU
 mode) and skips without one.  The file imports neither jax nor repro,
@@ -15,6 +16,9 @@ import torch
 from repro_torch.core import progressive as tp
 from repro_torch.core.quant import (QuantConfig, quantize, quantize_weights,
                                     stack_planes_lhs, stack_planes_rhs)
+from repro_torch.core.ipu import simulate_cipu
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import msdf_ipu
 from repro_torch.kernels.l2r_gemm import kernel
 from repro_torch.kernels.l2r_gemm import ops
 
@@ -191,3 +195,119 @@ def test_conv_progressive_on_card_matches_cpu(dev, stride):
     acc, _, t, _ = ops.l2r_conv2d_progressive_while(x.to(dev), w_q=w_dev,
                                                      stride=stride)
     assert t == 7 and torch.equal(acc.cpu(), ref.partial[-1])
+
+
+# ------------------------------------------- B6: the PE-array simulator
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits", [4, 6, 8, 10])
+@pytest.mark.parametrize("k", [1, 9, 27, 72, 100])
+@pytest.mark.parametrize("m", [1, 127, 300])
+def test_b6_matches_plain_and_int_sop(dev, m, k, n_bits):
+    g = torch.Generator(device=dev).manual_seed(m * 1000 + k * 10 + n_bits)
+    a = torch.randint(0, 1 << n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, 1 << n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    got = msdf_ipu.cipu_array(a, b, n_bits)
+    assert torch.equal(got, msdf_ipu.cipu_array_plain(a, b, n_bits))
+    assert torch.equal(got, msdf_ipu.int_sop_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_b6_matches_golden_model_and_counts_launches(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randint(0, 256, (500, 72), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, 256, (500, 72), generator=g, device=dev,
+                      dtype=torch.int32)
+    before = msdf_ipu.LAUNCHES["cipu_array"]
+    got = msdf_ipu.simulate_pe_array(a, b)
+    assert msdf_ipu.LAUNCHES["cipu_array"] == before + 1
+    assert torch.equal(got, simulate_cipu(a, b).final)
+    with pytest.raises(ValueError, match="one card"):
+        msdf_ipu.cipu_array(a, b.cpu())
+    with pytest.raises(ValueError, match="SOP width"):
+        msdf_ipu.cipu_array(a, b, 13)  # 2*13 + ceil(log2 72) = 33 bits
+
+
+@pytest.mark.cuda
+def test_golden_model_on_card_matches_cpu(dev):
+    """simulate_cipu on CUDA tensors gives the CPU's final SOPs; its
+    stable-bit counts use the card's log, which may round differently."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(0, 256, (8, 72)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 256, (8, 72)).astype(np.int32))
+    ref = simulate_cipu(a, b)
+    got = simulate_cipu(a.to(dev), b.to(dev))
+    assert torch.equal(got.final.cpu(), ref.final)
+    assert (got.stable_bits.cpu() - ref.stable_bits).abs().max() <= 1
+
+
+# ------------------------------------------- B5 / B4: flash attention
+ATTN_CASES = [  # (sq, skv, h, kvh, dh, causal, window), after the JAX suite
+    (256, 256, 4, 2, 64, True, None),
+    (256, 256, 4, 1, 64, True, 64),
+    (200, 200, 2, 2, 32, True, None),
+    (128, 128, 8, 4, 64, False, None),
+    (64, 64, 2, 2, 128, True, 16),
+    (70, 130, 3, 1, 24, False, 40),
+    (40, 40, 2, 2, 16, True, 0),  # a window that masks every key
+]
+# |got - ref| <= rel * |ref| + abs against the plain version, which walks
+# the kernels' KV tiles: f32 the JAX suite's 3e-5; bf16 one ulp of the
+# output (at most 2^-7 |x|) plus 1e-4, as chip_smoke.py holds them
+ATTN_TOL = {torch.float32: (0.0, 3e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}
+
+
+def _qkv(dev, case, dtype, seed=0):
+    sq, skv, h, kvh, dh = case[:5]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((2, sq, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, skv, kvh, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, skv, kvh, dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def _close(got, ref, dtype):
+    rel, atol = ATTN_TOL[dtype]
+    d = (got.float() - ref.float()).abs() - rel * ref.float().abs()
+    assert got.dtype == ref.dtype and d.max().item() <= atol, d.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_b5_matches_plain(dev, case, dtype):
+    q, k, v = _qkv(dev, case, dtype)
+    causal, window = case[5:]
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal, window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_kernel_plain(q, k, v, causal, window),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_b4_matches_plain(dev, case, dtype, levels):
+    q, k, v = _qkv(dev, case, dtype)
+    causal, window = case[5:]
+    got = fa.flash_attention_l2r(q, k, v, levels=levels, causal=causal,
+                                 window=window)
+    _close(got, fa.flash_attention_l2r_plain(q, k, v, levels=levels,
+                                             causal=causal, window=window),
+           dtype)
+
+
+@pytest.mark.cuda
+def test_b4_b5_reject_what_they_do_not_take(dev):
+    q, k, v = _qkv(dev, (16, 16, 2, 1, 64), torch.float32)
+    with pytest.raises(ValueError, match="int16 planes"):
+        fa.flash_attention_l2r(q, k, v, n_bits=16, log2_radix=4)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention(q, k, v.to(torch.bfloat16))
+    big = torch.zeros((1, 4, 1, 192), device=dev)
+    with pytest.raises(ValueError, match="dh <= 128"):
+        fa.flash_attention(big, big, big)

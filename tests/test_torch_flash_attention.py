@@ -1,0 +1,161 @@
+"""Port parity: per-vector quantization, the flash attention entry point
+and the plain versions of kernels B5 and B4 (repro_torch.kernels.
+flash_attention) against repro's, on the same numpy inputs.
+
+Quantized integers, scales and B4's truncated int32 score tiles compare
+bit for bit, against the reference's quantization as it runs inside its
+jitted kernels: compiled, XLA turns ``amax / qmax`` into a multiply by
+f32(1/qmax) (the port's formula), while an eager call divides and may
+differ in the last bit of a scale.  Float outputs hold to the JAX suite's tolerances
+(tests/test_kernel_flash_attention.py): 3e-5 in f32 (both sides run an
+online softmax, in different summation orders) and 3e-2 in bf16 (p is
+rounded to bf16 before PV).  The kernels themselves run on the card only
+(tests/test_torch_cuda.py, chip_smoke.py); here the Pallas kernels run
+in interpret mode on one small case each.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import l2r_attention as jla
+from repro.core import quant as jq
+from repro.kernels import flash_attention as jfa
+from repro_torch.core import l2r_attention as tla
+from repro_torch.core import quant as tq
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels.flash_attention import kernel as tfk
+
+CASES = [
+    dict(sq=256, skv=256, h=4, kvh=2, dh=64, causal=True, window=None),
+    dict(sq=256, skv=256, h=4, kvh=1, dh=64, causal=True, window=64),
+    dict(sq=200, skv=200, h=2, kvh=2, dh=32, causal=True, window=None),
+    dict(sq=128, skv=128, h=8, kvh=4, dh=64, causal=False, window=None),
+    dict(sq=64, skv=64, h=2, kvh=2, dh=128, causal=True, window=16),
+]
+F32_TOL, BF16_TOL = 3e-5, 3e-2
+# bf16 on the same KV tiles as the reference: one ulp of the output (at
+# most 2^-7 |x|) plus 1e-4, the limit chip_smoke.py holds the kernels to
+BF16_TILED_REL, BF16_TILED_ABS = 2.0 ** -7, 1e-4
+_jquant = jax.jit(jla.quantize_per_vector, static_argnames="cfg")
+
+
+def _qkv(rng, b, sq, skv, h, kvh, dh):
+    return (rng.standard_normal((b, sq, h, dh)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, dh)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, dh)).astype(np.float32))
+
+
+def _t(*xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) for x in xs]
+
+
+def _j(*xs, dtype=jnp.float32):
+    return [jnp.asarray(x, dtype) for x in xs]
+
+
+@pytest.mark.parametrize("n_bits,log2_radix", [(8, 2), (4, 1), (16, 4)])
+def test_quantize_per_vector_bit_identical(n_bits, log2_radix):
+    rng = np.random.default_rng(n_bits)
+    x = (rng.standard_normal((2, 5, 3, 16)) * 2).astype(np.float32)
+    x[0, 1, 2] = 0.0  # an all-zero vector: the scale's clamp
+    x[1, 2, 0, 3] = 0.5 * np.abs(x[1, 2, 0]).max()  # a tie-prone value
+    j_cfg = jq.QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
+    t_cfg = tq.QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
+    jqv, js = _jquant(jnp.asarray(x), j_cfg)
+    tqv, ts = tla.quantize_per_vector(torch.from_numpy(x), t_cfg)
+    assert str(tqv.dtype).split(".")[-1] == str(jqv.dtype)
+    np.testing.assert_array_equal(tqv.numpy(), np.asarray(jqv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_plain_vs_oracle(case):
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 2, case["sq"], case["skv"], case["h"], case["kvh"],
+                   case["dh"])
+    ref = np.asarray(jfa.attention_ref(*_j(q, k, v), causal=case["causal"],
+                                       window=case["window"]))
+    tq_, tk, tv = _t(q, k, v)
+    for got in (tfa.flash_attention_kernel_plain(tq_, tk, tv, case["causal"],
+                                                 case["window"]),
+                tfa.flash_attention(tq_, tk, tv, case["causal"],
+                                    case["window"]),
+                tfa.attention_ref(tq_, tk, tv, case["causal"],
+                                  case["window"])):
+        np.testing.assert_allclose(got.numpy(), ref, atol=F32_TOL)
+
+
+def test_flash_plain_bf16_vs_oracle():
+    rng = np.random.default_rng(2)
+    q, k, v = _qkv(rng, 1, 128, 128, 4, 2, 64)
+    ref = jfa.attention_ref(*_j(q, k, v, dtype=jnp.bfloat16))
+    got = tfa.flash_attention(*_t(q, k, v, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype,window", [("float32", 24), ("bfloat16", 24),
+                                          ("float32", 0)])
+def test_flash_plain_vs_pallas_interpret(dtype, window):
+    """window=0 masks every key: the kernel's rows come out 0 (the
+    full-matrix oracle would give the mean of v; ROADMAP Queue C)."""
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 1, 40, 40, 4, 2, 16)
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jfa.flash_attention_pallas(*_j(q, k, v, dtype=jt), causal=True,
+                                     window=window, bq=16, bkv=16,
+                                     interpret=True)
+    got = tfa.flash_attention_kernel_plain(*_t(q, k, v, dtype=tt),
+                                           causal=True, window=window,
+                                           bkv=16)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   rtol=BF16_TILED_REL, atol=BF16_TILED_ABS)
+
+
+B4_SHAPE = (1, 16, 2, 1, 8)  # b, s, h, kvh, dh of tests/test_l2r_attention.py
+
+
+@pytest.mark.parametrize("levels", [1, 4, None])
+def test_flash_l2r_plain_vs_pallas_interpret(levels):
+    b, s, h, kvh, dh = B4_SHAPE
+    q, k, v = _qkv(np.random.default_rng(16), b, s, s, h, kvh, dh)
+    ref = jfa.flash_attention_l2r_pallas(*_j(q, k, v), levels=levels, bq=8,
+                                         bkv=8, interpret=True)
+    tq_, tk, tv = _t(q, k, v)
+    for got in (tfa.flash_attention_l2r_plain(tq_, tk, tv, levels=levels,
+                                              bkv=8),
+                tfa.flash_attention_l2r(tq_, tk, tv, levels=levels)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=F32_TOL)
+
+
+@pytest.mark.parametrize("levels", [0, 1, 4, None])
+def test_flash_l2r_score_tile_bit_identical(levels):
+    """B4's int32 score tile after ``levels`` levels equals the
+    reference's quantized-score walk (attn_scores_stacked)."""
+    b, s, h, kvh, dh = B4_SHAPE
+    q, k, _ = _qkv(np.random.default_rng(16), b, s, s, h, kvh, dh)
+    g = h // kvh
+    cfg = jq.QuantConfig()
+    qq, _ = _jquant(jnp.asarray(q), cfg)
+    kq, _ = _jquant(jnp.asarray(k), cfg)
+    ref = jla.attn_scores_stacked(qq.reshape(b, s, kvh, g, dh), kq,
+                                  levels=levels)  # (B, Kv, G, Q, S)
+    q_stack, _, k_stack, _ = tfk.l2r_operands(*_t(q, k))
+    np.testing.assert_array_equal(
+        q_stack.numpy(), np.asarray(jq.stack_planes_lhs(qq)))
+    np.testing.assert_array_equal(
+        k_stack.numpy(), np.asarray(jq.stack_planes_rhs(kq, axis=-1)))
+    got = tfk.l2r_score_tile(
+        q_stack.reshape(b, s, kvh, g, -1).permute(0, 2, 3, 1, 4),
+        k_stack.permute(0, 2, 1, 3).unsqueeze(2), levels=levels)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

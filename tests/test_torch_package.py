@@ -3,8 +3,8 @@
 * ``repro_torch`` imports neither jax nor any module of ``repro``;
 * entry points with no ``device=`` on a host without CUDA raise rather
   than run on the CPU;
-* the kernel wrappers (B1, B2, B3) on a CPU tensor take the plain
-  versions and never build a kernel.  (A CUDA tensor cannot be tried on a host without a
+* the kernel wrappers (B1-B6) and the entry points above them on a CPU
+  tensor take the plain versions and never build a kernel.  (A CUDA tensor cannot be tried on a host without a
   card: tests/test_torch_cuda.py and chip_smoke.py cover that route.)
 """
 
@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import msdf_ipu
 from repro_torch.kernels.l2r_gemm import kernel
 from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
 
@@ -29,7 +31,15 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.kernels.l2r_gemm.ops",
                 "repro_torch.kernels.l2r_gemm.ref",
                 "repro_torch.configs.vgg16_l2r", "repro_torch.models.cnn",
-                "repro_torch.models.convert", "repro_torch.models.protohead"]
+                "repro_torch.models.convert", "repro_torch.models.protohead",
+                "repro_torch.core.ipu", "repro_torch.core.hw_model",
+                "repro_torch.core.l2r_attention",
+                "repro_torch.kernels.msdf_ipu",
+                "repro_torch.kernels.msdf_ipu.ops",
+                "repro_torch.kernels.msdf_ipu.ref",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.flash_attention.ref"]
 
 
 def _env():
@@ -101,7 +111,7 @@ def test_wrapper_on_cpu_takes_plain_version_without_building(monkeypatch):
         raise AssertionError(f"tried to build {name} for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", no_build)
-    monkeypatch.setattr(kernel, "_FNS", {})
+    monkeypatch.setattr(_build, "_FNS", {})
     before = dict(kernel.LAUNCHES)
     a = torch.randint(-128, 128, (6, 5), dtype=torch.int8)
     b = torch.randint(-128, 128, (5, 4), dtype=torch.int8)
@@ -111,12 +121,37 @@ def test_wrapper_on_cpu_takes_plain_version_without_building(monkeypatch):
     assert torch.equal(got, exact)
     assert torch.equal(kernel.l2r_gemm_streaming_planes(sa, sb)[-1], exact)
     assert torch.equal(kernel.l2r_gemm_pairs(a, b), exact)
-    assert kernel.LAUNCHES == before and kernel._FNS == {}
+    assert kernel.LAUNCHES == before and _build._FNS == {}
+
+
+def test_slice3_entry_points_on_cpu_take_plain_versions(monkeypatch):
+    """simulate_pe_array (B6) and flash_attention / flash_attention_l2r
+    (B5, B4) on CPU tensors run the plain versions: no build, no launch."""
+    def no_build(name):
+        raise AssertionError(f"tried to build {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "_FNS", {})
+    before = (dict(msdf_ipu.LAUNCHES), dict(fa.LAUNCHES))
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(0, 256, (5, 9), generator=g, dtype=torch.int32)
+    b = torch.randint(0, 256, (5, 9), generator=g, dtype=torch.int32)
+    assert torch.equal(msdf_ipu.simulate_pe_array(a, b),
+                       (a * b).sum(-1, dtype=torch.int32))
+    q, k, v = (torch.randn((1, 8, 2, 16), generator=g) for _ in range(3))
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention_kernel_plain(q, k, v))
+    assert torch.equal(fa.flash_attention_l2r(q, k, v, levels=3),
+                       fa.flash_attention_l2r_plain(q, k, v, levels=3))
+    assert (dict(msdf_ipu.LAUNCHES), dict(fa.LAUNCHES)) == before
+    assert _build._FNS == {}
 
 
 def test_build_finds_the_sources_and_builds_into_an_ignored_directory():
     srcs = _build.sources()
-    for name in kernel.LAUNCHES:  # one library per kernel, one count each
+    names = [*kernel.LAUNCHES, *msdf_ipu.LAUNCHES, *fa.LAUNCHES]
+    assert sorted(names) == sorted(srcs)  # one library per kernel
+    for name in names:  # ... and one count each
         assert srcs[name].name == f"{name}.cu"
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
