@@ -11,9 +11,15 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged shapes (K=3 and M<=16 included) at every listed ``levels``,
      then every distinct GEMM shape of a VGG-16 forward at batch 8, each
      timed (CUDA events) beside its plain version, its bound and
-     ``torch._int_mm`` on the unstacked operands.  2a/2b kernel B1 (the
-     level-stacked GEMM), 2c/2d kernel B2 (the per-level snapshot stream;
-     also ``level_count`` and ``out=``), 2e/2f kernel B3 (the pair loop);
+     ``torch._int_mm`` on the unstacked operands (B1 also as
+     ``kernel_ms``, over back-to-back launches).  2a/2b kernel B1 (the
+     level-stacked GEMM) on both of its routes: prefix tables (the
+     collapsed products) at every ``levels`` and the one-level slabs of
+     the early-exit loop (plane pairs) at every ``first_level``, with B
+     K-major (the weight cache's layout) and row-major, ragged M, N, K
+     and the split-K FC shapes included; 2c/2d kernel B2 (the per-level
+     snapshot stream; also ``level_count`` and ``out=``), 2e/2f kernel
+     B3 (the pair loop);
   3. VGG-16 at its published width (224x224, 1000 classes, seeded
      He-normal weights) serving 3 batches of 8 images through
      ``vgg16_apply(..., l2r=QuantConfig())``: 120 B1 launches per
@@ -52,7 +58,9 @@ Phases (any failure exits non-zero; nothing is caught):
      ``BF16_ABS``), then SmolLM-135M's attention (H=9, Kv=3, dh=64) at a
      2048-token prefill, batch 8 (causal f32, causal bf16, window 512
      f32), timed beside the plain version, the bound and
-     ``scaled_dot_product_attention``.  Once, at the causal bf16 shape,
+     ``scaled_dot_product_attention``; B4 also as ``kernel_ms``, the
+     launch alone on operands quantized beforehand (10 back-to-back
+     launches between two CUDA events), beside the wrapper's ``ms``.  Once, at the causal bf16 shape,
      a plain version without the rounding of p to bf16 must fail the
      bf16 limit: the limit sees that rounding.
 Then one JSON line per kernel (B1-B6), the card again, and the result
@@ -87,6 +95,7 @@ BATCH = 8
 RAGGED = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (17, 48, 33),
           (300, 128, 96)]
 RAGGED_CONFIGS = [(8, 2), (8, 1), (8, 4), (4, 2)]
+SPLIT_K = [(8, 4096, 1000), (16, 300, 130), (3, 1000, 77)]  # M <= 16
 LEVELS = [None, 0, 1, 3, 7]
 PORT = "src/repro_torch/kernels"
 PALLAS = "src/repro/kernels"
@@ -161,6 +170,22 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def stream_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Time of one call in a run of ``iters`` back-to-back calls, CUDA
+    events around the run: the card's time when each call's host work
+    is shorter than its kernel."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_ms(fn) -> float:
     """Host clock around one call that ends in a synchronize."""
     torch.cuda.synchronize()
@@ -224,55 +249,98 @@ def max_err(got, ref) -> int:
                ) if got.numel() else 0
 
 
+def k_major(b_rev: torch.Tensor) -> torch.Tensor:
+    """The (D*K, N) stack with its contraction innermost in memory: the
+    layout of the weight caches (``quantize_weights(..., k_major=True)``),
+    which kernel B1 reads in place."""
+    return b_rev.t().contiguous().t()
+
+
 def phase_kernel(dev) -> list[dict]:
     from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
     from repro_torch.kernels.l2r_gemm import kernel
 
     g = torch.Generator(device=dev).manual_seed(0)
     checked = 0
-    for (m, k, n) in RAGGED:
+    for (m, k, n) in RAGGED + SPLIT_K:
         for n_bits, log2_radix in RAGGED_CONFIGS:
+            d = n_bits // log2_radix
             a, b = operands(g, dev, m, k, n, n_bits)
             sa = stack_planes_lhs(a, n_bits, log2_radix)
             sb = stack_planes_rhs(b, n_bits, log2_radix)
-            for lv in LEVELS:
-                got = kernel.l2r_gemm_stacked_planes(sa, sb, n_bits,
-                                                     log2_radix, lv)
+            sbk = k_major(sb)
+            # the prefix route: every truncation, B in both layouts
+            for lv in [None] + list(range(2 * d)):
                 ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, n_bits,
                                                            log2_radix, lv)
-                require(torch.equal(got, ref),
-                        f"B1 != plain at M={m} K={k} N={n} n_bits={n_bits} "
-                        f"log2_radix={log2_radix} levels={lv}")
-                checked += 1
+                for rhs in (sbk, sb):
+                    got = kernel.l2r_gemm_stacked_planes(sa, rhs, n_bits,
+                                                         log2_radix, lv)
+                    require(torch.equal(got, ref),
+                            f"B1 != plain at M={m} K={k} N={n} n_bits="
+                            f"{n_bits} log2_radix={log2_radix} levels={lv} "
+                            f"({'K-major' if rhs is sbk else 'row-major'})")
+                    checked += 1
+            # the plane-pair route: each one-level slab of the early-exit
+            # loop, added into a running sum as the loop does
+            acc = torch.zeros((m, n), dtype=torch.int32, device=dev)
+            for t in range(2 * d - 1):
+                kernel.l2r_gemm_stacked_planes(sa, sbk, n_bits, log2_radix,
+                                               levels=t + 1, first_level=t,
+                                               out=acc)
+                slab = kernel.l2r_gemm_stacked_planes(
+                    sa, sbk, n_bits, log2_radix, levels=t + 1, first_level=t)
+                require(torch.equal(slab, kernel.l2r_gemm_stacked_planes_plain(
+                    sa, sb, n_bits, log2_radix, t + 1, first_level=t)),
+                    f"B1 level slab {t} != plain at M={m} K={k} N={n} "
+                    f"n_bits={n_bits} log2_radix={log2_radix}")
+                require(torch.equal(acc, kernel.l2r_gemm_stacked_planes_plain(
+                    sa, sb, n_bits, log2_radix, t + 1)),
+                    f"B1 slabs 0..{t} != prefix at M={m} K={k} N={n} "
+                    f"n_bits={n_bits} log2_radix={log2_radix}")
+                checked += 2
             acc = torch.full((m, n), 7, dtype=torch.int32, device=dev)
-            kernel.l2r_gemm_stacked_planes(sa, sb, n_bits, log2_radix,
+            kernel.l2r_gemm_stacked_planes(sa, sbk, n_bits, log2_radix,
                                            out=acc)
             require(torch.equal(acc, kernel.l2r_gemm_stacked_planes_plain(
                 sa, sb, n_bits, log2_radix) + 7),
                 f"B1 out= accumulation wrong at M={m} K={k} N={n}")
     print(f"phase 2a: B1 == plain (bit for bit) on {checked} ragged "
-          f"cases, levels {LEVELS}, configs {RAGGED_CONFIGS}", flush=True)
+          f"cases: prefix tables at every levels (B K-major and row-major), "
+          f"one-level slabs at every first_level, out=; shapes "
+          f"{RAGGED + SPLIT_K}, configs {RAGGED_CONFIGS}", flush=True)
 
     rows = []
     for sh in main_path_shapes():
         m, k, n, acc_mode = sh["m"], sh["k"], sh["n"], sh["accumulate"]
         a, b = operands(g, dev, m, k, n, 8)
         sa, sb = stack_planes_lhs(a), stack_planes_rhs(b)
+        sbk = k_major(sb)  # as the weight cache holds it
         for lv in (None, 3):
-            got = kernel.l2r_gemm_stacked_planes(sa, sb, levels=lv)
+            got = kernel.l2r_gemm_stacked_planes(sa, sbk, levels=lv)
             ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, levels=lv)
             require(torch.equal(got, ref),
                     f"B1 != plain at {sh['name']} M={m} K={k} N={n} "
                     f"levels={lv}")
         err = max_err(got, ref)
+        del got, ref
+        for t in range(1, N_LEVELS):  # the plane-pair route, level slabs
+            require(torch.equal(
+                kernel.l2r_gemm_stacked_planes(sa, sbk, levels=t + 1,
+                                               first_level=t),
+                kernel.l2r_gemm_stacked_planes_plain(sa, sb, levels=t + 1,
+                                                     first_level=t)),
+                f"B1 level slab {t} != plain at {sh['name']}")
         out = torch.zeros((m, n), dtype=torch.int32, device=dev) \
             if acc_mode else None
-        ms = time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sb, out=out))
+        ms = time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sbk, out=out))
+        kernel_ms = stream_ms(
+            lambda: kernel.l2r_gemm_stacked_planes(sa, sbk, out=out))
         plain_ms = time_ms(
             lambda: kernel.l2r_gemm_stacked_planes_plain(sa, sb, out=out),
             iters=3, warmup=1)
         lib, lib_fn, padded = int_mm(a, b)
-        require(torch.equal(lib, kernel.l2r_gemm_stacked_planes(sa, sb)),
+        require(torch.equal(lib, kernel.l2r_gemm_stacked_planes(sa, sbk)),
                 f"torch._int_mm disagrees with B1 at {sh['name']}")
         d = 4  # planes of the main path's config (n=8, radix 4)
         # at full depth the function is aq @ bq (mod 2^32): 2*M*N*K int8
@@ -280,13 +348,14 @@ def phase_kernel(dev) -> list[dict]:
         bound_ms, by = bound(
             2 * m * n * k,
             m * d * k + d * k * n + m * n * 4 * (2 if acc_mode else 1))
-        row = {**sh, "ms": ms, "plain_ms": plain_ms,
+        row = {**sh, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
                "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
         rows.append(row)
         print("phase 2b: " + json.dumps(row), flush=True)
     print(f"phase 2b: B1 == plain (bit for bit) at all {len(rows)} VGG-16 "
-          f"shapes, levels None and 3", flush=True)
+          f"shapes, B K-major: levels None and 3 (prefix route), level "
+          f"slabs 1..{N_LEVELS - 1} (plane-pair route)", flush=True)
     return rows
 
 
@@ -428,11 +497,14 @@ def phase_pairs(dev) -> list[dict]:
 
 _WALK = (re.compile(r"walk_kernel<\d+, ?\d+, ?\d+, ?(?:true|false), ?(\d)>"),
          re.compile(r"walk_kernelILi\d+ELi\d+ELi\d+ELb[01]ELi(\d)E"))
+_B1 = re.compile(r"stacked_kernel")
 
 
 def kernel_id(name: str) -> str | None:
-    """B1/B2/B3 for a profiler kernel name of the level-walk template
-    (mode 0/1/2), None for any other kernel."""
+    """B1 for a profiler kernel name of B1's kernel, B2/B3 for one of the
+    level-walk template (mode 1/2), None for any other kernel."""
+    if _B1.search(name):
+        return "B1"
     for pat in _WALK:
         hit = pat.search(name)
         if hit:
@@ -1071,6 +1143,16 @@ def phase_attention(dev, l2r: bool) -> dict:
         del ref
         ms = time_ms(lambda: kernel_fn(q, k, v, causal=True, window=window),
                      iters=5, warmup=1)
+        extra = {}
+        if l2r:  # the launch alone, on operands quantized beforehand
+            ops = fa.l2r_kernel_operands(q, k, v)
+            require(torch.equal(fa.flash_attention_l2r_launch(
+                ops, dh, causal=True, window=window), got),
+                f"{name} launch on prepared operands differs at {key}")
+            extra["kernel_ms"] = stream_ms(
+                lambda: fa.flash_attention_l2r_launch(ops, dh, causal=True,
+                                                      window=window))
+            del ops
         plain_ms = time_ms(lambda: plain_fn(q, k, v, causal=True,
                                             window=window), iters=3, warmup=1)
         if l2r:  # the full-depth function: attention of the dequantized q, k
@@ -1091,7 +1173,8 @@ def phase_attention(dev, l2r: bool) -> dict:
                "dh": dh, "dtype": str(dtype).split(".")[-1],
                "window": window, "visible_pairs": pairs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+               **extra}
         rows.append(row)
         print(f"phase {tag}b: " + json.dumps(row), flush=True)
         torch.cuda.empty_cache()
@@ -1107,6 +1190,8 @@ def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
     per-shape medians weighted by the launches per run)."""
     kid, source, replaces = KERNELS[lib]
     tot = lambda key: sum(r[key] * weight(r) for r in rows)  # noqa: E731
+    if all("kernel_ms" in r for r in rows):  # back-to-back launches
+        extra = {"kernel_ms": tot("kernel_ms"), **extra}
     ops_ms = sum(r["bound_ms"] * weight(r) for r in rows
                  if r["bound_by"] == "operations")
     return {"name": lib, "id": kid, "route": "cuda",
@@ -1164,8 +1249,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("l2r_stacked_gemm", b1_rows, b1_launches,
                      f"one vgg16_apply forward at batch {BATCH} (sum over "
-                     f"its 120 launches of the per-shape medians); launches "
-                     f"over the 3 forwards of phase 3",
+                     f"its 120 launches of the per-shape medians; kernel_ms "
+                     f"from back-to-back launches); launches over the 3 "
+                     f"forwards of phase 3",
                      images_per_s=b1_images_per_s),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
@@ -1181,7 +1267,8 @@ def main() -> int:
         kernel_entry("flash_attention_l2r", b4["rows"], b4["launches"],
                      "the three SmolLM-135M attention calls of phase 11b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
-                     "f32), full depth; library_ms is "
+                     "f32), full depth; ms is the wrapper (quantization "
+                     "included), kernel_ms the launch alone; library_ms is "
                      "scaled_dot_product_attention on the dequantized q, k"),
         kernel_entry("flash_attention", b5["rows"], b5["launches"],
                      "the three SmolLM-135M attention calls of phase 10b "

@@ -17,6 +17,8 @@ __all__ = [
     "msdf_pairs",
     "msdf_levels",
     "msdf_level_slices",
+    "msdf_products",
+    "plane_bits",
     "tail_bound",
     "online_delay",
 ]
@@ -70,6 +72,49 @@ def msdf_level_slices(
     for s in lv:
         out.append((s, max(0, s - planes + 1), min(s, planes - 1)))
     return out
+
+
+def msdf_products(
+    planes: int, levels: int | None = None, first_level: int = 0
+) -> List[Tuple[int, int, int, int]]:
+    """The walk of levels ``[first_level, levels)`` as plane-range
+    products ``[(i_lo, i_hi, j_lo, j_hi)]``: the walk's sum is the sum
+    over the list of ``(sum of A planes i_lo..i_hi) . (sum of B planes
+    j_lo..j_hi)``, on pre-shifted planes (quant.py:shifted_planes).
+
+    A pre-shifted plane is a bit-field of its operand, so a plane range
+    is the operand under a bit mask (:func:`plane_bits`) and fits the
+    operand's type.  A prefix (``first_level == 0``) of L levels holds
+    the pairs i + j >= 2D-1-L: plane i meets the B planes from
+    j0(i) = 2D-1-L-i up to the top, a range that ends at the top plane.
+    Every i whose j0(i) reaches the lowest B plane in play shares one
+    product, so the prefix is at most D products and at full depth one,
+    ``a . b``.  A table that starts above level 0 gets no such collapse:
+    it runs as its plane pairs, one product each, in MSDF order.
+    int32 sums wrap identically in any order, so every form gives the
+    level walk's bits.
+    """
+    n_lv = 2 * planes - 1 if levels is None else min(levels, 2 * planes - 1)
+    if first_level:
+        lv = msdf_levels(planes)[first_level:n_lv]
+        return [(i, i, s - i, s - i) for s in lv
+                for i in range(min(s, planes - 1), max(0, s - planes + 1) - 1,
+                               -1)]
+    if n_lv <= 0:
+        return []
+    j_min = max(0, planes - n_lv)    # the lowest plane in any pair
+    t = 2 * planes - 1 - n_lv - j_min  # planes i >= t pair with j >= j_min
+    return ([(i, i, 2 * planes - 1 - n_lv - i, planes - 1)
+             for i in range(j_min, t)] + [(t, planes - 1, j_min, planes - 1)])
+
+
+def plane_bits(planes: int, log2_radix: int, lo: int, hi: int) -> int:
+    """The byte mask of pre-shifted planes ``lo..hi`` of an int8 operand:
+    plane i < D-1 keeps bits [b*i, b*(i+1)); the top plane keeps bit
+    b*(D-1) and every bit above it, the sign extension included, so
+    ``x & mask`` read as int8 is the planes' sum."""
+    top = 8 if hi == planes - 1 else log2_radix * (hi + 1)
+    return ((1 << top) - 1) & ~((1 << (log2_radix * lo)) - 1)
 
 
 def tail_bound(

@@ -260,15 +260,21 @@ class PlaneOperands:
     def prepare_rhs(cls, wq: torch.Tensor, n_bits: int = 8,
                     log2_radix: int = 2, axis: int = 0,
                     shifted: bool = False,
-                    window_pad: bool = False) -> "PlaneOperands":
+                    window_pad: bool = False,
+                    k_major: bool = False) -> "PlaneOperands":
         """Stack RHS planes once: contraction ``axis`` grows to D*K
-        (plus D-1 zero blocks with ``window_pad``)."""
+        (plus D-1 zero blocks with ``window_pad``).  ``k_major`` keeps
+        the same tensor with the contraction axis innermost in memory
+        (kernel B1 reads each output channel's D*K bytes contiguously);
+        the values and the shape are unchanged."""
         ax = axis if axis < 0 else axis - wq.ndim
         st = stack_planes_rhs(wq, n_bits, log2_radix, axis=ax,
                               shifted=shifted)
         k = wq.shape[ax]
         pad = plane_count(n_bits, log2_radix) - 1 if window_pad else 0
         st = _pad_blocks(st, ax % st.ndim, pad * k)
+        if k_major:
+            st = st.movedim(ax, -1).contiguous().movedim(-1, ax)
         return cls(st, "rhs", n_bits, log2_radix, k, ax, shifted, pad)
 
     def describe(self) -> str:
@@ -367,6 +373,7 @@ def quantize_weights(
     plane_axis: int | None = None,
     window_pad: bool = False,
     plane_shifted: bool = False,
+    k_major: bool = False,
 ) -> QuantizedWeights:
     """Symmetric per-channel weight quantization -> :class:`QuantizedWeights`.
 
@@ -376,7 +383,9 @@ def quantize_weights(
     the layout ``plane_shifted`` picks — True is the kernel's own operand
     format, so the conversion happens once here instead of per call.
     ``window_pad`` appends the D-1 zero plane blocks of the plain
-    streaming window to that cache.
+    streaming window to that cache.  ``k_major`` lays the cache out with
+    its contraction axis innermost in memory, the layout kernel B1 reads
+    (made here, once, not per forward).
     """
     wf = w.to(torch.float32)
     q, scale = _symmetric_quant(
@@ -388,5 +397,6 @@ def quantize_weights(
                        where="quantize_weights")
         planes = PlaneOperands.prepare_rhs(q, cfg.n_bits, cfg.log2_radix,
                                            axis=axis, shifted=plane_shifted,
-                                           window_pad=window_pad)
+                                           window_pad=window_pad,
+                                           k_major=k_major)
     return QuantizedWeights(q, scale, planes)

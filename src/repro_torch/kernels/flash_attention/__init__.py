@@ -3,6 +3,7 @@ plain versions, the entry point and the full-matrix oracle."""
 
 from .kernel import (LAUNCHES, flash_attention_kernel,
                      flash_attention_kernel_plain, flash_attention_l2r,
-                     flash_attention_l2r_plain)
+                     flash_attention_l2r_launch, flash_attention_l2r_plain,
+                     l2r_kernel_operands)
 from .ops import flash_attention
 from .ref import attention_ref

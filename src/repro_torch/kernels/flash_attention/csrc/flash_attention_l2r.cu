@@ -2,33 +2,53 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:_l2r_kernel
-// (reached through flash_attention_l2r_pallas).  It is kernel B5 with one
-// change, the score tile: q and k arrive quantized per vector (one f32 scale
-// per query row and per key slot) as pre-shifted int8 digit-plane stacks,
-// q_stack (B, Sq, H, D*dh) with ascending planes and k_stack (B, Skv, Kv, D*dh)
-// with descending planes.  Each score is
+// (reached through flash_attention_l2r_pallas).  q and k arrive quantized per
+// vector (one f32 scale per query row and per key slot) as raw int8, qq
+// (B, Sq, H, W) and kq (B, Skv, Kv, W), W the head width dh zero-padded to the
+// kernel's head tile.  Each score is the level walk over their pre-shifted
+// digit planes,
 //
-//   s_int = sum over the MSDF levels l of  q_stack[a_l : a_l + len_l]
-//                                        . k_stack[b_l : b_l + len_l]   (int32)
-//   s     = s_int * q_scale * k_scale * scale       (f32, in that order)
+//   s_int = sum over the plane pairs (i, j) of the first `levels` MSDF levels
+//           of  q_i . k_j                                          (int32)
+//   s     = s_int * q_scale * k_scale * scale        (f32, in that order)
 //
-// where the level table (a_l, b_l, len_l in planes; the host's
-// msdf_level_slices, truncated by `levels`) comes by value.  The softmax,
-// PV and the output stay float (flash_softmax.cuh, shared with B5).
+// and the online softmax, PV and the output follow the reference
+// (flash_softmax.cuh's header: masked scores -1e30, p zeroed where masked,
+// l the f32 sum of p, PV on p rounded to v's dtype, out = acc / max(l, 1e-30)).
 //
-// Design, against the TPU original:
-//  * Each level is one int8 contraction over a contiguous slice pair, as in
-//    the TPU kernel's static walk; here each thread accumulates its 4 x 4
-//    score cells with __dp4a (four int8 products per instruction, int32
-//    wrapping sums, so any order gives the reference's bits).
-//  * The stacks are staged in shared memory with each plane padded to the
-//    head tile (a multiple of 16 bytes, zero filled), so every slice starts
-//    on a 4-byte word for any dh, and the odd row pitch in words keeps the
-//    key rows of a half-warp on distinct banks.
-//  * Bound on this card: the int8 QK^T of the full-depth function (2 * dh
-//    operations per pair at the int8 tensor peak) plus the float PV; the
-//    walk itself runs D^2 = 16 int8 products per full-depth product, on the
-//    CUDA cores, so this first version is far from that bound.
+// The walk as few tensor-core products.  A pre-shifted plane is a bit-field of
+// its int8 operand (plane i < D-1 keeps bits [b*i, b*(i+1)); the top plane the
+// bits from b*(D-1) up, the sign extension included), so a range of planes is
+// the operand under a byte mask and the walk is a short list of products
+// (q & mask_a[p]) . (k & mask_b[p]) (the host's msdf_products and plane_bits).
+// The first L levels collapse to at most D products, one at full depth (no
+// mask at all); a table that does not start at level 0 runs as its plane
+// pairs, one product each.  The masks are applied to the fragments in
+// registers: no plane stack is built or stored.  int32 sums wrap identically
+// in any order, so the score tile is the reference's bit for bit.
+//
+// Bound on this card (H100 SXM: int8 1,979 TOP/s, bf16 989 TFLOP/s, f32 67
+// TFLOP/s outside the tensor cores, HBM 3.35 TB/s): 2*dh int8 operations per
+// visible (query, key) pair for QK^T and 2*dh for PV; PV in f32 on the CUDA
+// cores dominates the f32 bound, both are small in bf16, where the exps and
+// the softmax bookkeeping on the CUDA cores come to the fore.  Design:
+//  * One block owns 64 q rows of one (batch, head): 4 warps of 16 rows, the
+//    flash-attention-2 split, so each warp's row max and row sum are a quad
+//    shuffle and no score leaves the registers.
+//  * QK^T on mma.sync.m16n8k32.s8.s8.s32 (wrapping s32, no .satfinite): the
+//    warp's q fragments stay in registers for the whole band; each KV tile
+//    of 64 keys is read from shared memory with ldmatrix.x4.
+//  * K, V and the key scales of the next tile come through cp.async (16 bytes
+//    a thread, zero fill past Skv) into the other of two buffers while this
+//    tile computes.  Shared rows are padded by 16 bytes: ldmatrix reads 8
+//    rows on 8 distinct bank groups.
+//  * PV in bf16: p rounded to bf16 is the A fragment of mma.sync.m16n8k16
+//    straight from the score registers; V's B fragments come from
+//    ldmatrix.x4.trans; f32 accumulation.  PV in f32: no TF32 (it would break
+//    the 3e-5 limit); each warp parks its p in shared memory and runs f32
+//    FMAs over the 64 keys.
+//  * KV tiles wholly outside the causal or window band are skipped (exact).
+// Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -37,146 +57,373 @@
 
 namespace {
 
-constexpr int kMaxLevels = 16;  // 2D - 1 for D <= 8 (int8 planes)
+constexpr int kWarps = 4;              // 16 q rows each: fa::kBQ = 64
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxProducts = 64;       // D^2 plane pairs for D <= 8
+constexpr int kPad = 16;               // bytes after each shared row
+constexpr int kPPitch = fa::kBKV + 4;  // floats a row of parked p (f32 PV)
 
-struct Levels {
+struct Products {
   int n;
-  int a_plane[kMaxLevels], b_plane[kMaxLevels], planes[kMaxLevels];
+  uint32_t ma[kMaxProducts], mb[kMaxProducts];  // byte masks, in all 4 bytes
 };
 
-// row pitch of a staged stack in 32-bit words: D planes of DH bytes, odd
-template <int DH>
-__host__ __device__ inline int pitch_words(int d) {
-  return d * DH / 4 + 1;
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int DH>
-int smem_bytes(int d) {
-  return (fa::kBQ + fa::kBKV) * pitch_words<DH>(d) * 4 +
-         (fa::kBKV + fa::kBKV * DH + fa::kBQ * (fa::kBKV + 1)) *
-             (int)sizeof(float);
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// rows [pos0, pos0 + rows) of one head's plane stack -> shared memory bytes,
-// plane p of a row at byte p*DH; zeros past `len` rows and past dh
-template <int DH>
-__device__ __forceinline__ void load_stack(const int8_t* __restrict__ st,
-                                           size_t row_stride, int pos0,
-                                           int rows, int len, int d, int dh,
-                                           int8_t* sm, int pitch_bytes) {
-  const int width = d * DH;
-  for (int e = threadIdx.x; e < rows * width; e += fa::kThreads) {
-    const int r = e / width, rem = e % width, p = rem / DH, c = rem % DH;
-    int8_t x = 0;
-    if (pos0 + r < len && c < dh)
-      x = st[(size_t)(pos0 + r) * row_stride + p * dh + c];
-    sm[r * pitch_bytes + p * DH + c] = x;
-  }
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// global -> shared, asynchronously; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(fa::kThreads)
-    flash_l2r_kernel(const int8_t* __restrict__ qst,
-                     const float* __restrict__ qsc,
-                     const int8_t* __restrict__ kst,
-                     const float* __restrict__ ksc, const T* __restrict__ v,
-                     T* __restrict__ out, fa::Shape s, Levels lt, int d) {
-  extern __shared__ float smem[];
-  const int pw = pitch_words<DH>(d);
-  int* qw = reinterpret_cast<int*>(smem);  // kBQ x pw
-  int* kw = qw + fa::kBQ * pw;             // kBKV x pw
-  float* kscale = reinterpret_cast<float*>(kw + fa::kBKV * pw);  // kBKV
-  float* vs = kscale + fa::kBKV;           // kBKV x DH
-  float* ps = vs + fa::kBKV * DH;          // kBQ x (kBKV + 1)
-  const fa::Block blk = fa::block_of(s);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t width = (size_t)d * s.dh;
+struct Smem {
+  static constexpr int kQP = DH + kPad;                  // int8 row pitch
+  static constexpr int kVP = DH * (int)sizeof(T) + kPad; // V row pitch, bytes
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + fa::kBQ * kQP;          // two K buffers
+  static constexpr int kV = kK + 2 * fa::kBKV * kQP;     // two V buffers
+  static constexpr int kS = kV + 2 * fa::kBKV * kVP;     // two key-scale rows
+  static constexpr int kP = kS + 2 * fa::kBKV * 4;       // f32 PV: parked p
+  static constexpr int kBytes =
+      kP + (sizeof(T) == 4 ? kWarps * 16 * kPPitch * 4 : 0);
+};
 
-  // q rows of this (batch, head): stride heads * D*dh between positions
-  load_stack<DH>(qst + ((size_t)blk.b * s.sq * s.heads + blk.h) * width,
-                 (size_t)s.heads * width, blk.q0, fa::kBQ, s.sq, d, s.dh,
-                 reinterpret_cast<int8_t*>(qw), pw * 4);
-  float q_scale[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = blk.q0 + ty * 4 + i;
-    q_scale[i] =
-        qp < s.sq ? qsc[((size_t)blk.b * s.sq + qp) * s.heads + blk.h] : 0.f;
-  }
-  fa::Carry<DH> cy;
-  cy.init();
+// bf16 at dh <= 64 is compiled for four resident blocks an SM (at most 128
+// registers a thread, with a small spill): more warps hide the latency of the
+// softmax chain; f32 (FMA PV) and dh = 128 keep their registers
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 2 && DH <= 64 ? 4 : 1)
+    flash_l2r_kernel(const int8_t* __restrict__ qq,
+                     const float* __restrict__ qsc,
+                     const int8_t* __restrict__ kq,
+                     const float* __restrict__ ksc, const T* __restrict__ v,
+                     T* __restrict__ out, fa::Shape s, Products pr) {
+  using L = Smem<T, DH>;
+  constexpr int NT = fa::kBKV / 8;  // n8 score tiles per warp
+  constexpr int KC = DH / 32;       // k32 steps of QK^T
+  constexpr int DT = DH / 8;        // n8 output tiles per warp
+  extern __shared__ __align__(16) int8_t smem[];
+  const fa::Block blk = fa::block_of(s);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // issue the copies of KV tile `tile` into buffer `buf`
+  auto load_kv = [&](int tile, int buf) {
+    const int kv0 = tile * fa::kBKV;
+    int8_t* ks = smem + L::kK + buf * fa::kBKV * L::kQP;
+    int8_t* vs = smem + L::kV + buf * fa::kBKV * L::kVP;
+    float* ss = reinterpret_cast<float*>(smem + L::kS) + buf * fa::kBKV;
+    constexpr int KP = DH / 16, VP = DH * (int)sizeof(T) / 16;
+    for (int e = tid; e < fa::kBKV * KP; e += kThreads) {
+      const int r = e / KP, c = (e % KP) * 16, kv = kv0 + r;
+      const bool ok = kv < s.skv;
+      cp_async16(ks + r * L::kQP + c,
+                 ok ? kq + (((size_t)blk.b * s.skv + kv) * s.kv_heads +
+                            blk.kvh) * DH + c
+                    : kq,
+                 ok);
+    }
+    for (int e = tid; e < fa::kBKV * VP; e += kThreads) {
+      const int r = e / VP, c = (e % VP) * 16, kv = kv0 + r;
+      const bool ok = kv < s.skv;
+      cp_async16(vs + r * L::kVP + c,
+                 ok ? reinterpret_cast<const int8_t*>(v) +
+                          ((((size_t)blk.b * s.skv + kv) * s.kv_heads +
+                            blk.kvh) * DH) * sizeof(T) + c
+                    : reinterpret_cast<const int8_t*>(v),
+                 ok);
+    }
+    for (int r = tid; r < fa::kBKV; r += kThreads) {
+      const int kv = kv0 + r;
+      const bool ok = kv < s.skv;
+      cp_async4(ss + r,
+                ok ? ksc + ((size_t)blk.b * s.skv + kv) * s.kv_heads + blk.kvh
+                   : ksc,
+                ok);
+    }
+  };
+
   int t0, t1;
   fa::kv_tiles(s, blk.q0, t0, t1);
-  for (int t = t0; t < t1; ++t) {
-    const int kv0 = t * fa::kBKV;
-    load_stack<DH>(kst + ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * width,
-                   (size_t)s.kv_heads * width, kv0, fa::kBKV, s.skv, d, s.dh,
-                   reinterpret_cast<int8_t*>(kw), pw * 4);
-    for (int r = threadIdx.x; r < fa::kBKV; r += fa::kThreads)
-      kscale[r] = kv0 + r < s.skv
-                      ? ksc[((size_t)blk.b * s.skv + kv0 + r) * s.kv_heads +
-                            blk.kvh]
+  {  // the q tile, with the first KV tile
+    int8_t* qs = smem + L::kQ;
+    constexpr int QP = DH / 16;
+    for (int e = tid; e < fa::kBQ * QP; e += kThreads) {
+      const int r = e / QP, c = (e % QP) * 16, q = blk.q0 + r;
+      const bool ok = q < s.sq;
+      cp_async16(qs + r * L::kQP + c,
+                 ok ? qq + (((size_t)blk.b * s.sq + q) * s.heads + blk.h) * DH + c
+                    : qq,
+                 ok);
+    }
+    if (t0 < t1) load_kv(t0, 0);
+    cp_async_commit();
+  }
+
+  // rows of this thread: r[0] = band row g, r[1] = g + 8
+  int row[2];
+  float q_scale[2], m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = blk.q0 + warp * 16 + g + 8 * h;
+    q_scale[h] =
+        row[h] < s.sq ? qsc[((size_t)blk.b * s.sq + row[h]) * s.heads + blk.h]
                       : 0.f;
-    fa::load_v<T, DH>(s, blk, v, kv0, vs);
+    m[h] = fa::kNeg;
+    l[h] = 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  uint32_t qf[KC][4];
+  bool have_q = false;
+  for (int tile = t0; tile < t1; ++tile) {
+    const int buf = (tile - t0) & 1;
+    if (tile + 1 < t1) load_kv(tile + 1, buf ^ 1);  // in flight meanwhile
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copies just issued
     __syncthreads();
-    int acc[4][4] = {};
-    for (int l = 0; l < lt.n; ++l) {
-      const int* qa = qw + lt.a_plane[l] * (DH / 4);
-      const int* kb = kw + lt.b_plane[l] * (DH / 4);
-      const int len = lt.planes[l] * (DH / 4);
-      for (int w = 0; w < len; ++w) {
-        int a[4], b[4];
+    if (!have_q) {  // the warp's q fragments, once
+      const int8_t* qs = smem + L::kQ;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qa[(ty * 4 + i) * pw + w];
+      for (int kc = 0; kc < KC; ++kc)
+        ldsm_x4(qf[kc], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 L::kQP + kc * 32 + (lane >> 4) * 16);
+      have_q = true;
+    }
+    const int kv0 = tile * fa::kBKV;
+    const int8_t* ks = smem + L::kK + buf * fa::kBKV * L::kQP;
+    const int8_t* vs = smem + L::kV + buf * fa::kBKV * L::kVP;
+    const float* ss = reinterpret_cast<const float*>(smem + L::kS) +
+                      buf * fa::kBKV;
+
+    // ---- s_int = the walk's products, on the int8 tensor cores
+    int si[NT][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = kb[(tx + 16 * j) * pw + w];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int q = 0; q < 4; ++q) si[j][q] = 0;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t kf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * L::kQP +
+                       kc * 32 + ((lane >> 3) & 1) * 16);
+        kf[j][0] = r[0];
+        kf[j][1] = r[1];
+        kf[j + 1][0] = r[2];
+        kf[j + 1][1] = r[3];
+      }
+      for (int p = 0; p < pr.n; ++p) {
+        const uint32_t ma = pr.ma[p], mb = pr.mb[p];
+        const uint32_t a[4] = {qf[kc][0] & ma, qf[kc][1] & ma, qf[kc][2] & ma,
+                               qf[kc][3] & ma};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint32_t b[2] = {kf[j][0] & mb, kf[j][1] & mb};
+          mma_s8(si[j], a, b);
+        }
       }
     }
-    float sc[4][4];
+
+    // ---- scores, masks and the online softmax (f32, the reference's order)
+    float p[NT][4];
+    float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < 2; ++h) {
+      float mx = fa::kNeg;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sc[i][j] = (float)acc[i][j] * q_scale[i] * kscale[tx + 16 * j] *
-                   s.scale;
-    fa::online_step<T, DH>(s, blk.q0, kv0, sc, cy, ps, vs);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + 2 * t + e;
+          float sc = (float)si[j][2 * h + e] * q_scale[h] * ss[c] * s.scale;
+          if (!fa::visible(s, row[h], kv0 + c)) sc = fa::kNeg;
+          p[j][2 * h + e] = sc;
+          mx = fmaxf(mx, sc);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + 2 * t + e;
+          const float pe = fa::visible(s, row[h], kv0 + c)
+                               ? expf(p[j][2 * h + e] - m_new)
+                               : 0.f;
+          p[j][2 * h + e] = pe;
+          rs += pe;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      alpha[h] = expf(m[h] - m_new);
+      l[h] = l[h] * alpha[h] + rs;
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // ---- acc += p @ v
+    if constexpr (sizeof(T) == 2) {
+      // p.astype(bf16) as the A fragments of m16n8k16, 16 keys each
+#pragma unroll
+      for (int kc = 0; kc < fa::kBKV / 16; ++kc) {
+        const uint32_t a[4] = {
+            pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+            pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                    L::kVP + (j * 8 + (lane >> 4) * 8) * 2);
+          mma_bf16(acc[j], a, r[0], r[1]);
+          mma_bf16(acc[j + 1], a, r[2], r[3]);
+        }
+      }
+    } else {
+      // f32: park p (this warp's 16 rows), then FMAs over the 64 keys
+      float* ps = reinterpret_cast<float*>(smem + L::kP) + warp * 16 * kPPitch;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(ps + (g + 8 * h) * kPPitch + j * 8 + 2 * t) =
+              make_float2(p[j][2 * h], p[j][2 * h + 1]);
+      __syncwarp();
+      const float* vf = reinterpret_cast<const float*>(vs);
+      for (int c = 0; c < fa::kBKV; ++c) {
+        const float p0 = ps[g * kPPitch + c], p1 = ps[(g + 8) * kPPitch + c];
+        const float* vr = vf + c * (L::kVP / 4);
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          const float2 vv = *reinterpret_cast<const float2*>(vr + j * 8 + 2 * t);
+          acc[j][0] = fmaf(p0, vv.x, acc[j][0]);
+          acc[j][1] = fmaf(p0, vv.y, acc[j][1]);
+          acc[j][2] = fmaf(p1, vv.x, acc[j][2]);
+          acc[j][3] = fmaf(p1, vv.y, acc[j][3]);
+        }
+      }
+      __syncwarp();  // p read before the next tile parks its own
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
   }
-  fa::store_out<T, DH>(s, blk, cy, out);
+  cp_async_wait<0>();
+
+  // ---- out = acc / max(l, 1e-30), rows < Sq and columns < dh
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= s.sq) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    T* o = out + (((size_t)blk.b * s.sq + row[h]) * s.heads + blk.h) * s.dh;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * t + e;
+        if (c < s.dh) o[c] = fa::from_float<T>(acc[j][2 * h + e] / den);
+      }
+  }
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* qst, const void* qsc, const void* kst,
+cudaError_t launch(const void* qq, const void* qsc, const void* kq,
                    const void* ksc, const void* v, void* out,
-                   const fa::Shape& s, const Levels& lt, int d,
+                   const fa::Shape& s, const Products& pr,
                    cudaStream_t stream) {
-  const int bytes = smem_bytes<DH>(d);
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_l2r_kernel<T, DH>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const int bytes = Smem<T, DH>::kBytes;
+  static int set_on = -1;  // the card the attribute was set for
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev != set_on) {
+    err = cudaFuncSetAttribute(flash_l2r_kernel<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    set_on = dev;
+  }
   const long long blocks =
       (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
-  flash_l2r_kernel<T, DH><<<(unsigned)blocks, fa::kThreads, bytes, stream>>>(
-      (const int8_t*)qst, (const float*)qsc, (const int8_t*)kst,
-      (const float*)ksc, (const T*)v, (T*)out, s, lt, d);
+  flash_l2r_kernel<T, DH><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+      (const int8_t*)qq, (const float*)qsc, (const int8_t*)kq,
+      (const float*)ksc, (const T*)v, (T*)out, s, pr);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* qst, const void* qsc, const void* kst,
-                     const void* ksc, const void* v, void* out,
-                     const fa::Shape& s, const Levels& lt, int d,
+cudaError_t dispatch(int width, const void* qq, const void* qsc,
+                     const void* kq, const void* ksc, const void* v, void* out,
+                     const fa::Shape& s, const Products& pr,
                      cudaStream_t stream) {
-  switch (fa::head_tile(s.dh)) {
-    case 16: return launch<T, 16>(qst, qsc, kst, ksc, v, out, s, lt, d, stream);
-    case 32: return launch<T, 32>(qst, qsc, kst, ksc, v, out, s, lt, d, stream);
-    case 64: return launch<T, 64>(qst, qsc, kst, ksc, v, out, s, lt, d, stream);
-    case 128:
-      return launch<T, 128>(qst, qsc, kst, ksc, v, out, s, lt, d, stream);
+  switch (width) {
+    case 32: return launch<T, 32>(qq, qsc, kq, ksc, v, out, s, pr, stream);
+    case 64: return launch<T, 64>(qq, qsc, kq, ksc, v, out, s, pr, stream);
+    case 128: return launch<T, 128>(qq, qsc, kq, ksc, v, out, s, pr, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -184,37 +431,34 @@ cudaError_t dispatch(const void* qst, const void* qsc, const void* kst,
 }  // namespace
 
 // out (B, Sq, H, dh) in v's dtype (f32: is_bf16 = 0, bf16: 1) = flash
-// attention over the level-walk scores of the plane stacks q_stack, k_stack
-// (int8, D planes of dh) with scales q_scale (B, Sq, H) and k_scale
-// (B, Skv, Kv), f32.  Level l walks planes [a_plane[l], a_plane[l] +
-// planes[l]) of q against [b_plane[l], ...) of k; has_window = 0 means no
+// attention over the level-walk scores of the per-vector-quantized int8 qq
+// (B, Sq, H, width) and kq (B, Skv, Kv, width), with scales q_scale (B, Sq, H)
+// and k_scale (B, Skv, Kv), f32, and v (B, Skv, Kv, width); width is dh
+// zero-padded to 32, 64 or 128.  The walk is the products p of
+// (qq & mask_a[p]) . (kq & mask_b[p]) (byte masks); has_window = 0 means no
 // window.  Returns a cudaError_t as int: 0 when the launch was accepted.
 extern "C" int flash_attention_l2r(
-    const void* q_stack, const void* q_scale, const void* k_stack,
-    const void* k_scale, const void* v, void* out, int batch, int sq, int skv,
-    int heads, int kv_heads, int dh, int d, int causal, int has_window,
-    int window, float scale, int n_levels, const int* a_plane,
-    const int* b_plane, const int* planes, int is_bf16, void* stream) {
+    const void* qq, const void* q_scale, const void* kq, const void* k_scale,
+    const void* v, void* out, int batch, int sq, int skv, int heads,
+    int kv_heads, int dh, int width, int causal, int has_window, int window,
+    float scale, int n_products, const int* mask_a, const int* mask_b,
+    int is_bf16, void* stream) {
   if (batch < 1 || sq < 1 || skv < 1 || kv_heads < 1 || heads % kv_heads ||
-      dh < 1 || !fa::head_tile(dh) || d < 1 || d > 8 || n_levels < 0 ||
-      n_levels > kMaxLevels)
+      dh < 1 || dh > width || n_products < 0 || n_products > kMaxProducts)
     return (int)cudaErrorInvalidValue;
-  Levels lt = {};
-  lt.n = n_levels;
-  for (int l = 0; l < n_levels; ++l) {
-    if (a_plane[l] < 0 || b_plane[l] < 0 || planes[l] < 1 ||
-        a_plane[l] + planes[l] > d || b_plane[l] + planes[l] > d)
+  Products pr = {};
+  pr.n = n_products;
+  for (int p = 0; p < n_products; ++p) {
+    if (mask_a[p] < 0 || mask_a[p] > 255 || mask_b[p] < 0 || mask_b[p] > 255)
       return (int)cudaErrorInvalidValue;
-    lt.a_plane[l] = a_plane[l];
-    lt.b_plane[l] = b_plane[l];
-    lt.planes[l] = planes[l];
+    pr.ma[p] = (uint32_t)mask_a[p] * 0x01010101u;
+    pr.mb[p] = (uint32_t)mask_b[p] * 0x01010101u;
   }
   const fa::Shape s = {batch,  sq, skv, heads, kv_heads, dh, causal ? 1 : 0,
                        has_window ? 1 : 0, window, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(is_bf16
-                   ? dispatch<__nv_bfloat16>(q_stack, q_scale, k_stack,
-                                             k_scale, v, out, s, lt, d, st)
-                   : dispatch<float>(q_stack, q_scale, k_stack, k_scale, v,
-                                     out, s, lt, d, st));
+  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(width, qq, q_scale, kq,
+                                                 k_scale, v, out, s, pr, st)
+                       : dispatch<float>(width, qq, q_scale, kq, k_scale, v,
+                                         out, s, pr, st));
 }

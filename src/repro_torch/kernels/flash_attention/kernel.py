@@ -6,11 +6,15 @@ scores, and their plain versions.
   ``flash_attention_pallas``): online-softmax attention over KV tiles with
   causal, window and key-length masks and GQA.
 * B4 (``csrc/flash_attention_l2r.cu``) replaces ``_l2r_kernel`` (entry
-  ``flash_attention_l2r_pallas``): the same, with each score tile built
-  by the static MSDF level walk over per-vector-quantized, pre-shifted
-  int8 plane stacks of q and k; ``levels`` truncates the walk.
+  ``flash_attention_l2r_pallas``): the same, with each score tile the
+  MSDF level walk over the per-vector-quantized int8 q and k, run on the
+  int8 tensor cores as the few masked products of
+  ``core/online.py:msdf_products`` (one at full depth); ``levels``
+  truncates the walk.  PV runs on the bf16 tensor cores for bf16 v and
+  as f32 FMAs for f32 v.
 
-The two share the online softmax (``csrc/flash_softmax.cuh``).  Layouts
+B5 runs the online softmax of ``csrc/flash_softmax.cuh``; B4 takes its
+tiling, masks and band from there and has its own tile code.  Layouts
 are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv, dh), out
 (B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
 
@@ -32,7 +36,8 @@ import torch
 
 from repro_torch.core.l2r_attention import quantize_per_vector
 from repro_torch.core.l2r_gemm import wrap_int32
-from repro_torch.core.online import msdf_level_slices
+from repro_torch.core.online import (msdf_level_slices, msdf_products,
+                                    plane_bits)
 from repro_torch.core.quant import (QuantConfig, plane_count,
                                     stack_planes_lhs, stack_planes_rhs)
 from repro_torch.device import no_tf32
@@ -40,7 +45,9 @@ from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
-           "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile"]
+           "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile",
+           "l2r_masks", "l2r_width", "l2r_kernel_operands",
+           "flash_attention_l2r_launch"]
 
 #: kernel launches per library since the counts were last reset (plain
 #: calls are not counted)
@@ -54,7 +61,7 @@ _ARGTYPES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _I],
     "flash_attention_l2r": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _P, _P, _P, _I],
+                            _I, _I, _I, _I, _F, _I, _P, _P, _I],
 }
 
 
@@ -243,17 +250,84 @@ def flash_attention_l2r_plain(q, k, v, n_bits: int = 8, log2_radix: int = 2,
                                      min(bkv, skv))
 
 
+def l2r_masks(n_bits: int, log2_radix: int, levels: int | None
+              ) -> list[tuple[int, int]]:
+    """Kernel B4's walk: per product of ``msdf_products(D, levels)`` the
+    byte masks (q's, k's) that cut its plane ranges out of the raw int8
+    operands (``plane_bits``); full depth is one product, (0xFF, 0xFF)."""
+    d = plane_count(n_bits, log2_radix)
+    return [(plane_bits(d, log2_radix, il, ih), plane_bits(d, log2_radix,
+                                                           jl, jh))
+            for il, ih, jl, jh in msdf_products(d, levels)]
+
+
+def l2r_width(dh: int) -> int:
+    """The head width kernel B4 stages: dh zero-padded to 32, 64 or 128
+    (whole k32 steps of the int8 mma)."""
+    return max(32, 1 << (dh - 1).bit_length())
+
+
+def l2r_kernel_operands(q, k, v, n_bits: int = 8, log2_radix: int = 2):
+    """What kernel B4 reads, made on the card: q and k quantized per vector
+    (``quantize_per_vector``) as raw int8 with their f32 scales, and the
+    three zero-padded to :func:`l2r_width` when dh is not 32, 64 or 128
+    (exact: zero columns add nothing to a score, and the padded output
+    columns are not written).  Returns (qq, q_scale, kq, k_scale, v), each
+    contiguous.  No plane stack: the kernel masks the planes out of the
+    raw bytes (:func:`l2r_masks`)."""
+    cfg = QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
+    qq, qs = quantize_per_vector(q, cfg)
+    kq, ks = quantize_per_vector(k, cfg)
+    dh = q.shape[-1]
+    width = l2r_width(dh)
+    if width != dh:
+        qq, kq, v = (torch.nn.functional.pad(x, (0, width - dh))
+                     for x in (qq, kq, v))
+    return tuple(x.contiguous() for x in (qq, qs, kq, ks, v))
+
+
+def flash_attention_l2r_launch(ops, dh: int, n_bits: int = 8,
+                               log2_radix: int = 2,
+                               levels: int | None = None,
+                               causal: bool = True,
+                               window: int | None = None,
+                               scale: float | None = None) -> torch.Tensor:
+    """One launch of kernel B4 on :func:`l2r_kernel_operands` ``ops`` of
+    a head width ``dh`` -> (B, Sq, H, dh) in v's dtype."""
+    qq, qs, kq, ks, v = ops
+    b, sq, h, width = qq.shape
+    _, skv, kvh, _ = kq.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty((b, sq, h, dh), dtype=v.dtype, device=v.device)
+    if 0 in (b, sq, h, dh, skv):
+        return out.zero_()
+    masks = l2r_masks(n_bits, log2_radix, levels)
+    arr = ctypes.c_int * max(len(masks), 1)
+    _build.launch(
+        "flash_attention_l2r", _ARGTYPES["flash_attention_l2r"], v.device,
+        f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh} "
+        f"levels={levels}",
+        qq.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, width,
+        int(causal), int(window is not None), window or 0, scale, len(masks),
+        arr(*(ma for ma, _ in masks)), arr(*(mb for _, mb in masks)),
+        int(v.dtype == torch.bfloat16))
+    LAUNCHES["flash_attention_l2r"] += 1
+    return out
+
+
 def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
                         levels: int | None = None, causal: bool = True,
                         window: int | None = None,
                         scale: float | None = None) -> torch.Tensor:
     """Flash attention whose QK^T is the digit-serial level walk: kernel
     B4.  Same layouts as :func:`flash_attention_kernel`; q and k are
-    quantized per vector here (:func:`l2r_operands`), v and the softmax
-    stay float, ``levels`` truncates the MSDF walk.
+    quantized per vector here and go to the kernel as raw int8 with
+    their scales (:func:`l2r_kernel_operands`); v and the softmax stay
+    float, ``levels`` truncates the MSDF walk.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: int8 planes only (n_bits <= 8; wider configs have int16
+    kernel: int8 operands only (n_bits <= 8; wider configs have int16
     planes and raise), v f32 or bf16, dh <= 128.
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
@@ -268,24 +342,6 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
         raise ValueError(f"kernel B4 takes q, k, v on one card, got "
                          f"{q.device}, {k.device}, {v.device}")
     _require("B4", dh, v, dtypes=(torch.float32, torch.bfloat16))
-    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    d = plane_count(n_bits, log2_radix)
-    q_stack, qs, k_stack, ks = l2r_operands(q, k, n_bits, log2_radix)
-    out = torch.empty((b, sq, h, dh), dtype=v.dtype, device=v.device)
-    if 0 in (b, sq, h, dh, skv):
-        return out.zero_()
-    slices = msdf_level_slices(d, levels)
-    arr = ctypes.c_int * max(len(slices), 1)
-    _build.launch(
-        "flash_attention_l2r", _ARGTYPES["flash_attention_l2r"], q.device,
-        f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh} D={d} "
-        f"levels={levels}",
-        q_stack.data_ptr(), qs.data_ptr(), k_stack.data_ptr(), ks.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, d, int(causal),
-        int(window is not None), window or 0, scale, len(slices),
-        arr(*(i_lo for _, i_lo, _ in slices)),
-        arr(*(d - 1 - s + i_lo for s, i_lo, _ in slices)),
-        arr(*(i_hi - i_lo + 1 for _, i_lo, i_hi in slices)),
-        int(v.dtype == torch.bfloat16))
-    LAUNCHES["flash_attention_l2r"] += 1
-    return out
+    return flash_attention_l2r_launch(
+        l2r_kernel_operands(q, k, v, n_bits, log2_radix), dh, n_bits,
+        log2_radix, levels, causal, window, scale)

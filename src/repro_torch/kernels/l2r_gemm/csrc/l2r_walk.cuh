@@ -1,18 +1,18 @@
 // The MSDF level walk on Hopper (sm_90a): the kernel template behind kernels
-// B1 (l2r_stacked_gemm.cu), B2 (l2r_streaming_gemm.cu) and B3
-// (l2r_pairs_gemm.cu).
+// B2 (l2r_streaming_gemm.cu) and B3 (l2r_pairs_gemm.cu).  Kernel B1
+// (l2r_stacked_gemm.cu) has its own cp.async pipeline and no longer walks
+// levels here.
 //
 // One thread block owns one output tile and walks a table of contiguous
 // contraction slabs ("levels"): level l contracts A columns
 // [a_col[l], a_col[l] + len[l]) with B rows [b_row[l], b_row[l] + len[l]),
 // in 64-deep chunks, with mma.sync m16n8k32 s8 x s8 -> s32.  The accumulator
-// stays in registers for the whole walk.  The three modes:
+// stays in registers for the whole walk.  The two modes:
 //
-//  * kStacked (B1): the table is the level-stacked schedule over pre-shifted
-//    plane stacks; the block adds its sum into C (M, N) once, at the end.
-//  * kStream (B2): the same table; at every level boundary the block adds its
-//    running sum into snapshot plane l of C (L, M, N).  The number of levels to
-//    run is read from device memory (`level_count`): levels at or above it skip
+//  * kStream (B2): the table is the level-stacked schedule over pre-shifted
+//    plane stacks; at every level boundary the block adds its running sum
+//    into snapshot plane l of C (L, M, N).  The number of levels to run is
+//    read from device memory (`level_count`): levels at or above it skip
 //    both the products and the writes.
 //  * kPairs (B3): the table is one slab, the raw operands' K; every 32-deep
 //    step runs one mma per plane pair (i, j) of the MSDF pair list on the
@@ -59,7 +59,8 @@ constexpr int kSA = kBK + 16;   // shared row stride in bytes: 16B aligned, and 
                                 // 20-word stride keeps fragment loads bank-free
 constexpr int kThreads = 256;   // 8 warps
 
-enum Mode { kStacked = 0, kStream = 1, kPairs = 2 };
+enum Mode { kStream = 1, kPairs = 2 };  // the numbers name the kernels in
+                                        // profiles (chip_smoke.py)
 
 struct LevelTable {
   int n;                        // levels in the walk

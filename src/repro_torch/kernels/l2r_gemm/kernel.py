@@ -4,7 +4,9 @@ versions.
 * B1 (``csrc/l2r_stacked_gemm.cu``) replaces
   ``repro/kernels/l2r_gemm/kernel.py:_l2r_stacked_kernel`` (entry
   ``l2r_gemm_pallas_stacked_planes``): the level-stacked GEMM over
-  pre-shifted plane stacks -> (M, N).
+  pre-shifted plane stacks -> (M, N), run as the few plane-range
+  products of ``core/online.py:msdf_products`` (one at full depth) over
+  a cp.async pipeline; B read K-major.
 * B2 (``csrc/l2r_streaming_gemm.cu``) replaces ``_l2r_streaming_kernel``
   (entry ``l2r_gemm_pallas_streaming_planes``): the same walk writing
   the running accumulator at every level boundary -> (L, M, N) snapshot
@@ -13,9 +15,9 @@ versions.
   ``l2r_gemm_pallas``): the D² pair loop over raw int8 operands, digit
   planes extracted inside the kernel -> (M, N).
 
-The three share one level-walk kernel template (``csrc/l2r_walk.cuh``);
+B2 and B3 share one level-walk kernel template (``csrc/l2r_walk.cuh``);
 its header says how the TPU's sequential (level, k-block) grid became a
-level loop inside each thread block.
+level loop inside each thread block.  B1 has its own pipeline.
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.
@@ -25,12 +27,14 @@ the kernel (or raises), a CPU tensor takes the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
-from repro_torch.core.online import msdf_level_slices, msdf_pairs
+from repro_torch.core.online import (msdf_level_slices, msdf_pairs,
+                                    msdf_products)
 from repro_torch.core.progressive import scan_plain
 from repro_torch.core.quant import PlaneOperands
 from repro_torch.kernels import _build
@@ -48,7 +52,8 @@ LAUNCHES = {"l2r_stacked_gemm": 0, "l2r_streaming_gemm": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {  # the C entries' arguments before the stream
-    "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P],
     "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
@@ -136,6 +141,27 @@ def _check(a_stack, b_rev, n_bits, log2_radix):
     return m, dk // d, b_rev.shape[1]
 
 
+@functools.lru_cache(maxsize=None)
+def _b1_plan(d: int, levels: int | None, first_level: int):
+    """The walk's products for the C entry: (count, il, ih, jl, jh) as
+    ctypes arrays, built once per table."""
+    prods = msdf_products(d, levels, first_level)
+    arr = ctypes.c_int * max(len(prods), 1)
+    return (len(prods), *(arr(*col) for col in zip(*prods))) if prods \
+        else (0,)
+
+
+def _k_major(b_rev: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """B1's B operand: the (N, D*K) rows of ``b_rev`` (D*K, N), read
+    K-major, and their stride.  A K-major stack (``b_rev.t()`` has unit
+    column stride: the weight caches, ``k_major=True``) is used in place;
+    a row-major one is transposed here, one copy of the stack."""
+    bt = b_rev.t()
+    if bt.stride(1) != 1 or (bt.shape[0] > 1 and bt.stride(0) < bt.shape[1]):
+        bt = bt.contiguous()
+    return bt, bt.stride(0) if bt.shape[0] > 1 else bt.shape[1]
+
+
 def _check_out(out, shape, dev):
     if out is not None and (tuple(out.shape) != shape
                             or out.dtype != torch.int32
@@ -194,9 +220,17 @@ def l2r_gemm_stacked_planes(
     ``first_level`` walks only levels ``[first_level, levels)``: one
     level of an early-exit walk is a one-row level table.
 
+    The kernel reads B K-major: ``b_rev`` may be the transpose of a
+    contiguous (N, D*K) stack (the weight caches of
+    ``quantize_weights(..., k_major=True)``) and is then read in place; a
+    row-major ``b_rev`` is transposed first (one copy).  The walk goes
+    to the kernel as ``msdf_products(D, levels, first_level)``: a prefix
+    (``first_level=0``) as at most D plane-range products, one at full
+    depth; any other table as its plane pairs.
+
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: int8 contiguous stacks only (n_bits <= 8; wider configs have
-    int16 planes and no int16 tensor-core path, so they raise).
+    kernel: int8 stacks only (n_bits <= 8; wider configs have int16
+    planes and no int16 tensor-core path, so they raise).
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     _check_out(out, (m, n), a_stack.device)
@@ -204,19 +238,21 @@ def l2r_gemm_stacked_planes(
         return l2r_gemm_stacked_planes_plain(a_stack, b_rev, n_bits,
                                              log2_radix, levels, out,
                                              first_level)
-    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack, b_rev=b_rev)
+    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack)
+    if b_rev.dtype != torch.int8 or b_rev.device != a_stack.device:
+        raise ValueError(f"b_rev must be an int8 tensor on {a_stack.device}, "
+                         f"got {b_rev.dtype} on {b_rev.device}")
     # the kernel adds into its output (atomically where it splits the walk)
     c = torch.zeros((m, n), dtype=torch.int32, device=a_stack.device) \
         if out is None else out
-    a_col, b_row, depth = (x[first_level:] for x in
-                           level_table(n_bits // log2_radix, k, levels))
-    if not depth or 0 in (m, n, k):  # levels=0: empty MSDF prefix
+    d = n_bits // log2_radix
+    plan = _b1_plan(d, levels, first_level)
+    if not plan[0] or 0 in (m, n, k):  # levels=0: empty MSDF prefix
         return c
-    arr = ctypes.c_int * len(depth)
+    bt, ldb = _k_major(b_rev)
     _launch("l2r_stacked_gemm", a_stack.device, f"M={m} K={k} N={n}",
-            a_stack.data_ptr(), b_rev.data_ptr(), c.data_ptr(), m, n,
-            a_stack.shape[1], n, len(depth), arr(*a_col), arr(*b_row),
-            arr(*depth))
+            a_stack.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n,
+            a_stack.shape[1], ldb, d, k, *plan)
     return c
 
 

@@ -74,13 +74,14 @@ def _rhs_stack(b, n_bits: int, log2_radix: int) -> torch.Tensor:
 
 def _walk_stacks(aq, bq, n_bits: int, log2_radix: int):
     """The kernels' 2-D stacks of a streaming walk's operands: ``(a (M',
-    D*K), b (D*K, N), lead)``, M' the product of the LHS lead."""
+    D*K), b (D*K, N), lead)``, M' the product of the LHS lead; ``b`` in
+    the layout it came in (B1 reads a K-major cache in place)."""
     a, b = _lhs_stack(aq, n_bits, log2_radix), _rhs_stack(bq, n_bits,
                                                           log2_radix)
     if b.ndim != 2:
         raise ValueError(f"the streaming walk takes a (K, N) right operand, "
                          f"got a stack of shape {tuple(b.shape)}")
-    return (a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous(),
+    return (a.reshape(-1, a.shape[-1]).contiguous(), b,
             tuple(a.shape[:-1]))
 
 
@@ -88,8 +89,8 @@ def _b2_stream(aq, bq, n_bits: int, log2_radix: int, levels: int | None
                ) -> torch.Tensor:
     """The whole (L, ..., M, N) prefix stream: one launch of kernel B2."""
     a, b, lead = _walk_stacks(aq, bq, n_bits, log2_radix)
-    stream = kernel.l2r_gemm_streaming_planes(a, b, n_bits, log2_radix,
-                                              levels)
+    stream = kernel.l2r_gemm_streaming_planes(a, b.contiguous(), n_bits,
+                                              log2_radix, levels)
     return stream.reshape(stream.shape[0], *lead, b.shape[1])
 
 
@@ -98,6 +99,7 @@ def _b1_stepper(aq, bq, n_bits: int, log2_radix: int, levels: int | None
     """``advance(acc, t)``: one launch of kernel B1 over level t's slab (a
     one-row level table) into a copy of the running accumulator."""
     a, b, _ = _walk_stacks(aq, bq, n_bits, log2_radix)
+    b = kernel._k_major(b)[0].t()  # once, not at every level
 
     def advance(acc, t):
         acc = acc.clone()
@@ -291,8 +293,8 @@ def _conv_taps(xq: torch.Tensor, w_in, n_bits: int, log2_radix: int,
     Returns ``(out_shape, taps)``: ``taps()`` yields, per tap (dy, dx),
     its (B*OH*OW, D*cin) activation copy (the shifted view of the
     pre-shifted activation stack, built once per feature map, made
-    contiguous) and its (D*cin, cout) reversed weight stack.  One copy
-    lives at a time.
+    contiguous) and its (D*cin, cout) reversed weight stack, a view in
+    the cache's layout (K-major for B1).  One copy lives at a time.
     """
     bsz, h, w_, cin = xq.shape
     kh, kw, _, cout = _conv_w_geom(w_in)
@@ -307,7 +309,7 @@ def _conv_taps(xq: torch.Tensor, w_in, n_bits: int, log2_radix: int,
             for dx in range(kw):
                 a = _tap_view(xsp, dy, dx, oh, ow, stride, dilation)
                 yield (a.reshape(bsz * oh * ow, -1).contiguous(),
-                       wrev[dy, dx].contiguous())
+                       wrev[dy, dx])
 
     return (bsz, oh, ow, cout), taps
 
@@ -453,8 +455,8 @@ def _l2r_conv2d_progressive_int(
                           device=xq.device)
         if n_steps:
             for a, w2 in taps():
-                kernel.l2r_gemm_streaming_planes(a, w2, n_bits, log2_radix,
-                                                 levels, out=acc)
+                kernel.l2r_gemm_streaming_planes(a, w2.contiguous(), n_bits,
+                                                 log2_radix, levels, out=acc)
         return acc.reshape(n_steps, bsz, oh, ow, cout)
     term, out_shape = _conv_level_term(xq, w_in, n_bits, log2_radix, stride,
                                        dilation)

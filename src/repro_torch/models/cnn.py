@@ -73,12 +73,12 @@ def vgg16_quantize_weights(params: dict, cfg: QuantConfig = QuantConfig(),
     """The L2R weight cache: every weight -> int8 + per-out-channel scale,
     built once at model load.  ``prestack=True`` also caches each layer's
     pre-shifted reversed plane stack (contraction axis -2 for convs, 0
-    for the FC head) — kernel B1's operand format — so no weight plane
-    is extracted per forward."""
+    for the FC head) — kernel B1's operand format, K-major in memory —
+    so no weight plane is extracted or transposed per forward."""
     return {name: quantize_weights(
                 p["w"], cfg, prestack=prestack,
                 plane_axis=-2 if p["w"].ndim == 4 else 0,
-                plane_shifted=True)
+                plane_shifted=True, k_major=True)
             for name, p in params.items()}
 
 

@@ -101,6 +101,56 @@ def test_b1_one_level_slab(dev, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
 @pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b1_prefix_route_k_major_every_level(dev, m, k, n, n_bits,
+                                             log2_radix):
+    """B1's prefix route (the collapsed products of msdf_products) on a
+    K-major B, the weight cache's layout, read in place."""
+    sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix, seed=3)
+    sbk = sb.t().contiguous().t()
+    for lv in _levels(n_bits, log2_radix):
+        got = kernel.l2r_gemm_stacked_planes(sa, sbk, n_bits, log2_radix, lv)
+        ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, n_bits,
+                                                   log2_radix, lv)
+        assert torch.equal(got, ref), lv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b1_plane_pair_route_every_first_level(dev, m, k, n, n_bits,
+                                               log2_radix):
+    """B1's plane-pair route: every table that starts above level 0,
+    B K-major, equals the plain walk of those levels."""
+    sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix, seed=4)
+    sbk = sb.t().contiguous().t()
+    n_lv = 2 * (n_bits // log2_radix) - 1
+    for first in range(1, n_lv):
+        for lv in (first + 1, n_lv):
+            got = kernel.l2r_gemm_stacked_planes(sa, sbk, n_bits, log2_radix,
+                                                 lv, first_level=first)
+            ref = kernel.l2r_gemm_stacked_planes_plain(
+                sa, sb, n_bits, log2_radix, lv, first_level=first)
+            assert torch.equal(got, ref), (first, lv)
+
+
+@pytest.mark.cuda
+def test_conv_on_k_major_cache_matches_cpu(dev):
+    """The fused conv through B1 on a K-major weight cache gives the
+    CPU's integer conv bit for bit."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 32, 24))
+                         .astype(np.float32))
+    kw = dict(prestack=True, plane_axis=-2, plane_shifted=True, k_major=True)
+    ref = ops.l2r_conv2d(x, None, w_q=quantize_weights(w, QuantConfig(), **kw))
+    got = ops.l2r_conv2d(x.to(dev), None,
+                         w_q=quantize_weights(w.to(dev), QuantConfig(), **kw))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
 def test_b2_matches_plain_every_level_and_count(dev, m, k, n, n_bits,
                                                 log2_radix):
     sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix)
@@ -299,6 +349,21 @@ def test_b4_matches_plain(dev, case, dtype, levels):
     _close(got, fa.flash_attention_l2r_plain(q, k, v, levels=levels,
                                              causal=causal, window=window),
            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_launch_on_prepared_operands(dev, dtype, levels):
+    """The launch alone on operands quantized beforehand (what
+    chip_smoke.py times as kernel_ms) is the wrapper's call."""
+    case = ATTN_CASES[0]
+    q, k, v = _qkv(dev, case, dtype, seed=5)
+    ops_ = fa.l2r_kernel_operands(q, k, v)
+    before = fa.LAUNCHES["flash_attention_l2r"]
+    got = fa.flash_attention_l2r_launch(ops_, q.shape[-1], levels=levels)
+    assert fa.LAUNCHES["flash_attention_l2r"] == before + 1
+    assert torch.equal(got, fa.flash_attention_l2r(q, k, v, levels=levels))
 
 
 @pytest.mark.cuda

@@ -159,3 +159,52 @@ def test_flash_l2r_score_tile_bit_identical(levels):
         k_stack.permute(0, 2, 1, 3).unsqueeze(2), levels=levels)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n_bits,log2_radix", [(8, 2), (4, 2)])
+def test_b4_masks_of_raw_operands_equal_the_plane_stacks(n_bits, log2_radix):
+    """Kernel B4 gets the raw per-vector-quantized q and k
+    (``l2r_kernel_operands``, padded to the kernel's head width): each product's
+    byte masks cut out exactly the sum of ``l2r_operands``' pre-shifted
+    planes it stands for, and the masked products sum to the level
+    walk's score tile at every ``levels``."""
+    from repro_torch.core.online import msdf_products
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, 1, 9, 11, 2, 1, 24))
+    qq, qs, kq, ks, vp = tfk.l2r_kernel_operands(q, k, v, n_bits, log2_radix)
+    # dh = 24 goes to the kernel zero-padded to 32
+    for x, ref in ((qq, None), (kq, None), (vp, v)):
+        assert x.shape[-1] == 32 and not x[..., 24:].any()
+        assert ref is None or torch.equal(x[..., :24], ref)
+    qq, kq = qq[..., :24], kq[..., :24]
+    q_stack, qs2, k_stack, ks2 = tfk.l2r_operands(q, k, n_bits, log2_radix)
+    assert torch.equal(qs, qs2) and torch.equal(ks, ks2)
+    d, dh = n_bits // log2_radix, q.shape[-1]
+    k_asc = torch.cat([k_stack[..., (d - 1 - j) * dh:(d - j) * dh]
+                       for j in range(d)], dim=-1)
+
+    def planes(stack, lo, hi):
+        return sum(stack[..., i * dh:(i + 1) * dh].to(torch.int64)
+                   for i in range(lo, hi + 1))
+
+    def masked(x, mask):
+        return (x.to(torch.int32) & mask).to(torch.uint8).view(
+            torch.int8).to(torch.int64)
+
+    qt = q_stack.permute(0, 2, 1, 3)  # (B, H, Sq, D*dh): head 1 meets kv 0
+    for lv in [None] + list(range(2 * d)):
+        masks = tfk.l2r_masks(n_bits, log2_radix, lv)
+        prods = msdf_products(d, lv)
+        assert len(masks) == len(prods) <= d
+        s = torch.zeros((1, 2, 9, 11), dtype=torch.int64)
+        for (ma, mb), (il, ih, jl, jh) in zip(masks, prods):
+            assert torch.equal(masked(qq, ma), planes(q_stack, il, ih))
+            assert torch.equal(masked(kq, mb), planes(k_asc, jl, jh))
+            s += (masked(qq, ma).permute(0, 2, 1, 3)
+                  @ masked(kq, mb).permute(0, 2, 3, 1))
+        ref = tfk.l2r_score_tile(qt, k_stack.permute(0, 2, 1, 3), n_bits,
+                                 log2_radix, lv)
+        assert torch.equal(s.to(torch.int32), ref), lv
+    assert [tfk.l2r_width(w) for w in (16, 24, 32, 33, 64, 100, 128)] == \
+        [32, 32, 32, 64, 64, 128, 128]

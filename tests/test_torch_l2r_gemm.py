@@ -238,3 +238,114 @@ def test_l2r_matmul_f_matches(per_channel, prestack):
     ref_raw = np.asarray(jg.l2r_matmul(jnp.asarray(x[0]), jnp.asarray(w), jc))
     got_raw = tg.l2r_matmul(torch.from_numpy(x[0]), torch.from_numpy(w), tc)
     np.testing.assert_allclose(got_raw.numpy(), ref_raw, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------- kernel B1's product tables
+def _plane_sum(stack, lo, hi, k, axis):
+    """Sum of pre-shifted planes lo..hi of an ascending stack (int64)."""
+    return sum(stack.narrow(axis, i * k, k).to(torch.int64)
+               for i in range(lo, hi + 1))
+
+
+def _products_plain(a_stack, b_rev, d, k, products):
+    """The kernel's arithmetic in plain torch: the sum over products of
+    (sum of A planes il..ih) @ (sum of B planes jl..jh), wrapped to
+    int32.  ``b_rev`` descends: plane j is block D-1-j."""
+    b_asc = torch.cat([b_rev[(d - 1 - j) * k:(d - j) * k] for j in range(d)])
+    acc = torch.zeros((a_stack.shape[0], b_rev.shape[1]), dtype=torch.int64)
+    for il, ih, jl, jh in products:
+        acc += _plane_sum(a_stack, il, ih, k, 1) @ _plane_sum(b_asc, jl, jh,
+                                                              k, 0)
+    return tg.wrap_int32(acc)
+
+
+def _extreme_operands(n_bits, m=6, k=37, n=5, seed=0):
+    """Random operands with the range ends -2^(n-1) and 2^(n-1)-1 in
+    both."""
+    rng = np.random.default_rng(seed + n_bits)
+    lo, hi = -(1 << (n_bits - 1)), (1 << (n_bits - 1)) - 1
+    a = rng.integers(lo, hi + 1, (m, k)).astype(np.int8)
+    b = rng.integers(lo, hi + 1, (k, n)).astype(np.int8)
+    a[0, :3], a[1, :3] = lo, hi
+    b[:3, 0], b[:3, 1] = lo, hi
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("n_bits,log2_radix", [(4, 2), (8, 2)])
+def test_prefix_collapse_matches_plain_every_level(n_bits, log2_radix):
+    """A walk from level 0 as at most D plane-range products (one at full
+    depth) equals kernel B1's plain version bit for bit; each range is
+    the raw operand under a byte mask (a bit-field: OR == sum)."""
+    from repro_torch.core.online import msdf_products, plane_bits
+
+    d = n_bits // log2_radix
+    a, b = _extreme_operands(n_bits)
+    k = a.shape[1]
+    sa, sb = t_lhs(a, n_bits, log2_radix), t_rhs(b, n_bits, log2_radix)
+    for lv in [None] + list(range(2 * d)):
+        prods = msdf_products(d, lv)
+        assert len(prods) <= d
+        if lv is None or lv >= 2 * d - 1:
+            assert prods == [(0, d - 1, 0, d - 1)]
+        got = _products_plain(sa, sb, d, k, prods)
+        ref = tk.l2r_gemm_stacked_planes_plain(sa, sb, n_bits, log2_radix, lv)
+        assert torch.equal(got, ref), lv
+        for il, ih, jl, jh in prods:
+            for x, lo, hi in ((a, il, ih), (b, jl, jh)):
+                masked = (x.to(torch.int32) & plane_bits(d, log2_radix, lo,
+                                                         hi)).to(torch.uint8)
+                st = t_lhs(x if x is a else x.t(), n_bits, log2_radix)
+                ref_sum = _plane_sum(st, lo, hi, k if x is a else x.shape[0],
+                                     1)
+                assert torch.equal(masked.view(torch.int8).to(torch.int64),
+                                   ref_sum if x is a else ref_sum.t())
+
+
+@pytest.mark.parametrize("n_bits,log2_radix", [(4, 2), (8, 2)])
+def test_tables_above_level_zero_run_as_plane_pairs(n_bits, log2_radix):
+    """Every ``first_level`` the collapse refuses: the table runs as its
+    plane pairs, and their products equal the plain walk of those
+    levels bit for bit."""
+    from repro_torch.core.online import msdf_pairs, msdf_products
+
+    d = n_bits // log2_radix
+    a, b = _extreme_operands(n_bits, seed=1)
+    k = a.shape[1]
+    sa, sb = t_lhs(a, n_bits, log2_radix), t_rhs(b, n_bits, log2_radix)
+    for first in range(1, 2 * d - 1):
+        for lv in range(first + 1, 2 * d):
+            prods = msdf_products(d, lv, first)
+            assert all(il == ih and jl == jh for il, ih, jl, jh in prods)
+            assert [(il, jl) for il, _, jl, _ in prods] == \
+                msdf_pairs(d, lv)[len(msdf_pairs(d, first)):]
+            got = _products_plain(sa, sb, d, k, prods)
+            ref = tk.l2r_gemm_stacked_planes_plain(
+                sa, sb, n_bits, log2_radix, lv, first_level=first)
+            assert torch.equal(got, ref), (first, lv)
+
+
+def test_b1_takes_a_k_major_stack():
+    """The K-major weight cache (``k_major=True``) holds the same values
+    with the contraction innermost; B1's wrapper takes either layout."""
+    from repro_torch.core.quant import QuantConfig, quantize_weights
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((40, 24)).astype(np.float32))
+    cw = torch.from_numpy(rng.standard_normal((3, 3, 16, 8))
+                          .astype(np.float32))
+    for wt, axis in ((w, 0), (cw, -2)):
+        row = quantize_weights(wt, QuantConfig(), prestack=True,
+                               plane_axis=axis, plane_shifted=True)
+        kmaj = quantize_weights(wt, QuantConfig(), prestack=True,
+                                plane_axis=axis, plane_shifted=True,
+                                k_major=True)
+        assert torch.equal(row.planes.stack, kmaj.planes.stack)
+        assert kmaj.planes.stack.stride(axis) == 1
+    st = quantize_weights(w, QuantConfig(), prestack=True,
+                          plane_shifted=True, k_major=True).planes.stack
+    a, _ = _extreme_operands(8, m=7, k=40, n=2)
+    sa = t_lhs(a)
+    for lv in (None, 3):
+        assert torch.equal(tk.l2r_gemm_stacked_planes(sa, st, levels=lv),
+                           tk.l2r_gemm_stacked_planes(sa, st.contiguous(),
+                                                      levels=lv))
