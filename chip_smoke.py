@@ -58,9 +58,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ``BF16_ABS``), then SmolLM-135M's attention (H=9, Kv=3, dh=64) at a
      2048-token prefill, batch 8 (causal f32, causal bf16, window 512
      f32), timed beside the plain version, the bound and
-     ``scaled_dot_product_attention``; B4 also as ``kernel_ms``, the
-     launch alone on operands quantized beforehand (10 back-to-back
-     launches between two CUDA events), beside the wrapper's ``ms``.  Once, at the causal bf16 shape,
+     ``scaled_dot_product_attention``; both also as ``kernel_ms``, 10
+     back-to-back launches between two CUDA events (B4's on operands
+     quantized beforehand, the launch alone), beside the wrapper's
+     ``ms``.  Once, at the causal bf16 shape,
      a plain version without the rounding of p to bf16 must fail the
      bf16 limit: the limit sees that rounding.
 Then one JSON line per kernel (B1-B6), the card again, and the result
@@ -826,9 +827,9 @@ def phase_conv_progressive(dev, vgg: dict) -> dict:
 
 
 # ------------------------------------------------------------------ slice 3
-# H100 SXM data sheet, dense: f32 outside the tensor cores, bf16 tensor cores
-PEAK_F32_FLOPS = 67e12
+# H100 SXM data sheet, dense: bf16 and TF32 tensor cores
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 # CUDA C++ Programming Guide, throughput of native arithmetic instructions,
 # compute capability 9.0: results per clock per SM
 INT32_PER_CLK_SM, POPC_PER_CLK_SM = 64, 16
@@ -1047,10 +1048,13 @@ def sdpa(q, k, v, causal, window):
 
 
 def attn_bound(b, h, dh, pairs, dtype, nbytes, qk_int8=False) -> tuple:
-    """QK^T and PV at 2*dh operations per visible pair each, at the peak
-    of their type (f32 CUDA cores for f32, bf16 tensor cores for bf16;
-    int8 tensor cores for B4's QK^T), against the bytes moved once."""
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    """QK^T and PV at 2*dh operations per visible pair each, at the least
+    time the card takes for a product of their type to the kernels'
+    accuracy (bf16 on the bf16 tensor cores; f32 as three TF32 products,
+    the 3xTF32 split of B5, at 495 / 3 = 165 TFLOP/s; B4's QK^T on the
+    int8 tensor cores), against the bytes moved once."""
+    peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+            else PEAK_TF32_FLOPS / 3)
     per = 2 * b * h * pairs * dh
     t_ops = (per / (PEAK_INT8_OPS if qk_int8 else peak) + per / peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1143,16 +1147,18 @@ def phase_attention(dev, l2r: bool) -> dict:
         del ref
         ms = time_ms(lambda: kernel_fn(q, k, v, causal=True, window=window),
                      iters=5, warmup=1)
-        extra = {}
         if l2r:  # the launch alone, on operands quantized beforehand
             ops = fa.l2r_kernel_operands(q, k, v)
             require(torch.equal(fa.flash_attention_l2r_launch(
                 ops, dh, causal=True, window=window), got),
                 f"{name} launch on prepared operands differs at {key}")
-            extra["kernel_ms"] = stream_ms(
+            kernel_ms = stream_ms(
                 lambda: fa.flash_attention_l2r_launch(ops, dh, causal=True,
                                                       window=window))
             del ops
+        else:  # B5's wrapper is the launch: back-to-back calls
+            kernel_ms = stream_ms(lambda: kernel_fn(q, k, v, causal=True,
+                                                    window=window))
         plain_ms = time_ms(lambda: plain_fn(q, k, v, causal=True,
                                             window=window), iters=3, warmup=1)
         if l2r:  # the full-depth function: attention of the dequantized q, k
@@ -1174,7 +1180,7 @@ def phase_attention(dev, l2r: bool) -> dict:
                "window": window, "visible_pairs": pairs, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
-               **extra}
+               "kernel_ms": kernel_ms}
         rows.append(row)
         print(f"phase {tag}b: " + json.dumps(row), flush=True)
         torch.cuda.empty_cache()
@@ -1206,6 +1212,25 @@ def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
             "shapes": rows}
 
 
+def ptxas_kernel(line: str) -> str | None:
+    """The kernel a ptxas -v "Compiling entry function" line names, with
+    its template arguments: '_ZN<ns>12flash_kernelI13__nv_bfloat16Li64EE
+    Ev...' -> 'flash_kernel<bf16 64>'."""
+    m = re.search(r"entry function '_ZN(\w+)'", line)
+    if not m:
+        return None
+    rest, name = m.group(1), "?"
+    while rest[:1].isdigit():  # the nested names, each length-prefixed
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    args = rest[1:rest.find("EEv")] if rest.startswith("I") else ""
+    args = re.sub(r"\d+__nv_bfloat16", "bf16 ", args)
+    args = re.sub(r"L[ib](\d+)E?", r"\1 ", args)
+    args = re.sub(r"^f", "f32 ", args).strip()
+    return f"{name}<{args}>" if args else name
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1223,10 +1248,12 @@ def main() -> int:
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
+            kernel = "?"
             for line in log.read_text().splitlines():
+                kernel = ptxas_kernel(line) or kernel
                 if "registers" in line or "spill" in line:
-                    print(f"phase 1: ptxas {lib.stem}: {line.strip()}",
-                          flush=True)
+                    print(f"phase 1: ptxas {lib.stem} {kernel}: "
+                          f"{line.strip()}", flush=True)
 
     b1_rows = phase_kernel(dev)
     b2_rows = phase_streaming(dev)
@@ -1273,7 +1300,8 @@ def main() -> int:
         kernel_entry("flash_attention", b5["rows"], b5["launches"],
                      "the three SmolLM-135M attention calls of phase 10b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
-                     "f32) through ops.flash_attention; library_ms is "
+                     "f32) through ops.flash_attention; kernel_ms from "
+                     "back-to-back calls; library_ms is "
                      "scaled_dot_product_attention"),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "

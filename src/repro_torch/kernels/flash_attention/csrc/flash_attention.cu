@@ -7,23 +7,55 @@
 //   out = softmax(mask(q k^T * scale)) v          (B, Sq, H, dh) in v's dtype
 //
 // with the causal, window and key-length masks, as an online softmax over KV
-// tiles (flash_softmax.cuh holds that half, shared with kernel B4).
+// tiles (flash_softmax.cuh holds that half, shared with kernel B4, which
+// differs only in how it fills a score tile).
 //
-// Design, against the TPU original:
-//  * The TPU grid (batch*head, q block, kv block) walks the KV axis
-//    sequentially with (acc, m, l) in VMEM scratch; here one block owns one
-//    (batch*head, 64-row q tile) and loops over the KV tiles itself, with the
-//    carry in registers.  No padding of Sq or Skv: ragged rows and keys are
-//    masked, and the q/k/v layouts are read in place (no head transpose).
-//  * QK^T and PV are computed in the block's own body, in f32 FMAs from shared
-//    memory (bf16 operands are widened on load; a bf16 x bf16 product is exact
-//    in f32, as the reference's f32 dot of upcast bf16 values is).  p is
-//    rounded to v's dtype before PV, as the reference does.
-//  * Bound on this card: 4 * B * H * dh FLOPs per visible (query, key) pair
-//    against the f32 peak outside the tensor cores for f32 (the same
-//    arithmetic), the bf16 tensor peak for bf16; q, k, v and out are read
-//    and written once.  This first version uses no tensor cores, so bf16 runs
-//    at the f32 FMA rate.
+// Bound on this card (H100 SXM: bf16 989 TFLOP/s, TF32 495 TFLOP/s on the
+// tensor cores, HBM 3.35 TB/s): 2*dh operations per visible (query, key) pair
+// for QK^T and again for PV, q, k, v and out moved once; operations bound it
+// at SmolLM-135M's widths.  In f32 each product is three TF32 products (see
+// below), so its least time is at 165 effective TFLOP/s; bf16's QK^T runs on
+// the CUDA cores (below), at most 67 TFLOP/s.  Design:
+//  * One block owns 64 q rows of one (batch, head): 4 warps of 16 rows (the
+//    flash-attention-2 split); scores and p stay in registers in the mma C
+//    layout, and a row's max and sum are quad shuffles.  No padding of Sq or
+//    Skv in device memory: ragged rows and keys are masked, dh is zero-padded
+//    to the head tile (16/32/64/128) in shared memory only, and the q/k/v
+//    layouts are read in place (no head transpose).
+//  * q, k and v stay in their own dtype in shared memory.  K and V tiles of
+//    64 keys come through cp.async (16 bytes a thread, zero fill past Skv and
+//    dh) into the other of two buffers while this tile computes; rows are
+//    padded by 16 bytes so that ldmatrix reads 8 rows on 8 bank groups.  A
+//    head width whose rows are not whole 16-byte pieces (or an unaligned
+//    tensor) is staged element by element instead.
+//  * bf16: QK^T as f32 FMAs in d order: the two lanes that hold the same 16
+//    keys of neighbouring row pairs in the warp layout (lane and lane ^ 4)
+//    each sum 4 rows x 8 keys over d = 0, 1, ... and swap half, reading q
+//    and k as bf16 (16 bytes, 8 values a read) and widening in registers,
+//    so each k value is read and widened once for 4 rows.  A bf16 x bf16
+//    product is exact in f32, so this is the plain version's f32 dot term
+//    for term and its scores are the plain version's bit for bit.  That
+//    matters here: p is rounded to bf16 before PV, and a score that differs
+//    in its last bit moves some p by a whole bf16 step.  QK^T on
+//    mma.sync.m16n8k16.bf16 (the tensor cores sum the products in another
+//    order and rounding) came out 2.3e-4 beyond the one-ulp term against
+//    the plain version on an H100 (limit 1e-4; PERF.md), so it is
+//    not used.  PV is B4's: p rounded to bf16 is the A fragment of
+//    mma.sync.m16n8k16 straight from the score registers (the same bits as
+//    the plain version's p), V through ldmatrix.x4.trans.
+//  * f32: one TF32 product would break the 3e-5 limit (scores of order 1
+//    wrong near 1e-3), so both products run the 3xTF32 split on
+//    mma.sync.m16n8k8.tf32: x = big + small with big = x and small = x - big
+//    each rounded to TF32 as cvt.rna.tf32 rounds (done on the bit pattern
+//    in integer operations, which run faster than the conversion), and
+//    a.b ~ small_a.big_b + big_a.small_b + big_a.big_b in f32 (about 2^-22
+//    relative a product); q's fragments are split once.  p stays f32, as
+//    the reference leaves it.  For PV the score registers are the A fragment
+//    once each 8-key chunk is read with its keys in the order 0,2,4,6,1,3,5,7
+//    (the same order for V's rows, so the sum is unchanged); V's B fragments
+//    are read from shared memory, conflict-free at a row pitch of dh + 4.
+//  * KV tiles wholly outside the causal or window band are skipped (exact).
+// Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -32,93 +64,295 @@
 
 namespace {
 
-template <int DH>
-constexpr int smem_bytes() {
-  return (fa::kBQ * (DH + 1) + fa::kBKV * (DH + 1) + fa::kBKV * DH +
-          fa::kBQ * (fa::kBKV + 1)) *
-         (int)sizeof(float);
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cvt.rna.tf32.f32 on the bit pattern (round to nearest, ties away from
+// zero: the sign is its own bit, so adding half a TF32 ulp rounds the
+// magnitude), two integer operations instead of the conversion pipe
+__device__ __forceinline__ uint32_t rna_tf32(uint32_t u) {
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32; x - big is exact in f32 (Sterbenz)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = rna_tf32(__float_as_uint(x));
+  small = rna_tf32(__float_as_uint(x - __uint_as_float(big)));
+}
+
+// c += a.b on the 3xTF32 split of a (A fragment) and b (B fragment)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0,
+                                           float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, as, bb0, bb1);  // the small terms first
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+// 8 bf16 (16 bytes, element i in the low half of word i / 2 when i is even)
+// as f32
+__device__ __forceinline__ void widen8(uint4 w, float (&f)[8]) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(x[i] << 16);
+    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+  }
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(fa::kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, fa::Shape s) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // kBQ x (DH + 1)
-  float* ks = qs + fa::kBQ * (DH + 1);   // kBKV x (DH + 1)
-  float* vs = ks + fa::kBKV * (DH + 1);  // kBKV x DH
-  float* ps = vs + fa::kBKV * DH;        // kBQ x (kBKV + 1)
-  const fa::Block blk = fa::block_of(s);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+struct Smem {
+  static constexpr int kRow = DH * (int)sizeof(T) + fa::kPad;  // bytes a row
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + fa::kBQ * kRow;       // two K buffers
+  static constexpr int kV = kK + 2 * fa::kBKV * kRow;  // two V buffers
+  static constexpr int kBytes = kV + 2 * fa::kBKV * kRow;
+};
 
-  for (int e = threadIdx.x; e < fa::kBQ * DH; e += fa::kThreads) {
-    const int r = e / DH, c = e % DH, qp = blk.q0 + r;
-    float x = 0.f;
-    if (qp < s.sq && c < s.dh)
-      x = fa::to_float(
-          q[(((size_t)blk.b * s.sq + qp) * s.heads + blk.h) * s.dh + c]);
-    qs[r * (DH + 1) + c] = x;
+// 64 rows of a slab in T (row r at base + r * stride) into shared rows of
+// Smem::kRow bytes, zero past n_rows and dh: 16-byte cp.async pieces when
+// `vec` (dh * sizeof(T) a multiple of 16, the tensors 16-byte aligned), else
+// element by element (plain stores, seen after the caller's barrier).
+template <typename T, int DH>
+__device__ __forceinline__ void stage(int8_t* dst, const T* base,
+                                      size_t stride, int n_rows, int dh,
+                                      bool vec) {
+  constexpr int kRow = Smem<T, DH>::kRow;
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T), CP = DH / E;  // pieces a row
+    for (int e = threadIdx.x; e < 64 * CP; e += fa::kThreads) {
+      const int r = e / CP, c = (e % CP) * E;
+      const bool ok = r < n_rows && c < dh;
+      fa::cp_async16(dst + r * kRow + c * (int)sizeof(T),
+                     ok ? base + r * stride + c : base, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 64 * DH; e += fa::kThreads) {
+      const int r = e / DH, c = e % DH;
+      T x = fa::from_float<T>(0.f);
+      if (r < n_rows && c < dh) x = base[r * stride + c];
+      *reinterpret_cast<T*>(dst + r * kRow + c * (int)sizeof(T)) = x;
+    }
   }
-  fa::Carry<DH> cy;
-  cy.init();
+}
+
+// Resident blocks an SM the registers are sized for: bf16 at dh <= 64 four
+// (at most 128 registers a thread, as B4), f32 at dh <= 64 two (its shared
+// memory allows no more); dh = 128 in f32 one (the 3xTF32 fragments).
+template <typename T, int DH>
+constexpr int min_blocks() {
+  return sizeof(T) == 2 ? (DH <= 64 ? 4 : 2) : (DH <= 64 ? 2 : 1);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
+    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out, fa::Shape s,
+                 int vec) {
+  using L = Smem<T, DH>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int NT = fa::kBKV / 8;               // n8 score tiles a warp
+  constexpr int KC = DH / 8;                     // f32: k8 steps of QK^T
+  constexpr int DT = DH / 8;                     // n8 output tiles a warp
+  extern __shared__ __align__(16) int8_t smem[];
+  const fa::Block blk = fa::block_of(s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // row kv of this (batch, kv head) at kvb + kv * kv_stride, in k and v
+  const size_t kv_stride = (size_t)s.kv_heads * s.dh;
+  const size_t kvb = ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * s.dh;
+  auto load_kv = [&](int tile, int buf) {
+    const size_t off = kvb + (size_t)tile * fa::kBKV * kv_stride;
+    const int rows = s.skv - tile * fa::kBKV;
+    stage<T, DH>(smem + L::kK + buf * fa::kBKV * L::kRow, k + off, kv_stride,
+                 rows, s.dh, vec);
+    stage<T, DH>(smem + L::kV + buf * fa::kBKV * L::kRow, v + off, kv_stride,
+                 rows, s.dh, vec);
+  };
+
   int t0, t1;
   fa::kv_tiles(s, blk.q0, t0, t1);
-  for (int t = t0; t < t1; ++t) {
-    const int kv0 = t * fa::kBKV;
-    for (int e = threadIdx.x; e < fa::kBKV * DH; e += fa::kThreads) {
-      const int r = e / DH, c = e % DH, kv = kv0 + r;
-      float x = 0.f;
-      if (kv < s.skv && c < s.dh)
-        x = fa::to_float(
-            k[(((size_t)blk.b * s.skv + kv) * s.kv_heads + blk.kvh) * s.dh +
-              c]);
-      ks[r * (DH + 1) + c] = x;
-    }
-    fa::load_v<T, DH>(s, blk, v, kv0, vs);
+  stage<T, DH>(smem + L::kQ,
+               q + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) * s.dh,
+               (size_t)s.heads * s.dh, s.sq - blk.q0, s.dh, vec);
+  if (t0 < t1) load_kv(t0, 0);  // with the q tile
+  fa::cp_async_commit();
+
+  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
+  wr.init(blk);
+  uint32_t qf[KC][4], qf_small[KC][4];  // f32: the warp's q, split
+  for (int tile = t0; tile < t1; ++tile) {
+    const int buf = (tile - t0) & 1;
+    if (tile + 1 < t1) load_kv(tile + 1, buf ^ 1);  // in flight meanwhile
+    fa::cp_async_commit();
+    fa::cp_async_wait<1>();  // everything but the copies just started
     __syncthreads();
-    float sc[4][4] = {};
-    for (int d = 0; d < DH; ++d) {
-      float a[4], b[4];
+    if constexpr (!kBf16) {  // bf16 reads q from shared memory
+      if (tile == t0) {
+        const int8_t* qs = smem + L::kQ;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * (DH + 1) + d];
+        for (int kc = 0; kc < KC; ++kc)
+          fa::ldsm_x4(qf[kc],
+                      qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               L::kRow + kc * 32 + (lane >> 4) * 16);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * (DH + 1) + d];
+        for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(qf[kc][e]), qf[kc][e],
+                       qf_small[kc][e]);
+      }
+    }
+    const int kv0 = tile * fa::kBKV;
+    const int8_t* ks = smem + L::kK + buf * fa::kBKV * L::kRow;
+    const int8_t* vs = smem + L::kV + buf * fa::kBKV * L::kRow;
+
+    // ---- s = q k^T * scale, f32
+    float p[NT][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], b[j], sc[i][j]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+    if constexpr (kBf16) {
+      // FMAs in d order.  This lane and its partner (lane ^ 4: g ^ 1, same
+      // t) own rows {g, g + 8} and {g ^ 1, g ^ 1 + 8} of the same 16 keys;
+      // each sums all four rows for the keys 8j + 2t + (g & 1) (the pair's
+      // k reads then fall on 8 distinct bank groups) and the two swap halves
+      const int gb = g & 1;
+      const int8_t* q0 = smem + L::kQ + (warp * 16 + g - gb) * L::kRow;
+      float c[4][NT];  // rows g - gb + {0, 1, 8, 9}, my key of tile j
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) c[r][j] = 0.f;
+      for (int d0 = 0; d0 < DH; d0 += 8) {
+        float qv[4][8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          widen8(*reinterpret_cast<const uint4*>(
+                     q0 + ((r & 1) + 8 * (r >> 1)) * L::kRow + 2 * d0),
+                 qv[r]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float kv[8];
+          widen8(*reinterpret_cast<const uint4*>(
+                     ks + (j * 8 + 2 * t + gb) * L::kRow + 2 * d0),
+                 kv);
+#pragma unroll
+          for (int dd = 0; dd < 8; ++dd)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              c[r][j] = fmaf(qv[r][dd], kv[dd], c[r][j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float mine = gb ? c[2 * h + 1][j] : c[2 * h][j];
+          const float got = __shfl_xor_sync(
+              0xffffffffu, gb ? c[2 * h][j] : c[2 * h + 1][j], 4);
+          p[j][2 * h] = gb ? got : mine;  // key 8j + 2t
+          p[j][2 * h + 1] = gb ? mine : got;
+        }
+    } else {
+      // 3xTF32 on the tensor cores: K's B fragments through ldmatrix
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t kf[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t r[4];
+          fa::ldsm_x4(r, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * L::kRow +
+                             kc * 32 + ((lane >> 3) & 1) * 16);
+          kf[j][0] = r[0];
+          kf[j][1] = r[1];
+          kf[j + 1][0] = r[2];
+          kf[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_3xtf32(p[j], qf[kc], qf_small[kc], __uint_as_float(kf[j][0]),
+                     __uint_as_float(kf[j][1]));
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] *= s.scale;
-    fa::online_step<T, DH>(s, blk.q0, kv0, sc, cy, ps, vs);
+      for (int e = 0; e < 4; ++e) p[j][e] *= s.scale;
+
+    wr.softmax(s, kv0, p);
+
+    // ---- acc += p @ v
+    if constexpr (kBf16) {
+      wr.pv_bf16(p, vs, L::kRow);
+    } else {
+      // 8 keys a k8 step: A column t is key 2t, column t + 4 key 2t + 1
+      const float* vf = reinterpret_cast<const float*>(vs);
+      constexpr int VP = L::kRow / 4;  // floats a V row: dh + 4
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t ab[4], as[4];
+        const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+        const float* v0 = vf + (j * 8 + 2 * t) * VP + g;
+#pragma unroll
+        for (int jj = 0; jj < DT; ++jj)
+          mma_3xtf32(wr.acc[jj], ab, as, v0[jj * 8], v0[VP + jj * 8]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
   }
-  fa::store_out<T, DH>(s, blk, cy, out);
+  fa::cp_async_wait<0>();
+
+  wr.store(s, blk, out);  // out = acc / max(l, 1e-30)
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const fa::Shape& s, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                   const fa::Shape& s, int vec, cudaStream_t stream) {
+  constexpr int bytes = Smem<T, DH>::kBytes;
+  static int set_on = -1;  // the card the attribute was set for
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev != set_on) {
+    err = cudaFuncSetAttribute(flash_kernel<T, DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    set_on = dev;
+  }
   const long long blocks =
       (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
   flash_kernel<T, DH><<<(unsigned)blocks, fa::kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, s);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, s, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      const fa::Shape& s, cudaStream_t stream) {
+  const bool vec = (s.dh * sizeof(T)) % 16 == 0 &&
+                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   switch (fa::head_tile(s.dh)) {
-    case 16: return launch<T, 16>(q, k, v, out, s, stream);
-    case 32: return launch<T, 32>(q, k, v, out, s, stream);
-    case 64: return launch<T, 64>(q, k, v, out, s, stream);
-    case 128: return launch<T, 128>(q, k, v, out, s, stream);
+    case 16: return launch<T, 16>(q, k, v, out, s, vec, stream);
+    case 32: return launch<T, 32>(q, k, v, out, s, vec, stream);
+    case 64: return launch<T, 64>(q, k, v, out, s, vec, stream);
+    case 128: return launch<T, 128>(q, k, v, out, s, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -27,11 +27,12 @@
 // registers: no plane stack is built or stored.  int32 sums wrap identically
 // in any order, so the score tile is the reference's bit for bit.
 //
-// Bound on this card (H100 SXM: int8 1,979 TOP/s, bf16 989 TFLOP/s, f32 67
-// TFLOP/s outside the tensor cores, HBM 3.35 TB/s): 2*dh int8 operations per
-// visible (query, key) pair for QK^T and 2*dh for PV; PV in f32 on the CUDA
-// cores dominates the f32 bound, both are small in bf16, where the exps and
-// the softmax bookkeeping on the CUDA cores come to the fore.  Design:
+// Bound on this card (H100 SXM: int8 1,979 TOP/s, bf16 989 TFLOP/s, TF32
+// 495 TFLOP/s, HBM 3.35 TB/s): 2*dh int8 operations per visible (query, key)
+// pair for QK^T and 2*dh for PV; an f32 PV to the 3e-5 limit takes at least
+// three TF32 products (kernel B5's split, 165 TFLOP/s effective) and
+// dominates the f32 bound, both are small in bf16, where the exps and the
+// softmax bookkeeping on the CUDA cores come to the fore.  Design:
 //  * One block owns 64 q rows of one (batch, head): 4 warps of 16 rows, the
 //    flash-attention-2 split, so each warp's row max and row sum are a quad
 //    shuffle and no score leaves the registers.
@@ -44,9 +45,10 @@
 //    rows on 8 distinct bank groups.
 //  * PV in bf16: p rounded to bf16 is the A fragment of mma.sync.m16n8k16
 //    straight from the score registers; V's B fragments come from
-//    ldmatrix.x4.trans; f32 accumulation.  PV in f32: no TF32 (it would break
-//    the 3e-5 limit); each warp parks its p in shared memory and runs f32
-//    FMAs over the 64 keys.
+//    ldmatrix.x4.trans; f32 accumulation (flash_softmax.cuh, shared with
+//    B5).  PV in f32: one TF32 product would break the 3e-5 limit; each warp
+//    parks its p in shared memory and runs f32 FMAs over the 64 keys (B5's
+//    3xTF32 PV could take their place).
 //  * KV tiles wholly outside the causal or window band are skipped (exact).
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
@@ -57,10 +59,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;              // 16 q rows each: fa::kBQ = 64
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxProducts = 64;       // D^2 plane pairs for D <= 8
-constexpr int kPad = 16;               // bytes after each shared row
 constexpr int kPPitch = fa::kBKV + 4;  // floats a row of parked p (f32 PV)
 
 struct Products {
@@ -77,71 +76,24 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
-// global -> shared, asynchronously; zeros where !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
-                  "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
-                  "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 template <typename T, int DH>
 struct Smem {
-  static constexpr int kQP = DH + kPad;                  // int8 row pitch
-  static constexpr int kVP = DH * (int)sizeof(T) + kPad; // V row pitch, bytes
+  static constexpr int kQP = DH + fa::kPad;                   // int8 row pitch
+  static constexpr int kVP = DH * (int)sizeof(T) + fa::kPad;  // V row pitch
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + fa::kBQ * kQP;          // two K buffers
   static constexpr int kV = kK + 2 * fa::kBKV * kQP;     // two V buffers
   static constexpr int kS = kV + 2 * fa::kBKV * kVP;     // two key-scale rows
   static constexpr int kP = kS + 2 * fa::kBKV * 4;       // f32 PV: parked p
   static constexpr int kBytes =
-      kP + (sizeof(T) == 4 ? kWarps * 16 * kPPitch * 4 : 0);
+      kP + (sizeof(T) == 4 ? fa::kWarps * 16 * kPPitch * 4 : 0);
 };
 
 // bf16 at dh <= 64 is compiled for four resident blocks an SM (at most 128
 // registers a thread, with a small spill): more warps hide the latency of the
 // softmax chain; f32 (FMA PV) and dh = 128 keep their registers
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads,
+__global__ void __launch_bounds__(fa::kThreads,
                                   sizeof(T) == 2 && DH <= 64 ? 4 : 1)
     flash_l2r_kernel(const int8_t* __restrict__ qq,
                      const float* __restrict__ qsc,
@@ -164,32 +116,32 @@ __global__ void __launch_bounds__(kThreads,
     int8_t* vs = smem + L::kV + buf * fa::kBKV * L::kVP;
     float* ss = reinterpret_cast<float*>(smem + L::kS) + buf * fa::kBKV;
     constexpr int KP = DH / 16, VP = DH * (int)sizeof(T) / 16;
-    for (int e = tid; e < fa::kBKV * KP; e += kThreads) {
+    for (int e = tid; e < fa::kBKV * KP; e += fa::kThreads) {
       const int r = e / KP, c = (e % KP) * 16, kv = kv0 + r;
       const bool ok = kv < s.skv;
-      cp_async16(ks + r * L::kQP + c,
-                 ok ? kq + (((size_t)blk.b * s.skv + kv) * s.kv_heads +
-                            blk.kvh) * DH + c
-                    : kq,
-                 ok);
+      fa::cp_async16(ks + r * L::kQP + c,
+                     ok ? kq + (((size_t)blk.b * s.skv + kv) * s.kv_heads +
+                                blk.kvh) * DH + c
+                        : kq,
+                     ok);
     }
-    for (int e = tid; e < fa::kBKV * VP; e += kThreads) {
+    for (int e = tid; e < fa::kBKV * VP; e += fa::kThreads) {
       const int r = e / VP, c = (e % VP) * 16, kv = kv0 + r;
       const bool ok = kv < s.skv;
-      cp_async16(vs + r * L::kVP + c,
-                 ok ? reinterpret_cast<const int8_t*>(v) +
-                          ((((size_t)blk.b * s.skv + kv) * s.kv_heads +
-                            blk.kvh) * DH) * sizeof(T) + c
-                    : reinterpret_cast<const int8_t*>(v),
-                 ok);
+      fa::cp_async16(vs + r * L::kVP + c,
+                     ok ? reinterpret_cast<const int8_t*>(v) +
+                              ((((size_t)blk.b * s.skv + kv) * s.kv_heads +
+                                blk.kvh) * DH) * sizeof(T) + c
+                        : reinterpret_cast<const int8_t*>(v),
+                     ok);
     }
-    for (int r = tid; r < fa::kBKV; r += kThreads) {
+    for (int r = tid; r < fa::kBKV; r += fa::kThreads) {
       const int kv = kv0 + r;
       const bool ok = kv < s.skv;
-      cp_async4(ss + r,
-                ok ? ksc + ((size_t)blk.b * s.skv + kv) * s.kv_heads + blk.kvh
-                   : ksc,
-                ok);
+      fa::cp_async4(
+          ss + r,
+          ok ? ksc + ((size_t)blk.b * s.skv + kv) * s.kv_heads + blk.kvh : ksc,
+          ok);
     }
   };
 
@@ -198,50 +150,43 @@ __global__ void __launch_bounds__(kThreads,
   {  // the q tile, with the first KV tile
     int8_t* qs = smem + L::kQ;
     constexpr int QP = DH / 16;
-    for (int e = tid; e < fa::kBQ * QP; e += kThreads) {
+    for (int e = tid; e < fa::kBQ * QP; e += fa::kThreads) {
       const int r = e / QP, c = (e % QP) * 16, q = blk.q0 + r;
       const bool ok = q < s.sq;
-      cp_async16(qs + r * L::kQP + c,
-                 ok ? qq + (((size_t)blk.b * s.sq + q) * s.heads + blk.h) * DH + c
-                    : qq,
-                 ok);
+      fa::cp_async16(
+          qs + r * L::kQP + c,
+          ok ? qq + (((size_t)blk.b * s.sq + q) * s.heads + blk.h) * DH + c
+             : qq,
+          ok);
     }
     if (t0 < t1) load_kv(t0, 0);
-    cp_async_commit();
+    fa::cp_async_commit();
   }
 
-  // rows of this thread: r[0] = band row g, r[1] = g + 8
-  int row[2];
-  float q_scale[2], m[2], l[2];
+  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
+  wr.init(blk);
+  float q_scale[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = blk.q0 + warp * 16 + g + 8 * h;
-    q_scale[h] =
-        row[h] < s.sq ? qsc[((size_t)blk.b * s.sq + row[h]) * s.heads + blk.h]
-                      : 0.f;
-    m[h] = fa::kNeg;
-    l[h] = 0.f;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  for (int h = 0; h < 2; ++h)
+    q_scale[h] = wr.row[h] < s.sq
+                     ? qsc[((size_t)blk.b * s.sq + wr.row[h]) * s.heads + blk.h]
+                     : 0.f;
 
   uint32_t qf[KC][4];
   bool have_q = false;
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
     if (tile + 1 < t1) load_kv(tile + 1, buf ^ 1);  // in flight meanwhile
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the copies just issued
+    fa::cp_async_commit();
+    fa::cp_async_wait<1>();  // everything but the copies just started
     __syncthreads();
     if (!have_q) {  // the warp's q fragments, once
       const int8_t* qs = smem + L::kQ;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc)
-        ldsm_x4(qf[kc], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                 L::kQP + kc * 32 + (lane >> 4) * 16);
+        fa::ldsm_x4(qf[kc],
+                    qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                             L::kQP + kc * 32 + (lane >> 4) * 16);
       have_q = true;
     }
     const int kv0 = tile * fa::kBKV;
@@ -262,8 +207,8 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t r[4];
-        ldsm_x4(r, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * L::kQP +
-                       kc * 32 + ((lane >> 3) & 1) * 16);
+        fa::ldsm_x4(r, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * L::kQP +
+                           kc * 32 + ((lane >> 3) & 1) * 16);
         kf[j][0] = r[0];
         kf[j][1] = r[1];
         kf[j + 1][0] = r[2];
@@ -281,70 +226,21 @@ __global__ void __launch_bounds__(kThreads,
       }
     }
 
-    // ---- scores, masks and the online softmax (f32, the reference's order)
+    // ---- scores (f32, the reference's order), masks, online softmax
     float p[NT][4];
-    float alpha[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = fa::kNeg;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = j * 8 + 2 * t + e;
-          float sc = (float)si[j][2 * h + e] * q_scale[h] * ss[c] * s.scale;
-          if (!fa::visible(s, row[h], kv0 + c)) sc = fa::kNeg;
-          p[j][2 * h + e] = sc;
-          mx = fmaxf(mx, sc);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = j * 8 + 2 * t + e;
-          const float pe = fa::visible(s, row[h], kv0 + c)
-                               ? expf(p[j][2 * h + e] - m_new)
-                               : 0.f;
-          p[j][2 * h + e] = pe;
-          rs += pe;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      alpha[h] = expf(m[h] - m_new);
-      l[h] = l[h] * alpha[h] + rs;
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+        for (int e = 0; e < 2; ++e)
+          p[j][2 * h + e] = (float)si[j][2 * h + e] * q_scale[h] *
+                            ss[j * 8 + 2 * t + e] * s.scale;
+    wr.softmax(s, kv0, p);
 
     // ---- acc += p @ v
     if constexpr (sizeof(T) == 2) {
-      // p.astype(bf16) as the A fragments of m16n8k16, 16 keys each
-#pragma unroll
-      for (int kc = 0; kc < fa::kBKV / 16; ++kc) {
-        const uint32_t a[4] = {
-            pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-            pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-            pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-            pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-        for (int j = 0; j < DT; j += 2) {
-          uint32_t r[4];
-          ldsm_x4_trans(r, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                    L::kVP + (j * 8 + (lane >> 4) * 8) * 2);
-          mma_bf16(acc[j], a, r[0], r[1]);
-          mma_bf16(acc[j + 1], a, r[2], r[3]);
-        }
-      }
+      wr.pv_bf16(p, vs, L::kVP);
     } else {
       // f32: park p (this warp's 16 rows), then FMAs over the 64 keys
       float* ps = reinterpret_cast<float*>(smem + L::kP) + warp * 16 * kPPitch;
@@ -362,32 +258,19 @@ __global__ void __launch_bounds__(kThreads,
 #pragma unroll
         for (int j = 0; j < DT; ++j) {
           const float2 vv = *reinterpret_cast<const float2*>(vr + j * 8 + 2 * t);
-          acc[j][0] = fmaf(p0, vv.x, acc[j][0]);
-          acc[j][1] = fmaf(p0, vv.y, acc[j][1]);
-          acc[j][2] = fmaf(p1, vv.x, acc[j][2]);
-          acc[j][3] = fmaf(p1, vv.y, acc[j][3]);
+          wr.acc[j][0] = fmaf(p0, vv.x, wr.acc[j][0]);
+          wr.acc[j][1] = fmaf(p0, vv.y, wr.acc[j][1]);
+          wr.acc[j][2] = fmaf(p1, vv.x, wr.acc[j][2]);
+          wr.acc[j][3] = fmaf(p1, vv.y, wr.acc[j][3]);
         }
       }
       __syncwarp();  // p read before the next tile parks its own
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
-  cp_async_wait<0>();
+  fa::cp_async_wait<0>();
 
-  // ---- out = acc / max(l, 1e-30), rows < Sq and columns < dh
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= s.sq) continue;
-    const float den = fmaxf(l[h], 1e-30f);
-    T* o = out + (((size_t)blk.b * s.sq + row[h]) * s.heads + blk.h) * s.dh;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + 2 * t + e;
-        if (c < s.dh) o[c] = fa::from_float<T>(acc[j][2 * h + e] / den);
-      }
-  }
+  wr.store(s, blk, out);  // out = acc / max(l, 1e-30)
 }
 
 template <typename T, int DH>
@@ -409,7 +292,7 @@ cudaError_t launch(const void* qq, const void* qsc, const void* kq,
   }
   const long long blocks =
       (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
-  flash_l2r_kernel<T, DH><<<(unsigned)blocks, kThreads, bytes, stream>>>(
+  flash_l2r_kernel<T, DH><<<(unsigned)blocks, fa::kThreads, bytes, stream>>>(
       (const int8_t*)qq, (const float*)qsc, (const int8_t*)kq,
       (const float*)ksc, (const T*)v, (T*)out, s, pr);
   return cudaGetLastError();

@@ -1,21 +1,25 @@
 // The online-softmax half of kernels B5 (flash_attention.cu) and B4
-// (flash_attention_l2r.cu): tiling, masks, the (m, l, acc) carry, PV and the
-// epilogue.  The two kernels differ only in how they fill a score tile.
+// (flash_attention_l2r.cu): tiling, masks, the tensor-core and copy
+// primitives, the warp-layout (m, l, acc) carry, the bf16 PV and the
+// epilogue.  The two kernels differ only in how they fill a score tile (and
+// in their f32 PV).
 //
 // One thread block owns one (batch * q head, 64-row q tile) and walks the KV
 // tiles of 64 keys in order, so the f32 carry stays in registers for the whole
 // row band (the TPU kernel carried it in VMEM scratch across a sequential grid
-// axis).  256 threads as 16 x 16: thread (ty, tx) holds score rows ty*4 + i and
-// columns tx + 16*j (i, j < 4) of each tile, and output columns tx + 16*jj of
-// the same rows; a row's 16 threads are 16 neighbouring lanes of one warp, so
-// row max and row sum are 4 xor-shuffles.
+// axis).  4 warps of 16 q rows, the flash-attention-2 split: a score tile is
+// a warp's 16 rows x 64 keys in the mma.sync C layout, so thread (g, t) =
+// (lane / 4, lane % 4) holds rows g and g + 8 and, of each n8 tile j, keys
+// 8j + 2t and 8j + 2t + 1; a row's max and sum are two quad shuffles and no
+// score leaves the registers.
 //
 // The arithmetic is the reference's (repro/kernels/flash_attention/kernel.py):
 // masked scores are -1e30; p = exp(s - m_new) is zeroed where masked; l sums
 // the f32 p; PV takes p rounded to v's dtype (bf16 in, bf16 p), accumulated in
-// f32; out = acc / max(l, 1e-30) in v's dtype.  KV tiles that lie wholly
-// outside the causal or window band are skipped: such a tile changes neither m,
-// l nor acc, so the skip is exact whatever the tile sizes.
+// f32; out = acc / max(l, 1e-30) in v's dtype.  A row that sees no key keeps
+// l = 0 and acc = 0 and comes out 0.  KV tiles that lie wholly outside the
+// causal or window band are skipped: such a tile changes neither m, l nor
+// acc, so the skip is exact whatever the tile sizes.
 
 #pragma once
 
@@ -26,9 +30,12 @@
 
 namespace fa {
 
-constexpr int kBQ = 64;       // q rows per block
-constexpr int kBKV = 64;      // keys per KV tile
-constexpr int kThreads = 256;
+constexpr int kBQ = 64;    // q rows per block
+constexpr int kBKV = 64;   // keys per KV tile
+constexpr int kWarps = 4;  // 16 q rows each
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 16;   // bytes after each shared row: ldmatrix reads 8
+                           // rows on 8 distinct bank groups
 constexpr float kNeg = -1e30f;
 
 struct Shape {
@@ -39,10 +46,6 @@ struct Shape {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -88,116 +91,170 @@ __device__ __forceinline__ Block block_of(const Shape& s) {
   return blk;
 }
 
-// V tile (kBKV, DH) -> f32 shared memory, zeros past skv and dh.
-template <typename T, int DH>
-__device__ __forceinline__ void load_v(const Shape& s, const Block& blk,
-                                       const T* __restrict__ v, int kv0,
-                                       float* vs) {
-  for (int e = threadIdx.x; e < kBKV * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH, kv = kv0 + r;
-    float x = 0.f;
-    if (kv < s.skv && c < s.dh)
-      x = to_float(v[(((size_t)blk.b * s.skv + kv) * s.kv_heads + blk.kvh) *
-                         s.dh + c]);
-    vs[r * DH + c] = x;
-  }
+// ---------------------------------------------------------------- primitives
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The f32 carry of one thread: rows ty*4 + i, output columns tx + 16*jj.
-template <int DH>
-struct Carry {
-  float m[4], l[4], acc[4][DH / 16];
-  __device__ __forceinline__ void init() {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// global -> shared, asynchronously; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ------------------------------------------------ the warp-layout carry
+// The f32 carry of one warp's 16 q rows: rows row[0] = band row g and
+// row[1] = g + 8, and of each of the DT n8 output tiles the columns 2t and
+// 2t + 1 of both rows (acc[jj][2h + e]: row h, column 8jj + 2t + e).
+template <int DT>
+struct WarpRows {
+  int row[2];
+  float m[2], l[2], acc[DT][4];
+
+  __device__ __forceinline__ void init(const Block& blk) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      m[i] = kNeg;
-      l[i] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      row[h] = blk.q0 + warp * 16 + (lane >> 2) + 8 * h;
+      m[h] = kNeg;
+      l[h] = 0.f;
+    }
 #pragma unroll
-      for (int jj = 0; jj < DH / 16; ++jj) acc[i][jj] = 0.f;
+    for (int jj = 0; jj < DT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+  }
+
+  // One KV tile of the online softmax.  p holds this thread's scores of the
+  // tile's keys kv0 + 8j + 2t + e at p[j][2h + e] (row h), before masking;
+  // leaves p = exp(s - m_new), 0 where masked, and rescales acc.
+  template <int NT>
+  __device__ __forceinline__ void softmax(const Shape& s, int kv0,
+                                          float (&p)[NT][4]) {
+    const int t = threadIdx.x & 3;
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!visible(s, row[h], kv0 + j * 8 + 2 * t + e))
+            p[j][2 * h + e] = kNeg;
+          mx = fmaxf(mx, p[j][2 * h + e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pe = visible(s, row[h], kv0 + j * 8 + 2 * t + e)
+                               ? expf(p[j][2 * h + e] - m_new)
+                               : 0.f;
+          p[j][2 * h + e] = pe;
+          rs += pe;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      alpha[h] = expf(m[h] - m_new);
+      l[h] = l[h] * alpha[h] + rs;
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int jj = 0; jj < DT; ++jj) {
+      acc[jj][0] *= alpha[0];
+      acc[jj][1] *= alpha[0];
+      acc[jj][2] *= alpha[1];
+      acc[jj][3] *= alpha[1];
+    }
+  }
+
+  // acc += p.astype(bf16) @ v on mma.sync m16n8k16: the C layout of two n8
+  // score tiles is the A fragment of 16 keys, so p goes from the score
+  // registers to the tensor cores; V's B fragments come from ldmatrix.trans
+  // of vs, a (kBKV, 8 * DT) bf16 tile with rows of vp bytes.
+  template <int NT>
+  __device__ __forceinline__ void pv_bf16(const float (&p)[NT][4],
+                                          const int8_t* vs, int vp) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                             pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                             pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                             pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+      for (int jj = 0; jj < DT; jj += 2) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, vs + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  vp + (jj * 8 + (lane >> 4) * 8) * 2);
+        mma_bf16(acc[jj], a, r[0], r[1]);
+        mma_bf16(acc[jj + 1], a, r[2], r[3]);
+      }
+    }
+  }
+
+  // out[b, q, h, :] = acc / max(l, 1e-30) in T, rows < sq and columns < dh
+  template <typename T>
+  __device__ __forceinline__ void store(const Shape& s, const Block& blk,
+                                        T* __restrict__ out) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= s.sq) continue;
+      const float den = fmaxf(l[h], 1e-30f);
+      T* o = out + (((size_t)blk.b * s.sq + row[h]) * s.heads + blk.h) * s.dh;
+#pragma unroll
+      for (int jj = 0; jj < DT; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = jj * 8 + 2 * t + e;
+          if (c < s.dh) o[c] = from_float<T>(acc[jj][2 * h + e] / den);
+        }
     }
   }
 };
-
-// One KV tile of the online softmax.  `sc` holds this thread's score cells
-// (before masking).  Writes p (rounded to T) to ps (kBQ x (kBKV+1)), then
-// reads ps and vs: the caller syncs before (vs loaded) and after (ps, vs
-// reused by the next tile).
-template <typename T, int DH>
-__device__ __forceinline__ void online_step(const Shape& s, int q0, int kv0,
-                                            float (&sc)[4][4], Carry<DH>& cy,
-                                            float* ps, const float* vs) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float alpha[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + ty * 4 + i;
-    bool mk[4];
-    float mx = kNeg;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      mk[j] = visible(s, q, kv0 + tx + 16 * j);
-      if (!mk[j]) sc[i][j] = kNeg;
-      mx = fmaxf(mx, sc[i][j]);
-    }
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(cy.m[i], mx);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = mk[j] ? expf(sc[i][j] - m_new) : 0.f;
-      rs += p;
-      ps[(ty * 4 + i) * (kBKV + 1) + tx + 16 * j] =
-          to_float(from_float<T>(p));  // p.astype(v.dtype)
-    }
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1)
-      rs += __shfl_xor_sync(0xffffffffu, rs, off);
-    alpha[i] = expf(cy.m[i] - m_new);
-    cy.l[i] = cy.l[i] * alpha[i] + rs;
-    cy.m[i] = m_new;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float pv[DH / 16];
-#pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj) pv[jj] = 0.f;
-    const float* prow = ps + (ty * 4 + i) * (kBKV + 1);
-    for (int c = 0; c < kBKV; ++c) {
-      const float p = prow[c];
-#pragma unroll
-      for (int jj = 0; jj < DH / 16; ++jj)
-        pv[jj] = fmaf(p, vs[c * DH + tx + 16 * jj], pv[jj]);
-    }
-#pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj)
-      cy.acc[i][jj] = cy.acc[i][jj] * alpha[i] + pv[jj];
-  }
-  __syncthreads();
-}
-
-// out[b, q, h, :] = acc / max(l, 1e-30) in T, rows < sq and columns < dh.
-template <typename T, int DH>
-__device__ __forceinline__ void store_out(const Shape& s, const Block& blk,
-                                          const Carry<DH>& cy,
-                                          T* __restrict__ out) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = blk.q0 + ty * 4 + i;
-    if (q >= s.sq) continue;
-    const float den = fmaxf(cy.l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < s.dh)
-        out[(((size_t)blk.b * s.sq + q) * s.heads + blk.h) * s.dh + c] =
-            from_float<T>(cy.acc[i][jj] / den);
-    }
-  }
-}
 
 // The smallest instantiated head width >= dh (16, 32, 64, 128), 0 if none.
 inline int head_tile(int dh) {

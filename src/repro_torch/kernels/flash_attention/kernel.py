@@ -4,7 +4,11 @@ scores, and their plain versions.
 * B5 (``csrc/flash_attention.cu``) replaces
   ``repro/kernels/flash_attention/kernel.py:_kernel`` (entry
   ``flash_attention_pallas``): online-softmax attention over KV tiles with
-  causal, window and key-length masks and GQA.
+  causal, window and key-length masks and GQA.  f32 runs both products on
+  the TF32 tensor cores as the 3xTF32 split (within the 3e-5 limit; one
+  TF32 product would not be); bf16 runs QK^T as f32 FMAs in d order (the
+  plain version's dot, bit for bit, so that p rounds to the same bf16)
+  and PV on the bf16 tensor cores.
 * B4 (``csrc/flash_attention_l2r.cu``) replaces ``_l2r_kernel`` (entry
   ``flash_attention_l2r_pallas``): the same, with each score tile the
   MSDF level walk over the per-vector-quantized int8 q and k, run on the
@@ -13,8 +17,9 @@ scores, and their plain versions.
   truncates the walk.  PV runs on the bf16 tensor cores for bf16 v and
   as f32 FMAs for f32 v.
 
-B5 runs the online softmax of ``csrc/flash_softmax.cuh``; B4 takes its
-tiling, masks and band from there and has its own tile code.  Layouts
+Both run the warp-layout online softmax, bf16 PV and epilogue of
+``csrc/flash_softmax.cuh`` (4 warps of 16 q rows, K and V double-buffered
+through ``cp.async``) and differ in how they fill a score tile.  Layouts
 are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv, dh), out
 (B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
 

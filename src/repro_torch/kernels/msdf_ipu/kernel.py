@@ -6,7 +6,10 @@ B6 (``csrc/cipu_array.cu``) replaces
 ``cipu_array_pallas``): M PEs, each running the n^2-cycle carry-save
 datapath of ``core/ipu.py`` on one SOP of k products -> (M,) int32, the
 exact SOPs.  One CUDA thread per PE; the ragged end of M is masked, not
-padded.
+padded.  A persistent grid stages rows 32 operands deep through a
+``cp.async`` ring; each thread turns its own operands into bit planes
+(byte packing and 8x8 bit transposes, no warp votes) and counts the
+n^2 AND planes with popc before clocking the cycles.
 
 The wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.

@@ -264,6 +264,36 @@ def test_b6_matches_plain_and_int_sop(dev, m, k, n_bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n_bits", [(300, 72, 12), (300, 1, 15),
+                                        (129, 72, 8), (4097, 72, 8)])
+def test_b6_wide_operands_and_partial_row_blocks(dev, m, k, n_bits):
+    """Widths above 8 bits (the second operand byte's planes, up to the
+    guard's 15 at k = 1) and M that leaves a partial 128-row block."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n_bits)
+    a = torch.randint(0, 1 << n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    b = torch.randint(0, 1 << n_bits, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    got = msdf_ipu.cipu_array(a, b, n_bits)
+    assert torch.equal(got, msdf_ipu.cipu_array_plain(a, b, n_bits))
+    assert torch.equal(got, msdf_ipu.int_sop_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_b6_unaligned_operands_and_high_bits(dev):
+    """Rows that start off a 16-byte boundary take the 4-byte copies, and
+    operand bits at or above n are never counted."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randint(0, 1 << 12, (200 * 72 + 1,), generator=g, device=dev,
+                      dtype=torch.int32)[1:].view(200, 72)
+    b = torch.randint(0, 1 << 12, (200, 72), generator=g, device=dev,
+                      dtype=torch.int32)
+    got = msdf_ipu.cipu_array(a, b, 8)
+    assert torch.equal(got, msdf_ipu.cipu_array_plain(a, b, 8))
+    assert torch.equal(got, msdf_ipu.int_sop_ref(a & 255, b & 255))
+
+
+@pytest.mark.cuda
 def test_b6_matches_golden_model_and_counts_launches(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     a = torch.randint(0, 256, (500, 72), generator=g, device=dev,
@@ -302,6 +332,7 @@ ATTN_CASES = [  # (sq, skv, h, kvh, dh, causal, window), after the JAX suite
     (64, 64, 2, 2, 128, True, 16),
     (70, 130, 3, 1, 24, False, 40),
     (40, 40, 2, 2, 16, True, 0),  # a window that masks every key
+    (33, 70, 2, 1, 20, True, None),  # bf16 rows of 40 bytes: element copies
 ]
 # |got - ref| <= rel * |ref| + abs against the plain version, which walks
 # the kernels' KV tiles: f32 the JAX suite's 3e-5; bf16 one ulp of the
@@ -335,6 +366,17 @@ def test_b5_matches_plain(dev, case, dtype):
     assert fa.LAUNCHES["flash_attention"] == before + 1
     _close(got, fa.flash_attention_kernel_plain(q, k, v, causal, window),
            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b5_rows_that_see_no_key_are_zero(dev, dtype):
+    """window=0 masks every key: B5's rows come out exactly 0, as the
+    reference kernel's do (ROADMAP Queue C)."""
+    q, k, v = _qkv(dev, (130, 130, 4, 2, 64), dtype, seed=2)
+    got = fa.flash_attention(q, k, v, causal=True, window=0)
+    assert got.dtype == dtype and not got.float().abs().max().item()
+    assert torch.equal(got, fa.flash_attention_kernel_plain(q, k, v, True, 0))
 
 
 @pytest.mark.cuda

@@ -208,3 +208,68 @@ def test_b4_masks_of_raw_operands_equal_the_plane_stacks(n_bits, log2_radix):
         assert torch.equal(s.to(torch.int32), ref), lv
     assert [tfk.l2r_width(w) for w in (16, 24, 32, 33, 64, 100, 128)] == \
         [32, 32, 32, 64, 64, 128, 128]
+
+
+# ---- kernel B5's f32 route, emulated in torch.  A test aid (nothing on the
+# main path calls it): both products as the tensor cores take them.
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits (the sign is its own bit, so adding half an ulp of the
+    kept bits to the pattern rounds the magnitude)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _tf32_matmul(a, b, split: bool):
+    """a @ b on TF32 operands: one product of the rounded operands, or the
+    3xTF32 split x = big + small, a.b ~ small_a.big_b + big_a.small_b +
+    big_a.big_b (each TF32 x TF32 product exact in f32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    as_, bs = _tf32(a - ab), _tf32(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _b5_f32_emulated(q, k, v, split: bool, bkv: int = tfk.KV_TILE):
+    """Causal attention with the kernel's online softmax over 64-key tiles,
+    QK^T and PV through _tf32_matmul; q (B, S, H, dh), k, v (B, S, Kv, dh)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qt = q.reshape(b, s, kvh, h // kvh, dh).permute(0, 2, 3, 1, 4)
+    kt, vt = (x.permute(0, 2, 1, 3).unsqueeze(2) for x in (k, v))
+    m = torch.full(qt.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qt.shape)
+    pos = torch.arange(s)
+    for lo in range(0, s, bkv):
+        hi = min(lo + bkv, s)
+        mask = pos[lo:hi][None, :] <= pos[:, None]
+        sc = _tf32_matmul(qt, kt[..., lo:hi, :].transpose(-1, -2), split)
+        sc = torch.where(mask, sc / np.sqrt(dh).astype(np.float32), -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_matmul(p, vt[..., lo:hi, :], split)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
+def test_b5_f32_3xtf32_split_holds_3e_5_and_one_tf32_does_not():
+    """On a small SmolLM-shaped input (2 heads over 1 kv head, dh = 64,
+    causal, S = 128), attention with both products split three ways stays
+    within 3e-5 of the plain version; with one TF32 product each it does
+    not, so the limit sees the difference."""
+    rng = np.random.default_rng(15)
+    q, k, v = _t(*_qkv(rng, 1, 128, 128, 2, 1, 64))
+    ref = tfa.flash_attention_kernel_plain(q, k, v, causal=True)
+    split = (_b5_f32_emulated(q, k, v, split=True) - ref).abs().max().item()
+    single = (_b5_f32_emulated(q, k, v, split=False) - ref).abs().max().item()
+    assert split <= F32_TOL < single, (split, single)
+    # ties go away from zero (round-to-even would give 1.0), the rest to
+    # the nearer of the 10-bit neighbours
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -12),
+                      1.0 + 2.0 ** -12])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0]
