@@ -11,15 +11,18 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged shapes (K=3 and M<=16 included) at every listed ``levels``,
      then every distinct GEMM shape of a VGG-16 forward at batch 8, each
      timed (CUDA events) beside its plain version, its bound and
-     ``torch._int_mm`` on the unstacked operands (B1 also as
-     ``kernel_ms``, over back-to-back launches).  2a/2b kernel B1 (the
+     ``torch._int_mm`` on the unstacked operands (B1-B3 also as
+     ``kernel_ms``, over back-to-back launches; B2 and B3 as
+     ``device_ms``, the profiler's device time of the kernel alone).  2a/2b kernel B1 (the
      level-stacked GEMM) on both of its routes: prefix tables (the
      collapsed products) at every ``levels`` and the one-level slabs of
      the early-exit loop (plane pairs) at every ``first_level``, with B
      K-major (the weight cache's layout) and row-major, ragged M, N, K
      and the split-K FC shapes included; 2c/2d kernel B2 (the per-level
-     snapshot stream; also ``level_count`` and ``out=``), 2e/2f kernel
-     B3 (the pair loop);
+     snapshot stream; also ``level_count`` and ``out=``; B K-major, the
+     weight cache's layout that the model passes, and row-major), 2e/2f
+     kernel B3 (the pair loop); 2g the host time of one wrapper call of
+     B1, B2 and B3 at fc8's shape;
   3. VGG-16 at its published width (224x224, 1000 classes, seeded
      He-normal weights) serving 3 batches of 8 images through
      ``vgg16_apply(..., l2r=QuantConfig())``: 120 B1 launches per
@@ -63,7 +66,11 @@ Phases (any failure exits non-zero; nothing is caught):
      quantized beforehand, the launch alone), beside the wrapper's
      ``ms``.  Once, at the causal bf16 shape,
      a plain version without the rounding of p to bf16 must fail the
-     bf16 limit: the limit sees that rounding.
+     bf16 limit: the limit sees that rounding;
+ 12. the FC head's 7x7 resize (models/resize.py, the reference's
+     ``jax.image.resize`` bits): on the card equal to the CPU bit for
+     bit at every final map size 2-14, C = 512, batches 1 and 8, and
+     fc6's quantized input equal at the 8x8 map (a 256x256 image).
 Then one JSON line per kernel (B1-B6), the card again, and the result
 line.
 Each path's launch counts are reset to 0 just before it and read just
@@ -185,6 +192,26 @@ def stream_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kid: str, iters: int = 5) -> float | str:
+    """Device time of kernel ``kid``'s launches per call of ``fn``
+    (torch.profiler over ``iters`` calls): the kernel alone, with no
+    host work and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if kernel_id(ev.key) == kid:
+            us += getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0)
+    return us / 1e3 / iters if us else "not measured"
 
 
 def host_ms(fn) -> float:
@@ -375,48 +402,58 @@ def phase_streaming(dev) -> list[dict]:
             a, b = operands(g, dev, m, k, n, n_bits)
             sa = stack_planes_lhs(a, n_bits, log2_radix)
             sb = stack_planes_rhs(b, n_bits, log2_radix)
+            sbk = k_major(sb)
             for lv in LEVELS:
-                got = kernel.l2r_gemm_streaming_planes(sa, sb, n_bits,
-                                                       log2_radix, lv)
                 ref = kernel.l2r_gemm_streaming_planes_plain(
                     sa, sb, n_bits, log2_radix, lv)
-                require(torch.equal(got, ref),
-                        f"B2 != plain at M={m} K={k} N={n} n_bits={n_bits} "
-                        f"log2_radix={log2_radix} levels={lv}")
-                checked += 1
+                for b_in, layout in ((sb, "row-major"), (sbk, "K-major")):
+                    got = kernel.l2r_gemm_streaming_planes(
+                        sa, b_in, n_bits, log2_radix, lv)
+                    require(torch.equal(got, ref),
+                            f"B2 != plain at M={m} K={k} N={n} n_bits="
+                            f"{n_bits} log2_radix={log2_radix} levels={lv} "
+                            f"B {layout}")
+                    checked += 1
             full = kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
                                                           log2_radix)
             for cnt in (1, 3, n_lv):
                 got = kernel.l2r_gemm_streaming_planes(
-                    sa, sb, n_bits, log2_radix, level_count=torch.full(
+                    sa, sbk, n_bits, log2_radix, level_count=torch.full(
                         (1,), cnt, dtype=torch.int32, device=dev))
                 require(torch.equal(got[:cnt], full[:cnt]),
                         f"B2 level_count={cnt} wrong at M={m} K={k} N={n}")
                 checked += 1
             acc = torch.full(full.shape, -5, dtype=torch.int32, device=dev)
-            kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix,
+            kernel.l2r_gemm_streaming_planes(sa, sbk, n_bits, log2_radix,
                                              out=acc)
             require(torch.equal(acc, full - 5),
                     f"B2 out= accumulation wrong at M={m} K={k} N={n}")
     print(f"phase 2c: B2 == plain (bit for bit) on {checked} ragged cases, "
-          f"levels {LEVELS}, level_count 1/3/L, out=, configs "
-          f"{RAGGED_CONFIGS}", flush=True)
+          f"levels {LEVELS} (B row-major and K-major), level_count 1/3/L, "
+          f"out=, configs {RAGGED_CONFIGS}", flush=True)
 
     rows = []
     for sh in main_path_shapes():
         m, k, n, acc_mode = sh["m"], sh["k"], sh["n"], sh["accumulate"]
         a, b = operands(g, dev, m, k, n, 8)
         sa, sb = stack_planes_lhs(a), stack_planes_rhs(b)
-        got = kernel.l2r_gemm_streaming_planes(sa, sb)
+        sbk = k_major(sb)  # the weight cache's layout, as the model passes
         ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb)
+        got = kernel.l2r_gemm_streaming_planes(sa, sbk)
         require(torch.equal(got, ref),
-                f"B2 != plain at {sh['name']} M={m} K={k} N={n}")
+                f"B2 != plain at {sh['name']} M={m} K={k} N={n} (K-major)")
+        require(torch.equal(kernel.l2r_gemm_streaming_planes(sa, sb), ref),
+                f"B2 != plain at {sh['name']} M={m} K={k} N={n} (row-major)")
         err = max_err(got, ref)
         del got, ref
         out = torch.zeros((N_LEVELS, m, n), dtype=torch.int32, device=dev) \
             if acc_mode else None
-        ms = time_ms(lambda: kernel.l2r_gemm_streaming_planes(sa, sb,
+        ms = time_ms(lambda: kernel.l2r_gemm_streaming_planes(sa, sbk,
                                                               out=out))
+        kernel_ms = stream_ms(lambda: kernel.l2r_gemm_streaming_planes(
+            sa, sbk, out=out))
+        dev_ms = device_ms(lambda: kernel.l2r_gemm_streaming_planes(
+            sa, sbk, out=out), "B2")
         plain_ms = time_ms(
             lambda: kernel.l2r_gemm_streaming_planes_plain(sa, sb, out=out),
             iters=3, warmup=1)
@@ -431,16 +468,17 @@ def phase_streaming(dev) -> list[dict]:
             2 * m * n * k * d * d,
             m * d * k + d * k * n
             + N_LEVELS * m * n * 4 * (2 if acc_mode else 1))
-        row = {**sh, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
-               "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
+        row = {**sh, "ms": ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": time_ms(lib_fn),
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+               "int_mm_padded": padded, "b_layout": "K-major"}
         rows.append(row)
         print("phase 2d: " + json.dumps(row), flush=True)
         del out
-    print(f"phase 2d: B2 == plain (bit for bit, all {N_LEVELS} planes) at "
-          f"all {len(rows)} VGG-16 shapes; library_ms is torch._int_mm on "
-          f"the unstacked operands, the yardstick of the final plane only",
-          flush=True)
+    print(f"phase 2d: B2 == plain (bit for bit, all {N_LEVELS} planes, B "
+          f"K-major and row-major) at all {len(rows)} VGG-16 shapes, timed "
+          f"on the K-major B; library_ms is torch._int_mm on the unstacked "
+          f"operands, the yardstick of the final plane only", flush=True)
     return rows
 
 
@@ -477,6 +515,8 @@ def phase_pairs(dev) -> list[dict]:
                     f"levels={lv}")
         err = max_err(got, ref)
         ms = time_ms(lambda: kernel.l2r_gemm_pairs(a, b))
+        kernel_ms = stream_ms(lambda: kernel.l2r_gemm_pairs(a, b))
+        dev_ms = device_ms(lambda: kernel.l2r_gemm_pairs(a, b), "B3")
         plain_ms = time_ms(lambda: kernel.l2r_gemm_pairs_plain(a, b),
                            iters=3, warmup=1)
         lib, lib_fn, padded = int_mm(a, b)
@@ -486,7 +526,8 @@ def phase_pairs(dev) -> list[dict]:
         # 2^32), so it needs 2*M*N*K int8 operations, not the D^2 pair
         # products the kernel runs
         bound_ms, by = bound(2 * m * n * k, m * k + k * n + m * n * 4)
-        row = {**sh, "accumulate": False, "ms": ms, "plain_ms": plain_ms,
+        row = {**sh, "accumulate": False, "ms": ms, "kernel_ms": kernel_ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
                "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
         rows.append(row)
@@ -496,20 +537,44 @@ def phase_pairs(dev) -> list[dict]:
     return rows
 
 
-_WALK = (re.compile(r"walk_kernel<\d+, ?\d+, ?\d+, ?(?:true|false), ?(\d)>"),
-         re.compile(r"walk_kernelILi\d+ELi\d+ELi\d+ELb[01]ELi(\d)E"))
-_B1 = re.compile(r"stacked_kernel")
+def phase_wrapper_host(dev) -> dict:
+    """Host time of one wrapper call of B1, B2 and B3 at fc8's shape
+    (batch 8): the Python dispatch, allocation and launch, on the host
+    clock over many calls, with the card's queue kept ahead."""
+    from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    a, b = operands(g, dev, BATCH, 4096, 1000, 8)
+    sa, sbk = stack_planes_lhs(a), k_major(stack_planes_rhs(b))
+    calls = {"B1": lambda: kernel.l2r_gemm_stacked_planes(sa, sbk),
+             "B2": lambda: kernel.l2r_gemm_streaming_planes(sa, sbk),
+             "B3": lambda: kernel.l2r_gemm_pairs(a, b)}
+    out = {}
+    for kid, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        out[f"{kid}_host_us_per_call"] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    print("phase 2g: " + json.dumps(out), flush=True)
+    return out
+
+
+_IDS = ((re.compile(r"stacked_kernel"), "B1"),
+        (re.compile(r"stream_kernel"), "B2"),
+        (re.compile(r"pairs_kernel"), "B3"))
 
 
 def kernel_id(name: str) -> str | None:
-    """B1 for a profiler kernel name of B1's kernel, B2/B3 for one of the
-    level-walk template (mode 1/2), None for any other kernel."""
-    if _B1.search(name):
-        return "B1"
-    for pat in _WALK:
-        hit = pat.search(name)
-        if hit:
-            return ("B1", "B2", "B3")[int(hit.group(1))]
+    """B1, B2 or B3 for a profiler kernel name of that kernel, None for
+    any other kernel."""
+    for pat, kid in _IDS:
+        if pat.search(name):
+            return kid
     return None
 
 
@@ -823,6 +888,44 @@ def phase_conv_progressive(dev, vgg: dict) -> dict:
         del res, scale
         torch.cuda.empty_cache()
     print("phase 7: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_resize(dev) -> dict:
+    """The FC head's 7x7 resize on the card against the same call on the
+    CPU (ROADMAP C1): equal bits at every final map size 2-14, C = 512,
+    batches 1 and 8; fc6's quantized input equal at the 8x8 map where the
+    old resize quantized one value to 39 against the reference's 40."""
+    from repro_torch.core.quant import QuantConfig, quantize
+    from repro_torch.models.resize import resize_7x7
+
+    rng = np.random.default_rng(12)
+    checked = 0
+    for size in range(2, 15):
+        for batch in (1, BATCH):
+            x = torch.from_numpy(np.maximum(rng.standard_normal(
+                (batch, size, size, 512)), 0).astype(np.float32))
+            cpu, got = resize_7x7(x), resize_7x7(x.to(dev)).cpu()
+            require(torch.equal(got.view(torch.int32), cpu.view(torch.int32)),
+                    f"resize on the card != CPU at {size}x{size}, batch "
+                    f"{batch}")
+            checked += 1
+    x = torch.from_numpy(np.maximum(np.random.default_rng(2).standard_normal(
+        (2, 8, 8, 512)), 0).astype(np.float32))
+    cfg = QuantConfig()
+    q_cpu, s_cpu = quantize(resize_7x7(x).reshape(2, -1), cfg, axis=0)
+    xd = x.to(dev)
+    q_dev, s_dev = quantize(resize_7x7(xd).reshape(2, -1), cfg, axis=0)
+    require(torch.equal(q_dev.cpu(), q_cpu) and torch.equal(s_dev.cpu(), s_cpu),
+            "fc6's quantized input differs between the card and the CPU at "
+            "the 8x8 map")
+    require(int(q_cpu[1, 3791]) == 40, "fc6 input (1, 3791) at the 8x8 map "
+            f"quantizes to {int(q_cpu[1, 3791])}, the reference to 40")
+    x8 = torch.from_numpy(np.maximum(rng.standard_normal(
+        (BATCH, 8, 8, 512)), 0).astype(np.float32)).to(dev)
+    out = {"sizes_checked": checked, "fc6_input_equal_at_8x8": True,
+           "ms_8x8_batch8": time_ms(lambda: resize_7x7(x8), iters=5)}
+    print("phase 12: " + json.dumps(out), flush=True)
     return out
 
 
@@ -1198,6 +1301,8 @@ def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
     tot = lambda key: sum(r[key] * weight(r) for r in rows)  # noqa: E731
     if all("kernel_ms" in r for r in rows):  # back-to-back launches
         extra = {"kernel_ms": tot("kernel_ms"), **extra}
+    if all(isinstance(r.get("device_ms"), float) for r in rows):
+        extra = {"device_ms": tot("device_ms"), **extra}  # the profiler's
     ops_ms = sum(r["bound_ms"] * weight(r) for r in rows
                  if r["bound_by"] == "operations")
     return {"name": lib, "id": kid, "route": "cuda",
@@ -1258,6 +1363,7 @@ def main() -> int:
     b1_rows = phase_kernel(dev)
     b2_rows = phase_streaming(dev)
     b3_rows = phase_pairs(dev)
+    phase_wrapper_host(dev)
     vgg = phase_vgg(dev)
     prog = phase_progressive(dev, vgg)
     pairs = phase_pairs_path(dev, vgg)
@@ -1270,6 +1376,7 @@ def main() -> int:
     phase_golden(dev)
     b5 = phase_attention(dev, l2r=False)
     b4 = phase_attention(dev, l2r=True)
+    phase_resize(dev)
 
     fc8 = lambda r: 1 if r["name"] == "fc8" else 0  # noqa: E731
     fc = lambda r: 1 if r["name"] in ("fc6", "fc7", "fc8") else 0  # noqa

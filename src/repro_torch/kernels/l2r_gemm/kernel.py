@@ -8,16 +8,18 @@ versions.
   products of ``core/online.py:msdf_products`` (one at full depth) over
   a cp.async pipeline; B read K-major.
 * B2 (``csrc/l2r_streaming_gemm.cu``) replaces ``_l2r_streaming_kernel``
-  (entry ``l2r_gemm_pallas_streaming_planes``): the same walk writing
-  the running accumulator at every level boundary -> (L, M, N) snapshot
-  stream, with a dynamic level count read from device memory.
+  (entry ``l2r_gemm_pallas_streaming_planes``): the same walk, every plane
+  pair of a staged chunk into its level's accumulator, writing the level
+  prefixes -> (L, M, N) snapshot stream, with a dynamic level count read
+  from device memory; B read K-major; small M splits the contraction over
+  a thread-block cluster.
 * B3 (``csrc/l2r_pairs_gemm.cu``) replaces ``_l2r_gemm_kernel`` (entry
-  ``l2r_gemm_pallas``): the D² pair loop over raw int8 operands, digit
-  planes extracted inside the kernel -> (M, N).
+  ``l2r_gemm_pallas``): the pair loop over raw int8 operands, run as the
+  plane-range products of ``msdf_products`` (byte masks), B read row-major
+  as the weight cache holds it.
 
-B2 and B3 share one level-walk kernel template (``csrc/l2r_walk.cuh``);
-its header says how the TPU's sequential (level, k-block) grid became a
-level loop inside each thread block.  B1 has its own pipeline.
+The three kernels have their own pipelines; B2 and B3 share device helpers
+(``csrc/l2r_mma.cuh``).
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.
@@ -33,14 +35,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
-from repro_torch.core.online import (msdf_level_slices, msdf_pairs,
-                                    msdf_products)
+from repro_torch.core.online import (msdf_level_slices, msdf_products,
+                                    plane_bits)
 from repro_torch.core.progressive import scan_plain
 from repro_torch.core.quant import PlaneOperands
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
-           "level_table", "l2r_gemm_stacked_planes",
+           "streaming_plan",
+           "pairs_plan", "l2r_gemm_stacked_planes",
            "l2r_gemm_stacked_planes_plain", "l2r_gemm_streaming_planes",
            "l2r_gemm_streaming_planes_plain", "l2r_gemm_pairs",
            "l2r_gemm_pairs_plain"]
@@ -54,8 +57,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {  # the C entries' arguments before the stream
     "l2r_stacked_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P],
-    "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                           _I, _I],
+    "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -65,8 +69,8 @@ def stacked_schedule(d: int, k_blocks: int, levels: int | None
     ``a_blocks[t]`` is the block column into A_stack (plane i, chunk c ->
     i * k_blocks + c), ``b_blocks[t]`` the block row into B_rev (plane
     j = s - i at reversed offset (d-1-j) * k_blocks).  The CUDA kernels
-    walk the same order with each level's chunks fused (see
-    :func:`level_table`)."""
+    sum the same pairs in other groupings (int32 wraps alike in any
+    order)."""
     a_blocks: list[int] = []
     b_blocks: list[int] = []
     for (s, i_lo, i_hi) in msdf_level_slices(d, levels):
@@ -80,26 +84,12 @@ def stacked_schedule(d: int, k_blocks: int, levels: int | None
 def streaming_schedule(d: int, k_blocks: int, levels: int | None
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The stacked walk plus each step's level index: the snapshot plane
-    that step's write goes to (kernel B2 flushes at the same level
-    boundaries)."""
+    that step's write goes to (kernel B2 writes the same planes)."""
     a_blocks, b_blocks = stacked_schedule(d, k_blocks, levels)
     steps = [(i_hi - i_lo + 1) * k_blocks
              for (_, i_lo, i_hi) in msdf_level_slices(d, levels)]
     lv_idx = np.repeat(np.arange(len(steps), dtype=np.int32), steps)
     return a_blocks, b_blocks, np.asarray(lv_idx, np.int32)
-
-
-def level_table(d: int, k: int, levels: int | None
-                ) -> tuple[list[int], list[int], list[int]]:
-    """Per MSDF level: first A_stack column, first B_rev row and depth of
-    its contiguous slab (the k_blocks=1 walk of :func:`stacked_schedule`
-    with each level's plane blocks merged)."""
-    a_col, b_row, depth = [], [], []
-    for (s, i_lo, i_hi) in msdf_level_slices(d, levels):
-        a_col.append(i_lo * k)
-        b_row.append((d - 1 - s + i_lo) * k)
-        depth.append((i_hi - i_lo + 1) * k)
-    return a_col, b_row, depth
 
 
 def _unshift(stack: torch.Tensor, side: str, n_bits: int, log2_radix: int,
@@ -151,15 +141,79 @@ def _b1_plan(d: int, levels: int | None, first_level: int):
         else (0,)
 
 
+#: B2's plane counts with a kernel instantiation (n_bits = 8 at any radix)
+B2_PLANES = (1, 2, 4, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def streaming_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """Kernel B2's launch shape: ``(tile, splits)``.  Tile 0 is 16 x 64
+    (M <= 16, the FC head at small batch), tile 1 32 x 64.  Where the
+    tiles fill less than half of the ``sms`` SMs, the
+    contraction (32-deep chunks) is split over a cluster of up to 8
+    blocks, enough to fill the card, at least one chunk each."""
+    tile = 0 if m <= 16 else 1
+    tiles = -(-m // (16 if tile == 0 else 32)) * -(-n // 64)
+    steps = -(-k // 32)
+    if 2 * tiles >= sms:
+        return tile, 1
+    return tile, max(1, min(8, steps, -(-sms // tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def pairs_plan(d: int, log2_radix: int, levels: int | None
+               ) -> tuple[tuple[int, int], ...]:
+    """Kernel B3's products: ``(mask_a, mask_b)`` byte masks of the raw
+    operands, one pair per plane-range product of ``msdf_products(d,
+    levels)`` (at most D; one, ``(0xFF, 0xFF)``, at full depth)."""
+    return tuple((plane_bits(d, log2_radix, il, ih),
+                  plane_bits(d, log2_radix, jl, jh))
+                 for il, ih, jl, jh in msdf_products(d, levels))
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_c_plan(d: int, log2_radix: int, levels: int | None):
+    """:func:`pairs_plan` for the C entry: (count, masks a, masks b) as
+    ctypes arrays, built once per table."""
+    plan = pairs_plan(d, log2_radix, levels)
+    arr = ctypes.c_int * max(len(plan), 1)
+    return len(plan), arr(*(a for a, _ in plan)), arr(*(b for _, b in plan))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_levels(d: int, levels: int | None) -> int:
+    return len(msdf_level_slices(d, levels))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _count_tensor(dev: torch.device, value: int) -> torch.Tensor:
+    """A one-element int32 level count on the card, made once per value
+    (the kernel only reads it)."""
+    return torch.full((1,), value, dtype=torch.int32, device=dev)
+
+
 def _k_major(b_rev: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """B1's B operand: the (N, D*K) rows of ``b_rev`` (D*K, N), read
-    K-major, and their stride.  A K-major stack (``b_rev.t()`` has unit
-    column stride: the weight caches, ``k_major=True``) is used in place;
-    a row-major one is transposed here, one copy of the stack."""
-    bt = b_rev.t()
-    if bt.stride(1) != 1 or (bt.shape[0] > 1 and bt.stride(0) < bt.shape[1]):
-        bt = bt.contiguous()
-    return bt, bt.stride(0) if bt.shape[0] > 1 else bt.shape[1]
+    """B1's and B2's B operand: the (N, D*K) rows of ``b_rev`` (D*K, N),
+    read K-major, and their stride.  A K-major stack (unit stride along
+    D*K: the weight caches, ``k_major=True``) is used in place; a
+    row-major one is transposed here, one copy of the stack."""
+    (dk, n), (s0, s1) = b_rev.shape, b_rev.stride()
+    if s0 == 1 and (n <= 1 or s1 >= dk):
+        return b_rev.t(), s1 if n > 1 else dk
+    bt = b_rev.t().contiguous()
+    return bt, dk
+
+
+def _check_b_rev(b_rev: torch.Tensor, dev: torch.device) -> None:
+    # B1's and B2's B stack: any strides (see _k_major)
+    if b_rev.dtype != torch.int8 or b_rev.device != dev:
+        raise ValueError(f"b_rev must be an int8 tensor on {dev}, got "
+                         f"{b_rev.dtype} on {b_rev.device}")
 
 
 def _check_out(out, shape, dev):
@@ -239,9 +293,7 @@ def l2r_gemm_stacked_planes(
                                              log2_radix, levels, out,
                                              first_level)
     _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack)
-    if b_rev.dtype != torch.int8 or b_rev.device != a_stack.device:
-        raise ValueError(f"b_rev must be an int8 tensor on {a_stack.device}, "
-                         f"got {b_rev.dtype} on {b_rev.device}")
+    _check_b_rev(b_rev, a_stack.device)
     # the kernel adds into its output (atomically where it splits the walk)
     c = torch.zeros((m, n), dtype=torch.int32, device=a_stack.device) \
         if out is None else out
@@ -311,22 +363,32 @@ def l2r_gemm_streaming_planes(
     sync).  Levels at or above it skip their products and writes; their
     planes are unspecified.  ``None`` runs every level.
 
+    The kernel reads B K-major, as B1 does: a K-major ``b_rev`` (the
+    weight caches) is read in place, a row-major one transposed once.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (int8 stacks only, as B1).
+    kernel (int8 stacks with D in :data:`B2_PLANES` planes).
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
-    n_lv = len(msdf_level_slices(n_bits // log2_radix, levels))
+    d = n_bits // log2_radix
+    n_lv = _n_levels(d, levels)
     dev = a_stack.device
     _check_out(out, (n_lv, m, n), dev)
     if not a_stack.is_cuda:
         return l2r_gemm_streaming_planes_plain(a_stack, b_rev, n_bits,
                                                log2_radix, levels,
                                                level_count, out)
-    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack, b_rev=b_rev)
-    c = torch.zeros((n_lv, m, n), dtype=torch.int32, device=dev) \
-        if out is None else out
+    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack)
+    _check_b_rev(b_rev, dev)
+    if d not in B2_PLANES:
+        raise ValueError(f"kernel B2 is built for D in {B2_PLANES} planes; "
+                         f"n_bits={n_bits}, log2_radix={log2_radix} has D={d}")
     if n_lv == 0 or 0 in (m, n, k):
-        return c
+        return torch.zeros((n_lv, m, n), dtype=torch.int32, device=dev) \
+            if out is None else out
+    # without out= the kernel writes the planes (unspecified at or above
+    # the level count, as the docstring says) instead of adding to them
+    c = torch.empty((n_lv, m, n), dtype=torch.int32, device=dev) \
+        if out is None else out
     if level_count is None:
         level_count = n_lv
     if isinstance(level_count, torch.Tensor):
@@ -335,14 +397,13 @@ def l2r_gemm_streaming_planes(
             raise ValueError(f"level_count must be a one-element int32 "
                              f"tensor on {dev}")
     else:
-        cnt = torch.full((1,), int(level_count), dtype=torch.int32,
-                         device=dev)
-    a_col, b_row, depth = level_table(n_bits // log2_radix, k, levels)
-    arr = ctypes.c_int * n_lv
+        cnt = _count_tensor(dev, int(level_count))
+    bt, ldb = _k_major(b_rev)
+    tile, splits = streaming_plan(m, n, k, _sm_count(dev))
     _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
-            a_stack.data_ptr(), b_rev.data_ptr(), c.data_ptr(), m, n,
-            a_stack.shape[1], n, n_lv, arr(*a_col), arr(*b_row), arr(*depth),
-            cnt.data_ptr())
+            a_stack.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n,
+            a_stack.shape[1], ldb, d, k, n_lv, cnt.data_ptr(), tile, splits,
+            int(out is not None))
     return c
 
 
@@ -362,10 +423,11 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
     """D² pair-loop MSDF GEMM over raw operands: kernel B3.
 
     ``aq`` (M, K) and ``bq`` (K, N) signed ints -> int32 (M, N),
-    bit-identical to ``l2r_matmul_int(levels)``.  The kernel extracts
-    the pre-shifted digit planes of each tile itself.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (int8
-    operands only, n_bits <= 8).
+    bit-identical to ``l2r_matmul_int(levels)``.  The kernel runs the
+    pair list as :func:`pairs_plan`'s plane-range products, masking the
+    raw tiles (both read row-major in place).  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (int8 operands only,
+    n_bits <= 8).
     """
     if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
         raise ValueError(f"operands must be (M, K) x (K, N), got "
@@ -374,13 +436,10 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
         return l2r_gemm_pairs_plain(aq, bq, n_bits, log2_radix, levels)
     _require_int8(n_bits, log2_radix, "B3", aq=aq, bq=bq)
     (m, k), n = aq.shape, bq.shape[1]
-    c = torch.zeros((m, n), dtype=torch.int32, device=aq.device)
-    pairs = msdf_pairs(n_bits // log2_radix, levels)
-    if not pairs or 0 in (m, n, k):  # levels=0: empty MSDF prefix
-        return c
-    arr = ctypes.c_int * len(pairs)
+    plan = _b3_c_plan(n_bits // log2_radix, log2_radix, levels)
+    if not plan[0] or 0 in (m, n, k):  # levels=0: empty MSDF prefix
+        return torch.zeros((m, n), dtype=torch.int32, device=aq.device)
+    c = torch.empty((m, n), dtype=torch.int32, device=aq.device)
     _launch("l2r_pairs_gemm", aq.device, f"M={m} K={k} N={n}",
-            aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m, n, k,
-            n_bits // log2_radix, log2_radix, len(pairs),
-            arr(*(i for i, _ in pairs)), arr(*(j for _, j in pairs)))
+            aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m, n, k, *plan)
     return c

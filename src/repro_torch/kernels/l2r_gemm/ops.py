@@ -89,8 +89,8 @@ def _b2_stream(aq, bq, n_bits: int, log2_radix: int, levels: int | None
                ) -> torch.Tensor:
     """The whole (L, ..., M, N) prefix stream: one launch of kernel B2."""
     a, b, lead = _walk_stacks(aq, bq, n_bits, log2_radix)
-    stream = kernel.l2r_gemm_streaming_planes(a, b.contiguous(), n_bits,
-                                              log2_radix, levels)
+    stream = kernel.l2r_gemm_streaming_planes(a, b, n_bits, log2_radix,
+                                              levels)
     return stream.reshape(stream.shape[0], *lead, b.shape[1])
 
 
@@ -455,8 +455,8 @@ def _l2r_conv2d_progressive_int(
                           device=xq.device)
         if n_steps:
             for a, w2 in taps():
-                kernel.l2r_gemm_streaming_planes(a, w2.contiguous(), n_bits,
-                                                 log2_radix, levels, out=acc)
+                kernel.l2r_gemm_streaming_planes(a, w2, n_bits, log2_radix,
+                                                 levels, out=acc)
         return acc.reshape(n_steps, bsz, oh, ow, cout)
     term, out_shape = _conv_level_term(xq, w_in, n_bits, log2_radix, stride,
                                        dilation)

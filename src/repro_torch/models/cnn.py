@@ -30,6 +30,7 @@ from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
 from repro_torch.device import no_tf32, resolve_device
 from repro_torch.kernels.l2r_gemm.ops import (CUDA_WALK, l2r_conv2d,
                                               l2r_matmul_f)
+from repro_torch.models.resize import resize_7x7 as _resize_7x7
 
 __all__ = ["vgg16_build", "vgg16_apply", "vgg16_classify_progressive",
            "vgg16_quantize_weights", "VGG16", "VGG16_CONV_LAYERS"]
@@ -90,21 +91,6 @@ def _conv_float(x, w, b):
 
 def _nchw(fn, x):
     return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-
-
-def _resize_7x7(x: torch.Tensor) -> torch.Tensor:
-    """Resize an NHWC map to the canonical 7x7 of the FC head.
-
-    The antialiased bilinear form is ``jax.image.resize(..., "linear")``
-    (a triangle kernel, widened when downsampling): it copies the 1x1 map
-    of a 32x32 input exactly, as the reference does, and agrees to a few
-    f32 ulps elsewhere.  Plain bilinear is off by an ulp even there.
-    """
-    if tuple(x.shape[1:3]) == (7, 7):
-        return x
-    return _nchw(lambda t: F.interpolate(
-        t, size=(7, 7), mode="bilinear", align_corners=False,
-        antialias=True), x)
 
 
 def vgg16_apply(

@@ -193,6 +193,89 @@ def test_b3_matches_plain_every_level(dev, m, k, n, n_bits, log2_radix):
         assert torch.equal(got, ref), lv
 
 
+def _k_major(b_rev):
+    # the (D*K, N) stack with the contraction innermost: the weight caches'
+    # layout, which B2 reads in place
+    return b_rev.t().contiguous().t()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b2_k_major_every_level_count_and_out(dev, m, k, n, n_bits,
+                                              log2_radix):
+    """B2 on the K-major B stack (read in place): every ``levels``, every
+    ``level_count`` (an int and a device tensor), and ``out=``."""
+    sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix, seed=7)
+    sbk = _k_major(sb)
+    n_lv = 2 * (n_bits // log2_radix) - 1
+    for lv in _levels(n_bits, log2_radix):
+        ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
+                                                     log2_radix, lv)
+        got = kernel.l2r_gemm_streaming_planes(sa, sbk, n_bits, log2_radix,
+                                               lv)
+        assert torch.equal(got, ref), lv
+    full = ref
+    for cnt in range(n_lv + 1):
+        for c in (cnt, torch.full((1,), cnt, dtype=torch.int32, device=dev)):
+            acc = torch.full((n_lv, m, n), -3, dtype=torch.int32, device=dev)
+            kernel.l2r_gemm_streaming_planes(sa, sbk, n_bits, log2_radix,
+                                             level_count=c, out=acc)
+            assert torch.equal(acc[:cnt], full[:cnt] - 3), cnt
+            assert bool((acc[cnt:] == -3).all()), cnt  # left as they were
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 1000), (8, 4096, 1000),
+                                   (16, 2048, 96), (5, 512, 3), (16, 96, 64)])
+def test_b2_split_over_a_cluster_at_small_m(dev, m, k, n):
+    """M <= 16 with few tiles: the contraction is split over a cluster of
+    blocks (the plan says so), and the stream is bit-identical."""
+    _, splits = kernel.streaming_plan(m, n, k, kernel._sm_count(dev))
+    assert splits > 1
+    sa, sb = _stacks(dev, m, k, n, 8, 2, seed=8)
+    ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb)
+    assert torch.equal(kernel.l2r_gemm_streaming_planes(sa, _k_major(sb)),
+                       ref)
+    acc = torch.full_like(ref, 9)
+    kernel.l2r_gemm_streaming_planes(sa, _k_major(sb), level_count=4,
+                                     out=acc)
+    assert torch.equal(acc[:4], ref[:4] + 9)
+    assert bool((acc[4:] == 9).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3, 1), (7, 3, 100), (16, 48, 4096),
+                                   (9, 4112, 520), (33, 1, 17),
+                                   (129, 160, 65), (16, 25088, 64)])
+def test_b3_ragged_and_small_m_every_level(dev, m, k, n):
+    """B3 on raw int8 at ragged M, N and K (K = 3 and 1 included), M <= 16
+    with split contractions, and unaligned N: every ``levels``."""
+    for n_bits, log2_radix in CONFIGS:
+        a, b = _ints(dev, m, k, n, n_bits, seed=m + k + n)
+        for lv in _levels(n_bits, log2_radix):
+            got = kernel.l2r_gemm_pairs(a, b, n_bits, log2_radix, lv)
+            ref = kernel.l2r_gemm_pairs_plain(a, b, n_bits, log2_radix, lv)
+            assert torch.equal(got, ref), (n_bits, log2_radix, lv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", range(1, 15))
+def test_head_resize_on_card_matches_cpu(dev, size):
+    """The FC head's 7x7 resize (the reference's jax.image.resize bits,
+    models/resize.py) gives the CPU's bits on the card."""
+    from repro_torch.models.resize import resize_7x7
+
+    for batch in (1, 8):
+        x = torch.from_numpy(np.maximum(np.random.default_rng(size)
+                                        .standard_normal((batch, size, size,
+                                                          512)), 0)
+                             .astype(np.float32))
+        got = resize_7x7(x.to(dev)).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           resize_7x7(x).view(torch.int32)), batch
+
+
 @pytest.mark.cuda
 def test_b2_b3_reject_int16_planes(dev):
     a, b = _ints(dev, 8, 16, 8, 8)

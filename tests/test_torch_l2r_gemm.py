@@ -143,18 +143,6 @@ def test_schedules_match_reference(n_bits, log2_radix, k_blocks):
         for got, ref in zip(tk.stacked_schedule(d, k_blocks, lv),
                             jk.stacked_schedule(d, k_blocks, lv)):
             np.testing.assert_array_equal(got, ref)
-        # the kernel's level table is the k_blocks=1 walk, levels merged
-        a_col, b_row, depth = tk.level_table(d, 5, lv)
-        a_blk, b_blk = tk.stacked_schedule(d, 1, lv)
-        assert sum(depth) == 5 * len(a_blk)
-        t = 0
-        for ac, br, dp in zip(a_col, b_row, depth):
-            n_pairs = dp // 5
-            assert list(a_blk[t:t + n_pairs] * 5) == \
-                list(range(ac, ac + dp, 5))
-            assert list(b_blk[t:t + n_pairs] * 5) == \
-                list(range(br, br + dp, 5))
-            t += n_pairs
 
 
 @pytest.mark.parametrize("schedule,prestacked", [
@@ -349,3 +337,65 @@ def test_b1_takes_a_k_major_stack():
         assert torch.equal(tk.l2r_gemm_stacked_planes(sa, st, levels=lv),
                            tk.l2r_gemm_stacked_planes(sa, st.contiguous(),
                                                       levels=lv))
+
+
+@pytest.mark.parametrize("n_bits,log2_radix", [(4, 1), (4, 2), (8, 1), (8, 2),
+                                               (8, 4), (6, 2)])
+def test_b3_plan_masks_sum_the_pair_loop(n_bits, log2_radix):
+    """Kernel B3's host plan: at every ``levels`` the byte-mask products
+    (at most D, one (0xFF, 0xFF) at full depth) summed over the raw
+    operands equal the pair loop of ``msdf_pairs`` bit for bit."""
+    d = n_bits // log2_radix
+    a, b = _extreme_operands(n_bits, seed=2)
+    for lv in _levels(n_bits, log2_radix):
+        plan = tk.pairs_plan(d, log2_radix, lv)
+        assert len(plan) <= d
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int64)
+        for ma, mb in plan:
+            am = a & torch.tensor(ma, dtype=torch.uint8).view(torch.int8)
+            bm = b & torch.tensor(mb, dtype=torch.uint8).view(torch.int8)
+            acc += am.long() @ bm.long()
+        ref = tk.l2r_gemm_pairs_plain(a, b, n_bits, log2_radix, lv)
+        assert torch.equal(tg.wrap_int32(acc), ref), lv
+    assert tk.pairs_plan(d, log2_radix, None) == ((0xFF, 0xFF),)
+
+
+@pytest.mark.parametrize("m,k,n,d", [(8, 4096, 1000, 4), (3, 1000, 77, 4),
+                                     (16, 300, 130, 2), (300, 128, 96, 4),
+                                     (8, 64, 1000, 8), (5, 3, 7, 4),
+                                     (401408, 64, 64, 4)])
+def test_b2_split_plan_sums_to_the_stream(m, k, n, d):
+    """Kernel B2's host plan: the tile by M (16 x 64 or 32 x 64), and a
+    cluster split of the contraction where the tiles leave the card's 132
+    SMs half empty (fc8 at batch 8: 16 tiles x 8 blocks).  Each block's share (32-deep chunks)
+    gives per-level prefixes whose wrapped sum is the whole stream, as the
+    cluster adds them."""
+    tile, splits = tk.streaming_plan(m, n, k, 132)
+    assert tile == (0 if m <= 16 else 1)
+    tiles = -(-m // (16 if tile == 0 else 32)) * -(-n // 64)
+    steps = -(-k // 32)
+    assert 1 <= splits <= min(8, steps)
+    if 2 * tiles >= 132:
+        assert splits == 1
+    else:
+        assert splits == min(8, steps) or tiles * splits >= 132
+    if (m, k, n) == (8, 4096, 1000):
+        assert (tile, splits) == (0, 8)
+    if m * n > 10 ** 5:
+        return
+    n_bits, log2_radix = 8, 8 // d
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(_ints(rng, 8, (m, k)))
+    b = torch.from_numpy(_ints(rng, 8, (k, n)))
+    sa, sb = t_lhs(a, n_bits, log2_radix), t_rhs(b, n_bits, log2_radix)
+    per = -(-steps // splits) * 32
+    total = torch.zeros((2 * d - 1, m, n), dtype=torch.int64)
+    for lo in range(0, k, per):
+        hi = min(k, lo + per)
+        cols = torch.cat([torch.arange(p * k + lo, p * k + hi)
+                          for p in range(d)])
+        total += tk.l2r_gemm_streaming_planes_plain(
+            sa[:, cols], sb[cols], n_bits, log2_radix).long()
+    assert torch.equal(tg.wrap_int32(total),
+                       tk.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
+                                                          log2_radix))
