@@ -70,9 +70,26 @@ Phases (any failure exits non-zero; nothing is caught):
  12. the FC head's 7x7 resize (models/resize.py, the reference's
      ``jax.image.resize`` bits): on the card equal to the CPU bit for
      bit at every final map size 2-14, C = 512, batches 1 and 8, and
-     fc6's quantized input equal at the 8x8 map (a 256x256 image).
-Then one JSON line per kernel (B1-B6), the card again, and the result
-line.
+     fc6's quantized input equal at the 8x8 map (a 256x256 image);
+ 13. SmolLM-135M at its published width (30 layers, d 576, vocab 49152,
+     seeded random weights), L2R at full depth, bf16 compute, served
+     through ``prepare_params``, ``make_prefill_step`` and
+     ``make_decode_step``: 13a a prefill of 8 x 2048 tokens (181 B1 and
+     30 B5 launches, nothing else) and 32 greedy decode steps (181 B1
+     launches each, nothing else), finite logits, tokens in range;
+     prefill ms, decode ms/token and tokens/s beside the card, and a
+     ``torch.profiler`` breakdown of a decode step and of the prefill;
+     13b with B5 swapped for its plain version, the model on B1 equal bit
+     for bit to the model on the plain GEMM (8 x 256 prefill + 4 decode
+     steps at full depth, prefill + 1 step at levels=5); 13c the
+     prefill's last-position hidden states with B5 against its plain
+     version, required within what B5's bf16 limit (one output ulp)
+     spent at every element of every layer moves them, with the logits'
+     max |d| and the share of equal greedy tokens; 13d B1 at the LM's
+     shapes (decode M = 8, the head, prefill M = 16384), bit for bit,
+     timed beside its bound, its plain version and ``torch._int_mm``.
+Then one JSON line per kernel (B1-B6; B1 and B5 also with phase 13's
+launches and times), the card again, and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -566,12 +583,13 @@ def phase_wrapper_host(dev) -> dict:
 
 _IDS = ((re.compile(r"stacked_kernel"), "B1"),
         (re.compile(r"stream_kernel"), "B2"),
-        (re.compile(r"pairs_kernel"), "B3"))
+        (re.compile(r"pairs_kernel"), "B3"),
+        (re.compile(r"flash_kernel"), "B5"))
 
 
 def kernel_id(name: str) -> str | None:
-    """B1, B2 or B3 for a profiler kernel name of that kernel, None for
-    any other kernel."""
+    """B1, B2, B3 or B5 for a profiler kernel name of that kernel, None
+    for any other kernel."""
     for pat, kid in _IDS:
         if pat.search(name):
             return kid
@@ -580,9 +598,10 @@ def kernel_id(name: str) -> str | None:
 
 def profile_forward(fn) -> dict:
     """Device time of one forward by kernel (torch.profiler, CUDA
-    activity): each hand-written kernel's share, the other kernels, and
-    the idle share of the forward's wall time.  Zero device time is
-    reported as not measured."""
+    activity): each hand-written kernel's share, the other kernels, the
+    idle share of the forward's wall time and the number of device
+    events (kernels, copies, fills) the forward ran.  Zero device time
+    is reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -593,12 +612,14 @@ def profile_forward(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    events = 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+            events += ev.count
     busy = sum(by_name.values())
     if not busy:
         return {"device_ms": "not measured", "wall_ms": wall_ms}
@@ -612,12 +633,12 @@ def profile_forward(fn) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy, **ours,
             "other_ms": busy - sum(ours.values()),
             "idle_share": max(0.0, 1 - busy / wall_ms),
+            "device_events": events,
             "top_other": [[k[:80], v] for v, k in top]}
 
 
 def phase_vgg(dev) -> dict:
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels.l2r_gemm import kernel
     from repro_torch.models.cnn import (vgg16_apply, vgg16_build,
                                         vgg16_quantize_weights)
 
@@ -653,13 +674,8 @@ def phase_vgg(dev) -> dict:
     prof = profile_forward(lambda: vgg16_apply(
         params, batches[0], l2r=cfg, weights_q=weights_q, device=dev))
 
-    fast = kernel.l2r_gemm_stacked_planes
-    kernel.l2r_gemm_stacked_planes = kernel.l2r_gemm_stacked_planes_plain
-    try:
-        plain = vgg16_apply(params, batches[0], l2r=cfg, weights_q=weights_q,
-                            device=dev)
-    finally:
-        kernel.l2r_gemm_stacked_planes = fast
+    plain = plain_b1(lambda: vgg16_apply(params, batches[0], l2r=cfg,
+                                         weights_q=weights_q, device=dev))
     require(torch.equal(plain, logits[0]),
             "L2R logits differ from the plain-GEMM forward on the card")
     flt = torch.cat([vgg16_apply(params, x, device=dev) for x in batches])
@@ -1293,6 +1309,318 @@ def phase_attention(dev, l2r: bool) -> dict:
     return {"rows": rows, "launches": n[name]}
 
 
+# ------------------------------------------------------------------ slice 7
+# SmolLM-135M (src/repro/configs/smollm_135m.py) served through the port's
+# make_prefill_step / make_decode_step, L2R at full depth, bf16 compute
+LM_ARCH = "smollm-135m"
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 32
+LM_CHECK_PROMPT, LM_CHECK_STEPS = 256, 4  # the plain-GEMM comparisons
+B1_PER_STEP = 30 * 6 + 1  # every dense of 30 layers, the head on 1 position
+B5_PER_PREFILL = 30
+LM_GEMMS = [  # (K, N, launches per layer): wq and wo, wk and wv, wi, mlp wo
+    (576, 576, 2), (576, 192, 2), (576, 3072, 1), (1536, 576, 1)]
+LM_HEAD = (576, 49152)  # the tied head, one launch a step on M = 8 rows
+
+
+def lm_model(dev):
+    """The full SmolLM-135M config with l2r (n=8, radix 4) at full depth,
+    seeded random weights, and its load-time weight cache: (cfg,
+    prepared params, prepare_params seconds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.common import materialize
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve.engine import prepare_params
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), l2r=QuantConfig())
+    params = materialize(lm_build(cfg),
+                         torch.Generator(device=dev).manual_seed(13),
+                         device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepared = prepare_params(cfg, params)
+    torch.cuda.synchronize()
+    return cfg, prepared, time.perf_counter() - t0
+
+
+def lm_prompt(dev, batch, length, vocab, seed):
+    return torch.randint(0, vocab, (batch, length), dtype=torch.int32,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def lm_greedy(cfg, params, prompt, steps):
+    """Prefill, then ``steps`` greedy decode steps: the logits (B, V) of
+    every step."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    with torch.no_grad():
+        state, logits = make_prefill_step(
+            cfg, prompt.shape[1] + steps, torch.float32)(
+            params, {"tokens": prompt})
+        decode = make_decode_step(cfg)
+        out = [logits[:, 0]]
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        for _ in range(steps):
+            state, tok, logits = decode(params, state, tok)
+            out.append(logits[:, 0])
+    return out
+
+
+def plain_b1(fn):
+    """``fn()`` with kernel B1 swapped for its plain version."""
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    fast = kernel.l2r_gemm_stacked_planes
+    kernel.l2r_gemm_stacked_planes = kernel.l2r_gemm_stacked_planes_plain
+    try:
+        return fn()
+    finally:
+        kernel.l2r_gemm_stacked_planes = fast
+
+
+def swapped_b5(fn, replacement):
+    """``fn()`` with kernel B5 swapped for ``replacement`` at the name the
+    model calls (ops.py binds flash_attention_kernel at import)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fast = fa_ops.flash_attention_kernel
+    fa_ops.flash_attention_kernel = replacement
+    try:
+        return fn()
+    finally:
+        fa_ops.flash_attention_kernel = fast
+
+
+def bf16_limit_everywhere(seed: int):
+    """B5's plain version with every output element moved by one bf16 ulp
+    (2^-7 of its binade) in a seeded random direction: B5's bf16 limit
+    spent in full, at every element of every call."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = None
+
+    def attn(*args, **kw):
+        nonlocal g
+        o = fa.flash_attention_kernel_plain(*args, **kw)
+        if g is None:
+            g = torch.Generator(device=o.device).manual_seed(seed)
+        of = o.float()
+        step = torch.exp2(torch.floor(torch.log2(of.abs())) - 7)
+        sign = torch.randint(0, 2, of.shape, generator=g,
+                             device=o.device) * 2 - 1
+        return torch.where(of == 0, of, of + sign * step).to(o.dtype)
+
+    return attn
+
+
+def phase_lm(dev) -> dict:
+    """SmolLM-135M served on the L2R path (phase 13): launch counts,
+    timings and the device breakdown of a prefill of 8 x 2048 tokens and
+    32 greedy decode steps; B1 bit-exact under the transformer and at
+    levels=5; B5's effect on the model against its bf16 limit; B1 per
+    shape at the LM's shapes."""
+    import dataclasses
+
+    from repro_torch.core.quant import PlaneOperands, stack_planes_lhs, \
+        stack_planes_rhs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.l2r_gemm import kernel
+    from repro_torch.models.transformer import (init_lm_state, lm_forward,
+                                                logits_from_hidden)
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    smi = card()
+    cfg, params, prep_s = lm_model(dev)
+    prompt = lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 130)
+    batch = {"tokens": prompt}
+    prefill = make_prefill_step(cfg, LM_PROMPT + LM_STEPS, torch.float32)
+    decode = make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        # 13a: the serving run, every launch counted
+        reset_counts()
+        state, logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        n = counts()
+        require(n == only(l2r_stacked_gemm=B1_PER_STEP,
+                          flash_attention=B5_PER_PREFILL),
+                f"prefill launches {n}, expected {B1_PER_STEP} of B1 and "
+                f"{B5_PER_PREFILL} of B5 and no other")
+        launched = dict(n)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks = [tok]
+        for i in range(LM_STEPS):
+            reset_counts()
+            state, tok, lg = decode(params, state, tok)
+            n = counts()
+            require(n == only(l2r_stacked_gemm=B1_PER_STEP),
+                    f"decode step {i} launches {n}, expected {B1_PER_STEP} "
+                    f"of B1 and no other")
+            launched = {k: launched[k] + n[k] for k in n}
+            toks.append(tok)
+        torch.cuda.synchronize()
+        seqs = torch.cat(toks, 1)
+        require(logits.shape == (LM_BATCH, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(lg).all()),
+                "non-finite or misshapen logits")
+        require(seqs.shape == (LM_BATCH, LM_STEPS + 1)
+                and bool(((seqs >= 0) & (seqs < cfg.vocab)).all()),
+                "tokens out of range")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # the same run timed: host clock around work ending in a sync
+        out = []
+        prefill_ms = host_ms(lambda: out.append(prefill(params, batch)))
+        state, logits = out.pop()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        prof_decode = profile_forward(lambda: decode(params, state, tok))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_STEPS):
+            state, tok, _ = decode(params, state, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LM_STEPS
+        del state
+        prof_prefill = profile_forward(lambda: prefill(params, batch))
+    run = {"card": smi, "prepare_params_s": prep_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": step_ms,
+           "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
+           "tokens_per_s": LM_BATCH * LM_STEPS
+           / (prefill_ms + LM_STEPS * step_ms) * 1e3,
+           "peak_memory_gb": peak_gb,
+           "launches_per_prefill": {"B1": B1_PER_STEP, "B5": B5_PER_PREFILL},
+           "launches_per_decode_step": {"B1": B1_PER_STEP},
+           "launches": launched}
+    print(f"phase 13a: SmolLM-135M l2r, batch {LM_BATCH}, {LM_PROMPT}-token "
+          f"prompts, {LM_STEPS} decode steps on {smi}: prefill "
+          f"{prefill_ms} ms", flush=True)
+    print(f"phase 13a: decode {step_ms} ms/token on {smi}", flush=True)
+    print(f"phase 13a: {run['decode_tokens_per_s']} tokens/s decoding, "
+          f"{run['tokens_per_s']} tokens/s with the prefill, on {smi}",
+          flush=True)
+    print("phase 13a: " + json.dumps(run), flush=True)
+    print("phase 13a: decode step profile: " + json.dumps(prof_decode),
+          flush=True)
+    print("phase 13a: prefill profile: " + json.dumps(prof_prefill),
+          flush=True)
+    del out, logits
+
+    # 13b: B1 under the transformer equals the plain GEMM bit for bit,
+    # at full depth and at levels=5 (B1's prefix tables), B5 swapped for
+    # its plain version in every run
+    small = lm_prompt(dev, LM_BATCH, LM_CHECK_PROMPT, cfg.vocab, 131)
+    exact = {}
+    for levels, steps in ((None, LM_CHECK_STEPS), (5, 1)):
+        c = dataclasses.replace(cfg, l2r_levels=levels)
+
+        def run_small(c=c, steps=steps):
+            return swapped_b5(lambda: lm_greedy(c, params, small, steps),
+                              fa.flash_attention_kernel_plain)
+
+        reset_counts()
+        got = run_small()
+        torch.cuda.synchronize()
+        n = counts()
+        require(n == only(l2r_stacked_gemm=B1_PER_STEP * (steps + 1)),
+                f"levels={levels}: launches {n}, expected "
+                f"{B1_PER_STEP * (steps + 1)} of B1 and no other")
+        ref = plain_b1(run_small)
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"levels={levels}: logits on B1 differ from the plain-GEMM "
+                f"run")
+        exact[str(levels)] = {"steps": steps + 1, "bit_identical": True}
+    print(f"phase 13b: B1 under the transformer == plain GEMM bit for bit: "
+          f"{LM_BATCH} x {LM_CHECK_PROMPT}-token prefill + {LM_CHECK_STEPS} decode "
+          f"steps at full depth, prefill + 1 step at levels=5; "
+          + json.dumps(exact), flush=True)
+
+    # 13c: B5 in the model against its plain version, B1 in every run
+    def last_hidden():
+        with torch.no_grad():
+            st = init_lm_state(cfg, LM_BATCH, LM_PROMPT, torch.float32,
+                               device=dev)
+            h, _, _ = lm_forward(cfg, params, tokens=prompt, mode="prefill",
+                                 state=st)
+        return h[:, -1:].float()
+
+    h_b5 = last_hidden()
+    h_plain = swapped_b5(last_hidden, fa.flash_attention_kernel_plain)
+    h_lim = swapped_b5(last_hidden, bf16_limit_everywhere(132))
+    rel = lambda h: ((h - h_plain).norm() / h_plain.norm()).item()  # noqa
+    with torch.no_grad():
+        lg_b5, lg_plain = (logits_from_hidden(cfg, params, h.to(torch.bfloat16))
+                           for h in (h_b5, h_plain))
+    b5 = {"hidden_rel_b5": rel(h_b5), "hidden_rel_bound": rel(h_lim),
+          "hidden_max_abs_b5": (h_b5 - h_plain).abs().max().item(),
+          "logits_max_abs_b5": (lg_b5.float() - lg_plain.float()).abs()
+          .max().item(),
+          "equal_greedy_tokens": (lg_b5.argmax(-1) == lg_plain.argmax(-1))
+          .float().mean().item()}
+    print("phase 13c: " + json.dumps(b5), flush=True)
+    require(b5["hidden_rel_b5"] <= b5["hidden_rel_bound"],
+            f"B5 moves the last-position hidden states by "
+            f"{b5['hidden_rel_b5']} (relative) from the plain attention's, "
+            f"beyond the {b5['hidden_rel_bound']} its bf16 limit spent at "
+            f"every element gives")
+    del params, h_b5, h_plain, h_lim
+    torch.cuda.empty_cache()
+
+    # 13d: B1 per shape at the LM's shapes, B as the weight cache holds it
+    g = torch.Generator(device=dev).manual_seed(133)
+    rows = []
+    shapes = [(LM_BATCH, k, n, 30 * c, "decode") for k, n, c in LM_GEMMS]
+    shapes.append((LM_BATCH, *LM_HEAD, 1, "head"))
+    shapes += [(LM_BATCH * LM_PROMPT, k, n, 30 * c, "prefill")
+               for k, n, c in LM_GEMMS]
+    for m, k, n, count, where in shapes:
+        a, b = operands(g, dev, m, k, n, 8)
+        sa = stack_planes_lhs(a)
+        sbk = PlaneOperands.prepare_rhs(
+            b, shifted=True, window_pad=where == "head",
+            k_major=True).core_stack(True)
+        got = kernel.l2r_gemm_stacked_planes(sa, sbk)
+        ref = kernel.l2r_gemm_stacked_planes_plain(sa, stack_planes_rhs(b))
+        require(torch.equal(got, ref), f"B1 != plain at {where} M={m} K={k} "
+                                       f"N={n}")
+        err = max_err(got, ref)
+        lib, lib_fn, padded = int_mm(a, b)
+        require(torch.equal(lib, got), f"torch._int_mm disagrees with B1 at "
+                                       f"M={m} K={k} N={n}")
+        del got, ref, lib
+        d = 4
+        bound_ms, by = bound(2 * m * n * k, m * d * k + d * k * n + m * n * 4)
+        row = {"name": f"{where} K={k} N={n}", "m": m, "k": k, "n": n,
+               "count": count, "where": where,
+               "ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
+               "kernel_ms": stream_ms(
+                   lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
+               "plain_ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes_plain(
+                   sa, sbk), iters=3, warmup=1),
+               "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
+               "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
+        rows.append(row)
+        print("phase 13d: " + json.dumps(row), flush=True)
+        del a, b, sa, sbk, lib_fn
+        torch.cuda.empty_cache()
+    print(f"phase 13d: B1 == plain (bit for bit) at the {len(rows)} LM "
+          f"shapes; count = launches per decode step (decode, head) or per "
+          f"prefill (prefill; the prefill's head is the head row)", flush=True)
+    return {"run": run, "exact": exact, "b5": b5, "rows": rows,
+            "prof_decode": prof_decode, "prof_prefill": prof_prefill}
+
+
+def lm_totals(rows: list[dict], where: tuple[str, ...]) -> dict:
+    """Σ count × per-shape median over the rows of one LM step."""
+    pick = [r for r in rows if r["where"] in where]
+    return {key: sum(r[key] * r["count"] for r in pick)
+            for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                        "bound_ms")}
+
+
 def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
                  weight=lambda r: r["count"], **extra) -> dict:
     """The JSON record of one kernel: times per run of its main path (the
@@ -1377,6 +1705,13 @@ def main() -> int:
     b5 = phase_attention(dev, l2r=False)
     b4 = phase_attention(dev, l2r=True)
     phase_resize(dev)
+    lm = phase_lm(dev)
+    lm_dec = lm_totals(lm["rows"], ("decode", "head"))
+    lm_pre = lm_totals(lm["rows"], ("prefill", "head"))
+    bf16_row = next(r for r in b5["rows"] if r["name"] == "causal_bf16")
+    lm_b5 = {key: bf16_row[key] * B5_PER_PREFILL
+             for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
 
     fc8 = lambda r: 1 if r["name"] == "fc8" else 0  # noqa: E731
     fc = lambda r: 1 if r["name"] in ("fc6", "fc7", "fc8") else 0  # noqa
@@ -1386,7 +1721,21 @@ def main() -> int:
                      f"its 120 launches of the per-shape medians; kernel_ms "
                      f"from back-to-back launches); launches over the 3 "
                      f"forwards of phase 3",
-                     images_per_s=b1_images_per_s),
+                     images_per_s=b1_images_per_s,
+                     lm_launches=lm["run"]["launches"]["l2r_stacked_gemm"],
+                     lm_per=f"phase 13: SmolLM-135M l2r served at batch "
+                     f"{LM_BATCH}: one {LM_PROMPT}-token prefill and one "
+                     f"decode step, {B1_PER_STEP} launches each (sums over "
+                     f"them of the per-shape medians of 13d); lm_launches "
+                     f"over the prefill and {LM_STEPS} decode steps of 13a",
+                     lm={"decode_step": lm_dec, "prefill": lm_pre,
+                         "prefill_ms": lm["run"]["prefill_ms"],
+                         "decode_ms_per_token":
+                         lm["run"]["decode_ms_per_token"],
+                         "device_ms_decode_step":
+                         lm["prof_decode"].get("B1_ms"),
+                         "device_ms_prefill": lm["prof_prefill"].get("B1_ms"),
+                         "shapes": lm["rows"]}),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -1409,7 +1758,15 @@ def main() -> int:
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
                      "f32) through ops.flash_attention; kernel_ms from "
                      "back-to-back calls; library_ms is "
-                     "scaled_dot_product_attention"),
+                     "scaled_dot_product_attention",
+                     lm_launches=lm["run"]["launches"]["flash_attention"],
+                     lm_per=f"phase 13: the {B5_PER_PREFILL} attention "
+                     f"calls of one SmolLM-135M prefill (batch {LM_BATCH}, "
+                     f"{LM_PROMPT} tokens, causal bf16): {B5_PER_PREFILL} x "
+                     f"the causal_bf16 row of 10b, the same shape",
+                     lm={"prefill": lm_b5,
+                         "device_ms_prefill": lm["prof_prefill"].get("B5_ms"),
+                         **lm["b5"]}),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

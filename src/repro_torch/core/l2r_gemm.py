@@ -31,7 +31,7 @@ from .quant import (QuantConfig, QuantizedWeights, digit_planes, quantize,
                     stack_planes_lhs, stack_planes_rhs)
 
 __all__ = ["l2r_matmul_int", "l2r_matmul_int_stacked", "stacked_gemm_planes",
-           "l2r_matmul", "wrap_int32"]
+           "l2r_matmul", "l2r_dense", "wrap_int32"]
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -171,3 +171,24 @@ def l2r_matmul(
         wq, w_scale = w_q
     out = l2r_matmul_int(xq, wq, cfg.n_bits, cfg.log2_radix, levels)
     return (out.to(torch.float32) * x_scale * w_scale).to(x.dtype)
+
+
+def l2r_dense(
+    x: torch.Tensor,
+    w: torch.Tensor | None,
+    cfg: QuantConfig | None,
+    levels: int | None = None,
+    w_q: tuple[torch.Tensor, torch.Tensor] | QuantizedWeights | None = None,
+) -> torch.Tensor:
+    """Drop-in dense: a plain ``x @ w`` in x's dtype (true f32, TF32
+    off) when ``cfg`` is None, the pair-loop L2R path (:func:`l2r_matmul`)
+    otherwise.  ``w_q`` carries pre-quantized weights (built once at
+    load) so the call skips the weight quantization."""
+    if cfg is None:
+        with no_tf32():
+            return torch.matmul(x, w.to(x.dtype))
+    lead = x.shape[:-1]
+    n = (w_q.q if isinstance(w_q, QuantizedWeights) else w_q[0]
+         if w_q is not None else w).shape[-1]
+    out = l2r_matmul(x.reshape(-1, x.shape[-1]), w, cfg, levels, w_q=w_q)
+    return out.reshape(*lead, n)

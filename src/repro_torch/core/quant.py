@@ -29,10 +29,12 @@ __all__ = [
     "quantize_weights",
     "dequantize",
     "digit_planes",
+    "from_digit_planes",
     "shifted_planes",
     "stack_planes_lhs",
     "stack_planes_rhs",
     "plane_count",
+    "max_digit",
 ]
 
 
@@ -78,6 +80,10 @@ class QuantConfig:
 
 def plane_count(n_bits: int, log2_radix: int) -> int:
     return n_bits // log2_radix
+
+
+def max_digit(log2_radix: int) -> int:
+    return (1 << log2_radix) - 1
 
 
 def _int_dtype(n_bits: int) -> torch.dtype:
@@ -136,6 +142,16 @@ def digit_planes(x: torch.Tensor, n_bits: int = 8,
     planes = [(xi >> (log2_radix * i)) & r_mask for i in range(d - 1)]
     planes.append(xi >> (log2_radix * (d - 1)))  # arithmetic shift: signed top
     return torch.stack(planes).to(torch.int8)
+
+
+def from_digit_planes(planes: torch.Tensor, log2_radix: int = 2
+                      ) -> torch.Tensor:
+    """Exact inverse of :func:`digit_planes` (returns int32)."""
+    acc = torch.zeros(planes.shape[1:], dtype=torch.int32,
+                      device=planes.device)
+    for i in range(planes.shape[0]):
+        acc = acc + (planes[i].to(torch.int32) << (log2_radix * i))
+    return acc
 
 
 def _shifted_plane(x: torch.Tensor, i: int, n_bits: int, log2_radix: int,

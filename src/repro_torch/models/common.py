@@ -1,0 +1,206 @@
+"""Parameter descriptors, initialization, norms and the dense primitive.
+
+The port of ``repro/models/common.py``.  Models are pairs of functions:
+
+    build(cfg)  -> tree of Param descriptors (shape/dtype/logical axes)
+    apply(cfg, params, ...) -> activations
+
+Trees are nested dicts and lists with the reference's keys.
+:func:`materialize` draws real tensors from an explicit
+``torch.Generator``: the port cannot reproduce ``jax.random``, so a test
+that compares the two packages builds its params in JAX and carries them
+across by value (models/convert.py:lm_params_from_jax).
+
+Every matmul of the LM stack goes through :func:`dense`, which runs the
+paper's L2R digit-plane pipeline (kernel B1 on the card) when the config
+carries a QuantConfig.  The reference's legacy ``{"q", "scale"}`` record
+(``quantize_desc``/``quantize_params``, the checkpoint codec) belongs to
+the checkpoint slice (ROADMAP A11) and is not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.core.l2r_gemm import l2r_dense
+from repro_torch.core.quant import (QuantConfig, QuantizedWeights,
+                                    quantize_weights)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.l2r_gemm.ops import l2r_matmul_f
+
+__all__ = [
+    "Param",
+    "materialize",
+    "tree_map",
+    "dense",
+    "quantize_tree",
+    "rms_norm",
+    "layer_norm",
+    "count_params",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """Declarative parameter: shape, logical axes, init recipe."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: float | None = None  # stddev override; default fan-in
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (dict keys
+    in sorted order, as ``jax.tree`` walks them); ``rest`` are trees of
+    the same structure whose leaves ride along."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def materialize(tree, generator: torch.Generator | None = None,
+                device: str | torch.device | None = None,
+                param_dtype: torch.dtype = torch.float32):
+    """Real tensors for a descriptor tree, drawn in order from
+    ``generator`` (seed 0 on the device when None): zeros/ones as named,
+    normal weights with std ``scale`` or 1/sqrt(fan_in), embeddings with
+    std 0.02, as the reference's recipe."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def make(p: Param) -> torch.Tensor:
+        dtype = param_dtype if p.dtype == torch.float32 else p.dtype
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=dev)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=dev)
+        fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
+        if p.init == "embed":
+            std = p.scale if p.scale is not None else 0.02
+        else:
+            std = p.scale if p.scale is not None else 1.0 / math.sqrt(fan_in)
+        w = torch.randn(p.shape, generator=generator, device=dev) * std
+        return w.to(dtype)
+
+    return tree_map(make, tree)
+
+
+def count_params(tree) -> int:
+    total = 0
+
+    def add(p: Param):
+        nonlocal total
+        total += math.prod(p.shape)
+
+    tree_map(add, tree)
+    return total
+
+
+def dense(
+    x: torch.Tensor,
+    w,
+    l2r: QuantConfig | None = None,
+    l2r_levels: int | None = None,
+) -> torch.Tensor:
+    """x @ w with optional L2R digit-plane arithmetic (the paper's unit).
+
+    w may have >2 dims (e.g. the fused SwiGLU input (d, 2, d_ff));
+    trailing dims are flattened for the contraction and restored after.
+
+    w may also be a :class:`~repro_torch.core.quant.QuantizedWeights`
+    record (quantize_tree / serve.engine.prepare_params), the L2R weight
+    cache.  With an ``l2r`` config the activations stream through the
+    level-stacked digit-plane GEMM (kernel B1 on the card) against the
+    cached plane stack; without one it is plain W8A8 integer dense,
+    computed by the same GEMM at full depth (exactly ``xq @ wq``: CUDA
+    has no integer matmul of its own).  A float w with ``l2r`` is
+    quantized here, per call; without ``l2r`` it is a plain product.
+    """
+    if isinstance(w, QuantizedWeights):
+        trail = w.q.shape[1:]
+        wq = w.q.reshape(w.q.shape[0], -1)
+        ws = w.scale.expand(1, *trail).reshape(1, -1)
+        planes = w.planes
+        if planes is not None and planes.stack.ndim > 2:
+            # flatten the trailing output dims of the cached stack like q's
+            # (the contraction axis leads: the plane layout is untouched,
+            # and a K-major stack stays a view)
+            planes = dataclasses.replace(
+                planes, stack=planes.stack.reshape(planes.stack.shape[0], -1),
+                axis=-2)
+        out = l2r_matmul_f(x, None, l2r or QuantConfig(),
+                           l2r_levels if l2r is not None else None,
+                           w_q=QuantizedWeights(wq, ws, planes))
+        return out.reshape(*x.shape[:-1], *trail)
+    if w.ndim > 2:
+        out = dense(x, w.reshape(w.shape[0], -1), l2r, l2r_levels)
+        return out.reshape(*x.shape[:-1], *w.shape[1:])
+    if l2r is not None:
+        return l2r_matmul_f(x, w, l2r, l2r_levels)
+    return l2r_dense(x, w, None)
+
+
+def _quantizable(p: Param) -> bool:
+    """Matmul weights eligible for int8 storage: 2D+ normal-init params
+    that are not embedding/vocab tables (lookup + tied logits stay f32)
+    and not routed-expert stacks."""
+    return (p.init == "normal" and len(p.shape) >= 2
+            and "vocab" not in p.axes and "experts" not in p.axes)
+
+
+def quantize_tree(desc_tree, params, cfg: QuantConfig = QuantConfig(),
+                  prestack: bool = False):
+    """Materialized params -> :class:`QuantizedWeights` leaves.
+
+    The load-time L2R weight cache: every eligible matmul weight is
+    quantized ONCE, per out-channel (and per stacked layer).
+    ``prestack=True`` also caches each weight's reversed RHS plane stack
+    along its contraction axis (axis 1 for stacked-layer weights, whose
+    leading layer axis the forward strips) in kernel B1's operand
+    format: pre-shifted planes, K-major in memory, so a layer's slice
+    reaches the kernel in place and no forward extracts, shifts or
+    transposes a weight plane.  The stack converts exactly to the
+    reference's raw-digit one (``PlaneOperands.with_layout``).
+    """
+    def f(p: Param, w):
+        if not _quantizable(p):
+            return w
+        stacked = p.axes and p.axes[0] == "layers"
+        axes = (0, -1) if stacked else (-1,)
+        return quantize_weights(w, cfg, channel_axes=axes, prestack=prestack,
+                                plane_axis=1 if stacked else 0,
+                                plane_shifted=True, k_major=True)
+    return tree_map(f, desc_tree, params)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * gamma.to(torch.float32) \
+        + beta.to(torch.float32)
+    return out.to(x.dtype)
+

@@ -1,11 +1,14 @@
 """Reference param trees -> port params, by value.
 
 The port cannot reproduce ``jax.random``, so a model built by the
-reference (``materialize(vgg16_build(...), key)``, a tree of
-``{"w", "b"}`` per layer with HWIO conv weights) crosses as numpy arrays
-and keeps its keys and layouts: both packages then compute the same
-function.  ``.npz`` trees saved by the reference's checkpoint manager
-load the same way.
+reference crosses as numpy arrays and keeps its keys and layouts: both
+packages then compute the same function.  VGG-16
+(``materialize(vgg16_build(...), key)``, a tree of ``{"w", "b"}`` per
+layer with HWIO conv weights) crosses with :func:`params_from_jax`; an
+LM (``materialize(lm_build(cfg), key)``: nested dicts, the ``prefix`` and
+``suffix`` lists and the ``stack`` leaves with their leading ``layers``
+axis) with :func:`lm_params_from_jax`.  ``.npz`` trees saved by the
+reference's checkpoint manager load the same way.
 """
 
 from __future__ import annotations
@@ -15,14 +18,37 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax"]
 
 
 def params_from_jax(tree: dict, device: str | torch.device | None = None
                     ) -> dict:
     """``{layer: {"w": array, "b": array}}`` of numpy (or array-like)
     leaves -> the same tree of f32 tensors on ``device``."""
+    return lm_params_from_jax(
+        {name: {k: np.asarray(v, np.float32) for k, v in leaf.items()}
+         for name, leaf in tree.items()}, device)
+
+
+def _tensor(x, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
+        return torch.from_numpy(a.astype(np.float32)).to(
+            dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_jax(tree, device: str | torch.device | None = None):
+    """A reference LM param tree of numpy (or array-like) leaves -> the
+    same tree (same keys, list order and layouts, same dtypes) of
+    tensors on ``device``."""
     dev = resolve_device(device)
-    return {name: {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
-                   for k, v in leaf.items()}
-            for name, leaf in tree.items()}
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _tensor(t, dev)
+
+    return walk(tree)

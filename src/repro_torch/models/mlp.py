@@ -1,0 +1,41 @@
+"""Feed-forward blocks: SwiGLU / GeGLU / GELU, with L2R-quantized matmuls
+when the config enables the paper's technique.  The port of
+``repro/models/mlp.py``; GELU is the tanh form, ``jax.nn.gelu``'s
+default."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import Param, dense
+from .config import ModelConfig
+
+__all__ = ["mlp_build", "mlp_apply"]
+
+
+def mlp_build(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d_ff = d_ff if d_ff is not None else cfg.d_ff
+    if cfg.ffn_kind in ("swiglu", "geglu"):
+        return {
+            "wi": Param((cfg.d_model, 2, d_ff), ("embed", None, "ffn")),
+            "wo": Param((d_ff, cfg.d_model), ("ffn", "embed")),
+        }
+    return {
+        "wi": Param((cfg.d_model, d_ff), ("embed", "ffn")),
+        "wo": Param((d_ff, cfg.d_model), ("ffn", "embed")),
+    }
+
+
+def mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor
+              ) -> torch.Tensor:
+    if cfg.ffn_kind in ("swiglu", "geglu"):
+        h = dense(x, params["wi"], cfg.l2r, cfg.l2r_levels)  # (..., 2, d_ff)
+        gate, up = h[..., 0, :], h[..., 1, :]
+        act = F.silu(gate) if cfg.ffn_kind == "swiglu" \
+            else F.gelu(gate, approximate="tanh")
+        h = act * up
+    else:
+        h = F.gelu(dense(x, params["wi"], cfg.l2r, cfg.l2r_levels),
+                   approximate="tanh")
+    return dense(h, params["wo"], cfg.l2r, cfg.l2r_levels)

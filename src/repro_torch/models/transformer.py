@@ -1,0 +1,353 @@
+"""Decoder-LM assembly: pattern-based layers, stacked blocks, caches.
+
+The port of ``repro/models/transformer.py`` for attention mixers
+(``global`` / ``local``) and the dense ffn (``mlp``).  An architecture is
+a per-layer sequence of (mixer, ffn) kinds (ModelConfig.layer_kinds),
+grouped into the smallest repeating unit whose params carry a leading
+``layers`` axis (the reference's ``lax.scan`` layout), with aperiodic
+prefix/suffix layers apart.  Here the scan is a Python loop over that
+axis: each step takes the layer's slice of the params and of the stacked
+caches as views, and the caches are written in place.  The other mixers
+and the MoE ffn (``ssd``, ``rec``, ``moe``) are ROADMAP A10 and raise.
+
+Three modes:
+  train   — full sequence, no cache;
+  prefill — full sequence, writes caches;
+  decode  — one token against caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.quant import QuantizedWeights
+from repro_torch.device import resolve_device
+
+from .attention import (KVCache, apply_rope, chunked_attention,
+                        decode_attention, init_kv_cache, update_kv_cache)
+from .common import Param, dense, layer_norm, rms_norm, tree_map
+from .config import ModelConfig
+from .mlp import mlp_apply, mlp_build
+
+__all__ = [
+    "attn_build",
+    "attn_apply",
+    "layer_build",
+    "layer_apply",
+    "layer_norm_fn",
+    "lm_build",
+    "lm_forward",
+    "logits_from_hidden",
+    "init_lm_state",
+    "layer_slice",
+    "LMState",
+]
+
+
+def _not_ported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"layer kind {kind!r} (MoE, SSM, RG-LRU and encoder-decoder "
+        f"mixers) is not in the port yet (ROADMAP A10)")
+
+
+# --------------------------------------------------------------- attention
+def attn_build(cfg: ModelConfig) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    p = {
+        "wq": Param((d, h * dh), ("embed", "qkv")),
+        "wk": Param((d, kv * dh), ("embed", "qkv")),
+        "wv": Param((d, kv * dh), ("embed", "qkv")),
+        "wo": Param((h * dh, d), ("qkv", "embed")),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Param((h * dh,), ("qkv",), init="zeros")
+        p["bk"] = Param((kv * dh,), ("qkv",), init="zeros")
+        p["bv"] = Param((kv * dh,), ("qkv",), init="zeros")
+    return p
+
+
+def attn_apply(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,
+    *,
+    mode: str,
+    rope_positions: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache | None,
+    window: int | None,
+):
+    """Self-attention layer.  Returns (out, cache), the cache written in
+    place in prefill and decode."""
+    if cfg.attn_l2r is not None:
+        raise NotImplementedError("digit-serial attention (cfg.attn_l2r) is "
+                                  "the next slice of the port (ROADMAP A9b)")
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+
+    q = dense(x, p["wq"], cfg.l2r, cfg.l2r_levels)
+    k = dense(x, p["wk"], cfg.l2r, cfg.l2r_levels)
+    v = dense(x, p["wv"], cfg.l2r, cfg.l2r_levels)
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kv, dh)
+    v = v.reshape(b, s, kv, dh)
+
+    q = apply_rope(q, rope_positions, cfg.rope_theta, cfg.rope_mode,
+                   cfg.mrope_sections)
+    k = apply_rope(k, rope_positions, cfg.rope_theta, cfg.rope_mode,
+                   cfg.mrope_sections)
+
+    if mode == "decode":
+        cache = update_kv_cache(cache, k, v, positions)
+        out = decode_attention(
+            q, cache.k, cache.v, cache.positions, positions[:, 0],
+            window=window, scale=cfg.attn_scale, softcap=cfg.logit_softcap)
+    else:
+        if mode == "prefill":
+            cache = update_kv_cache(cache, k, v, positions)
+        out = chunked_attention(
+            q, k, v, causal=True, window=window, scale=cfg.attn_scale,
+            softcap=cfg.logit_softcap,
+            score_dtype=getattr(torch, cfg.attn_score_dtype),
+            head_shard=cfg.attn_head_shard)
+    return dense(out.reshape(b, s, h * dh), p["wo"], cfg.l2r,
+                 cfg.l2r_levels), cache
+
+
+# ------------------------------------------------------------ layer dispatch
+def _mixer_build(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("global", "local"):
+        return attn_build(cfg)
+    raise _not_ported(kind)
+
+
+def _ffn_build(cfg: ModelConfig, kind: str) -> dict:
+    if kind != "mlp":
+        raise _not_ported(kind)
+    # MoE models use a wider hidden on their dense layers
+    if cfg.n_experts and cfg.dense_d_ff:
+        return mlp_build(cfg, d_ff=cfg.dense_d_ff)
+    return mlp_build(cfg)
+
+
+def layer_build(cfg: ModelConfig, kinds: tuple[str, str]) -> dict:
+    mixer, ffn = kinds
+    out = {
+        "mixer_norm": Param((cfg.d_model,), ("embed",), init="zeros"),
+        "mixer": _mixer_build(cfg, mixer),
+    }
+    if ffn != "none":
+        out["ffn_norm"] = Param((cfg.d_model,), ("embed",), init="zeros")
+        out["ffn"] = _ffn_build(cfg, ffn)
+    return out
+
+
+def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype: torch.dtype, device) -> KVCache:
+    if kind == "global":
+        return init_kv_cache(batch, max_len, cfg.n_kv, cfg.head_dim, dtype,
+                             device=device)
+    if kind == "local":
+        return init_kv_cache(batch, min(cfg.window, max_len), cfg.n_kv,
+                             cfg.head_dim, dtype, device=device)
+    raise _not_ported(kind)
+
+
+def layer_apply(
+    cfg: ModelConfig,
+    params: dict,
+    kinds: tuple[str, str],
+    x: torch.Tensor,
+    *,
+    mode: str,
+    rope_positions: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache | None,
+):
+    """One (mixer + ffn) residual layer.  Returns (x, cache, aux): aux is
+    the MoE router loss, 0.0 for every layer the port has."""
+    mixer_kind, ffn_kind = kinds
+    if mixer_kind not in ("global", "local"):
+        raise _not_ported(mixer_kind)
+    norm = layer_norm_fn(cfg)
+    h = norm(x, params["mixer_norm"])
+    mixed, cache = attn_apply(
+        cfg, params["mixer"], h, mode=mode, rope_positions=rope_positions,
+        positions=positions, cache=cache,
+        window=cfg.window if mixer_kind == "local" else None)
+    x = x + mixed
+    if ffn_kind != "none":
+        if ffn_kind != "mlp":
+            raise _not_ported(ffn_kind)
+        x = x + mlp_apply(cfg, params["ffn"], norm(x, params["ffn_norm"]))
+    return x, cache, 0.0
+
+
+def layer_norm_fn(cfg: ModelConfig) -> Callable:
+    if cfg.use_layer_norm:
+        return lambda x, g: layer_norm(x, 1.0 + g, torch.zeros_like(g),
+                                       cfg.norm_eps)
+    return lambda x, g: rms_norm(x, g, cfg.norm_eps)
+
+
+# --------------------------------------------------------------- LM assembly
+def lm_build(cfg: ModelConfig) -> dict:
+    prefix, repeats, unit, suffix = cfg.block_grouping()
+    params: dict[str, Any] = {
+        "embed": Param((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                       init="embed"),
+        "final_norm": Param((cfg.d_model,), ("embed",), init="zeros"),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = Param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                               scale=0.02)
+    params["prefix"] = [layer_build(cfg, kk) for kk in prefix]
+    if repeats:
+        # every leaf gets a leading "layers" axis of size `repeats`
+        def stack_param(p: Param) -> Param:
+            return Param((repeats, *p.shape), ("layers", *p.axes),
+                         init=p.init, scale=p.scale, dtype=p.dtype)
+        params["stack"] = tree_map(stack_param,
+                                   [layer_build(cfg, kk) for kk in unit])
+    params["suffix"] = [layer_build(cfg, kk) for kk in suffix]
+    return params
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked tree: every tensor's, weight cache's and
+    KV cache's leading axis indexed, as views (writes reach the stack)."""
+    if tree is None:
+        return None
+    if isinstance(tree, KVCache):
+        return KVCache(*(None if f is None else f[i] for f in tree))
+    if isinstance(tree, QuantizedWeights):
+        planes = tree.planes
+        if planes is not None:
+            planes = dataclasses.replace(planes, stack=planes.stack[i])
+        return QuantizedWeights(tree.q[i], tree.scale[i], planes)
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [layer_slice(v, i) for v in tree]
+    return tree[i]
+
+
+@dataclasses.dataclass
+class LMState:
+    """Serving state: caches grouped like the params + next position."""
+
+    prefix: list
+    stack: Any  # per unit layer, a KVCache whose tensors lead with (repeats,)
+    suffix: list
+    pos: torch.Tensor  # (B,) int32, next position to write
+
+
+def init_lm_state(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: str | torch.device | None = None) -> LMState:
+    prefix, repeats, unit, suffix = cfg.block_grouping()
+    device = resolve_device(device)
+
+    def mk(kk, lead=()):
+        c = _mixer_cache(cfg, kk[0], batch, max_len, dtype, device)
+        return KVCache(*(None if f is None else
+                         f.expand(*lead, *f.shape).contiguous() for f in c))
+
+    return LMState(
+        prefix=[mk(kk) for kk in prefix],
+        stack=[mk(kk, (repeats,)) for kk in unit] if repeats else None,
+        suffix=[mk(kk) for kk in suffix],
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def lm_forward(
+    cfg: ModelConfig,
+    params: dict,
+    *,
+    tokens: torch.Tensor | None = None,
+    embeds: torch.Tensor | None = None,
+    rope_positions: torch.Tensor | None = None,
+    mode: str = "train",
+    state: LMState | None = None,
+):
+    """Backbone forward.
+
+    Returns (hidden (B, S, d), new_state, aux_loss).  ``tokens`` xor
+    ``embeds``.  In prefill and decode the caches of ``state`` are
+    written in place and ``new_state`` holds the same caches with
+    ``pos`` advanced by S.
+    """
+    prefix_k, repeats, unit, suffix_k = cfg.block_grouping()
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    if embeds is None:
+        # gather, then cast: the reference's cast-then-gather, elementwise
+        x = params["embed"][tokens.long()].to(compute_dtype)
+    else:
+        x = embeds.to(compute_dtype)
+    if cfg.scale_embeddings:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=compute_dtype,
+                           device=x.device)
+
+    b, s = x.shape[:2]
+    steps = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+    positions = state.pos[:, None] + steps if state is not None \
+        else steps.expand(b, s)
+    if rope_positions is None:
+        rope_positions = positions
+
+    aux_total = 0.0
+
+    def run_layer(x, lp, kinds, cache):
+        return layer_apply(cfg, lp, kinds, x, mode=mode,
+                           rope_positions=rope_positions,
+                           positions=positions, cache=cache)
+
+    new_prefix = []
+    for i, kk in enumerate(prefix_k):
+        c = state.prefix[i] if state is not None else None
+        x, c2, aux = run_layer(x, params["prefix"][i], kk, c)
+        new_prefix.append(c2)
+        aux_total += aux
+
+    for blk in range(repeats):  # the reference's scan over the stack
+        for u_idx, kk in enumerate(unit):
+            c = layer_slice(state.stack[u_idx], blk) \
+                if state is not None else None
+            x, _, aux = run_layer(x, layer_slice(params["stack"][u_idx], blk),
+                                  kk, c)
+            aux_total += aux
+
+    new_suffix = []
+    for i, kk in enumerate(suffix_k):
+        c = state.suffix[i] if state is not None else None
+        x, c2, aux = run_layer(x, params["suffix"][i], kk, c)
+        new_suffix.append(c2)
+        aux_total += aux
+
+    x = layer_norm_fn(cfg)(x, params["final_norm"])
+
+    new_state = None
+    if state is not None:
+        new_state = LMState(prefix=new_prefix, stack=state.stack,
+                            suffix=new_suffix, pos=state.pos + s)
+    return x, new_state, aux_total
+
+
+def logits_from_hidden(cfg: ModelConfig, params: dict, hidden: torch.Tensor
+                       ) -> torch.Tensor:
+    """LM head.  With an L2R config the head matmul runs through the
+    digit-plane pipeline like every other matmul; a ``head_q`` cache
+    entry (serve/engine.py:prepare_params) skips the per-step head-weight
+    quantization."""
+    if cfg.l2r is not None and "head_q" in params:
+        return dense(hidden, params["head_q"], cfg.l2r, cfg.l2r_levels)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return dense(hidden, w.to(hidden.dtype), cfg.l2r, cfg.l2r_levels)

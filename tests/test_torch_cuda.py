@@ -501,3 +501,123 @@ def test_b4_b5_reject_what_they_do_not_take(dev):
     big = torch.zeros((1, 4, 1, 192), device=dev)
     with pytest.raises(ValueError, match="dh <= 128"):
         fa.flash_attention(big, big, big)
+
+
+# ----------------------------------------------------- slice 7: the LM path
+def _smoke_lm(l2r):
+    """The smoke SmolLM (6 layers, d = 96, f32) with seeded params on the
+    CPU: (cfg, params)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.common import materialize
+    from repro_torch.models.transformer import lm_build
+
+    cfg = get_smoke("smollm-135m")
+    if l2r:
+        cfg = dataclasses.replace(cfg, l2r=QuantConfig())
+    params = materialize(lm_build(cfg), torch.Generator().manual_seed(7),
+                         device="cpu")
+    return cfg, params
+
+
+def _serve(cfg, params, prompt, steps):
+    """Prefill, then ``steps`` decode steps fed the prefill's greedy
+    token and then its own: the logits of every step, (B, V) each."""
+    from repro_torch.serve.engine import (make_decode_step,
+                                          make_prefill_step, prepare_params)
+
+    pp = prepare_params(cfg, params)
+    state, logits = make_prefill_step(cfg, prompt.shape[1] + steps,
+                                      torch.float32)(pp, {"tokens": prompt})
+    decode = make_decode_step(cfg)
+    out = [logits[:, 0]]
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    for _ in range(steps):
+        state, tok, logits = decode(pp, state, tok)
+        out.append(logits[:, 0])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+def test_chunked_attention_launches_b5_once_when_it_fits(dev, dtype, window):
+    """chunked_attention on the card: one B5 launch when the arguments
+    fit, none with softcap (the plain loop on the card); either within
+    ATTN_TOL, elementwise, of the CPU's plain loop walking the same KV
+    blocks (B5's KV_TILE keys, which its route ignores ``kv_chunk`` for),
+    so that p rounds to bf16 against the same running maxima."""
+    from repro_torch.kernels.flash_attention.kernel import KV_TILE
+    from repro_torch.models.attention import chunked_attention
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 70, 6, 64), generator=g).to(dtype)
+    k, v = (torch.randn((2, 70, 2, 64), generator=g).to(dtype)
+            for _ in range(2))
+    for softcap, launches in ((None, 1), (30.0, 0)):
+        ref = chunked_attention(q, k, v, window=window, softcap=softcap,
+                                q_chunk=32, kv_chunk=KV_TILE)
+        before = fa.LAUNCHES["flash_attention"]
+        got = chunked_attention(q.to(dev), k.to(dev), v.to(dev),
+                                window=window, softcap=softcap, q_chunk=32,
+                                kv_chunk=KV_TILE)
+        assert fa.LAUNCHES["flash_attention"] == before + launches
+        _close(got.cpu(), ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2r", [False, True])
+def test_smoke_lm_on_card_matches_cpu(dev, l2r):
+    """The smoke LM's prefill and 3 decode steps on the card (B1 under
+    every dense with l2r, B5 under the prefill's attention) against the
+    same run on the CPU: logits within 1e-4 (f32 sums in other orders,
+    B5's 3xTF32 within 3e-5), or, with l2r, on a row behind an int8
+    activation code that rounded the other way, within 5 % of the row's
+    largest |logit|; at least half of the rows within 1e-4."""
+    cfg, params = _smoke_lm(l2r)
+    prompt = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(8),
+                           dtype=torch.int32)
+    from repro_torch.models.common import tree_map
+
+    ref = _serve(cfg, params, prompt, 3)
+    got = _serve(cfg, tree_map(lambda t: t.to(dev), params), prompt.to(dev),
+                 3)
+    d = torch.stack([(a.cpu() - b).abs().amax(-1) for a, b in zip(got, ref)])
+    mag = torch.stack([b.abs().amax(-1) for b in ref])
+    if not l2r:
+        assert d.max() <= 1e-4, d
+    else:
+        assert (d <= 0.05 * mag).all(), d / mag
+        assert (d <= 1e-4).float().mean() >= 0.5, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [None, 5])
+def test_l2r_forward_on_card_equals_plain_gemm_forward(dev, levels,
+                                                       monkeypatch):
+    """With B5 swapped for its plain version in both runs, the smoke LM's
+    prefill and decode on B1 equal the same run on B1's plain version bit
+    for bit; 6 x 6 + 1 B1 launches a step (the head on one position)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.common import tree_map
+
+    monkeypatch.setattr(fa_ops, "flash_attention_kernel",
+                        fa.flash_attention_kernel_plain)
+    cfg, params = _smoke_lm(True)
+    cfg = dataclasses.replace(cfg, l2r_levels=levels)
+    params = tree_map(lambda t: t.to(dev), params)
+    prompt = torch.randint(0, cfg.vocab, (2, 16), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(9),
+                           dtype=torch.int32)
+    before = kernel.LAUNCHES["l2r_stacked_gemm"]
+    got = _serve(cfg, params, prompt, 2)
+    assert kernel.LAUNCHES["l2r_stacked_gemm"] == before + 3 * 37
+    monkeypatch.setattr(kernel, "l2r_gemm_stacked_planes",
+                        kernel.l2r_gemm_stacked_planes_plain)
+    ref = _serve(cfg, params, prompt, 2)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -39,7 +39,12 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.kernels.msdf_ipu.ref",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.flash_attention.ops",
-                "repro_torch.kernels.flash_attention.ref"]
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.configs", "repro_torch.configs.registry",
+                "repro_torch.models.config", "repro_torch.models.common",
+                "repro_torch.models.mlp", "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.serve",
+                "repro_torch.serve.engine", "repro_torch.launch.serve"]
 
 
 def _env():
@@ -104,6 +109,46 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
                  lambda: prototype_head(np.random.default_rng(0), 8, 4, 2)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
+        monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import main
+    from repro_torch.models.attention import init_kv_cache
+    from repro_torch.models.common import materialize
+    from repro_torch.models.convert import lm_params_from_jax
+    from repro_torch.models.transformer import init_lm_state, lm_build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("smollm-135m")
+    desc = lm_build(cfg)
+    for call in (lambda: materialize(desc), lambda: lm_params_from_jax({}),
+                 lambda: materialize(desc, device="cuda"),
+                 lambda: init_kv_cache(1, 4, 1, 8),
+                 lambda: init_kv_cache(1, 4, 1, 8, device="cuda"),
+                 lambda: init_lm_state(cfg, 1, 4),
+                 lambda: init_lm_state(cfg, 1, 4, device="cuda"),
+                 lambda: main(["--arch", "smollm-135m", "--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_chunked_attention_on_cpu_takes_the_plain_loop(monkeypatch):
+    """On CPU tensors chunked_attention never reaches kernel B5's wrapper,
+    whatever its arguments."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import b5_fits, chunked_attention
+
+    def no_kernel(*a, **k):
+        raise AssertionError("B5's wrapper called for a CPU tensor")
+
+    monkeypatch.setattr(ops, "flash_attention_kernel", no_kernel)
+    q, k, v = (torch.randn((1, 8, 2, 16)) for _ in range(3))
+    assert not b5_fits(q, k, v, None, 0)
+    out = chunked_attention(q, k, v)
+    assert torch.allclose(out, fa.flash_attention_kernel_plain(q, k, v),
+                          atol=1e-6)
 
 
 def test_wrapper_on_cpu_takes_plain_version_without_building(monkeypatch):
