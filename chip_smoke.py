@@ -87,9 +87,24 @@ Phases (any failure exits non-zero; nothing is caught):
      spent at every element of every layer moves them, with the logits'
      max |d| and the share of equal greedy tokens; 13d B1 at the LM's
      shapes (decode M = 8, the head, prefill M = 16384), bit for bit,
-     timed beside its bound, its plain version and ``torch._int_mm``.
-Then one JSON line per kernel (B1-B6; B1 and B5 also with phase 13's
-launches and times), the card again, and the result line.
+     timed beside its bound, its plain version and ``torch._int_mm``;
+ 14. the same model with digit-serial attention as well
+     (``attn_l2r=QuantConfig()``, full depth; f32 cache): 14a a prefill
+     of 8 x 2048 tokens (181 B1 and 30 B4 launches, no B5, nothing else)
+     filling the plane-stacked key cache, and 32 greedy decode steps
+     walking it (181 B1 launches each, nothing else), timed and profiled
+     as 13a, with peak memory; 14b every layer's plane cache after the
+     prefill and the decode steps equal bit for bit to re-extraction from
+     the float key cache; 14c the prefill's last-position hidden states
+     with B4 against its plain version, within what B4's bf16 limit spent
+     at every element of every layer moves them; 14d 8 decode steps with
+     ``attn_early_exit`` at tolerances 1e-4 and 10.0: per-layer
+     exit-level histograms (``attn_exit_tap``), the loose walk never
+     later than the tight one on the same inputs, and the tokens equal to
+     the full-depth run's (printed, not required: random weights).
+Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
+launches and times of phases 13-14), the card again, and the result
+line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -584,12 +599,13 @@ def phase_wrapper_host(dev) -> dict:
 _IDS = ((re.compile(r"stacked_kernel"), "B1"),
         (re.compile(r"stream_kernel"), "B2"),
         (re.compile(r"pairs_kernel"), "B3"),
-        (re.compile(r"flash_kernel"), "B5"))
+        (re.compile(r"flash_kernel"), "B5"),
+        (re.compile(r"flash_l2r_kernel"), "B4"))
 
 
 def kernel_id(name: str) -> str | None:
-    """B1, B2, B3 or B5 for a profiler kernel name of that kernel, None
-    for any other kernel."""
+    """B1, B2, B3, B4 or B5 for a profiler kernel name of that kernel,
+    None for any other kernel."""
     for pat, kid in _IDS:
         if pat.search(name):
             return kid
@@ -1394,17 +1410,15 @@ def swapped_b5(fn, replacement):
         fa_ops.flash_attention_kernel = fast
 
 
-def bf16_limit_everywhere(seed: int):
-    """B5's plain version with every output element moved by one bf16 ulp
-    (2^-7 of its binade) in a seeded random direction: B5's bf16 limit
-    spent in full, at every element of every call."""
-    from repro_torch.kernels import flash_attention as fa
-
+def bf16_limit_everywhere(seed: int, plain):
+    """A kernel's ``plain`` version with every output element moved by one
+    bf16 ulp (2^-7 of its binade) in a seeded random direction: the
+    kernel's bf16 limit spent in full, at every element of every call."""
     g = None
 
     def attn(*args, **kw):
         nonlocal g
-        o = fa.flash_attention_kernel_plain(*args, **kw)
+        o = plain(*args, **kw)
         if g is None:
             g = torch.Generator(device=o.device).manual_seed(seed)
         of = o.float()
@@ -1549,7 +1563,8 @@ def phase_lm(dev) -> dict:
 
     h_b5 = last_hidden()
     h_plain = swapped_b5(last_hidden, fa.flash_attention_kernel_plain)
-    h_lim = swapped_b5(last_hidden, bf16_limit_everywhere(132))
+    h_lim = swapped_b5(last_hidden, bf16_limit_everywhere(
+        132, fa.flash_attention_kernel_plain))
     rel = lambda h: ((h - h_plain).norm() / h_plain.norm()).item()  # noqa
     with torch.no_grad():
         lg_b5, lg_plain = (logits_from_hidden(cfg, params, h.to(torch.bfloat16))
@@ -1610,6 +1625,279 @@ def phase_lm(dev) -> dict:
           f"shapes; count = launches per decode step (decode, head) or per "
           f"prefill (prefill; the prefill's head is the head row)", flush=True)
     return {"run": run, "exact": exact, "b5": b5, "rows": rows,
+            "prof_decode": prof_decode, "prof_prefill": prof_prefill}
+
+
+# ------------------------------------------------------------------ slice 8
+# the phase 13 model with digit-serial attention: B4 under every prefill
+# attention, the decode walk on the plane-stacked key cache
+B4_PER_PREFILL = 30
+LM_EXIT_STEPS = 8  # 14d: decode steps at each early-exit tolerance
+EXIT_TOLS = (1e-4, 10.0)  # tight, loose
+
+
+def swapped_b4(fn, replacement):
+    """``fn()`` with kernel B4 swapped for ``replacement`` at the name
+    chunked_attention calls (the kernel module's attribute)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    fast = fa_kernel.flash_attention_l2r
+    fa_kernel.flash_attention_l2r = replacement
+    try:
+        return fn()
+    finally:
+        fa_kernel.flash_attention_l2r = fast
+
+
+def plane_cache_exact(state, quant) -> int:
+    """Require every layer's plane cache to equal re-extraction from its
+    float key cache (all slots, used or not); returns the slots held."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.l2r_attention import quantize_per_vector
+    from repro_torch.core.quant import stack_planes_rhs
+
+    slots = 0
+    for c in [*state.prefix, *(state.stack or []), *state.suffix]:
+        kq, ks = quantize_per_vector(c.k, quant)
+        re_stack = F.pad(stack_planes_rhs(kq, quant.n_bits, quant.log2_radix,
+                                          axis=-1, shifted=False),
+                         (0, (quant.planes - 1) * c.k.shape[-1]))
+        require(torch.equal(c.k_planes, re_stack)
+                and torch.equal(c.k_scale, ks[..., 0]),
+                "the plane-stacked key cache differs from re-extraction "
+                "from the float key cache")
+        slots += c.k_scale.numel()
+        del kq, ks, re_stack
+    return slots
+
+
+def exit_histograms(records: list[dict], layers: int) -> dict:
+    """Per-layer exit-level counts (levels 0..N_LEVELS-1) over the rows
+    (batch, kv head, group) of every decode step, from attn_exit_tap
+    records in layer order."""
+    per_layer = np.zeros((layers, N_LEVELS), np.int64)
+    for i, r in enumerate(records):
+        per_layer[i % layers] += np.bincount(r["exit_levels"].ravel(),
+                                             minlength=N_LEVELS)
+    total = per_layer.sum()
+    return {"per_layer": per_layer.tolist(),
+            "all_layers": per_layer.sum(0).tolist(),
+            "mean_exit_level": float((per_layer.sum(0)
+                                      * np.arange(N_LEVELS)).sum() / total),
+            "mean_levels_run": float(np.mean([r["levels_run"]
+                                              for r in records]))}
+
+
+def phase_lm_attn(dev, b4_rows: list[dict]) -> dict:
+    """SmolLM-135M served with digit-serial attention (phase 14): launch
+    counts, timings and the device breakdown of a prefill (B4 under every
+    attention) and 32 decode steps (the walk on the plane cache); the
+    plane cache against re-extraction; B4's effect on the model against
+    its bf16 limit; the early-exit decode walk at two tolerances."""
+    import dataclasses
+
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.attention import attn_exit_tap
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    smi = card()
+    cfg, params, prep_s = lm_model(dev)
+    cfg = dataclasses.replace(cfg, attn_l2r=QuantConfig())
+    prompt = lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 140)
+    batch = {"tokens": prompt}
+    max_len = LM_PROMPT + LM_STEPS
+    prefill = make_prefill_step(cfg, max_len, torch.float32)
+    decode = make_decode_step(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        # 14a: the serving run, every launch counted
+        reset_counts()
+        state, logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        n = counts()
+        require(n == only(l2r_stacked_gemm=B1_PER_STEP,
+                          flash_attention_l2r=B4_PER_PREFILL),
+                f"prefill launches {n}, expected {B1_PER_STEP} of B1 and "
+                f"{B4_PER_PREFILL} of B4 and no other")
+        launched = dict(n)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks = [tok]
+        for i in range(LM_STEPS):
+            reset_counts()
+            state, tok, lg = decode(params, state, tok)
+            n = counts()
+            require(n == only(l2r_stacked_gemm=B1_PER_STEP),
+                    f"decode step {i} launches {n}, expected {B1_PER_STEP} "
+                    f"of B1 and no other")
+            launched = {k: launched[k] + n[k] for k in n}
+            toks.append(tok)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        seqs = torch.cat(toks, 1)
+        require(logits.shape == (LM_BATCH, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(lg).all()),
+                "non-finite or misshapen logits")
+        require(seqs.shape == (LM_BATCH, LM_STEPS + 1)
+                and bool(((seqs >= 0) & (seqs < cfg.vocab)).all()),
+                "tokens out of range")
+        positions = state.stack[0].positions
+        require(int(positions.max()) == max_len - 1
+                and bool((positions >= 0).all()),
+                "the cache does not hold every position of the run")
+        slots = plane_cache_exact(state, cfg.attn_l2r)  # 14b, after decode
+        cache_gb = sum(c.k_planes.numel() + 4 * c.k_scale.numel()
+                       for c in state.stack) / 1e9
+        del state
+
+        # the same run timed: host clock around work ending in a sync
+        out = []
+        prefill_ms = host_ms(lambda: out.append(prefill(params, batch)))
+        state, logits = out.pop()
+        plane_cache_exact(state, cfg.attn_l2r)  # 14b, after the prefill
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        prof_decode = profile_forward(lambda: decode(params, state, tok))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_STEPS):
+            state, tok, _ = decode(params, state, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LM_STEPS
+        del state
+        prof_prefill = profile_forward(lambda: prefill(params, batch))
+    run = {"card": smi, "prepare_params_s": prep_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": step_ms,
+           "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
+           "tokens_per_s": LM_BATCH * LM_STEPS
+           / (prefill_ms + LM_STEPS * step_ms) * 1e3,
+           "peak_memory_gb": peak_gb, "plane_cache_gb": cache_gb,
+           "launches_per_prefill": {"B1": B1_PER_STEP, "B4": B4_PER_PREFILL},
+           "launches_per_decode_step": {"B1": B1_PER_STEP},
+           "launches": launched}
+    print(f"phase 14a: SmolLM-135M l2r + attn_l2r, batch {LM_BATCH}, "
+          f"{LM_PROMPT}-token prompts, {LM_STEPS} decode steps on {smi}: "
+          f"prefill {prefill_ms} ms, decode {step_ms} ms/token", flush=True)
+    print("phase 14a: " + json.dumps(run), flush=True)
+    print("phase 14a: decode step profile: " + json.dumps(prof_decode),
+          flush=True)
+    print("phase 14a: prefill profile: " + json.dumps(prof_prefill),
+          flush=True)
+    print(f"phase 14b: the plane-stacked key cache == re-extraction from the "
+          f"float key cache, bit for bit, after the prefill and after "
+          f"{LM_STEPS} decode steps ({slots} slots of {cfg.n_layers} "
+          f"layers)",
+          flush=True)
+    del out, logits
+
+    # 14c: B4 in the model against its plain version, B1 in every run
+    def last_hidden():
+        with torch.no_grad():
+            st = tt.init_lm_state(cfg, LM_BATCH, LM_PROMPT, torch.float32,
+                                  device=dev)
+            h, _, _ = tt.lm_forward(cfg, params, tokens=prompt,
+                                    mode="prefill", state=st)
+        return h[:, -1:].float()
+
+    h_b4 = last_hidden()
+    h_plain = swapped_b4(last_hidden, fa.flash_attention_l2r_plain)
+    h_lim = swapped_b4(last_hidden, bf16_limit_everywhere(
+        142, fa.flash_attention_l2r_plain))
+    rel = lambda h: ((h - h_plain).norm() / h_plain.norm()).item()  # noqa
+    with torch.no_grad():
+        lg_b4, lg_plain = (tt.logits_from_hidden(cfg, params,
+                                                 h.to(torch.bfloat16))
+                           for h in (h_b4, h_plain))
+    b4 = {"hidden_rel_b4": rel(h_b4), "hidden_rel_bound": rel(h_lim),
+          "hidden_max_abs_b4": (h_b4 - h_plain).abs().max().item(),
+          "logits_max_abs_b4": (lg_b4.float() - lg_plain.float()).abs()
+          .max().item(),
+          "equal_greedy_tokens": (lg_b4.argmax(-1) == lg_plain.argmax(-1))
+          .float().mean().item()}
+    print("phase 14c: " + json.dumps(b4), flush=True)
+    require(b4["hidden_rel_b4"] <= b4["hidden_rel_bound"],
+            f"B4 moves the last-position hidden states by "
+            f"{b4['hidden_rel_b4']} (relative) from the plain attention's, "
+            f"beyond the {b4['hidden_rel_bound']} its bf16 limit spent at "
+            f"every element gives")
+    del h_b4, h_plain, h_lim
+
+    # 14d: the early-exit decode walk at a tight and a loose tolerance;
+    # the tight run also walks every layer's call at the loose tolerance
+    # on the same inputs
+    full_toks = seqs[:, :LM_EXIT_STEPS + 1]
+    exits, exit_runs = {}, {}
+    real_decode_attention = tt.decode_attention
+    for tol in EXIT_TOLS:
+        c = dataclasses.replace(cfg, attn_early_exit=True, attn_exit_tol=tol)
+        paired = []
+
+        def with_loose(*a, **kw):
+            with attn_exit_tap() as loose:
+                real_decode_attention(*a, **{**kw, "exit_tol": EXIT_TOLS[1]})
+            paired.append(loose[0]["exit_levels"])
+            return real_decode_attention(*a, **kw)
+
+        if tol == EXIT_TOLS[0]:
+            tt.decode_attention = with_loose
+        try:
+            reset_counts()
+            with torch.no_grad(), attn_exit_tap() as rec:
+                st, lg = make_prefill_step(c, max_len, torch.float32)(
+                    params, batch)
+                tk = torch.argmax(lg, -1).to(torch.int32)
+                got = [tk]
+                dec = make_decode_step(c)
+                t0 = time.perf_counter()
+                for _ in range(LM_EXIT_STEPS):
+                    st, tk, _ = dec(params, st, tk)
+                    got.append(tk)
+                torch.cuda.synchronize()
+                exit_ms = (time.perf_counter() - t0) * 1e3 / LM_EXIT_STEPS
+            n = counts()
+        finally:
+            tt.decode_attention = real_decode_attention
+        want = only(l2r_stacked_gemm=B1_PER_STEP * (LM_EXIT_STEPS + 1),
+                    flash_attention_l2r=B4_PER_PREFILL)
+        require(n == want, f"early exit at {tol}: launches {n}, expected "
+                           f"{want}")
+        require(len(rec) == cfg.n_layers * LM_EXIT_STEPS,
+                f"attn_exit_tap recorded {len(rec)} calls, expected "
+                f"{cfg.n_layers * LM_EXIT_STEPS}")
+        got = torch.cat(got, 1)
+        exits[str(tol)] = {
+            **exit_histograms(rec, cfg.n_layers),
+            ("decode_ms_per_token_with_loose_pair" if paired
+             else "decode_ms_per_token"): exit_ms,
+            "equal_tokens_to_full_depth": int((got[:, 1:]
+                                               == full_toks[:, 1:]).sum()),
+            "tokens": LM_BATCH * LM_EXIT_STEPS}
+        exit_runs[tol] = rec
+        if paired:
+            later = sum(int((lo > r["exit_levels"]).sum())
+                        for lo, r in zip(paired, rec))
+            require(len(paired) == len(rec) and later == 0,
+                    f"the loose walk exits later than the tight one on the "
+                    f"same inputs at {later} rows")
+            exits[str(tol)]["loose_on_same_inputs"] = exit_histograms(
+                [{"exit_levels": lo, "levels_run": 0} for lo in paired],
+                cfg.n_layers)
+        print(f"phase 14d: tol {tol}: " + json.dumps(exits[str(tol)]),
+              flush=True)
+    print(f"phase 14d: the loose walk ({EXIT_TOLS[1]}) never exits later than "
+          f"the tight one ({EXIT_TOLS[0]}) on the same inputs "
+          f"({cfg.n_layers} layers x {LM_EXIT_STEPS} steps); tokens equal to full depth are printed, "
+          f"not required (random weights)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    bf16_row = next(r for r in b4_rows if r["name"] == "causal_bf16")
+    lm_b4 = {key: bf16_row[key] * B4_PER_PREFILL
+             for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                         "bound_ms")}
+    return {"run": run, "b4": b4, "exits": exits, "lm_b4": lm_b4,
             "prof_decode": prof_decode, "prof_prefill": prof_prefill}
 
 
@@ -1706,6 +1994,7 @@ def main() -> int:
     b4 = phase_attention(dev, l2r=True)
     phase_resize(dev)
     lm = phase_lm(dev)
+    lm_attn = phase_lm_attn(dev, b4["rows"])
     lm_dec = lm_totals(lm["rows"], ("decode", "head"))
     lm_pre = lm_totals(lm["rows"], ("prefill", "head"))
     bf16_row = next(r for r in b5["rows"] if r["name"] == "causal_bf16")
@@ -1752,7 +2041,21 @@ def main() -> int:
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
                      "f32), full depth; ms is the wrapper (quantization "
                      "included), kernel_ms the launch alone; library_ms is "
-                     "scaled_dot_product_attention on the dequantized q, k"),
+                     "scaled_dot_product_attention on the dequantized q, k",
+                     lm_launches=lm_attn["run"]["launches"][
+                         "flash_attention_l2r"],
+                     lm_per=f"phase 14: the {B4_PER_PREFILL} attention "
+                     f"calls of one SmolLM-135M prefill with attn_l2r "
+                     f"(batch {LM_BATCH}, {LM_PROMPT} tokens, causal bf16, "
+                     f"full depth): {B4_PER_PREFILL} x the causal_bf16 row "
+                     f"of 11b, the same shape",
+                     lm={"prefill": lm_attn["lm_b4"],
+                         "device_ms_prefill":
+                         lm_attn["prof_prefill"].get("B4_ms"),
+                         "prefill_ms": lm_attn["run"]["prefill_ms"],
+                         "decode_ms_per_token":
+                         lm_attn["run"]["decode_ms_per_token"],
+                         **lm_attn["b4"]}),
         kernel_entry("flash_attention", b5["rows"], b5["launches"],
                      "the three SmolLM-135M attention calls of phase 10b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "

@@ -19,9 +19,10 @@ streaming walk commits by its class:
 mixed batch serves each row by its own rule inside one level loop.
 :func:`head_walk_machinery` builds the head-argmax fold that
 ``core/progressive.py:streaming_argmax`` runs over the MSDF prefix
-stream.  The cross-shard reductions of the reference's consensus walk
-(``model_ax``/``dp``) and the decode-attention fold come with later
-slices of the port.
+stream, and :func:`attn_walk_machinery` the decode-attention fold that
+``models/attention.py:decode_attention`` runs over the score stream.
+The cross-shard reductions of the reference's consensus walk
+(``model_ax``/``dp``) come with the multi-device slice (ROADMAP A13).
 
 Every float operation keeps the reference's operands and order, so the
 decisions, committed classes and exit levels are bit-identical to it.
@@ -45,6 +46,7 @@ __all__ = [
     "decision_state",
     "policy_commit",
     "head_walk_machinery",
+    "attn_walk_machinery",
 ]
 
 MODE_EXACT = 0
@@ -158,6 +160,12 @@ class LevelPolicy(NamedTuple):
 
     def to(self, device: str | torch.device) -> "LevelPolicy":
         return LevelPolicy(*(x.to(device) for x in self))
+
+    def reshape(self, shape) -> "LevelPolicy":
+        """Broadcast helper for walks whose decision rows are not (rows,)
+        (decode attention reshapes to (B, 1, 1) against its (B, Kv, G)
+        rows)."""
+        return LevelPolicy(*(x.reshape(shape) for x in self))
 
 
 def decision_state(values: torch.Tensor, bvec: torch.Tensor):
@@ -289,3 +297,86 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
         return logits, tok, lv
 
     return fold, init, done_fn, finalize
+
+
+# ------------------------------------------------------ decode attention walk
+def attn_walk_machinery(bounds_f32, dequant, valid_b, scale_row, *,
+                        rows_shape: tuple, n_levels: int,
+                        safety: float = 1e-5, exit_tol: float = 1e-4,
+                        policy: LevelPolicy | None = None,
+                        score_shape: tuple | None = None):
+    """The decode-attention decision fold (models/attention.py).
+
+    ``dequant(partial)`` maps the int32 score prefix (B, Kv, G, 1, S) to
+    scaled scores; ``valid_b`` is the (B, 1, 1, 1, S) slot-validity mask;
+    ``scale_row`` the per-entry scale product ``q_scale * k_scale *
+    softmax_scale`` on the (B, Kv, G, S) row layout (broadcastable);
+    ``rows_shape`` = (B, Kv, G), the decision rows.  ``bounds_f32`` (L,)
+    lies on the walk's device.
+
+    A row is decided when BOTH its running max is invariant to the tail
+    (:func:`decision_state`) and its normalizer is pinned (every unmasked
+    score known to within the tolerance: the row's ``tol`` for a policy,
+    ``exit_tol`` otherwise).  Returns ``(fold, init, done_fn)``; without
+    a policy the carry is ``(done, lv)``, with one ``(done, lv, forced,
+    s_commit)``, where budget rows snapshot their int32 prefix at the
+    clamp, so that ``torch.where(forced[..., None, None], s_commit, acc)``
+    feeds softmax the exact ``levels=clamp`` scores even when batch-mates
+    stream deeper.  Bounded rows keep the batch-coupled semantics of the
+    reference (softmax over the prefix at the global stop level).
+    ``done_fn`` returns a 0-d bool tensor on the walk's device.
+    """
+    dev = bounds_f32.device
+    neg = torch.tensor(np.float32(-1e30), device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    eps = torch.tensor(_EPS, device=dev)
+    # JAX folds the Python scalars 1 + safety and exit_tol into float32
+    widen = torch.tensor(np.float32(1.0 + safety), device=dev)
+    valid_row = valid_b[:, :, :, 0, :]  # (B, 1, 1, S)
+    pol = policy.reshape((-1, 1, 1)) if policy is not None else None
+    tol = pol.tol if pol is not None \
+        else torch.tensor(np.float32(exit_tol), device=dev)
+
+    def decide(partial, idx, done):
+        values = torch.where(valid_b, dequant(partial), neg)[:, :, :, 0, :]
+        vmax = torch.where(valid_row, values, zero).abs().amax(-1,
+                                                              keepdim=True)
+        # per-entry bound on the unseen tail in the scaled score domain;
+        # masked slots are exact (-1e30 by fiat): bound 0
+        bvec = bounds_f32[idx] * scale_row * widen + eps * vmax
+        bvec = torch.where(valid_row, bvec, zero)
+        max_decided, _ = decision_state(values, bvec)
+        norm_decided = bvec.amax(-1) <= tol
+        return policy_commit(pol, max_decided & norm_decided, idx, done)
+
+    lv0 = torch.full(rows_shape, max(n_levels - 1, 0), dtype=torch.int32,
+                     device=dev)
+    done0 = torch.zeros(rows_shape, dtype=torch.bool, device=dev)
+    if policy is None:
+        def fold(carry, partial, idx):
+            done, lv = carry
+            newly, _ = decide(partial, idx, done)
+            lv = torch.where(newly, idx, lv)
+            return done | newly, lv
+
+        init = (done0, lv0)
+    else:
+        def fold(carry, partial, idx):
+            done, lv, forced_any, s_commit = carry
+            newly, forced = decide(partial, idx, done)
+            commit = newly | forced
+            lv = torch.where(commit, idx, lv)
+            s_commit = torch.where(forced[..., None, None], partial,
+                                   s_commit)
+            return done | commit, lv, forced_any | forced, s_commit
+
+        if score_shape is None:
+            raise ValueError("policy attention walk: pass the (B, Kv, G, 1, "
+                             "S) score shape")
+        init = (done0, lv0, torch.zeros_like(done0),
+                torch.zeros(score_shape, dtype=torch.int32, device=dev))
+
+    def done_fn(carry):
+        return carry[0].all()
+
+    return fold, init, done_fn

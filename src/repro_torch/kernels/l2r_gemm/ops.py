@@ -17,15 +17,16 @@ There is no backend switch.
 * ``CUDA_WALK``: the level walk core/progressive.py takes on CUDA
   operands (one B2 launch per scan, one B1 level slab per while-loop
   level).  The device routing of the progressive path lives here; core
-  imports no kernel.
+  imports no kernel;
+* ``l2r_attn_scores``: the digit-serial attention scores
+  (core/l2r_attention.py's walks on the CPU), on the card one B1 launch
+  per (batch, kv head).
 
 ``l2r_conv2d`` performs implicit im2col: activation planes are extracted
 once per feature map, and each of the kh*kw taps feeds a shifted
 (stride-stepped, dilation-spaced) view of the stacked map through the
 GEMM, adding into one int32 accumulator.  No TPU block padding is done:
 the kernels mask ragged edges themselves.
-
-The attention scores come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis.overflow import check_or_raise
+from repro_torch.core.l2r_attention import (attn_scores_stacked,
+                                            attn_scores_streaming_scan,
+                                            attn_scores_streaming_while)
 from repro_torch.core.l2r_gemm import _f32_dot_exact, wrap_int32
 from repro_torch.core.progressive import (LevelWalk, ProgressiveResult,
                                           _level_walk, _shift_add,
@@ -50,6 +54,7 @@ from repro_torch.core.quant import (PlaneOperands, QuantConfig,
 from . import kernel
 
 __all__ = ["l2r_gemm", "l2r_matmul_f", "l2r_conv2d", "l2r_gemm_progressive",
+           "l2r_attn_scores",
            "l2r_conv2d_progressive", "l2r_conv2d_progressive_while",
            "CUDA_WALK", "PlaneOperands", "SCHEDULES"]
 
@@ -205,6 +210,97 @@ def l2r_gemm_progressive(aq, bq, n_bits: int = 8, log2_radix: int = 2,
     _check_plane_operand(bq, "rhs", n_bits, log2_radix, other=aq)
     return progressive_matmul(aq, bq, n_bits, log2_radix, levels,
                               CUDA_WALK)
+
+
+def _attn_b1_scores(q_po: PlaneOperands, k_po: PlaneOperands,
+                    n_bits: int, log2_radix: int, levels: int | None
+                    ) -> torch.Tensor:
+    """Attention scores through kernel B1, the reference's kernel route.
+
+    The score walk is a batch of independent (Q*G, dh) x (dh, S) GEMMs,
+    one per (batch, kv head), and each is B1's problem: one launch each
+    over slices of the same stacks the plain walk consumes, pre-shifted.
+    The cache's descending head-dim blocks are, per key, the contiguous
+    D*dh bytes B1 reads K-major, so the key slice goes in in place; the
+    query rows (q, g) are copied contiguous.  For parity runs and small
+    decode shapes: the loop launches B*Kv kernels.
+    """
+    qs = q_po.core_stack(shifted=True)   # (B, Q, Kv, G, D*dh) ascending
+    ks = k_po.core_stack(shifted=True)   # (B, S, Kv, D*dh) descending
+    b_, q_, kv, g = qs.shape[:4]
+    s_ = ks.shape[1]
+    out = torch.empty((b_, kv, g, q_, s_), dtype=torch.int32,
+                      device=qs.device)
+    for bi in range(b_):
+        for kvi in range(kv):
+            a = qs[bi, :, kvi].reshape(q_ * g, -1).contiguous()
+            t = kernel.l2r_gemm_stacked_planes(a, ks[bi, :, kvi].t(), n_bits,
+                                               log2_radix, levels)
+            out[bi, kvi] = t.view(q_, g, s_).transpose(0, 1)
+    return out
+
+
+def l2r_attn_scores(
+    qq,
+    kq,
+    n_bits: int = 8,
+    log2_radix: int = 2,
+    levels: int | None = None,
+    schedule: str = "stacked",
+    early_exit: bool = False,
+) -> torch.Tensor:
+    """Digit-serial QK^T scores: int32 (B, Kv, G, Q, S).
+
+    ``qq`` is the grouped query block (B, Q, Kv, G, dh) as signed ints or
+    a prepared LHS :class:`PlaneOperands`; ``kq`` the cached keys
+    (B, S, Kv, dh) as signed ints or the KV cache's incrementally
+    stacked RHS operand (models/attention.py:kv_plane_operands).
+    Bit-identical across devices and schedules at every ``levels``
+    truncation; softmax and PV stay float outside this entry.
+
+    CPU tensors take core/l2r_attention.py's walks: ``schedule=
+    "stacked"`` the level-stacked schedule, ``"streaming"`` the per-level
+    prefix emitter (``early_exit`` its while-loop form, with no consumer
+    fold every level runs).  CUDA tensors run kernel B1, one launch per
+    (batch, kv head), for either schedule (B1 walks the same levels and
+    gives the final prefix); ``early_exit`` is rejected there, as the
+    reference rejects it off its jnp backend.
+    """
+    if schedule not in ("stacked", "streaming"):
+        raise ValueError(
+            f"l2r_attn_scores schedule must be 'stacked' or 'streaming', "
+            f"got {schedule!r} (the pairs baseline is a GEMM-only "
+            f"regression schedule)")
+    if early_exit and schedule != "streaming":
+        raise ValueError(
+            f"early_exit is a streaming-schedule control flow; "
+            f"schedule={schedule!r} has no level loop to stop short "
+            f"(it would be silently dropped)")
+    on_card = (qq.stack if isinstance(qq, PlaneOperands) else qq).is_cuda
+    if early_exit and on_card:
+        raise ValueError(
+            "early_exit=True is the plain while-loop emitter; kernel B1's "
+            "route on CUDA tensors cannot stop its walk at run time and "
+            "would silently drop the flag")
+    _check_plane_operand(qq, "lhs", n_bits, log2_radix, other=kq)
+    _check_plane_operand(kq, "rhs", n_bits, log2_radix, other=qq)
+    dh = qq.k if isinstance(qq, PlaneOperands) else (
+        kq.k if isinstance(kq, PlaneOperands) else int(qq.shape[-1]))
+    check_or_raise(n_bits, log2_radix, int(dh), levels=levels,
+                   where="l2r_attn_scores")
+    if on_card:
+        q_po = qq if isinstance(qq, PlaneOperands) \
+            else PlaneOperands.prepare_lhs(qq, n_bits, log2_radix)
+        k_po = kq if isinstance(kq, PlaneOperands) \
+            else PlaneOperands.prepare_rhs(kq, n_bits, log2_radix, axis=-1)
+        return _attn_b1_scores(q_po, k_po, n_bits, log2_radix, levels)
+    if schedule == "stacked":
+        return attn_scores_stacked(qq, kq, n_bits, log2_radix, levels)
+    walk = attn_scores_streaming_while if early_exit \
+        else attn_scores_streaming_scan
+    acc, _, _ = walk(qq, kq, n_bits=n_bits, log2_radix=log2_radix,
+                     levels=levels)
+    return acc
 
 
 def l2r_matmul_f(

@@ -1,17 +1,18 @@
 """Attention math: RoPE / M-RoPE, GQA, chunked (flash-style) attention,
-full and ring (sliding-window) KV caches.
+full and ring (sliding-window) KV caches, and digit-serial attention.
 
-The port of ``repro/models/attention.py`` on the float path.  Prefill
-and training attention (:func:`chunked_attention`) runs kernel B5 on
-the card where the arguments fit it, and otherwise the reference's
-query-chunk loop with an online softmax over KV chunks, in torch.
-Decode (q = 1) attends directly against the cache in plain torch, as
-the reference does outside any Pallas kernel.
+The port of ``repro/models/attention.py``.  Prefill and training
+attention (:func:`chunked_attention`) runs a flash kernel on the card
+where the arguments fit it (B5 on the float path, B4 with ``l2r=``), and
+otherwise the reference's query-chunk loop with an online softmax over
+KV chunks, in torch.  Decode (q = 1) attends directly against the cache
+in plain torch, as the reference does outside any Pallas kernel.
 
-The digit-serial attention of the reference (``l2r=``/``levels=`` on
-both attention functions, the plane-stacked key cache built with a
-``quant`` config, the progressive decode walk) is the next slice of the
-port (ROADMAP A9b): asking for it raises.
+Digit-serial attention (``l2r=``) routes QK^T through the MSDF score
+walks of core/l2r_attention.py over per-vector-quantized q and k; the
+plane-stacked key cache (``init_kv_cache(quant=)``) is filled as tokens
+append, and decode can stop the score walk early once every row's max
+and normalizer are decided (``early_exit``, ``policy``).
 
 Caches are updated in place: :func:`update_kv_cache` writes the new
 entries into the cache's own tensors and returns the same cache, where
@@ -20,14 +21,24 @@ the reference returns a new one.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.l2r_attention import (attn_scores_stacked,
+                                            attn_scores_streaming_while,
+                                            quantize_per_vector)
+from repro_torch.core.policy import LevelPolicy, attn_walk_machinery
+from repro_torch.core.progressive import level_bounds
+from repro_torch.core.quant import (PlaneOperands, QuantConfig,
+                                    _symmetric_quant, stack_planes_rhs)
 from repro_torch.device import no_tf32, resolve_device
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import _MAX_DH
 
@@ -35,21 +46,41 @@ __all__ = [
     "apply_rope",
     "chunked_attention",
     "decode_attention",
+    "attn_exit_tap",
     "default_chunks",
     "b5_fits",
+    "b4_fits",
     "KVCache",
     "init_kv_cache",
     "update_kv_cache",
+    "kv_plane_operands",
 ]
 
 _NEG = -1e30  # finite sentinel: -inf breeds NaNs in fully-masked blocks
 
 
-def _no_digit_serial(l2r: QuantConfig | None, where: str) -> None:
-    if l2r is not None:
-        raise NotImplementedError(
-            f"{where}: digit-serial attention (l2r=, the plane-stacked key "
-            f"cache) is the next slice of the port (ROADMAP A9b)")
+# ------------------------------------------------- progressive exit-level tap
+_EXIT_TAP: list | None = None
+
+
+@contextlib.contextmanager
+def attn_exit_tap():
+    """Collect per-call decode-attention exit levels.
+
+    Yields a list; every ``decode_attention(..., early_exit=True)`` (or
+    ``policy=``) call inside the context appends ``{"levels_run": int,
+    "exit_levels": (B, Kv, G) int32 array}``, in call order (layer order
+    for one decode step).  The port runs eagerly, so every call records
+    (reading the exit levels to the host); the reference's refusal to
+    record under ``jit`` has no counterpart here.
+    """
+    global _EXIT_TAP
+    prev, records = _EXIT_TAP, []
+    _EXIT_TAP = records
+    try:
+        yield records
+    finally:
+        _EXIT_TAP = prev
 
 
 # ----------------------------------------------------------------- RoPE
@@ -119,13 +150,23 @@ def default_chunks(sq: int) -> tuple[int, int]:
 
 
 def b5_fits(q, k, v, softcap: float | None, q_offset: int) -> bool:
-    """Does this :func:`chunked_attention` call go to kernel B5?  On a
-    CUDA tensor, with no softcap, no q offset, dh <= 128 and q, k, v of
+    """Does this float :func:`chunked_attention` call go to kernel B5?  On
+    a CUDA tensor, with no softcap, no q offset, dh <= 128 and q, k, v of
     one dtype, f32 or bf16."""
     return (q.is_cuda and softcap is None and q_offset == 0
             and q.shape[-1] <= _MAX_DH
             and q.dtype == k.dtype == v.dtype
             and q.dtype in (torch.float32, torch.bfloat16))
+
+
+def b4_fits(q, k, v, softcap: float | None, q_offset: int,
+            l2r: QuantConfig) -> bool:
+    """Does this ``chunked_attention(l2r=)`` call go to kernel B4?  On a
+    CUDA tensor, with no softcap, no q offset, dh <= 128, int8 digit
+    planes (n_bits <= 8) and v f32 or bf16 (q and k are quantized)."""
+    return (q.is_cuda and softcap is None and q_offset == 0
+            and q.shape[-1] <= _MAX_DH and l2r.n_bits <= 8
+            and v.dtype in (torch.float32, torch.bfloat16))
 
 
 def chunked_attention(
@@ -152,33 +193,74 @@ def chunked_attention(
     relative to k[0] (prefill continuation); causal masks compare
     absolute positions.
 
-    Where :func:`b5_fits` holds (a CUDA tensor, no ``softcap``,
-    ``q_offset == 0``, dh <= 128, q, k, v all f32 or all bf16), the call
-    is one launch of kernel B5 (``kernels/flash_attention/ops.py``), with
-    ``scale`` passed through.  This is dispatch by the arguments, not a
-    fallback: a failing launch raises, and the call never drops to the
-    loop below.  ``score_dtype`` and ``head_shard`` do not change B5's
-    arithmetic (it keeps f32 scores and statistics; there is no mesh),
-    and ``q_chunk``/``kv_chunk`` do not apply to it.
+    ``l2r`` routes QK^T through the digit-serial score walk
+    (core/l2r_attention.py): q rows and k slots quantize with per-vector
+    scales, and ``levels`` truncates the MSDF stream (None = exact W8A8
+    scores); softmax and PV stay float, and the quantized scores are f32
+    whatever ``score_dtype`` says.
 
-    Every other call, and every CPU call, runs the reference's loop:
-    static query chunks with exact KV ranges, an online softmax over KV
-    chunks in f32, scores stored in ``score_dtype``, p cast to v's dtype
-    before PV (true f32 products, TF32 off).
+    Dispatch is by the arguments, never a fallback (a failing launch
+    raises):
+
+    * with ``l2r``, where :func:`b4_fits` holds, one launch of kernel B4
+      (``kernels/flash_attention/kernel.py:flash_attention_l2r``, which
+      quantizes q and k per vector and walks 64-key tiles);
+    * without, where :func:`b5_fits` holds, one launch of kernel B5;
+    * every other call, and every CPU call, runs the reference's loop:
+      static query chunks with exact KV ranges, an online softmax over KV
+      chunks in f32, p cast to v's dtype before PV (true f32 products,
+      TF32 off); with ``l2r`` the planes are extracted once per call and
+      each chunk's scores are ``attn_scores_stacked`` dequantized as
+      ``s_int * q_scale * k_scale * scale`` in f32, in that order.
+
+    ``score_dtype`` and ``head_shard`` do not change the kernels'
+    arithmetic (f32 scores and statistics; there is no mesh), and
+    ``q_chunk``/``kv_chunk`` do not apply to them.
     """
-    _no_digit_serial(l2r, "chunked_attention")
-    del levels, head_shard  # no digit-serial walk, no mesh in the port
-    if b5_fits(q, k, v, softcap, q_offset):
+    del head_shard  # no mesh in the port
+    if l2r is not None and b4_fits(q, k, v, softcap, q_offset, l2r):
+        return fa_kernel.flash_attention_l2r(
+            q.contiguous(), k.contiguous(), v.contiguous(), l2r.n_bits,
+            l2r.log2_radix, levels, causal=causal, window=window,
+            scale=scale)
+    if l2r is None and b5_fits(q, k, v, softcap, q_offset):
         return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,
                                       window=window, scale=scale)
     with no_tf32():
         return _chunked_plain(q, k, v, causal, window, scale, softcap,
-                              q_chunk, kv_chunk, q_offset, score_dtype)
+                              q_chunk, kv_chunk, q_offset, score_dtype,
+                              l2r, levels)
+
+
+def _l2r_chunk_scores(q, k, l2r: QuantConfig, levels: int | None, scale):
+    """The digit-serial score function of the chunk loop: q (B, Sq, Kv,
+    G, dh) and the padded k (B, Skv', Kv, dh) quantized per vector and
+    plane-stacked once; ``scores(q0, q1, k0, k1)`` gives the f32
+    (B, Kv, G, q1-q0, k1-k0) scores ``s_int * q_scale * k_scale * scale``
+    of one chunk pair (the sequence axes slice through both stacks)."""
+    qq, qs = quantize_per_vector(q, l2r)
+    kq, ks = quantize_per_vector(k, l2r)
+    q_po = PlaneOperands.prepare_lhs(qq, l2r.n_bits, l2r.log2_radix)
+    k_po = PlaneOperands.prepare_rhs(kq, l2r.n_bits, l2r.log2_radix,
+                                     axis=-1)
+    qs_t = qs.permute(0, 2, 3, 1, 4)  # (B, Kv, G, Sq, 1)
+    ks_t = ks[..., 0].transpose(1, 2)[:, :, None, None, :]  # (B,Kv,1,1,S)
+    sf = torch.tensor(np.float32(scale), device=q.device)
+
+    def scores(q0, q1, k0, k1):
+        q_blk = dataclasses.replace(q_po, stack=q_po.stack[:, q0:q1])
+        k_blk = dataclasses.replace(k_po, stack=k_po.stack[:, k0:k1])
+        s_int = attn_scores_stacked(q_blk, k_blk, l2r.n_bits,
+                                    l2r.log2_radix, levels)
+        return s_int.to(torch.float32) * qs_t[:, :, :, q0:q1] \
+            * ks_t[..., k0:k1] * sf
+
+    return scores
 
 
 def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
-                   kv_chunk, q_offset, score_dtype):
+                   kv_chunk, q_offset, score_dtype, l2r=None, levels=None):
     b, sq, h, dh = q.shape
     _, skv, kv_heads, _ = k.shape
     g = h // kv_heads
@@ -193,6 +275,8 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
     q = q.reshape(b, sq, kv_heads, g, dh)
+    l2r_scores = None if l2r is None else \
+        _l2r_chunk_scores(q, k, l2r, levels, scale)
     outs = []
     for qi in range(n_q):
         q_start = qi * q_chunk
@@ -212,10 +296,16 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
         l = torch.zeros((b, kv_heads, g, qc), dtype=torch.float32,
                         device=dev)
         for kc_i in range(lo_c, hi_c):
-            k_blk = k[:, kc_i * kv_chunk:(kc_i + 1) * kv_chunk]
-            v_blk = v[:, kc_i * kv_chunk:(kc_i + 1) * kv_chunk]
-            s = _block_scores(q_blk, k_blk, scale, softcap, score_dtype)
-            kv_pos = kc_i * kv_chunk + torch.arange(kv_chunk, device=dev)
+            k0, k1 = kc_i * kv_chunk, (kc_i + 1) * kv_chunk
+            v_blk = v[:, k0:k1]
+            if l2r_scores is None:
+                s = _block_scores(q_blk, k[:, k0:k1], scale, softcap,
+                                  score_dtype)
+            else:
+                s = l2r_scores(q_start, q_start + qc, k0, k1)
+                if softcap is not None:
+                    s = torch.tanh(s / softcap) * softcap
+            kv_pos = k0 + torch.arange(kv_chunk, device=dev)
             mask = kv_pos[None, :] < skv  # tail padding guard
             if causal:
                 mask = mask & (kv_pos[None, :] <= q_pos[:, None])
@@ -239,6 +329,18 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
     return o.reshape(b, sq, h, dh).to(v.dtype)
 
 
+def _softmax_pv(s, valid_b, v_cache, shape):
+    """Masked softmax over the slots and the PV product of decode: p cast
+    to v's dtype, f32 products (TF32 off) -> ``shape`` in v's dtype."""
+    with no_tf32():
+        s = torch.where(valid_b, s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bkgqd",
+                         p.to(v_cache.dtype).to(torch.float32),
+                         v_cache.to(torch.float32))
+    return o.reshape(shape).to(v_cache.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -251,15 +353,47 @@ def decode_attention(
     softcap: float | None = None,
     l2r: QuantConfig | None = None,
     levels: int | None = None,
+    early_exit: bool = False,
+    exit_tol: float = 1e-4,
+    k_planes: torch.Tensor | PlaneOperands | None = None,
+    k_scale: torch.Tensor | None = None,
+    policy: LevelPolicy | None = None,
 ) -> torch.Tensor:
     """Single-token attention against a (possibly ring) cache, in plain
     torch on any device (true f32 products, TF32 off).
 
     q: (B, 1, H, dh); caches: (B, L, Kv, dh); kv_positions: (B, L) int32
     absolute positions (-1 = empty slot); q_position: (B,) int32.
+
+    ``l2r`` routes QK^T through the digit-serial score walk with an exact
+    softmax and float PV; ``levels`` truncates the MSDF stream.
+    ``k_planes``/``k_scale`` feed the plane-stacked key cache
+    (:func:`update_kv_cache` with a quant config): the per-slot planes
+    and scales are used as they are, with no per-step plane extraction
+    over the history, bit-identical to quantizing ``k_cache`` here.  On
+    the card the walk's level einsums run in true f32 under the
+    exactness guard, and a digit config that fails the guard raises.
+
+    ``early_exit=True`` runs the margin-bounded progressive walk: the
+    level loop stops once every (batch, kv head, group) score row has
+    BOTH its running max decided (the argmax margin beats the scaled
+    tail bound, core/policy.py:decision_state) and its normalizer pinned
+    (every unmasked score known to within ``exit_tol``).  The done flag
+    is read on the host before each level (one sync a level on the
+    card).  Rows that never decide consume the whole stream, so the
+    output is then exactly the full-depth result; decided rows return
+    softmax over the exit-level prefix.  Incompatible with ``softcap``.
+
+    ``policy`` (core/policy.py:LevelPolicy, one row per batch entry)
+    runs the walk with per-row precision classes: ``bounded(tol)`` rows
+    use their own normalizer tolerance (``bounded(exit_tol)`` is the
+    early-exit walk bit for bit), ``budget(L)`` rows snapshot their int32
+    score prefix at level L (their softmax sees exactly the ``levels=L``
+    scores, even when batch-mates stream deeper), and ``exact`` rows
+    never commit early.  Bounded rows keep the batch-coupled semantics
+    of the reference: their softmax runs over the prefix at the global
+    stop level.  Requires ``l2r``.
     """
-    _no_digit_serial(l2r, "decode_attention")
-    del levels
     b, _, h, dh = q.shape
     kv_heads = k_cache.shape[2]
     g = h // kv_heads
@@ -269,39 +403,113 @@ def decode_attention(
     if window is not None:
         valid = valid & (kv_positions > (q_position[:, None] - window))
     valid_b = valid[:, None, None, None, :]  # (B, 1, 1, 1, L)
-    with no_tf32():
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                         k_cache.to(torch.float32)) * scale
+
+    if l2r is None:
+        with no_tf32():
+            s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                             k_cache.to(torch.float32)) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
-        s = torch.where(valid_b, s, _NEG)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bkgqd",
-                         p.to(v_cache.dtype).to(torch.float32),
-                         v_cache.to(torch.float32))
-    return o.reshape(b, 1, h, dh).to(v_cache.dtype)
+        return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))
+
+    # ---- digit-serial QK^T -------------------------------------------
+    qq, qs = quantize_per_vector(qg, l2r)
+    qs_t = qs.permute(0, 2, 3, 1, 4)  # (B, Kv, G, 1, 1)
+    if k_planes is not None:
+        if k_scale is None:
+            raise ValueError("plane-stacked cache: k_planes and k_scale "
+                             "travel together")
+        k_op = k_planes if isinstance(k_planes, PlaneOperands) else \
+            PlaneOperands(k_planes, "rhs", l2r.n_bits, l2r.log2_radix, dh,
+                          -1, False, l2r.planes - 1)
+        ks = k_scale
+    else:
+        kq, ks3 = quantize_per_vector(k_cache, l2r)
+        k_op, ks = kq, ks3[..., 0]
+    ks_t = ks.transpose(1, 2)[:, :, None, None, :]  # (B, Kv, 1, 1, L)
+    sf = torch.tensor(np.float32(scale), device=q.device)
+
+    def dequant(acc):
+        return acc.to(torch.float32) * qs_t * ks_t * sf
+
+    if not early_exit and policy is None:
+        s = dequant(attn_scores_stacked(qq, k_op, l2r.n_bits,
+                                        l2r.log2_radix, levels))
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))
+
+    # ---- margin-bounded progressive walk -----------------------------
+    if softcap is not None:
+        raise ValueError("progressive attention (early_exit/policy) does "
+                         "not compose with softcap: tanh re-scales the "
+                         "score margins the tail bounds are stated in")
+    bounds = level_bounds(l2r.planes, l2r.log2_radix, dh, levels,
+                          device=q.device)
+    n_levels = int(bounds.f32.shape[0])
+    if policy is not None:
+        policy = policy.to(q.device)
+    fold, init, done_fn = attn_walk_machinery(
+        bounds.f32, dequant, valid_b,
+        qs_t[:, :, :, 0, :] * ks_t[:, :, :, 0, :] * sf,
+        rows_shape=(b, kv_heads, g), n_levels=n_levels,
+        exit_tol=exit_tol, policy=policy,
+        score_shape=(b, kv_heads, g, 1, k_cache.shape[1]))
+    acc, carry, levels_run = attn_scores_streaming_while(
+        qq, k_op, fold, init, done_fn, l2r.n_bits, l2r.log2_radix, levels)
+    if policy is None:
+        _, lv = carry
+        s_int = acc
+    else:
+        _, lv, forced_any, s_commit = carry
+        # budget rows committed at their clamp: serve THEIR softmax from
+        # the snapshot, so a mixed batch is bit-identical to a solo
+        # levels=L run even when batch-mates stream deeper
+        s_int = torch.where(forced_any[..., None, None], s_commit, acc)
+    if _EXIT_TAP is not None:
+        _EXIT_TAP.append({"levels_run": int(levels_run),
+                          "exit_levels": lv.cpu().numpy()})
+    return _softmax_pv(dequant(s_int), valid_b, v_cache, (b, 1, h, dh))
 
 
 # ------------------------------------------------------------- KV caches
 class KVCache(NamedTuple):
     """Full or ring KV cache.  ``length`` (the cache's second axis) is the
     allocated size, the window for ring caches; ``positions`` tracks
-    absolute token positions.  ``k_planes``/``k_scale`` are the
-    reference's plane-stacked key cache (A9b) and stay None here."""
+    absolute token positions.
+
+    ``k_planes``/``k_scale`` (present iff the cache was built with a quant
+    config) are the incrementally plane-stacked key cache: every update
+    also quantizes the new keys per slot and writes their raw-digit
+    descending plane stack, window-padded to 2D-1 blocks (the
+    ``PlaneOperands.prepare_rhs(axis=-1, window_pad=True)`` layout), so
+    the decode walk reads a ready operand instead of re-extracting
+    planes over the whole history each step.
+    """
 
     k: torch.Tensor  # (B, L, Kv, dh)
     v: torch.Tensor  # (B, L, Kv, dh)
     positions: torch.Tensor  # (B, L) int32, -1 = empty
-    k_planes: torch.Tensor | None = None
-    k_scale: torch.Tensor | None = None
+    k_planes: torch.Tensor | None = None  # (B, L, Kv, (2D-1)*dh) int8
+    k_scale: torch.Tensor | None = None   # (B, L, Kv) f32 per-slot scales
 
 
 def init_kv_cache(batch: int, length: int, kv_heads: int, head_dim: int,
                   dtype: torch.dtype = torch.bfloat16,
                   quant: QuantConfig | None = None,
                   device: str | torch.device | None = None) -> KVCache:
-    _no_digit_serial(quant, "init_kv_cache(quant=)")
     device = resolve_device(device)
+    k_planes = k_scale = None
+    if quant is not None:
+        k_planes = torch.zeros(
+            (batch, length, kv_heads, (2 * quant.planes - 1) * head_dim),
+            dtype=torch.int8, device=device)
+        # empty slots carry the scale a zero key vector quantizes to, so
+        # the whole stacked cache, used slots or not, is bit-identical to
+        # re-extracting planes from the (zero-initialized) float cache
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        _, s0 = _symmetric_quant(zero, zero, quant)
+        k_scale = s0.expand(batch, length, kv_heads).contiguous()
     return KVCache(
         k=torch.zeros((batch, length, kv_heads, head_dim), dtype=dtype,
                       device=device),
@@ -309,6 +517,8 @@ def init_kv_cache(batch: int, length: int, kv_heads: int, head_dim: int,
                       device=device),
         positions=torch.full((batch, length), -1, dtype=torch.int32,
                              device=device),
+        k_planes=k_planes,
+        k_scale=k_scale,
     )
 
 
@@ -322,13 +532,28 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     k_new/v_new: (B, S, Kv, dh); positions: (B, S) absolute.  Where one
     write wraps the ring (S > L), a slot keeps the last of its entries,
     as the reference's scatter leaves it.
+
+    A plane-stacked cache (``init_kv_cache(..., quant=...)``) takes the
+    same ``quant`` here: the new keys' digit planes and scales go into
+    its stack.  What is quantized is the key as stored in the float cache
+    (after the cast to the cache's dtype), so the stack is bit-identical
+    to re-extracting planes from the float cache at any later step.
     """
-    _no_digit_serial(quant, "update_kv_cache(quant=)")
+    if cache.k_planes is not None and quant is None:
+        raise ValueError("plane-stacked KV cache: pass the QuantConfig that "
+                         "built it")
     length = cache.k.shape[1]
     bsz, s = positions.shape
     slots = (positions % length).long()
     rows = torch.arange(bsz, device=slots.device)[:, None].expand(bsz, s)
     k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    new_stack = new_scale = None
+    if cache.k_planes is not None:
+        kq, ks = quantize_per_vector(k_new, quant)
+        new_stack = F.pad(stack_planes_rhs(kq, quant.n_bits, quant.log2_radix,
+                                           axis=-1, shifted=False),
+                          (0, (quant.planes - 1) * cache.k.shape[-1]))
+        new_scale = ks[..., 0]
     if s > length:  # keep each slot's last write
         idx = torch.arange(s, device=slots.device).expand(bsz, s)
         last = torch.full((bsz, length), -1, dtype=torch.long,
@@ -337,7 +562,24 @@ def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         win = last.gather(1, slots) == idx
         rows, slots = rows[win], slots[win]
         k_new, v_new, positions = k_new[win], v_new[win], positions[win]
+        if new_stack is not None:
+            new_stack, new_scale = new_stack[win], new_scale[win]
     cache.k[rows, slots] = k_new
     cache.v[rows, slots] = v_new
     cache.positions[rows, slots] = positions.to(torch.int32)
+    if new_stack is not None:
+        cache.k_planes[rows, slots] = new_stack
+        cache.k_scale[rows, slots] = new_scale
     return cache
+
+
+def kv_plane_operands(cache: KVCache, quant: QuantConfig) -> PlaneOperands:
+    """The cache's plane stack as the RHS operand the score walks consume
+    (raw digits, descending on the head dim, window-padded: no per-step
+    operand preparation)."""
+    if cache.k_planes is None:
+        raise ValueError("cache has no plane stack: init_kv_cache(..., "
+                         "quant=...)")
+    return PlaneOperands(cache.k_planes, "rhs", quant.n_bits,
+                         quant.log2_radix, cache.k.shape[-1], -1, False,
+                         quant.planes - 1)

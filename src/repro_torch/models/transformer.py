@@ -81,10 +81,11 @@ def attn_apply(
     window: int | None,
 ):
     """Self-attention layer.  Returns (out, cache), the cache written in
-    place in prefill and decode."""
-    if cfg.attn_l2r is not None:
-        raise NotImplementedError("digit-serial attention (cfg.attn_l2r) is "
-                                  "the next slice of the port (ROADMAP A9b)")
+    place in prefill and decode.  With ``cfg.attn_l2r`` the scores run
+    digit-serially: the prefill fills the plane-stacked key cache and
+    runs ``chunked_attention(l2r=)``; decode appends, then walks the
+    cache's planes (``attn_levels``, ``attn_early_exit``,
+    ``attn_exit_tol``)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
 
@@ -105,18 +106,25 @@ def attn_apply(
                    cfg.mrope_sections)
 
     if mode == "decode":
-        cache = update_kv_cache(cache, k, v, positions)
+        cache = update_kv_cache(cache, k, v, positions, quant=cfg.attn_l2r)
         out = decode_attention(
             q, cache.k, cache.v, cache.positions, positions[:, 0],
-            window=window, scale=cfg.attn_scale, softcap=cfg.logit_softcap)
+            window=window, scale=cfg.attn_scale, softcap=cfg.logit_softcap,
+            l2r=cfg.attn_l2r, levels=cfg.attn_levels,
+            early_exit=cfg.attn_early_exit, exit_tol=cfg.attn_exit_tol,
+            k_planes=cache.k_planes, k_scale=cache.k_scale)
     else:
         if mode == "prefill":
-            cache = update_kv_cache(cache, k, v, positions)
+            # a plane-stacked cache fills here too: the decode steps after
+            # this prefill read a ready operand
+            cache = update_kv_cache(cache, k, v, positions,
+                                    quant=cfg.attn_l2r)
         out = chunked_attention(
             q, k, v, causal=True, window=window, scale=cfg.attn_scale,
             softcap=cfg.logit_softcap,
             score_dtype=getattr(torch, cfg.attn_score_dtype),
-            head_shard=cfg.attn_head_shard)
+            head_shard=cfg.attn_head_shard,
+            l2r=cfg.attn_l2r, levels=cfg.attn_levels)
     return dense(out.reshape(b, s, h * dh), p["wo"], cfg.l2r,
                  cfg.l2r_levels), cache
 
@@ -153,10 +161,11 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype: torch.dtype, device) -> KVCache:
     if kind == "global":
         return init_kv_cache(batch, max_len, cfg.n_kv, cfg.head_dim, dtype,
-                             device=device)
+                             quant=cfg.attn_l2r, device=device)
     if kind == "local":
         return init_kv_cache(batch, min(cfg.window, max_len), cfg.n_kv,
-                             cfg.head_dim, dtype, device=device)
+                             cfg.head_dim, dtype, quant=cfg.attn_l2r,
+                             device=device)
     raise _not_ported(kind)
 
 

@@ -621,3 +621,191 @@ def test_l2r_forward_on_card_equals_plain_gemm_forward(dev, levels,
     ref = _serve(cfg, params, prompt, 2)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# ------------------------------------- slice 8: digit-serial attention
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [None, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 24])
+def test_chunked_attention_l2r_launches_b4_once_when_it_fits(dev, dtype,
+                                                             window, levels):
+    """chunked_attention(l2r=) on the card: one B4 launch when the
+    arguments fit, none with softcap (the plain loop on the card, its
+    level einsums in true f32 under the guard); either within ATTN_TOL,
+    elementwise, of the CPU's loop walking B4's KV_TILE-key blocks.  The
+    loop rounds p to v's dtype before the row sum and B4 does not; one
+    bf16 ulp of the output covers it."""
+    from repro_torch.kernels.flash_attention.kernel import KV_TILE
+    from repro_torch.models.attention import chunked_attention
+
+    cfg = QuantConfig()
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((2, 70, 6, 64), generator=g).to(dtype)
+    k, v = (torch.randn((2, 70, 2, 64), generator=g).to(dtype)
+            for _ in range(2))
+    for softcap, launches in ((None, 1), (30.0, 0)):
+        kw = dict(window=window, softcap=softcap, q_chunk=32,
+                  kv_chunk=KV_TILE, l2r=cfg, levels=levels)
+        ref = chunked_attention(q, k, v, **kw)
+        before = dict(fa.LAUNCHES)
+        got = chunked_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+        assert fa.LAUNCHES["flash_attention_l2r"] == \
+            before["flash_attention_l2r"] + launches
+        assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+        _close(got.cpu(), ref, dtype)
+
+
+def _quantized_qk(b, q, kv, g, s, dh, n_bits, log2_radix, seed):
+    from repro_torch.core.l2r_attention import quantize_per_vector
+
+    cfg = QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
+    gen = torch.Generator().manual_seed(seed)
+    qq, _ = quantize_per_vector(torch.randn((b, q, kv, g, dh), generator=gen),
+                                cfg)
+    kq, _ = quantize_per_vector(torch.randn((b, s, kv, dh), generator=gen),
+                                cfg)
+    return qq, kq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", CONFIGS)
+@pytest.mark.parametrize("q,s,dh", [(5, 70, 64), (1, 130, 24)])
+def test_l2r_attn_scores_on_b1_bit_identical(dev, q, s, dh, n_bits,
+                                             log2_radix):
+    """l2r_attn_scores on CUDA tensors: one B1 launch per (batch, kv
+    head) (none at levels=0), bit-identical to attn_scores_stacked on the CPU at every
+    levels, from raw operands and from the cache's window-padded stack,
+    on both schedules."""
+    from repro_torch.core.l2r_attention import attn_scores_stacked
+    from repro_torch.core.quant import PlaneOperands
+
+    qq, kq = _quantized_qk(2, q, 2, 3, s, dh, n_bits, log2_radix, seed=q)
+    k_po = PlaneOperands.prepare_rhs(kq.to(dev), n_bits, log2_radix, axis=-1,
+                                     window_pad=True)
+    for lv in _levels(n_bits, log2_radix):
+        ref = attn_scores_stacked(qq, kq, n_bits, log2_radix, lv)
+        for kin, sched in ((kq.to(dev), "stacked"), (k_po, "stacked"),
+                           (kq.to(dev), "streaming")):
+            before = kernel.LAUNCHES["l2r_stacked_gemm"]
+            got = ops.l2r_attn_scores(qq.to(dev), kin, n_bits, log2_radix,
+                                      lv, schedule=sched)
+            # levels=0 is the empty prefix: B1 returns zeros, no launch
+            assert kernel.LAUNCHES["l2r_stacked_gemm"] == \
+                before + (0 if lv == 0 else 2 * 2)
+            assert torch.equal(got.cpu(), ref), (lv, sched)
+    with pytest.raises(ValueError, match="while-loop emitter"):
+        ops.l2r_attn_scores(qq.to(dev), kq.to(dev), n_bits, log2_radix,
+                            schedule="streaming", early_exit=True)
+
+
+def _plane_cache(dev_, b=3, length=48, kvh=3, dh=64, steps=40, seed=0):
+    from repro_torch.models.attention import init_kv_cache, update_kv_cache
+
+    cfg = QuantConfig()
+    gen = torch.Generator().manual_seed(seed)
+    cache = init_kv_cache(b, length, kvh, dh, torch.float32, quant=cfg,
+                          device="cpu")
+    update_kv_cache(cache, torch.randn((b, steps, kvh, dh), generator=gen),
+                    torch.randn((b, steps, kvh, dh), generator=gen),
+                    torch.arange(steps, dtype=torch.int32)[None].expand(
+                        b, steps), quant=cfg)
+    q = torch.randn((b, 1, 3 * kvh, dh), generator=gen)
+    return cache, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["tight", "loose", "mixed", "full"])
+def test_decode_walk_on_card_matches_cpu(dev, walk):
+    """decode_attention(l2r=) on the plane cache, on the card against the
+    same call on the CPU: the exit levels and levels run equal (the
+    decisions are f32 products and compares, exact on both), the int32
+    scores of the walk equal, the outputs within 1e-5 (f32 softmax and
+    PV sum in other orders); the card's cache appends equal the CPU's."""
+    from repro_torch.core.l2r_attention import (attn_scores_streaming_while,
+                                                quantize_per_vector)
+    from repro_torch.core.policy import LevelPolicy, PrecisionClass
+    from repro_torch.models.attention import (KVCache, attn_exit_tap,
+                                              decode_attention,
+                                              kv_plane_operands,
+                                              update_kv_cache)
+
+    cfg = QuantConfig()
+    cache, q = _plane_cache(dev)
+    kw = {"tight": dict(early_exit=True, exit_tol=1e-4),
+          "loose": dict(early_exit=True, exit_tol=10.0),
+          "mixed": dict(policy=LevelPolicy.from_classes(
+              [PrecisionClass.exact(), PrecisionClass.budget(3),
+               PrecisionClass.bounded(1e-3)])),
+          "full": dict()}[walk]
+    qpos = torch.full((3,), 39, dtype=torch.int32)
+    runs = []
+    for d in ("cpu", dev):
+        c = KVCache(*(x.to(d) for x in cache))
+        gen = torch.Generator().manual_seed(5)
+        kn, vn = (torch.randn((3, 1, 3, 64), generator=gen).to(d)
+                  for _ in range(2))
+        update_kv_cache(c, kn, vn, torch.full((3, 1), 40, dtype=torch.int32,
+                                              device=d), quant=cfg)
+        with attn_exit_tap() as rec:
+            out = decode_attention(q.to(d), c.k, c.v, c.positions,
+                                   (qpos + 1).to(d), l2r=cfg,
+                                   k_planes=c.k_planes, k_scale=c.k_scale,
+                                   **kw)
+        qq, _ = quantize_per_vector(q.to(d).reshape(3, 1, 3, 3, 64), cfg)
+        acc, _, t = attn_scores_streaming_while(qq, kv_plane_operands(c, cfg))
+        runs.append((c, rec, out.cpu(), acc.cpu(), t))
+    (c0, r0, o0, a0, t0), (c1, r1, o1, a1, t1) = runs
+    for name in ("k_planes", "k_scale", "k", "positions"):
+        assert torch.equal(getattr(c1, name).cpu(), getattr(c0, name)), name
+    assert torch.equal(a1, a0) and t0 == t1 == 7
+    assert len(r0) == len(r1) == (0 if walk == "full" else 1)
+    for x, y in zip(r0, r1):
+        assert x["levels_run"] == y["levels_run"]
+        np.testing.assert_array_equal(x["exit_levels"], y["exit_levels"])
+    assert (o1 - o0).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_decode_walk_raises_on_card_where_the_f32_guard_fails(dev):
+    """radix 256 at dh = 300: 300 * 255^2 >= 2^24, so no level einsum is
+    exact in f32; CUDA has no integer matmul, and the walk raises (the
+    CPU takes int64 dots, tests/test_torch_l2r_attention.py)."""
+    from repro_torch.models.attention import decode_attention
+
+    cfg = QuantConfig(n_bits=8, log2_radix=8)
+    q = torch.randn((1, 1, 2, 300), device=dev)
+    k = torch.randn((1, 4, 1, 300), device=dev)
+    pos = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    for kw in (dict(), dict(early_exit=True)):
+        with pytest.raises(RuntimeError, match="integer matmul"):
+            decode_attention(q, k, k, pos, pos[:, -1], l2r=cfg, **kw)
+
+
+@pytest.mark.cuda
+def test_smoke_lm_attn_l2r_on_card_matches_cpu(dev):
+    """The smoke LM with l2r and attn_l2r, prefill and 3 decode steps on
+    the card (B1 under every dense, B4 under the prefill's attention, the
+    decode walk on the plane cache) against the same run on the CPU, by
+    test_smoke_lm_on_card_matches_cpu's rule: every row within 5 % of its
+    largest |logit|, at least half within 1e-4."""
+    import dataclasses
+
+    from repro_torch.models.common import tree_map
+
+    cfg, params = _smoke_lm(True)
+    cfg = dataclasses.replace(cfg, attn_l2r=QuantConfig())
+    prompt = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(8),
+                           dtype=torch.int32)
+    ref = _serve(cfg, params, prompt, 3)
+    before = dict(fa.LAUNCHES)
+    got = _serve(cfg, tree_map(lambda t: t.to(dev), params), prompt.to(dev),
+                 3)
+    assert fa.LAUNCHES["flash_attention_l2r"] == \
+        before["flash_attention_l2r"] + cfg.n_layers
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"]
+    d = torch.stack([(a.cpu() - b).abs().amax(-1) for a, b in zip(got, ref)])
+    mag = torch.stack([b.abs().amax(-1) for b in ref])
+    assert (d <= 0.05 * mag).all(), d / mag
+    assert (d <= 1e-4).float().mean() >= 0.5, d

@@ -144,12 +144,15 @@ def test_unported_options_raise_naming_their_slice():
         te.make_decode_step(cfg, progressive=True)
     with pytest.raises(NotImplementedError, match="A10"):
         tt.lm_build(get_smoke("deepseek-moe-16b"))
+    # digit-serial attention (A9b) is ported: attn_l2r runs
     attn_l2r = dataclasses.replace(cfg, attn_l2r=tq.QuantConfig())
-    tp = {"wq": torch.zeros(96, 96)}
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tt.attn_apply(attn_l2r, tp, torch.zeros(1, 2, 96), mode="train",
-                      rope_positions=None, positions=None, cache=None,
-                      window=None)
+    tp = {"wq": torch.zeros(96, 96), "wk": torch.zeros(96, 32),
+          "wv": torch.zeros(96, 32), "wo": torch.zeros(96, 96)}
+    pos = torch.arange(2, dtype=torch.int32)[None]
+    out, _ = tt.attn_apply(attn_l2r, tp, torch.zeros(1, 2, 96), mode="train",
+                           rope_positions=pos, positions=pos, cache=None,
+                           window=None)
+    assert out.shape == (1, 2, 96) and not out.any()
     for flag in ("--gateway", "--wq"):
         with pytest.raises(NotImplementedError, match="A11"):
             launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", flag])
