@@ -102,9 +102,34 @@ Phases (any failure exits non-zero; nothing is caught):
      exit-level histograms (``attn_exit_tap``), the loose walk never
      later than the tight one on the same inputs, and the tokens equal to
      the full-depth run's (printed, not required: random weights).
+ 15. the same model as 13, served progressively (``progressive=True``,
+     the head streamed most significant level first): 15a a prefill of
+     8 x 2048 tokens (180 B1, 30 B5 and 1 B2 launches, nothing else) and
+     32 decode steps (180 B1 and 1 B2 each), tokens and logits bit for bit
+     phase 13's, the streamed head equal to ``logits_from_hidden`` on the
+     same hidden states with no copy of the head's plane stack (peak
+     memory of one head call), ms/token, the exit-level histograms and a
+     profile of one step; 15b the same with early exit: tokens and exit
+     levels equal 15a's, 180 B1 launches plus one per level walked (the
+     largest exit level + 1) a call; 15c kernel B2 at the LM head's shapes
+     (K 576, N 49152, M 1 / 4 / 8, full depth and 5 levels) on the head
+     cache's K-major view, bit for bit against its plain version, timed
+     beside its bound and ``torch._int_mm``; 15d bucketed == unbucketed
+     prefill bit for bit (k, v, positions of every layer; prompts of 300
+     and 1500 tokens in buckets 512 and 2048); 15e 16 requests (numpy seed
+     150: prompts of 16-2048 tokens, 16-32 new tokens, classes exact /
+     budget(3) / bounded in turn) through ``ContinuousBatcher`` and
+     ``ServingGateway`` (8 slots, max_len 2080, early exit, prefill group
+     4): the gateway's tokens, exit levels and prefill exit levels equal
+     the batcher's; tokens/s, TTFT and TPOT, warmup per bucket; each
+     request's solo run (batch 1, first 8 tokens) compared and printed;
+     15f ``launch/serve.py --wq``, ``--wq --gateway`` and ``--l2r
+     --gateway`` at full width for 4 steps, and the prepared tree saved
+     and loaded (``checkpoint/quantized.py``) equal bit for bit, serving
+     the same tokens.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
-launches and times of phases 13-14), the card again, and the result
-line.
+launches and times of phases 13-14, B2 with the head's of phase 15), the
+card again, and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -234,16 +259,19 @@ def device_ms(fn, kid: str, iters: int = 5) -> float | str:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if kernel_id(ev.key) == kid:
-            us += getattr(ev, "self_device_time_total", None) or \
-                getattr(ev, "self_cuda_time_total", 0)
-    return us / 1e3 / iters if us else "not measured"
+    for _ in range(3):  # a profiler run now and then records no device time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if kernel_id(ev.key) == kid:
+                us += getattr(ev, "self_device_time_total", None) or \
+                    getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            return us / 1e3 / iters
+    return "not measured"
 
 
 def host_ms(fn) -> float:
@@ -1465,7 +1493,7 @@ def phase_lm(dev) -> dict:
                 f"{B5_PER_PREFILL} of B5 and no other")
         launched = dict(n)
         tok = torch.argmax(logits, -1).to(torch.int32)
-        toks = [tok]
+        toks, step_logits = [tok], [logits[:, 0]]
         for i in range(LM_STEPS):
             reset_counts()
             state, tok, lg = decode(params, state, tok)
@@ -1475,6 +1503,7 @@ def phase_lm(dev) -> dict:
                     f"of B1 and no other")
             launched = {k: launched[k] + n[k] for k in n}
             toks.append(tok)
+            step_logits.append(lg[:, 0])
         torch.cuda.synchronize()
         seqs = torch.cat(toks, 1)
         require(logits.shape == (LM_BATCH, 1, cfg.vocab)
@@ -1625,7 +1654,8 @@ def phase_lm(dev) -> dict:
           f"shapes; count = launches per decode step (decode, head) or per "
           f"prefill (prefill; the prefill's head is the head row)", flush=True)
     return {"run": run, "exact": exact, "b5": b5, "rows": rows,
-            "prof_decode": prof_decode, "prof_prefill": prof_prefill}
+            "prof_decode": prof_decode, "prof_prefill": prof_prefill,
+            "seqs": seqs, "step_logits": step_logits}
 
 
 # ------------------------------------------------------------------ slice 8
@@ -1901,6 +1931,514 @@ def phase_lm_attn(dev, b4_rows: list[dict]) -> dict:
             "prof_decode": prof_decode, "prof_prefill": prof_prefill}
 
 
+# ------------------------------------------------------------------ slice 9
+# the phase 13 model served progressively: the streamed head (B2 scan, B1
+# level slabs with early exit), bucketed prefill, the batcher, the gateway,
+# the launcher's --wq and --gateway, prepared checkpoints
+B1_DENSE = 30 * 6  # every dense of 30 layers; the head moves to B2
+B2_HEAD_MS = (1, 4, 8)  # the head's rows: batcher prefill, gateway group,
+#                         decode and prefill at batch 8
+BUCKET_CASES = ((300, 512), (1500, 2048))
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_SEED, SERVE_GROUP = 16, 8, 150, 4
+SERVE_MAX_LEN = 2080
+SOLO_TOKENS = 8  # tokens of each request's solo run (batch 1)
+
+
+def level_hist(levels: torch.Tensor) -> list[int]:
+    return torch.bincount(levels.reshape(-1).long().cpu(),
+                          minlength=N_LEVELS).tolist()
+
+
+def progressive_run(cfg, params, prompt, early_exit: bool) -> dict:
+    """A progressive prefill and LM_STEPS decode steps, each call's
+    launches counted and required: 180 B1 (+ 30 B5 in the prefill) and one
+    B2 scan, or with early exit one B1 level slab per level the walk
+    reports (the largest exit level + 1) in place of B2."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(cfg, LM_PROMPT + LM_STEPS, torch.float32,
+                                progressive=True, early_exit=early_exit)
+    decode = make_decode_step(cfg, progressive=True, early_exit=early_exit)
+
+    def want(lv, extra):
+        walked = int(lv.max()) + 1
+        if early_exit:
+            return only(l2r_stacked_gemm=B1_DENSE + walked, **extra)
+        return only(l2r_stacked_gemm=B1_DENSE, l2r_streaming_gemm=1,
+                    **extra)
+
+    launched = {k: 0 for k in KERNELS}
+    walked = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_counts()
+        state, logits, tok, lv = prefill(params, {"tokens": prompt})
+        n = counts()
+        require(n == want(lv, {"flash_attention": B5_PER_PREFILL}),
+                f"progressive prefill (early_exit={early_exit}) launches "
+                f"{n}")
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: launched[k] + n[k] for k in n}
+        walked.append(int(lv.max()) + 1)
+        toks, lvs, lgs = [tok], [lv], [logits[:, 0]]
+        t0 = time.perf_counter()
+        for i in range(LM_STEPS):
+            reset_counts()
+            state, tok, logits, lv = decode(params, state, tok)
+            n = counts()
+            require(n == want(lv, {}), f"progressive decode step {i} "
+                                       f"(early_exit={early_exit}) launches "
+                                       f"{n}")
+            launched = {k: launched[k] + n[k] for k in n}
+            walked.append(int(lv.max()) + 1)
+            toks.append(tok)
+            lvs.append(lv)
+            lgs.append(logits[:, 0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LM_STEPS
+    return {"tokens": torch.cat(toks, 1), "levels": torch.cat(lvs, 1),
+            "logits": lgs, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "launches": launched, "levels_walked": walked}
+
+
+def b2_head_rows(dev) -> list[dict]:
+    """15c: kernel B2 at the LM head's shapes on the head cache's layout
+    (the D-plane view of the window-padded K-major stack, read in place):
+    bit for bit against its plain version, timed beside its bound and
+    torch._int_mm on the final plane."""
+    from repro_torch.core.quant import (PlaneOperands, stack_planes_lhs,
+                                        stack_planes_rhs)
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    k, n = LM_HEAD
+    g = torch.Generator(device=dev).manual_seed(153)
+    rows = []
+    for m in B2_HEAD_MS:
+        a, b = operands(g, dev, m, k, n, 8)
+        sa = stack_planes_lhs(a)
+        po = PlaneOperands.prepare_rhs(b, shifted=True, window_pad=True,
+                                       k_major=True)
+        view = po.core_stack(True)
+        require(kernel._k_major(view)[0].data_ptr() == view.data_ptr(),
+                "the head cache's view is not read in place")
+        sb = stack_planes_rhs(b)  # row-major, for the plain version
+        for levels in (None, 5):
+            n_lv = N_LEVELS if levels is None else levels
+            got = kernel.l2r_gemm_streaming_planes(sa, view, levels=levels)
+            ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb,
+                                                         levels=levels)
+            require(torch.equal(got, ref),
+                    f"B2 != plain at the LM head M={m} levels={levels}")
+            err = max_err(got, ref)
+            del got, ref
+            fn = lambda: kernel.l2r_gemm_streaming_planes(  # noqa: E731
+                sa, view, levels=levels)
+            lib, lib_fn, padded = int_mm(a, b)
+            if levels is None:
+                require(torch.equal(lib, kernel.l2r_gemm_stacked_planes(
+                    sa, view)), f"torch._int_mm disagrees with the final "
+                                f"plane at M={m}")
+            d = 4
+            bound_ms, by = bound(2 * m * n * k * d * d,
+                                 m * d * k + d * k * n + n_lv * m * n * 4)
+            row = {"name": f"head M={m} levels={levels}", "m": m, "k": k,
+                   "n": n, "levels": levels, "where": "head",
+                   "count": 1 if (m == LM_BATCH and levels is None) else 0,
+                   "ms": time_ms(fn), "kernel_ms": stream_ms(fn),
+                   "device_ms": device_ms(fn, "B2"),
+                   "plain_ms": time_ms(lambda: kernel
+                                       .l2r_gemm_streaming_planes_plain(
+                                           sa, sb, levels=levels),
+                                       iters=3, warmup=1),
+                   "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
+                   "bound_by": by, "max_abs_err": err,
+                   "int_mm_padded": padded, "b_layout": "K-major view"}
+            rows.append(row)
+            print("phase 15c: " + json.dumps(row), flush=True)
+        del a, b, sa, sb, po, view
+        torch.cuda.empty_cache()
+    print(f"phase 15c: B2 == plain (bit for bit, every plane) at the LM "
+          f"head's shapes (K={k}, N={n}, M in {B2_HEAD_MS}, levels None and "
+          f"5) on the head cache's K-major view; library_ms is "
+          f"torch._int_mm on the unstacked operands (the final plane only)",
+          flush=True)
+    return rows
+
+
+def bucket_check(cfg, params, dev) -> dict:
+    """15d: a prompt right-padded in its bucket gives the unpadded
+    prefill's k, v and positions at every real slot of every layer, its
+    logits, first token and exit level, bit for bit."""
+    from repro_torch.serve.engine import (make_bucket_prefill_step,
+                                          make_prefill_step)
+
+    out = {}
+    max_len = SERVE_MAX_LEN
+    bucket = make_bucket_prefill_step(cfg, max_len, torch.float32,
+                                      progressive=True)
+    plain = make_prefill_step(cfg, max_len, torch.float32, progressive=True)
+    with torch.no_grad():
+        for n, lb in BUCKET_CASES:
+            p = lm_prompt(dev, 1, n, cfg.vocab, 154 + n)
+            padded = torch.zeros((1, lb), dtype=torch.int32, device=dev)
+            padded[:, :n] = p
+            st_b, lg_b, tok_b, lv_b = bucket(
+                params, padded, torch.full((1,), n, dtype=torch.int32,
+                                           device=dev))
+            st_u, lg_u, tok_u, lv_u = plain(params, {"tokens": p})
+            cb, cu = st_b.stack[0], st_u.stack[0]
+            for name in ("k", "v", "positions"):
+                a, b = getattr(cb, name), getattr(cu, name)
+                require(torch.equal(a, b) if name == "positions"
+                        else torch.equal(a[:, :, :n], b[:, :, :n]),
+                        f"bucketed prefill ({n} in {lb}): {name} differs")
+            require(torch.equal(st_b.pos, st_u.pos)
+                    and torch.equal(lg_b, lg_u) and torch.equal(tok_b, tok_u)
+                    and torch.equal(lv_b, lv_u),
+                    f"bucketed prefill ({n} in {lb}): pos, logits, token or "
+                    f"exit level differ")
+            out[f"{n}_in_{lb}"] = {"layers": cfg.n_layers,
+                                   "real_slots_equal": True,
+                                   "exit_level": int(lv_b[0, 0])}
+            del st_b, st_u
+    print("phase 15d: bucketed == unbucketed prefill, bit for bit (k, v and "
+          "positions of every layer at the real slots, pos, logits, token, "
+          "exit level): " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_requests(cfg, max_new_cap: int | None = None):
+    from repro_torch.core.policy import PrecisionClass
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SERVE_SEED)
+    lengths = rng.integers(16, 2049, SERVE_REQUESTS)
+    max_new = rng.integers(16, 33, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
+               for n in lengths]
+    classes = [PrecisionClass.exact(), PrecisionClass.budget(3),
+               PrecisionClass.bounded()]
+    return [Request(uid=i, prompt=p, max_new_tokens=int(
+        mn if max_new_cap is None else min(mn, max_new_cap)),
+        precision=classes[i % 3])
+        for i, (p, mn) in enumerate(zip(prompts, max_new))]
+
+
+def engine_stats(st: dict, launched: dict, seconds: float) -> dict:
+    keep = ("steps", "prefills", "tokens", "completed", "buckets",
+            "mean_exit_level", "mean_prefill_exit_level",
+            "exit_level_hist_by_class", "prefill_exit_level_hist_by_class",
+            "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s")
+    return {**{k: st[k] for k in keep if k in st}, "seconds": seconds,
+            "launches": {k: v for k, v in launched.items() if v}}
+
+
+def solo_margin(cfg, params, req, at: int, dev) -> float:
+    """The top-1/top-2 margin of the full-depth logits at token ``at`` of
+    a request's solo run, replayed at batch 1 on its own tokens."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    with torch.no_grad():
+        state, logits = make_prefill_step(cfg, SERVE_MAX_LEN, torch.float32)(
+            params, {"tokens": torch.from_numpy(req.prompt)[None].to(dev)})
+        decode = make_decode_step(cfg)
+        for t in req.output[:at]:
+            tok = torch.full((1, 1), t, dtype=torch.int32, device=dev)
+            state, _, logits = decode(params, state, tok)
+        top2 = torch.topk(logits.float().reshape(-1), 2).values
+    return float(top2[0] - top2[1])
+
+
+def batcher_vs_gateway(cfg, params, dev) -> dict:
+    """15e: 16 requests of mixed lengths and classes through the
+    continuous batcher and the gateway (8 slots, progressive, early
+    exit): the gateway must serve the batcher's tokens, exit levels and
+    prefill exit levels.  Each request's solo run (batch 1, its first
+    SOLO_TOKENS tokens) is compared and printed with the top-2 margin at
+    its first divergence, not required."""
+    from repro_torch.serve import ContinuousBatcher, ServingGateway
+
+    out = {}
+    with torch.no_grad():
+        breqs = serve_requests(cfg)
+        eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, progressive=True,
+                                early_exit=True, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in breqs:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        st = eng.stats(latency=True)
+        out["batcher"] = engine_stats(st, counts(), b_s)
+        out["batcher"]["tokens"] = sum(len(r.output) for r in breqs)
+        out["batcher"]["tokens_per_s"] = out["batcher"]["tokens"] / b_s
+        print("phase 15e: batcher: " + json.dumps(out["batcher"]),
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        gw = ServingGateway(cfg, params, n_slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, progressive=True,
+                            early_exit=True, prefill_group=SERVE_GROUP,
+                            device=dev)
+        warm_s = time.perf_counter() - t0
+        greqs = serve_requests(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        gw.run(greqs)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        n = counts()
+        gw.close()
+        gst = gw.stats()
+        out["gateway"] = {**engine_stats(gst, n, g_s),
+                          "tokens_per_s": gst["tokens_per_s"],
+                          "warmup_s": warm_s,
+                          "warmup_s_by_bucket": {str(k): v for k, v in
+                                                 gw.warmup_s.items()}}
+        print("phase 15e: gateway: " + json.dumps(out["gateway"]),
+              flush=True)
+        for b, g in zip(breqs, greqs):
+            require(b.output == g.output, f"gateway tokens != batcher's for "
+                                          f"request {b.uid}")
+            require(b.exit_levels == g.exit_levels
+                    and b.prefill_exit_level == g.prefill_exit_level,
+                    f"gateway exit levels != batcher's for request {b.uid}")
+        del gw
+        torch.cuda.empty_cache()
+
+        solo = ContinuousBatcher(cfg, params, n_slots=1,
+                                 max_len=SERVE_MAX_LEN, progressive=True,
+                                 early_exit=True, device=dev)
+        sreqs = serve_requests(cfg, SOLO_TOKENS)
+        t0 = time.perf_counter()
+        for r in sreqs:
+            solo.submit(r)
+        solo.run()
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t0
+    equal, total, first = 0, 0, []
+    for b, s_ in zip(breqs, sreqs):
+        m = len(s_.output)
+        same = [x == y for x, y in zip(b.output[:m], s_.output)]
+        equal += sum(same)
+        total += m
+        if not all(same):
+            at = same.index(False)
+            first.append({"uid": b.uid, "at": at,
+                          "class": b.precision.label(),
+                          "top2_margin": solo_margin(cfg, params, s_, at,
+                                                     dev)})
+    out["solo"] = {"equal_tokens": equal, "tokens": total,
+                   "share": equal / total, "first_divergence": first,
+                   "seconds": solo_s}
+    print(f"phase 15e: gateway == batcher (tokens, exit levels, prefill exit "
+          f"levels) for {SERVE_REQUESTS} requests; solo runs (batch 1, the "
+          f"first {SOLO_TOKENS} tokens, printed, not required): "
+          + json.dumps(out["solo"]), flush=True)
+    return out
+
+
+def launcher_and_checkpoint(cfg, params, dev) -> dict:
+    """15f: the launcher's --wq and --gateway at full width for 4 steps on
+    the card, and a prepared tree saved and loaded: equal to the live tree
+    bit for bit, serving the same tokens."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from repro_torch.checkpoint import load_prepared, save_prepared
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.core.quant import PlaneOperands
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    out = {}
+    for flags in (["--wq"], ["--wq", "--gateway"], ["--l2r", "--gateway"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            seqs = launch.main(["--arch", LM_ARCH, "--batch", str(LM_BATCH),
+                                "--prompt-len", "64", "--steps", "4",
+                                *flags])
+        key = " ".join(flags)
+        require(seqs.shape == (LM_BATCH, 4)
+                and bool(((seqs >= 0) & (seqs < cfg.vocab)).all()),
+                f"launch.serve {key}: tokens out of range")
+        out[key] = {"seconds": time.perf_counter() - t0,
+                    "summary": buf.getvalue().splitlines()[0]}
+        print(f"phase 15f: launch.serve {key}: " + json.dumps(out[key]),
+              flush=True)
+    torch.cuda.empty_cache()
+
+    (ROOT / "build").mkdir(exist_ok=True)  # ignored by git, as the kernels
+    ckpt = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        path = str(ckpt / "prepared.npz")
+        t0 = time.perf_counter()
+        save_prepared(params, path)
+        save_s = time.perf_counter() - t0
+        template = tree_map(lambda p: torch.empty(
+            p.shape, dtype=p.dtype, device="meta"), lm_build(cfg))
+        t0 = time.perf_counter()
+        loaded = load_prepared(cfg, template, path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size_gb = Path(path).stat().st_size / 1e9
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for (k, a), (_, b) in zip(_leaves(params), _leaves(loaded)):
+        if isinstance(a, PlaneOperands):
+            require(a.stack.stride() == b.stack.stride(),
+                    f"checkpoint: {k} lost its layout")
+            a, b = a.stack, b.stack
+        require(torch.equal(a, b), f"checkpoint: {k} differs")
+    prompt = np.random.default_rng(155).integers(0, cfg.vocab, (LM_BATCH, 64))
+
+    def serve(tree):
+        eng = ContinuousBatcher(cfg, tree, n_slots=LM_BATCH, max_len=96,
+                                progressive=True, early_exit=True,
+                                device=dev)
+        reqs = [Request(uid=i, prompt=p.astype(np.int32), max_new_tokens=4)
+                for i, p in enumerate(prompt)]
+        for r in reqs:
+            eng.submit(r)
+        with torch.no_grad():
+            eng.run()
+        return [(r.output, r.exit_levels) for r in reqs]
+
+    require(serve(params) == serve(loaded),
+            "the loaded prepared tree serves other tokens")
+    del loaded
+    torch.cuda.empty_cache()
+    out["checkpoint"] = {"file_gb": size_gb, "save_s": save_s,
+                         "load_s": load_s, "bit_identical": True,
+                         "same_tokens": True}
+    print("phase 15f: prepared checkpoint: " + json.dumps(out["checkpoint"]),
+          flush=True)
+    return out
+
+
+def phase_serve(dev, lm: dict) -> dict:
+    """SmolLM-135M served progressively (phase 15): the scan and the
+    early-exit walk against phase 13's tokens and logits, B2 at the head's
+    shapes, bucketed prefill, the batcher against the gateway, the
+    launcher's new modes and a prepared checkpoint."""
+    from repro_torch.models.transformer import init_lm_state, lm_forward, \
+        logits_from_hidden
+    from repro_torch.serve.engine import (make_decode_step,
+                                          progressive_logits_from_hidden)
+
+    t_phase = time.perf_counter()
+    smi = card()
+    cfg, params, _ = lm_model(dev)
+    prompt = lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 130)
+
+    # 15a: the scan, one B2 launch a step
+    scan = progressive_run(cfg, params, prompt, early_exit=False)
+    require(torch.equal(scan["tokens"], lm["seqs"]),
+            "progressive tokens differ from phase 13's")
+    require(all(torch.equal(a, b) for a, b in zip(scan["logits"],
+                                                   lm["step_logits"])),
+            "the scan's logits differ from phase 13's logits_from_hidden")
+    with torch.no_grad():
+        st = init_lm_state(cfg, LM_BATCH, LM_PROMPT, torch.float32,
+                           device=dev)
+        h, _, _ = lm_forward(cfg, params, tokens=prompt, mode="prefill",
+                             state=st)
+        h = h[:, -1:]
+        del st
+        lg_p, tok_p, _ = progressive_logits_from_hidden(cfg, params, h)
+        require(torch.equal(lg_p, logits_from_hidden(cfg, params, h))
+                and torch.equal(tok_p, lg_p.argmax(-1).int()),
+                "the streamed head != logits_from_hidden on the same hidden "
+                "states")
+        # the head alone: B2 on the cache's view, no copy of the stack
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        progressive_logits_from_hidden(cfg, params, h)
+        torch.cuda.synchronize()
+        head_peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
+        stack_mb = params["head_q"].planes.stack.numel() * 4 / 7 / 1e6
+        require(head_peak_mb < stack_mb / 2,
+                f"the streamed head allocated {head_peak_mb} MB: a copy of "
+                f"the {stack_mb} MB plane stack")
+        prof_head = profile_forward(
+            lambda: progressive_logits_from_hidden(cfg, params, h))
+        del h
+    run = {"card": smi, "prefill_ms": scan["prefill_ms"],
+           "decode_ms_per_token": scan["step_ms"],
+           "decode_tokens_per_s": LM_BATCH / scan["step_ms"] * 1e3,
+           "launches": scan["launches"],
+           "launches_per_prefill": {"B1": B1_DENSE, "B5": B5_PER_PREFILL,
+                                    "B2": 1},
+           "launches_per_decode_step": {"B1": B1_DENSE, "B2": 1},
+           "prefill_exit_hist": level_hist(scan["levels"][:, 0]),
+           "decode_exit_hist": level_hist(scan["levels"][:, 1:]),
+           "head_peak_mb": head_peak_mb, "head_stack_mb": stack_mb}
+    print(f"phase 15a: progressive scan, batch {LM_BATCH}, {LM_PROMPT}-token "
+          f"prompts, {LM_STEPS} steps on {smi}: decode "
+          f"{scan['step_ms']} ms/token, {run['decode_tokens_per_s']} "
+          f"tokens/s; tokens and logits == phase 13's, bit for bit",
+          flush=True)
+    print("phase 15a: " + json.dumps(run), flush=True)
+    print("phase 15a: the streamed head alone (8 rows): "
+          + json.dumps(prof_head), flush=True)
+
+    # 15b: early exit on the same inputs
+    early = progressive_run(cfg, params, prompt, early_exit=True)
+    require(torch.equal(early["tokens"], scan["tokens"])
+            and torch.equal(early["levels"], scan["levels"]),
+            "early exit commits other tokens or levels than the scan")
+    exit_run = {"decode_ms_per_token": early["step_ms"],
+                "scan_decode_ms_per_token": scan["step_ms"],
+                "prefill_ms": early["prefill_ms"],
+                "launches": early["launches"],
+                "levels_walked_hist": torch.bincount(torch.tensor(
+                    early["levels_walked"]), minlength=N_LEVELS + 1)
+                .tolist()[1:]}
+    print(f"phase 15b: early exit: {early['step_ms']} ms/token against the "
+          f"scan's {scan['step_ms']} on {smi}; tokens and exit levels == "
+          f"15a's; " + json.dumps(exit_run), flush=True)
+
+    # one progressive decode step profiled on a fresh prefill's state
+    from repro_torch.serve.engine import make_prefill_step
+
+    with torch.no_grad():
+        state, _, tok, _ = make_prefill_step(
+            cfg, LM_PROMPT + LM_STEPS, torch.float32, progressive=True)(
+            params, {"tokens": prompt})
+        decode = make_decode_step(cfg, progressive=True)
+        prof_decode = profile_forward(lambda: decode(params, state, tok))
+        del state
+    print("phase 15a: progressive decode step profile: "
+          + json.dumps(prof_decode), flush=True)
+    del scan["logits"], early["logits"]
+
+    rows = b2_head_rows(dev)
+    buckets = bucket_check(cfg, params, dev)
+    engines = batcher_vs_gateway(cfg, params, dev)
+    launcher = launcher_and_checkpoint(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 15: {seconds:.1f} s", flush=True)
+    return {"run": run, "early": exit_run, "rows": rows,
+            "buckets": buckets, "engines": engines, "launcher": launcher,
+            "prof_decode": prof_decode, "prof_head": prof_head,
+            "seconds": seconds}
+
+
 def lm_totals(rows: list[dict], where: tuple[str, ...]) -> dict:
     """Σ count × per-shape median over the rows of one LM step."""
     pick = [r for r in rows if r["where"] in where]
@@ -1995,6 +2533,9 @@ def main() -> int:
     phase_resize(dev)
     lm = phase_lm(dev)
     lm_attn = phase_lm_attn(dev, b4["rows"])
+    serve = phase_serve(dev, lm)
+    del lm["step_logits"]
+    head = next(r for r in serve["rows"] if r["count"])
     lm_dec = lm_totals(lm["rows"], ("decode", "head"))
     lm_pre = lm_totals(lm["rows"], ("prefill", "head"))
     bf16_row = next(r for r in b5["rows"] if r["name"] == "causal_bf16")
@@ -2024,13 +2565,41 @@ def main() -> int:
                          "device_ms_decode_step":
                          lm["prof_decode"].get("B1_ms"),
                          "device_ms_prefill": lm["prof_prefill"].get("B1_ms"),
-                         "shapes": lm["rows"]}),
+                         "shapes": lm["rows"]},
+                     lm_progressive={
+                         "per": f"phase 15a/15b: the same model served "
+                         f"progressively, {B1_DENSE} launches a prefill or "
+                         f"decode step with the scan (the head on B2), plus "
+                         f"one per level walked with early exit",
+                         "launches_scan": serve["run"]["launches"][
+                             "l2r_stacked_gemm"],
+                         "launches_early_exit": serve["early"]["launches"][
+                             "l2r_stacked_gemm"],
+                         "decode_ms_per_token": serve["run"][
+                             "decode_ms_per_token"],
+                         "device_ms_decode_step":
+                         serve["prof_decode"].get("B1_ms")}),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
                      f"{BATCH} (its one launch, the fc8 head); launches over "
                      f"the 3 forwards of phase 4", weight=fc8,
-                     images_per_s=prog["scan_images_per_s"]),
+                     images_per_s=prog["scan_images_per_s"],
+                     lm_launches=serve["run"]["launches"][
+                         "l2r_streaming_gemm"],
+                     lm_per=f"phase 15: the SmolLM-135M head streamed at "
+                     f"batch {LM_BATCH} (M={LM_BATCH}, K={LM_HEAD[0]}, "
+                     f"N={LM_HEAD[1]}, full depth), one launch a progressive "
+                     f"prefill and decode step; lm_launches over the prefill "
+                     f"and {LM_STEPS} decode steps of 15a",
+                     lm={"head_step": {key: head[key] for key in (
+                         "ms", "kernel_ms", "device_ms", "plain_ms",
+                         "library_ms", "bound_ms", "bound_by")},
+                         "device_ms_decode_step":
+                         serve["prof_decode"].get("B2_ms"),
+                         "decode_ms_per_token":
+                         serve["run"]["decode_ms_per_token"],
+                         "shapes": serve["rows"]}),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
@@ -2069,6 +2638,8 @@ def main() -> int:
                      f"the causal_bf16 row of 10b, the same shape",
                      lm={"prefill": lm_b5,
                          "device_ms_prefill": lm["prof_prefill"].get("B5_ms"),
+                         "launches_progressive": serve["run"]["launches"][
+                             "flash_attention"],
                          **lm["b5"]}),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "

@@ -13,9 +13,9 @@ across by value (models/convert.py:lm_params_from_jax).
 
 Every matmul of the LM stack goes through :func:`dense`, which runs the
 paper's L2R digit-plane pipeline (kernel B1 on the card) when the config
-carries a QuantConfig.  The reference's legacy ``{"q", "scale"}`` record
-(``quantize_desc``/``quantize_params``, the checkpoint codec) belongs to
-the checkpoint slice (ROADMAP A11) and is not here.
+carries a QuantConfig, and serves the reference's ``{"q", "scale"}``
+int8 record (:func:`quantize_desc`/:func:`quantize_params`, the int8
+checkpoint codec of checkpoint/quantized.py) as W8A8 integer dense.
 """
 
 from __future__ import annotations
@@ -27,16 +27,18 @@ from typing import Callable
 import torch
 
 from repro_torch.core.l2r_gemm import l2r_dense
-from repro_torch.core.quant import (QuantConfig, QuantizedWeights,
+from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.l2r_gemm.ops import l2r_matmul_f
+from repro_torch.kernels.l2r_gemm.ops import l2r_gemm, l2r_matmul_f
 
 __all__ = [
     "Param",
     "materialize",
     "tree_map",
     "dense",
+    "quantize_desc",
+    "quantize_params",
     "quantize_tree",
     "rms_norm",
     "layer_norm",
@@ -129,7 +131,23 @@ def dense(
     computed by the same GEMM at full depth (exactly ``xq @ wq``: CUDA
     has no integer matmul of its own).  A float w with ``l2r`` is
     quantized here, per call; without ``l2r`` it is a plain product.
+
+    w may also be the reference's ``{"q": int8, "scale"}`` record
+    (:func:`quantize_params`, the int8 checkpoint codec): W8A8 serving
+    arithmetic whatever ``l2r`` says, per-row activation scales, the
+    integer product on the same GEMM at full depth, then ``* xs * scale``
+    in the reference's order.
     """
+    if isinstance(w, dict) and "q" in w:
+        wq, scale = w["q"], w["scale"]
+        trail = wq.shape[1:]
+        wq = wq.reshape(wq.shape[0], -1)
+        lead = x.shape[:-1]
+        xq, xs = quantize(x.reshape(-1, x.shape[-1]), QuantConfig(), axis=0)
+        out = l2r_gemm(xq, wq)
+        out = out.to(torch.float32) * xs \
+            * scale.reshape(()).to(torch.float32)
+        return out.to(x.dtype).reshape(*lead, *trail)
     if isinstance(w, QuantizedWeights):
         trail = w.q.shape[1:]
         wq = w.q.reshape(w.q.shape[0], -1)
@@ -160,6 +178,47 @@ def _quantizable(p: Param) -> bool:
     and not routed-expert stacks."""
     return (p.init == "normal" and len(p.shape) >= 2
             and "vocab" not in p.axes and "experts" not in p.axes)
+
+
+def quantize_desc(desc_tree):
+    """Descriptor transform: eligible Param -> ``{"q": int8 Param,
+    "scale": f32 Param}``, one scale per (stacked layer x) tensor: the
+    int8 storage format :func:`dense` serves."""
+    def f(p: Param):
+        if not _quantizable(p):
+            return p
+        stacked = bool(p.axes) and p.axes[0] == "layers"
+        sshape = (p.shape[0],) + (1,) * (len(p.shape) - 1) if stacked \
+            else (1,) * len(p.shape)
+        saxes = ("layers",) + (None,) * (len(p.shape) - 1) if stacked \
+            else (None,) * len(p.shape)
+        return {"q": Param(p.shape, p.axes, init=p.init, scale=p.scale,
+                           dtype=torch.int8),
+                "scale": Param(sshape, saxes, init="ones")}
+    return tree_map(f, desc_tree)
+
+
+def quantize_params(desc_tree, params):
+    """Materialized params -> the int8 records of :func:`quantize_desc`.
+
+    One symmetric scale per tensor (per layer of a stacked weight),
+    ``max(amax, 1e-30) / 127`` divided as the reference divides (it
+    calls this eagerly, outside ``jit``, so no multiply by a folded
+    reciprocal), codes ``clip(round(w / scale), -127, 127)``.
+    """
+    def f(p: Param, w):
+        if not _quantizable(p):
+            return w
+        wf = w.to(torch.float32)
+        if p.axes and p.axes[0] == "layers":  # one scale per stacked layer
+            amax = torch.amax(wf.abs(), dim=tuple(range(1, wf.ndim)),
+                              keepdim=True)
+        else:
+            amax = wf.abs().amax().reshape((1,) * wf.ndim)
+        scale = torch.clamp(amax, min=1e-30) / 127.0
+        q = torch.clamp(torch.round(wf / scale), -127, 127)
+        return {"q": q.to(torch.int8), "scale": scale}
+    return tree_map(f, desc_tree, params)
 
 
 def quantize_tree(desc_tree, params, cfg: QuantConfig = QuantConfig(),

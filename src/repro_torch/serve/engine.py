@@ -1,13 +1,19 @@
 """Serving engine: load-time weight preparation, the prefill and decode
-step factories, batched greedy decoding.
+step factories, bucketed prefill, the progressive LM head, batched
+greedy decoding.
 
-The port of the non-progressive core of ``repro/serve/engine.py`` for
-LM families on one card.  The progressive head stream
-(``progressive=True``, ``progressive_logits_from_hidden``, kernel B2 on
-the LM head), bucketed prefill, the batcher, the gateway and the
-sharding of caches and head are ROADMAP A11 and A13; asking for
-``progressive`` raises.  PyTorch runs eagerly, so the factories return
-plain functions where the reference returns functions to ``jax.jit``.
+The port of ``repro/serve/engine.py`` for LM families on one card.
+PyTorch runs eagerly, so the factories return plain functions where the
+reference returns functions to ``jax.jit``, and the serving state is
+updated in place where the reference donates it: a decode step writes
+the caches and ``pos`` into the tensors it was given and returns them.
+The sharding of caches and head (``state_specs``, ``mesh=``) is ROADMAP
+A13 and not here.
+
+``progressive=True`` streams the LM head most-significant level first
+(:func:`progressive_logits_from_hidden`): on the card the scan is one
+launch of kernel B2 over the load-time head cache, and ``early_exit``
+one launch of kernel B1 per level walked.
 """
 
 from __future__ import annotations
@@ -16,13 +22,20 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.quant import QuantizedWeights, quantize_weights
+from repro_torch.core.policy import LevelPolicy
+from repro_torch.core.progressive import streaming_argmax
+from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
+                                    quantize_weights)
+from repro_torch.kernels.l2r_gemm.ops import CUDA_WALK
+from repro_torch.models.attention import KVCache
 from repro_torch.models.common import quantize_tree
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (init_lm_state, lm_build,
+from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
                                             lm_forward, logits_from_hidden)
 
 __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
+           "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
+           "supports_bucketed_prefill", "progressive_logits_from_hidden",
            "greedy_generate"]
 
 
@@ -30,14 +43,6 @@ def _lm_only(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError("encoder-decoder serving is not in the "
                                   "port yet (ROADMAP A10)")
-
-
-def _no_progressive(progressive: bool) -> None:
-    if progressive:
-        raise NotImplementedError(
-            "progressive=True streams the LM head level by level (kernel "
-            "B2), which the port takes with the rest of serving (ROADMAP "
-            "A11)")
 
 
 # ------------------------------------------------------- weight preparation
@@ -57,9 +62,10 @@ def prepare_params(cfg: ModelConfig, params, desc=None):
     transposes a weight plane.  The LM head (the tied embedding's
     transpose, excluded from quantize_tree so lookups keep the float
     table) gets its own cache ``head_q``, window-padded as the
-    reference's (2D-1 plane blocks); the stacked schedule reads its first
-    D blocks in place.  Costs D x (the head 2D-1 x) the int8 weight
-    bytes.
+    reference's (2D-1 plane blocks): the stacked schedule and kernel B2
+    (the progressive head) read its first D blocks in place, a view
+    whose output-channel stride is (2D-1)·K.  Costs D x (the head 2D-1
+    x) the int8 weight bytes.
 
     ``desc`` is the Param descriptor tree (for eligibility); defaults to
     ``lm_build(cfg)``.
@@ -79,20 +85,68 @@ def prepare_params(cfg: ModelConfig, params, desc=None):
 
 
 # ------------------------------------------------------------ step factories
+def _check_step_flags(progressive: bool, early_exit: bool,
+                      policy: LevelPolicy | None = None) -> None:
+    """Reject contradictory step-factory flag combinations: ``early_exit``
+    and ``policy`` steer the streamed head's level walk, which exists
+    only on the progressive path."""
+    if early_exit and not progressive:
+        raise ValueError(
+            "contradictory arguments: early_exit=True requires "
+            "progressive=True — early_exit stops the streamed head's "
+            "level loop, which only exists on the progressive path "
+            "(got progressive=False, early_exit=True)")
+    if policy is not None and not progressive:
+        raise ValueError(
+            "contradictory arguments: policy requires progressive=True — "
+            "LevelPolicy rows steer the streamed head's level walk, which "
+            "only exists on the progressive path "
+            "(got progressive=False with policy set)")
+
+
+def _check_progressive(cfg: ModelConfig, progressive: bool) -> None:
+    if progressive:
+        assert cfg.l2r is not None, \
+            "progressive serving streams the quantized head: set cfg.l2r"
+
+
+def _head(cfg: ModelConfig, params, hidden, progressive: bool,
+          early_exit: bool, policy: LevelPolicy | None):
+    """The LM head on ``hidden`` (B, 1, d): ``logits`` one-shot, or
+    ``(logits, tok (B, 1) int32, exit_level (B, 1) int32)`` streamed."""
+    if not progressive:
+        return logits_from_hidden(cfg, params, hidden)
+    logits, tok, lv = progressive_logits_from_hidden(
+        cfg, params, hidden, early_exit=early_exit, policy=policy)
+    return logits, tok.to(torch.int32), lv
+
+
 def make_prefill_step(cfg: ModelConfig, max_len: int,
                       cache_dtype: torch.dtype = torch.bfloat16,
-                      progressive: bool = False) -> Callable:
-    """(params, batch) -> (state, last_token_logits (B, 1, V)).
+                      progressive: bool = False,
+                      early_exit: bool = False,
+                      policy: LevelPolicy | None = None) -> Callable:
+    """(params, batch[, policy]) -> (state, last_token_logits (B, 1, V)).
 
     ``batch`` holds ``tokens`` (B, S) int (or ``embeds``) and optionally
     ``rope_positions``; the state's caches are allocated on the batch's
     device, ``max_len`` long, in ``cache_dtype``.  The head runs on the
     last prompt position only.
-    """
-    _no_progressive(progressive)
-    _lm_only(cfg)
 
-    def prefill(params, batch):
+    ``progressive=True`` (requires ``cfg.l2r``) streams that head
+    (:func:`progressive_logits_from_hidden`) and returns ``(state,
+    logits, first_tok (B, 1) int32, exit_level (B, 1) int32)``;
+    ``first_tok`` always equals the one-shot prefill's argmax.
+    ``early_exit`` stops the level loop once every row has decided.
+    ``policy`` (the factory default, overridable per call as the
+    trailing argument) gives each batch row its precision class.
+    """
+    _check_step_flags(progressive, early_exit, policy)
+    _lm_only(cfg)
+    _check_progressive(cfg, progressive)
+    default_policy = policy
+
+    def prefill(params, batch, policy=None):
         tokens = batch.get("tokens")
         embeds = batch.get("embeds")
         src = tokens if tokens is not None else embeds
@@ -102,25 +156,198 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
             cfg, params, tokens=tokens, embeds=embeds,
             rope_positions=batch.get("rope_positions"), mode="prefill",
             state=state)
-        return state, logits_from_hidden(cfg, params, hidden[:, -1:])
+        head = _head(cfg, params, hidden[:, -1:], progressive, early_exit,
+                     policy if policy is not None else default_policy)
+        return (state, *head) if progressive else (state, head)
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, progressive: bool = False
-                     ) -> Callable:
-    """(params, state, tokens (B, 1)) -> (state, next_tokens (B, 1) int32,
-    logits (B, 1, V)).  The state's caches are updated in place."""
-    _no_progressive(progressive)
-    _lm_only(cfg)
+# ------------------------------------------------------- bucketed prefill
+def prefill_buckets(max_len: int, min_bucket: int = 8) -> tuple[int, ...]:
+    """Power-of-2 prompt-length buckets, capped at ``max_len``.
 
-    def decode(params, state, tokens, rope_positions=None):
-        hidden, state, _ = lm_forward(
+    Prompts pad to the smallest covering bucket, so the prefill shapes
+    (kernel builds, allocator pools, warmup runs) exist per BUCKET
+    instead of per unique prompt length.  The last bucket is ``max_len``
+    itself (the cache bound), whether or not it is a power of two.
+    """
+    assert max_len >= 1
+    out: list[int] = []
+    b = min(min_bucket, max_len)
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)
+
+
+def bucket_for(length: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket covering ``length`` (buckets ascending)."""
+    for b in buckets:
+        if length <= b:
+            return b
+    raise ValueError(f"prompt length {length} exceeds largest bucket "
+                     f"{buckets[-1]} (the cache bound)")
+
+
+def supports_bucketed_prefill(cfg: ModelConfig) -> bool:
+    """Bucketed (right-padded) prefill is exact only for attention
+    mixers: causal masking makes pad positions invisible to every real
+    position, and the pad cache entries can be marked empty afterwards.
+    Recurrent mixers carry the state at the LAST position, so those
+    families keep the exact-length prefill path."""
+    return cfg.family != "encdec" and all(
+        k in ("global", "local") for k, _ in cfg.layer_kinds())
+
+
+def _mask_bucket_state(state: LMState, true_len: torch.Tensor) -> LMState:
+    """Post-prefill fixup for a right-padded prompt, in place: every
+    KV-cache entry written by a pad position is marked empty (-1), so
+    decode attention never sees pad keys, and ``pos`` becomes the TRUE
+    length, so the first decoded token lands at position ``true_len``,
+    overwriting the stale pad slots as decoding proceeds.  Bit-exact:
+    masked entries contribute exact zeros to the softmax, and the cache
+    at slots < true_len is untouched."""
+    tl = true_len.to(torch.int32).reshape(-1, 1)  # (B, 1): broadcasts
+    #   against (B, L) and stacked (layers, B, L) position leaves alike
+    caches = [*state.prefix, *(state.stack or []), *state.suffix]
+    for c in caches:
+        if isinstance(c, KVCache):
+            c.positions.masked_fill_(c.positions >= tl, -1)
+    state.pos = true_len.to(torch.int32, copy=True)
+    return state
+
+
+def make_bucket_prefill_step(cfg: ModelConfig, max_len: int,
+                             cache_dtype: torch.dtype = torch.bfloat16,
+                             progressive: bool = False,
+                             early_exit: bool = False,
+                             policy: LevelPolicy | None = None) -> Callable:
+    """(params, tokens (B, Lb), true_len (B,)[, policy]) ->
+    make_prefill_step's returns.
+
+    The bucketed form of :func:`make_prefill_step`: ``tokens`` is a
+    whole BUCKET of right-padded prompts and ``true_len`` (on the tokens'
+    device) carries each row's real prompt length.  The head reads the
+    hidden state at ``true_len - 1`` per row (not the pad tail), the
+    returned state's ``pos`` is the true length, and pad-written cache
+    entries are marked empty: decode from this state is bit-identical to
+    an unpadded prefill of the same prompt.
+
+    Rows are independent, so several queued prompts PACK into one call:
+    pad the batch with dummy rows (``true_len = 1``) and ignore their
+    outputs.  Attention families only (:func:`supports_bucketed_prefill`);
+    local (ring) windows require the bucket to fit the window, asserted
+    per call.  ``policy`` works as in :func:`make_prefill_step`.
+    """
+    _check_step_flags(progressive, early_exit, policy)
+    assert supports_bucketed_prefill(cfg), \
+        "bucketed prefill: attention-mixer LM families only"
+    _check_progressive(cfg, progressive)
+    default_policy = policy
+    local = any(k == "local" for k, _ in cfg.layer_kinds())
+
+    def prefill(params, tokens, true_len, policy=None):
+        bsz, lb = tokens.shape
+        if local:
+            assert lb <= cfg.window, (
+                f"bucket {lb} exceeds the local attention window "
+                f"{cfg.window}: the ring cache would wrap over real "
+                f"prompt entries")
+        state = init_lm_state(cfg, bsz, max_len, cache_dtype,
+                              device=tokens.device)
+        hidden, state, _ = lm_forward(cfg, params, tokens=tokens,
+                                      mode="prefill", state=state)
+        rows = torch.arange(bsz, device=hidden.device)
+        h_last = hidden[rows, true_len.long() - 1][:, None]  # (B, 1, d)
+        state = _mask_bucket_state(state, true_len)
+        head = _head(cfg, params, h_last, progressive, early_exit,
+                     policy if policy is not None else default_policy)
+        return (state, *head) if progressive else (state, head)
+
+    return prefill
+
+
+def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
+                                   early_exit: bool = False,
+                                   policy: LevelPolicy | None = None):
+    """Stream the LM head level by level, committing each row's token at
+    its earliest sound MSDF level.
+
+    The quantization recipe is exactly ``logits_from_hidden``'s L2R path
+    (dense -> l2r_matmul_f), so the logits are bit-identical to the full
+    head and the committed tokens ALWAYS equal its argmax; rows that
+    never reach a sound early margin consume the whole stream.
+    ``early_exit=True`` runs the while loop that STOPS once every row
+    has decided: tokens and exit levels stay bit-identical, the logits
+    are then the dequantized prefix at the exit level
+    (core/progressive.py:streaming_argmax).  ``policy`` gives each
+    FLATTENED lead row of ``hidden`` (decode: one per batch slot) its
+    precision class.  Returns ``(logits (..., V), tok (...,) int32,
+    exit_level (...,) int32)``.
+
+    The ``head_q`` cache of :func:`prepare_params` is used when its
+    stack matches the config: on the card kernel B2 (the scan) and B1's
+    level slabs (early exit) read its pre-shifted, K-major planes in
+    place, with no per-step operand preparation.
+    """
+    qcfg = cfg.l2r or QuantConfig()
+    if "head_q" in params:  # the prepare_params load-time head cache
+        wq, ws = params["head_q"].q, params["head_q"].scale
+        p = params["head_q"].planes
+        if p is not None and p.matches(qcfg.n_bits, qcfg.log2_radix,
+                                       ndim=2, side="rhs"):
+            wq = p  # cached plane stack: zero per-step operand prep
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        wq, ws = quantize(w.to(hidden.dtype), qcfg, axis=-1)
+    lead = hidden.shape[:-1]
+    x2 = hidden.reshape(-1, hidden.shape[-1])
+    xq, xs = quantize(x2, qcfg, axis=0 if qcfg.per_channel else None)
+    if policy is not None:
+        policy = policy.reshape((x2.shape[0],))
+    logits, tok, lv = streaming_argmax(
+        xq, wq, xs, ws, qcfg.n_bits, qcfg.log2_radix, levels=cfg.l2r_levels,
+        out_dtype=hidden.dtype, early_exit=early_exit, policy=policy,
+        cuda_walk=CUDA_WALK)
+    return logits.reshape(*lead, -1), tok.reshape(lead), lv.reshape(lead)
+
+
+def make_decode_step(cfg: ModelConfig, progressive: bool = False,
+                     early_exit: bool = False,
+                     policy: LevelPolicy | None = None) -> Callable:
+    """(params, state, tokens (B, 1)[, rope_positions, policy]) ->
+    (state, next_tokens (B, 1) int32, logits (B, 1, V)).
+
+    The state is updated IN PLACE: the caches and ``pos`` are written
+    into the tensors of the state passed in, and the returned state holds
+    those same tensors (the reference donates its state to the same
+    end).  ``progressive=True`` (requires ``cfg.l2r``) streams the head
+    and also returns the per-row exit levels: ``(state, next_tokens,
+    logits, exit_level (B, 1))``, tokens bit-identical to the one-shot
+    step.  ``early_exit=True`` stops the head's level loop once every
+    row has decided (the logits are then the exit-level prefix).
+    ``policy`` (the factory default, overridable per call as the trailing
+    argument) streams the head under per-slot precision classes.
+    """
+    _check_step_flags(progressive, early_exit, policy)
+    _lm_only(cfg)
+    _check_progressive(cfg, progressive)
+    default_policy = policy
+
+    def decode(params, state, tokens, rope_positions=None, policy=None):
+        hidden, new, _ = lm_forward(
             cfg, params, tokens=tokens, rope_positions=rope_positions,
             mode="decode", state=state)
-        logits = logits_from_hidden(cfg, params, hidden)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return state, next_tok, logits
+        state.pos.copy_(new.pos)  # the caches are already written in place
+        new.pos = state.pos
+        head = _head(cfg, params, hidden, progressive, early_exit,
+                     policy if policy is not None else default_policy)
+        if progressive:
+            logits, tok, lv = head
+            return new, tok, logits, lv
+        return new, torch.argmax(head, dim=-1).to(torch.int32), head
 
     return decode
 

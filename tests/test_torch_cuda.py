@@ -809,3 +809,211 @@ def test_smoke_lm_attn_l2r_on_card_matches_cpu(dev):
     mag = torch.stack([b.abs().amax(-1) for b in ref])
     assert (d <= 0.05 * mag).all(), d / mag
     assert (d <= 1e-4).float().mean() >= 0.5, d
+
+
+# ------------------------------------------- slice 9: the rest of serving
+LM_HEAD_K, LM_HEAD_N = 576, 49152  # SmolLM-135M's tied head
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [None, 5])
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_b2_at_the_lm_head_shapes(dev, m, levels):
+    """B2 on the head cache's layout (window-padded, pre-shifted, K-major;
+    its D-plane view has an N stride of (2D-1)·K and is read in place)
+    equals its plain version bit for bit at K = 576, N = 49152."""
+    from repro_torch.core.quant import PlaneOperands
+
+    a, b = _ints(dev, m, LM_HEAD_K, LM_HEAD_N, 8, seed=m)
+    sa = stack_planes_lhs(a)
+    view = PlaneOperands.prepare_rhs(b, shifted=True, window_pad=True,
+                                     k_major=True).core_stack(True)
+    assert view.stride() == (1, 7 * LM_HEAD_K)
+    bt, ldb = kernel._k_major(view)
+    assert bt.data_ptr() == view.data_ptr() and ldb == 7 * LM_HEAD_K
+    before = kernel.LAUNCHES["l2r_streaming_gemm"]
+    got = kernel.l2r_gemm_streaming_planes(sa, view, levels=levels)
+    assert kernel.LAUNCHES["l2r_streaming_gemm"] == before + 1
+    ref = kernel.l2r_gemm_streaming_planes_plain(sa, stack_planes_rhs(b),
+                                                 levels=levels)
+    assert got.shape == ref.shape == (7 if levels is None else 5, m,
+                                      LM_HEAD_N)
+    assert torch.equal(got, ref)
+
+
+def _prepared_smoke(dev):
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import prepare_params
+
+    cfg, params = _smoke_lm(True)
+    return cfg, prepare_params(cfg, tree_map(lambda t: t.to(dev), params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [False, True])
+@pytest.mark.parametrize("levels", [None, 5])
+def test_progressive_head_on_card(dev, levels, policy):
+    """The streamed head on the card: the scan is one B2 launch with the
+    one-shot head's logits and argmax; early exit commits the same tokens
+    at the same levels with one B1 launch per level walked; all of it
+    equal to the same call on the CPU."""
+    import dataclasses
+
+    from repro_torch.core.policy import LevelPolicy, PrecisionClass
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import logits_from_hidden
+    from repro_torch.serve.engine import (prepare_params,
+                                          progressive_logits_from_hidden)
+
+    cfg, params = _smoke_lm(True)
+    cfg = dataclasses.replace(cfg, l2r_levels=levels)
+    cpu = prepare_params(cfg, params)
+    card = prepare_params(cfg, tree_map(lambda t: t.to(dev), params))
+    g = torch.Generator().manual_seed(21)
+    hidden = torch.randn((8, 1, 96), generator=g) \
+        * torch.rand((8, 1, 1), generator=g) * 4
+    pol = LevelPolicy.from_classes(
+        [PrecisionClass.exact(), PrecisionClass.budget(3),
+         PrecisionClass.bounded(), PrecisionClass.bounded(0.01)] * 2) \
+        if policy else None
+    b1, b2 = "l2r_stacked_gemm", "l2r_streaming_gemm"
+    n0 = dict(kernel.LAUNCHES)
+    scan = progressive_logits_from_hidden(cfg, card, hidden.to(dev),
+                                          policy=pol)
+    assert kernel.LAUNCHES[b2] == n0[b2] + 1 and kernel.LAUNCHES[b1] == n0[b1]
+    assert torch.equal(scan[0], logits_from_hidden(cfg, card, hidden.to(dev)))
+    if pol is None:  # budget rows commit their truncated prefix's argmax
+        assert torch.equal(scan[1], scan[0].argmax(-1).int())
+    n0 = dict(kernel.LAUNCHES)
+    early = progressive_logits_from_hidden(cfg, card, hidden.to(dev),
+                                           early_exit=True, policy=pol)
+    assert kernel.LAUNCHES[b2] == n0[b2]
+    assert kernel.LAUNCHES[b1] == n0[b1] + int(early[2].max()) + 1
+    assert torch.equal(early[1], scan[1]) and torch.equal(early[2], scan[2])
+    for ee, got in ((False, scan), (True, early)):
+        ref = progressive_logits_from_hidden(cfg, cpu, hidden, early_exit=ee,
+                                             policy=pol)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_l2r", [False, True])
+def test_bucketed_prefill_state_equals_unbucketed_on_card(dev, attn_l2r):
+    """On the card (B1 under every dense; B5, or B4 with attn_l2r, walking
+    64-key tiles) a right-padded prompt's cache equals the unpadded
+    prefill's at every real slot of every layer bit for bit, and so do
+    the logits and the streamed first token.  Both calls hold at least 16
+    rows: below that PyTorch's row reduction (rms_norm's mean) gives each
+    row more threads, and sums in another order."""
+    import dataclasses
+
+    from repro_torch.serve.engine import (make_bucket_prefill_step,
+                                          make_prefill_step)
+
+    cfg, params = _prepared_smoke(dev)
+    if attn_l2r:
+        cfg = dataclasses.replace(cfg, attn_l2r=QuantConfig())
+    g = torch.Generator().manual_seed(22)
+    lengths, lb = (16, 23, 40), 64
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g,
+                             dtype=torch.int32) for n in lengths]
+    tokens = torch.zeros((4, lb), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    true_len = torch.tensor([*lengths, 1], dtype=torch.int32, device=dev)
+    st_b, lg_b, tok_b, lv_b = make_bucket_prefill_step(
+        cfg, 96, torch.float32, progressive=True)(params, tokens.to(dev),
+                                                  true_len)
+    plain = make_prefill_step(cfg, 96, torch.float32, progressive=True)
+    for i, p in enumerate(prompts):
+        st_u, lg_u, tok_u, lv_u = plain(params, {"tokens": p[None].to(dev)})
+        n = len(p)
+        assert torch.equal(lg_b[i], lg_u[0])
+        assert int(tok_b[i, 0]) == int(tok_u[0, 0])
+        assert int(lv_b[i, 0]) == int(lv_u[0, 0])
+        cb, cu = st_b.stack[0], st_u.stack[0]
+        for name in ("k", "v", "k_planes", "k_scale"):
+            a, b = getattr(cb, name), getattr(cu, name)
+            if a is not None:
+                assert torch.equal(a[:, i, :n], b[:, 0, :n]), name
+        assert torch.equal(cb.positions[:, i], cu.positions[:, 0])
+
+
+@pytest.mark.cuda
+def test_batcher_and_gateway_on_card_keep_the_state_storage(dev):
+    """The decode steps of the batcher and the gateway update the slot
+    state in place on the card (both assert it), and the gateway serves
+    the batcher's tokens and exit levels."""
+    import numpy as np
+
+    from repro_torch.core.policy import PrecisionClass
+    from repro_torch.serve import ContinuousBatcher, Request, ServingGateway
+
+    cfg, params = _prepared_smoke(dev)
+    rng = np.random.default_rng(23)
+    lengths = (16, 19, 33, 24, 30)  # >= 16 rows a prefill, as above
+    classes = [PrecisionClass.exact(), PrecisionClass.budget(3),
+               PrecisionClass.bounded()]
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=5,
+                        precision=classes[i % 3])
+                for i, p in enumerate(prompts)]
+
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in lengths]
+    eng = ContinuousBatcher(cfg, params, n_slots=3, max_len=48,
+                            progressive=True, early_exit=True, device=dev)
+    k0 = eng.state.stack[0].k.data_ptr()
+    b_reqs = reqs()
+    for r in b_reqs:
+        eng.submit(r)
+    eng.run()
+    assert eng.state.stack[0].k.data_ptr() == k0
+    gw = ServingGateway(cfg, params, n_slots=3, max_len=48,
+                        progressive=True, early_exit=True, prefill_group=2,
+                        device=dev)
+    assert set(gw.warmup_s) == {*gw.buckets, "decode"}
+    g_reqs = reqs()
+    gw.run(g_reqs)
+    gw.close()
+    for a, b in zip(b_reqs, g_reqs):
+        assert a.output == b.output and a.exit_levels == b.exit_levels
+        assert a.prefill_exit_level == b.prefill_exit_level
+
+
+@pytest.mark.cuda
+def test_prepared_checkpoint_round_trip_onto_the_card(dev, tmp_path):
+    """A prepared tree saved on the CPU loads onto the card in the port's
+    layouts (pre-shifted, K-major plane stacks) equal bit for bit to the
+    tree prepared on the card, and serves the same tokens."""
+    import numpy as np
+
+    from repro_torch.checkpoint import load_prepared, save_prepared
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.core.quant import PlaneOperands
+    from repro_torch.serve import ContinuousBatcher, Request
+    from repro_torch.serve.engine import prepare_params
+
+    cfg, params = _smoke_lm(True)
+    path = str(tmp_path / "prep.npz")
+    save_prepared(prepare_params(cfg, params), path)
+    _, live = _prepared_smoke(dev)
+    loaded = load_prepared(cfg, params, path, device=dev)
+    for (k, a), (_, b) in zip(_leaves(live), _leaves(loaded)):
+        if isinstance(a, PlaneOperands):
+            assert a.stack.stride() == b.stack.stride(), k
+            a, b = a.stack, b.stack
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    prompt = np.arange(1, 12, dtype=np.int32)
+
+    def serve(tree):
+        eng = ContinuousBatcher(cfg, tree, n_slots=1, max_len=24,
+                                progressive=True, device=dev)
+        req = Request(uid=0, prompt=prompt, max_new_tokens=6)
+        eng.submit(req)
+        eng.run()
+        return req.output, req.exit_levels
+
+    assert serve(live) == serve(loaded)

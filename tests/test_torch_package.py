@@ -44,7 +44,10 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.models.config", "repro_torch.models.common",
                 "repro_torch.models.mlp", "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.serve",
-                "repro_torch.serve.engine", "repro_torch.launch.serve"]
+                "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.serve.batching", "repro_torch.serve.gateway",
+                "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                "repro_torch.checkpoint.quantized"]
 
 
 def _env():
@@ -112,7 +115,7 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(
 
 
 def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
-        monkeypatch):
+        monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import main
     from repro_torch.models.attention import init_kv_cache
@@ -120,16 +123,39 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
     from repro_torch.models.convert import lm_params_from_jax
     from repro_torch.models.transformer import init_lm_state, lm_build
 
+    import dataclasses
+
+    from repro_torch.checkpoint import (CheckpointManager, load_prepared,
+                                        load_pytree, load_quantized)
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.serve import ContinuousBatcher, ServingGateway
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("smollm-135m")
     desc = lm_build(cfg)
+    params = materialize(desc, device="cpu")
+    l2r = dataclasses.replace(cfg, l2r=QuantConfig())
+    mgr = CheckpointManager(str(tmp_path))
     for call in (lambda: materialize(desc), lambda: lm_params_from_jax({}),
                  lambda: materialize(desc, device="cuda"),
                  lambda: init_kv_cache(1, 4, 1, 8),
                  lambda: init_kv_cache(1, 4, 1, 8, device="cuda"),
                  lambda: init_lm_state(cfg, 1, 4),
                  lambda: init_lm_state(cfg, 1, 4, device="cuda"),
-                 lambda: main(["--arch", "smollm-135m", "--smoke"])):
+                 lambda: main(["--arch", "smollm-135m", "--smoke"]),
+                 lambda: main(["--arch", "smollm-135m", "--smoke", "--wq"]),
+                 lambda: main(["--arch", "smollm-135m", "--smoke",
+                               "--gateway"]),
+                 lambda: ContinuousBatcher(cfg, params),
+                 lambda: ContinuousBatcher(cfg, params, device="cuda"),
+                 lambda: ServingGateway(cfg, params),
+                 lambda: ServingGateway(cfg, params, device="cuda"),
+                 lambda: load_pytree(params, str(tmp_path / "p.npz")),
+                 lambda: load_quantized(desc, params,
+                                        str(tmp_path / "q.npz")),
+                 lambda: load_prepared(l2r, params,
+                                       str(tmp_path / "r.npz")),
+                 lambda: mgr.restore(1, {"params": params})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
