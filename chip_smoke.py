@@ -127,9 +127,31 @@ Phases (any failure exits non-zero; nothing is caught):
      --gateway`` at full width for 4 steps, and the prepared tree saved
      and loaded (``checkpoint/quantized.py``) equal bit for bit, serving
      the same tokens.
+ 16. the other mixers at their published widths, batch 8, L2R at full
+     depth, bf16 compute, f32 caches and states, seeded random weights,
+     served greedily through ``make_prefill_step`` and
+     ``make_decode_step``: mamba2-130m (24 SSD layers, raw params: 49 B1
+     a prefill of 8 x 2048 tokens and a step), recurrentgemma-2b (26
+     RG-LRU / local layers, raw: 139 B1), deepseek-moe-16b cut to 4
+     layers (one dense, 3 MoE of 64 experts top-6 + 2 shared; prepared:
+     412 B1 a prefill and a step, 4 B5 a prefill) and whisper-base (6 +
+     6 layers, 1500 seeded frames, 128-token prompts, raw: 97 B1 + 18 B5
+     a prefill, 49 B1 + 6 B5 a step); 16a each serving run's launches
+     exact on every call, 32 steps, prefill ms, decode ms/token,
+     tokens/s, peak memory and a profile of a prefill and a step; 16b
+     the logits on B1 equal bit for bit to the plain GEMM's (256-token
+     prompts, whisper 128, 2 steps; B5 swapped for its plain version in
+     both runs; mamba2 also at levels=5); 16c two decode steps against
+     the train forward (f32, the float path, the reference specs' limits
+     5e-2 and 1e-4; whisper's steps without frames); 16d the RG-LRU scan
+     and the MoE routing on the card equal to the CPU's bits, and a MoE
+     layer's two runs on the card identical; 16e B5 at whisper's shapes
+     (S 1500; cross Sq 128 and 1 over 1500 keys) within its limits,
+     timed; 16f B1 at mamba2's in_proj and deepseek's expert shapes,
+     bit for bit, timed.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
-launches and times of phases 13-14, B2 with the head's of phase 15), the
-card again, and the result line.
+launches and times of phases 13-14, B2 with the head's of phase 15, B1
+and B5 with phase 16's per model), the card again, and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -1395,15 +1417,15 @@ def lm_prompt(dev, batch, length, vocab, seed):
                          generator=torch.Generator(device=dev).manual_seed(seed))
 
 
-def lm_greedy(cfg, params, prompt, steps):
-    """Prefill, then ``steps`` greedy decode steps: the logits (B, V) of
-    every step."""
+def lm_greedy(cfg, params, batch: dict, steps):
+    """Prefill ``batch``, then ``steps`` greedy decode steps: the logits
+    (B, V) of every step."""
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
 
     with torch.no_grad():
         state, logits = make_prefill_step(
-            cfg, prompt.shape[1] + steps, torch.float32)(
-            params, {"tokens": prompt})
+            cfg, batch["tokens"].shape[1] + steps, torch.float32)(
+            params, batch)
         decode = make_decode_step(cfg)
         out = [logits[:, 0]]
         tok = torch.argmax(logits, -1).to(torch.int32)
@@ -1458,6 +1480,47 @@ def bf16_limit_everywhere(seed: int, plain):
     return attn
 
 
+
+def b1_shape_row(g, dev, m: int, k: int, n: int, count: int, where: str,
+                 tag: str) -> dict:
+    """B1 at one GEMM shape of a model, B K-major as the weight cache
+    holds it (window-padded for a head): bit for bit against its plain
+    version and ``torch._int_mm``, timed beside them and its bound."""
+    from repro_torch.core.quant import PlaneOperands, stack_planes_lhs, \
+        stack_planes_rhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    a, b = operands(g, dev, m, k, n, 8)
+    sa = stack_planes_lhs(a)
+    sbk = PlaneOperands.prepare_rhs(
+        b, shifted=True, window_pad=where == "head",
+        k_major=True).core_stack(True)
+    got = kernel.l2r_gemm_stacked_planes(sa, sbk)
+    ref = kernel.l2r_gemm_stacked_planes_plain(sa, stack_planes_rhs(b))
+    require(torch.equal(got, ref), f"B1 != plain at {where} M={m} K={k} "
+                                   f"N={n}")
+    err = max_err(got, ref)
+    lib, lib_fn, padded = int_mm(a, b)
+    require(torch.equal(lib, got), f"torch._int_mm disagrees with B1 at "
+                                   f"M={m} K={k} N={n}")
+    del got, ref, lib
+    d = 4
+    bound_ms, by = bound(2 * m * n * k, m * d * k + d * k * n + m * n * 4)
+    row = {"name": f"{where} K={k} N={n}", "m": m, "k": k, "n": n,
+           "count": count, "where": where,
+           "ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
+           "kernel_ms": stream_ms(
+               lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
+           "plain_ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes_plain(
+               sa, sbk), iters=3, warmup=1),
+           "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
+           "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
+    print(f"phase {tag}: " + json.dumps(row), flush=True)
+    del a, b, sa, sbk, lib_fn
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_lm(dev) -> dict:
     """SmolLM-135M served on the L2R path (phase 13): launch counts,
     timings and the device breakdown of a prefill of 8 x 2048 tokens and
@@ -1466,10 +1529,7 @@ def phase_lm(dev) -> dict:
     shape at the LM's shapes."""
     import dataclasses
 
-    from repro_torch.core.quant import PlaneOperands, stack_planes_lhs, \
-        stack_planes_rhs
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.l2r_gemm import kernel
     from repro_torch.models.transformer import (init_lm_state, lm_forward,
                                                 logits_from_hidden)
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
@@ -1561,7 +1621,8 @@ def phase_lm(dev) -> dict:
         c = dataclasses.replace(cfg, l2r_levels=levels)
 
         def run_small(c=c, steps=steps):
-            return swapped_b5(lambda: lm_greedy(c, params, small, steps),
+            return swapped_b5(lambda: lm_greedy(c, params, {"tokens": small},
+                                                steps),
                               fa.flash_attention_kernel_plain)
 
         reset_counts()
@@ -1615,41 +1676,11 @@ def phase_lm(dev) -> dict:
 
     # 13d: B1 per shape at the LM's shapes, B as the weight cache holds it
     g = torch.Generator(device=dev).manual_seed(133)
-    rows = []
     shapes = [(LM_BATCH, k, n, 30 * c, "decode") for k, n, c in LM_GEMMS]
     shapes.append((LM_BATCH, *LM_HEAD, 1, "head"))
     shapes += [(LM_BATCH * LM_PROMPT, k, n, 30 * c, "prefill")
                for k, n, c in LM_GEMMS]
-    for m, k, n, count, where in shapes:
-        a, b = operands(g, dev, m, k, n, 8)
-        sa = stack_planes_lhs(a)
-        sbk = PlaneOperands.prepare_rhs(
-            b, shifted=True, window_pad=where == "head",
-            k_major=True).core_stack(True)
-        got = kernel.l2r_gemm_stacked_planes(sa, sbk)
-        ref = kernel.l2r_gemm_stacked_planes_plain(sa, stack_planes_rhs(b))
-        require(torch.equal(got, ref), f"B1 != plain at {where} M={m} K={k} "
-                                       f"N={n}")
-        err = max_err(got, ref)
-        lib, lib_fn, padded = int_mm(a, b)
-        require(torch.equal(lib, got), f"torch._int_mm disagrees with B1 at "
-                                       f"M={m} K={k} N={n}")
-        del got, ref, lib
-        d = 4
-        bound_ms, by = bound(2 * m * n * k, m * d * k + d * k * n + m * n * 4)
-        row = {"name": f"{where} K={k} N={n}", "m": m, "k": k, "n": n,
-               "count": count, "where": where,
-               "ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
-               "kernel_ms": stream_ms(
-                   lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
-               "plain_ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes_plain(
-                   sa, sbk), iters=3, warmup=1),
-               "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
-               "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
-        rows.append(row)
-        print("phase 13d: " + json.dumps(row), flush=True)
-        del a, b, sa, sbk, lib_fn
-        torch.cuda.empty_cache()
+    rows = [b1_shape_row(g, dev, *shape, "13d") for shape in shapes]
     print(f"phase 13d: B1 == plain (bit for bit) at the {len(rows)} LM "
           f"shapes; count = launches per decode step (decode, head) or per "
           f"prefill (prefill; the prefill's head is the head row)", flush=True)
@@ -2439,6 +2470,440 @@ def phase_serve(dev, lm: dict) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ slice 10
+# the other mixers at their published widths (src/repro/configs/*.py),
+# served greedily through make_prefill_step / make_decode_step on the L2R
+# path at full depth: bf16 compute, f32 caches and states, batch 8,
+# seeded random weights
+MIX_BATCH, MIX_STEPS = 8, 32
+MIX_CHECK_PROMPT, MIX_CHECK_STEPS = 256, 2  # the plain-GEMM comparisons
+MIXERS = {  # arch: prompt tokens, layers kept (None: all), prepared
+    # params, (B1, B5) launches per prefill and per decode step
+    "mamba2-130m": dict(
+        prompt=2048, layers=None, prepared=False,
+        # in_proj and out_proj of 24 layers, and the head
+        prefill=(24 * 2 + 1, 0), step=(24 * 2 + 1, 0)),
+    "recurrentgemma-2b": dict(
+        prompt=2048, layers=None, prepared=False,
+        # 18 rec layers x (gate_proj, rec_proj, out_proj, mlp wi, wo), 8
+        # local layers x (q, k, v, o, wi, wo), the head (w_a, w_x are float
+        # denses; head_dim 256 is past B5's 128: the plain loop)
+        prefill=(18 * 5 + 8 * 6 + 1, 0), step=(18 * 5 + 8 * 6 + 1, 0)),
+    "deepseek-moe-16b": dict(
+        prompt=2048, layers=4, prepared=True,
+        # layer 0 (q, k, v, o, wi, wo), 3 MoE layers x (q, k, v, o, the
+        # router, 64 experts x (wi, wo), shared wi, wo), the head; B5 the
+        # prefill's causal attention
+        prefill=(6 + 3 * (4 + 1 + 128 + 2) + 1, 4),
+        step=(6 + 3 * (4 + 1 + 128 + 2) + 1, 0)),
+    "whisper-base": dict(
+        prompt=128, layers=None, prepared=False,
+        # encoder 6 x (q, k, v, o, wi, wo), decoder 6 x (self q, k, v, o,
+        # cross q, k, v, o, wi, wo), the head; B5 6 encoder, 6 causal self,
+        # 6 cross.  A step: 6 x (self q, k, v, o, cross q, o, wi, wo) and
+        # the head; B5 the 6 cross-attentions at Sq = 1
+        prefill=(6 * 6 + 6 * 10 + 1, 18), step=(6 * 8 + 1, 6)),
+}
+DECODE_LIMIT = {  # tests/test_serve.py, tests/test_encdec_serve.py
+    "mamba2-130m": 5e-2, "recurrentgemma-2b": 5e-2, "whisper-base": 1e-4}
+MIX_PREFILL_M = MIX_BATCH * 2048  # the served prefill's rows (16b: 256)
+MIX_GEMMS = [  # (M, K, N, launches per prefill or step, where): every
+    # (K, N) of a 2048-token prefill at its M; decode's M = 8 and whisper's
+    # served shapes are all under 16b's bit-for-bit runs
+    (MIX_PREFILL_M, 768, 3352, 24, "mamba2 in_proj prefill"),
+    (MIX_PREFILL_M, 1536, 768, 24, "mamba2 out_proj prefill"),
+    (MIX_BATCH, 768, 3352, 24, "mamba2 in_proj decode"),
+    (MIX_PREFILL_M, 2560, 2560, 18 * 3 + 8 * 2,
+     "recurrentgemma gate_proj rec_proj out_proj wq wo prefill"),
+    (MIX_PREFILL_M, 2560, 256, 8 * 2, "recurrentgemma wk wv prefill"),
+    (MIX_PREFILL_M, 2560, 2 * 7680, 26, "recurrentgemma mlp wi prefill"),
+    (MIX_PREFILL_M, 7680, 2560, 26, "recurrentgemma mlp wo prefill"),
+    (MIX_PREFILL_M, 2048, 2048, 4 * 4, "deepseek wq wk wv wo prefill"),
+    (MIX_PREFILL_M, 2048, 2 * 10944, 1, "deepseek layer-0 wi prefill"),
+    (MIX_PREFILL_M, 10944, 2048, 1, "deepseek layer-0 wo prefill"),
+    (MIX_PREFILL_M, 2048, 2 * 2816, 3, "deepseek shared wi prefill"),
+    (MIX_PREFILL_M, 2816, 2048, 3, "deepseek shared wo prefill"),
+    (MIX_PREFILL_M, 2048, 64, 3, "deepseek router prefill"),
+    (1920, 2048, 2 * 1408, 3 * 64, "deepseek expert wi prefill"),
+    (1920, 1408, 2048, 3 * 64, "deepseek expert wo prefill"),
+    (MIX_BATCH, 2048, 2 * 1408, 3 * 64, "deepseek expert wi decode"),
+    (MIX_BATCH, 1408, 2048, 3 * 64, "deepseek expert wo decode"),
+]
+MIX_B5 = [  # (model, name, Sq, Skv, H, dh, causal, launches per prefill or
+    # step): B = 8, no GQA; 16b runs B5's plain version in its place
+    ("whisper-base", "encoder_self", 1500, 1500, 8, 64, False, 6),
+    ("whisper-base", "prefill_self", 128, 128, 8, 64, True, 6),
+    ("whisper-base", "prefill_cross", 128, 1500, 8, 64, False, 6),
+    ("whisper-base", "decode_cross", 1, 1500, 8, 64, False, 6),
+    ("deepseek-moe-16b", "prefill_self", 2048, 2048, 16, 128, True, 4),
+]
+
+
+def mixer_model(dev, arch: str):
+    """The full config with l2r (n=8, radix 4) at full depth, depth cut
+    where MIXERS says, seeded random weights; prepared where it says."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.common import materialize
+    from repro_torch.models.encdec import encdec_build
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve.engine import prepare_params
+
+    spec = MIXERS[arch]
+    cfg = dataclasses.replace(get_config(arch), l2r=QuantConfig())
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    build = encdec_build if cfg.family == "encdec" else lm_build
+    params = materialize(build(cfg), torch.Generator(device=dev)
+                         .manual_seed(160), device=dev)
+    if spec["prepared"]:
+        params = prepare_params(cfg, params)
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def mixer_batch(cfg, dev, length: int, seed: int) -> dict:
+    """Seeded prompts; for whisper also frame embeddings, seeded normal
+    values (the reference's stub front end, configs/whisper_base.py)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (MIX_BATCH, length),
+                                     dtype=torch.int32, device=dev,
+                                     generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (MIX_BATCH, cfg.encoder_seq, cfg.d_model), generator=g,
+            device=dev)
+    return batch
+
+
+def mixer_serve(arch: str, cfg, params, batch: dict) -> dict:
+    """The serving run: a prefill and MIX_STEPS greedy decode steps, every
+    call's launches exactly MIXERS', the steps timed (host clock,
+    synchronized); then a profile of one decode step, a second prefill
+    timed warm and a profile of one prefill."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    (b1p, b5p), (b1s, b5s) = MIXERS[arch]["prefill"], MIXERS[arch]["step"]
+    length = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, length + MIX_STEPS + 4, torch.float32)
+    decode = make_decode_step(cfg)
+    dev = batch["tokens"].device
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        first_prefill_ms = (time.perf_counter() - t0) * 1e3
+        n = counts()
+        require(n == only(l2r_stacked_gemm=b1p, flash_attention=b5p),
+                f"{arch} prefill launches {n}, expected {b1p} of B1, {b5p} "
+                f"of B5 and no other")
+        launched = dict(n)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(MIX_STEPS):
+            reset_counts()
+            state, tok, lg = decode(params, state, tok)
+            n = counts()
+            require(n == only(l2r_stacked_gemm=b1s, flash_attention=b5s),
+                    f"{arch} decode step {i} launches {n}, expected {b1s} "
+                    f"of B1, {b5s} of B5 and no other")
+            launched = {k: launched[k] + n[k] for k in n}
+            toks.append(tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MIX_STEPS
+        seqs = torch.cat(toks, 1)
+        require(logits.shape == (MIX_BATCH, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(lg).all()),
+                f"{arch}: non-finite or misshapen logits")
+        require(bool(((seqs >= 0) & (seqs < cfg.vocab)).all()),
+                f"{arch}: tokens out of range")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        prof_decode = profile_forward(lambda: decode(params, state, tok))
+        del state
+        # a second, warm prefill timed as phase 13 times its own
+        prefill_ms = host_ms(lambda: prefill(params, batch))
+        prof_prefill = profile_forward(lambda: prefill(params, batch))
+    return {"prefill_ms": prefill_ms, "first_prefill_ms": first_prefill_ms,
+            "decode_ms_per_token": step_ms,
+            "decode_tokens_per_s": MIX_BATCH / step_ms * 1e3,
+            "tokens_per_s": MIX_BATCH * MIX_STEPS
+            / (prefill_ms + MIX_STEPS * step_ms) * 1e3,
+            "peak_memory_gb": peak_gb,
+            "launches_per_prefill": {"B1": b1p, "B5": b5p},
+            "launches_per_decode_step": {"B1": b1s, "B5": b5s},
+            "launches": launched, "prof_decode": prof_decode,
+            "prof_prefill": prof_prefill}
+
+
+def mixer_exact(arch: str, cfg, params, batch: dict, steps: int,
+                levels=None) -> dict:
+    """The model on B1 equals the model on B1's plain GEMM bit for bit:
+    logits of the prefill and ``steps`` decode steps, B5 swapped for its
+    plain version in both runs (as 13b)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+
+    c = dataclasses.replace(cfg, l2r_levels=levels)
+    (b1p, _), (b1s, _) = MIXERS[arch]["prefill"], MIXERS[arch]["step"]
+
+    def run():
+        return swapped_b5(lambda: lm_greedy(c, params, batch, steps),
+                          fa.flash_attention_kernel_plain)
+
+    reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    n = counts()
+    require(n == only(l2r_stacked_gemm=b1p + steps * b1s),
+            f"{arch} levels={levels}: launches {n}, expected "
+            f"{b1p + steps * b1s} of B1 and no other")
+    ref = plain_b1(run)
+    require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+            f"{arch} levels={levels}: logits on B1 differ from the "
+            f"plain-GEMM run")
+    return {"levels": levels, "prompt": batch["tokens"].shape[1],
+            "steps": steps + 1, "bit_identical": True}
+
+
+def fan_in_scaled(cfg, params):
+    """The params with every stacked default-scale matrix rescaled to
+    std 1/sqrt(its contraction width).  ``materialize`` takes a stacked
+    weight's fan-in from its leading layers axis, as the reference's
+    recipe does (whisper-base's decoder weights get std 1/sqrt(6), not
+    1/sqrt(512)); its random full-width decoder then carries a residual
+    stream of |x| ~ 2000 that magnifies a last-bit difference about
+    1e5-fold (on the CPU, one row's train forward alone and in a batch of
+    two differ by 2.4e-2; rescaled, by 1.9e-6)."""
+    import math
+
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.encdec import encdec_build
+    from repro_torch.models.transformer import lm_build
+
+    def scaled(p, w):
+        if p.init != "normal" or p.scale is not None \
+                or p.axes[0] != "layers" or len(p.shape) < 3:
+            return w
+        k = p.shape[2] if p.axes[1] == "experts" else p.shape[1]
+        return w * math.sqrt(p.shape[0] / k)
+
+    desc = (encdec_build if cfg.family == "encdec" else lm_build)(cfg)
+    return tree_map(scaled, desc, params)
+
+
+def decode_errs(c, params, toks: torch.Tensor, frames) -> list[float]:
+    """max |decode - train| at the last two positions: a prefill of all
+    but the last two tokens, then two decode steps (whisper's without
+    frames), against the train forward over all of them."""
+    from repro_torch.models.encdec import encdec_forward, init_encdec_state
+    from repro_torch.models.transformer import init_lm_state, lm_forward
+
+    b, s = toks.shape[0], toks.shape[1] - 2
+    dev = toks.device
+    with torch.no_grad():
+        if c.family == "encdec":
+            h, _, _ = encdec_forward(c, params, tokens=toks, frames=frames)
+            st = init_encdec_state(c, b, s + 2, torch.float32, device=dev)
+            _, st, _ = encdec_forward(c, params, tokens=toks[:, :s],
+                                      frames=frames, mode="prefill", state=st)
+            step = lambda t, st: encdec_forward(  # noqa: E731
+                c, params, tokens=t, mode="decode", state=st)
+        else:
+            h, _, _ = lm_forward(c, params, tokens=toks)
+            st = init_lm_state(c, b, s + 2, torch.float32, device=dev)
+            _, st, _ = lm_forward(c, params, tokens=toks[:, :s],
+                                  mode="prefill", state=st)
+            step = lambda t, st: lm_forward(  # noqa: E731
+                c, params, tokens=t, mode="decode", state=st)
+        errs = []
+        for i in range(2):
+            hd, st, _ = step(toks[:, s + i:s + i + 1], st)
+            errs.append((hd[:, 0] - h[:, s + i]).abs().max().item())
+    return errs
+
+
+def decode_vs_train(arch: str, cfg, params, batch: dict) -> dict:
+    """tests/test_serve.py's and test_encdec_serve.py's spec at full
+    width, in their setting (f32 compute, the float path, their limits):
+    decode against the train forward at the last two positions
+    (``decode_errs``).  mamba2 and recurrentgemma are held on the served
+    weights.  whisper is held on its weights with the stacked matrices at
+    the scale of their width (``fan_in_scaled``); its reading on the
+    served weights is printed beside it and not held."""
+    import dataclasses
+
+    c = dataclasses.replace(cfg, l2r=None, compute_dtype="float32")
+    toks, frames = batch["tokens"], batch.get("frames")
+    s = toks.shape[1] - 2
+    out = {"positions": [s, s + 1], "limit": DECODE_LIMIT[arch]}
+    if c.family == "encdec":
+        out["served_weights_max_abs"] = decode_errs(c, params, toks, frames)
+        params, out["weights"] = fan_in_scaled(c, params), "fan_in_scaled"
+    else:
+        out["weights"] = "served"
+    errs = out["max_abs"] = decode_errs(c, params, toks, frames)
+    require(max(errs) <= DECODE_LIMIT[arch],
+            f"{arch}: decode differs from the train forward by {errs} on "
+            f"the {out['weights']} weights (limit {DECODE_LIMIT[arch]})")
+    return out
+
+
+def moe_card_vs_cpu(cfg, params, dev) -> dict:
+    """The RG-LRU scan on the card equal to the CPU's bit for bit on the
+    same (a, b); the MoE routing integers on the card equal the CPU's on
+    the same bf16-rounded logits at the prefill's T (ties included, four
+    experts favoured so that assignments are dropped); two
+    runs of deepseek's first MoE layer on the card identical bit for
+    bit."""
+    from repro_torch.models.moe import moe_apply, moe_capacity, moe_route
+    from repro_torch.models.rglru import lru_scan
+    from repro_torch.models.transformer import layer_slice
+
+    g = torch.Generator().manual_seed(161)
+    a = torch.rand((MIX_BATCH, 2048, 256), generator=g) * 0.999 + 0.001
+    b = torch.randn((MIX_BATCH, 2048, 256), generator=g)
+    (ra, rb), (ga, gb) = lru_scan(a, b), lru_scan(a.to(dev), b.to(dev))
+    require(torch.equal(ga.cpu(), ra) and torch.equal(gb.cpu(), rb),
+            "the RG-LRU scan on the card differs from the CPU's bits")
+    t = MIX_BATCH * 2048
+    lg = torch.randn((t, cfg.n_experts), generator=g) * 0.5
+    lg[:, :4] += 1.0  # four favoured experts: past the capacity
+    lg = lg.to(torch.bfloat16).float()
+    cap = moe_capacity(cfg, t)
+    got, ref = moe_route(cfg, lg.to(dev), cap), moe_route(cfg, lg, cap)
+    require(all(torch.equal(x.cpu(), y) for x, y in zip(got[2:], ref[2:])),
+            "MoE routing (expert_idx, slot, keep) on the card differs from "
+            "the CPU's")
+    require(not bool(ref[4].all()), "the routing check dropped nothing")
+    lp = layer_slice(params["stack"][0], 0)["ffn"]
+    x = torch.randn((MIX_BATCH, 256, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(164)) \
+        .to(torch.bfloat16)
+    with torch.no_grad():
+        y1, aux1 = moe_apply(cfg, lp, x)
+        y2, aux2 = moe_apply(cfg, lp, x)
+    require(torch.equal(y1, y2) and torch.equal(aux1, aux2),
+            "two runs of a MoE layer on the card differ")
+    return {"rglru_scan_bits_equal": [MIX_BATCH, 2048, 256],
+            "routing_equal": {"T": t, "cap": cap,
+                              "dropped": int((~ref[4]).sum())},
+            "moe_layer_runs_identical": True}
+
+
+def b5_mixer_rows(dev) -> list[dict]:
+    """Kernel B5 at the served attention shapes of phase 16 (MIX_B5):
+    f32 and bf16 against the plain version within ATTN_TOL, the bf16 call
+    (the models') timed beside the plain version, the bound and
+    scaled_dot_product_attention."""
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(165)
+    b = MIX_BATCH
+    rows = []
+    for model, name, sq, skv, h, dh, causal, count in MIX_B5:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_qkv(g, dev, b, sq, skv, h, h, dh, dtype)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            ref = fa.flash_attention_kernel_plain(q, k, v, causal)
+            err, excess = attn_err(got, ref)
+            require(got.shape == q.shape and excess <= ATTN_TOL[dtype][1],
+                    f"B5 at {model}'s {name} ({dtype}): max |d| {err} from "
+                    f"plain, {excess} beyond the relative term")
+        del got, ref
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                     iters=5, warmup=1)
+        kernel_ms = stream_ms(lambda: fa.flash_attention(q, k, v,
+                                                         causal=causal))
+        plain_ms = time_ms(lambda: fa.flash_attention_kernel_plain(
+            q, k, v, causal), iters=3, warmup=1)
+        with no_tf32():
+            _, lib_fn = sdpa(q, k, v, causal, None)
+            lib_ms = time_ms(lib_fn, iters=5, warmup=1)
+        pairs = visible_pairs(sq, skv, causal, None)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        bound_ms, by = attn_bound(b, h, dh, pairs, dtype, nbytes)
+        row = {"name": f"{model} {name}", "count": count, "B": b, "Sq": sq,
+               "Skv": skv, "H": h, "dh": dh, "causal": causal,
+               "dtype": "bfloat16",
+               "visible_pairs": pairs, "ms": ms, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+        rows.append(row)
+        print("phase 16e: " + json.dumps(row), flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mixers(dev) -> dict:
+    """The other mixers served at full width (phase 16): per model the
+    serving run with exact launch counts, timed and profiled (16a); the
+    model on B1 equal to the model on the plain GEMM, at full depth for
+    every model and at levels=5 for mamba2 (16b); decode against the
+    train forward (16c); the card against the CPU (16d); B5 at the served
+    attention shapes (16e) and B1 at every served GEMM shape the 16b runs
+    do not reach (16f)."""
+    t_phase = time.perf_counter()
+    smi = card()
+    runs = {}
+    for arch, spec in MIXERS.items():
+        t0 = time.perf_counter()
+        cfg, params = mixer_model(dev, arch)
+        run = mixer_serve(arch, cfg, params,
+                          mixer_batch(cfg, dev, spec["prompt"], 162))
+        small = mixer_batch(cfg, dev, min(spec["prompt"], MIX_CHECK_PROMPT),
+                            163)
+        exact = [mixer_exact(arch, cfg, params, small, MIX_CHECK_STEPS)]
+        if arch == "mamba2-130m":
+            exact.append(mixer_exact(arch, cfg, params, small, 1, levels=5))
+        run["exact"] = exact
+        print(f"phase 16b: {arch}: B1 under the model == plain GEMM bit for "
+              f"bit: " + json.dumps(exact), flush=True)
+        if arch in DECODE_LIMIT:
+            run["decode_vs_train"] = decode_vs_train(
+                arch, cfg, params,
+                mixer_batch(cfg, dev, min(spec["prompt"], MIX_CHECK_PROMPT)
+                            + 2, 166))
+            print(f"phase 16c: {arch}: decode == train forward: "
+                  + json.dumps(run["decode_vs_train"]), flush=True)
+        if cfg.family == "moe":
+            run["card_vs_cpu"] = moe_card_vs_cpu(cfg, params, dev)
+            print("phase 16d: " + json.dumps(run["card_vs_cpu"]), flush=True)
+        del params
+        torch.cuda.empty_cache()
+        run["seconds"] = time.perf_counter() - t0
+        pd, pp = run["prof_decode"], run["prof_prefill"]
+        print(f"phase 16a: {arch} l2r, batch {MIX_BATCH}, {spec['prompt']}-"
+              f"token prompts, {MIX_STEPS} steps on {smi}: prefill "
+              f"{run['prefill_ms']} ms, decode {run['decode_ms_per_token']} "
+              f"ms/token, {run['tokens_per_s']} tokens/s, peak "
+              f"{run['peak_memory_gb']} GB; decode step device "
+              f"{pd.get('device_ms')} ms (B1 {pd.get('B1_ms')}, B5 "
+              f"{pd.get('B5_ms')}, other {pd.get('other_ms')}), idle "
+              f"{pd.get('idle_share')}; prefill device {pp.get('device_ms')} "
+              f"ms (B1 {pp.get('B1_ms')}, B5 {pp.get('B5_ms')}, other "
+              f"{pp.get('other_ms')}), idle {pp.get('idle_share')}; "
+              f"{run['seconds']:.1f} s", flush=True)
+        print(f"phase 16a: {arch}: " + json.dumps(run), flush=True)
+        runs[arch] = run
+    b5_rows = b5_mixer_rows(dev)
+    g = torch.Generator(device=dev).manual_seed(167)
+    b1_rows = [b1_shape_row(g, dev, *shape, "16f") for shape in MIX_GEMMS]
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16: {seconds:.1f} s", flush=True)
+    return {"runs": runs, "b5_rows": b5_rows, "b1_rows": b1_rows,
+            "seconds": seconds}
+
+
 def lm_totals(rows: list[dict], where: tuple[str, ...]) -> dict:
     """Σ count × per-shape median over the rows of one LM step."""
     pick = [r for r in rows if r["where"] in where]
@@ -2469,6 +2934,27 @@ def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
             else "bytes",
             "library_ms": tot("library_ms"), "per": per, **extra,
             "shapes": rows}
+
+
+
+def mixer_summary(mix: dict, kid: str, lib: str) -> dict:
+    """Per phase 16 model: kernel ``kid``'s launches over the serving run
+    (the prefill and MIX_STEPS decode steps), per prefill and step, and
+    its device ms in the profiled prefill and decode step."""
+    out = {"per": f"phase 16a: each model served at batch {MIX_BATCH}, a "
+                  f"prefill and {MIX_STEPS} decode steps"}
+    for arch, run in mix["runs"].items():
+        i = 0 if kid == "B1" else 1
+        out[arch] = {"launches": run["launches"][lib],
+                     "per_prefill": MIXERS[arch]["prefill"][i],
+                     "per_decode_step": MIXERS[arch]["step"][i],
+                     "device_ms_prefill": run["prof_prefill"].get(
+                         f"{kid}_ms"),
+                     "device_ms_decode_step": run["prof_decode"].get(
+                         f"{kid}_ms"),
+                     "prefill_ms": run["prefill_ms"],
+                     "decode_ms_per_token": run["decode_ms_per_token"]}
+    return out
 
 
 def ptxas_kernel(line: str) -> str | None:
@@ -2534,6 +3020,7 @@ def main() -> int:
     lm = phase_lm(dev)
     lm_attn = phase_lm_attn(dev, b4["rows"])
     serve = phase_serve(dev, lm)
+    mix = phase_mixers(dev)
     del lm["step_logits"]
     head = next(r for r in serve["rows"] if r["count"])
     lm_dec = lm_totals(lm["rows"], ("decode", "head"))
@@ -2578,7 +3065,9 @@ def main() -> int:
                          "decode_ms_per_token": serve["run"][
                              "decode_ms_per_token"],
                          "device_ms_decode_step":
-                         serve["prof_decode"].get("B1_ms")}),
+                         serve["prof_decode"].get("B1_ms")},
+                     mixers=mixer_summary(mix, "B1", "l2r_stacked_gemm"),
+                     mixer_shapes=mix["b1_rows"]),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -2640,7 +3129,9 @@ def main() -> int:
                          "device_ms_prefill": lm["prof_prefill"].get("B5_ms"),
                          "launches_progressive": serve["run"]["launches"][
                              "flash_attention"],
-                         **lm["b5"]}),
+                         **lm["b5"]},
+                     mixers=mixer_summary(mix, "B5", "flash_attention"),
+                     mixer_shapes=mix["b5_rows"]),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

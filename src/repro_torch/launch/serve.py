@@ -18,7 +18,9 @@ config the gateway serves progressively with early exit (kernel B2 under
 every streamed head scan).  Weights are random, drawn from seed 0;
 prompts from numpy seed 0.  ``--device`` defaults to ``cuda`` and
 raises on a host without it.  Times are host clock around work that
-ends in a ``torch.cuda.synchronize()`` on the card.
+ends in a ``torch.cuda.synchronize()`` on the card.  LM families only, as
+the reference: encoder-decoder serving goes through
+``serve.engine``'s step factories with ``{"tokens", "frames"}`` batches.
 """
 
 from __future__ import annotations
@@ -90,9 +92,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder serving is not in the "
-                                  "port yet (ROADMAP A10)")
+    assert cfg.family not in ("encdec",), "use examples for enc-dec serving"
     if args.l2r or args.l2r_levels is not None:
         cfg = dataclasses.replace(cfg, l2r=QuantConfig(),
                                   l2r_levels=args.l2r_levels)

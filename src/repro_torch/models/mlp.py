@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from .common import Param, dense
 from .config import ModelConfig
 
-__all__ = ["mlp_build", "mlp_apply"]
+__all__ = ["mlp_build", "mlp_apply", "mlp_act"]
 
 
 def mlp_build(cfg: ModelConfig, d_ff: int | None = None) -> dict:
@@ -27,15 +27,17 @@ def mlp_build(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     }
 
 
-def mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor
-              ) -> torch.Tensor:
+def mlp_act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The GLU product (gate, up on axis -2) or GELU of an ffn hidden."""
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        h = dense(x, params["wi"], cfg.l2r, cfg.l2r_levels)  # (..., 2, d_ff)
         gate, up = h[..., 0, :], h[..., 1, :]
         act = F.silu(gate) if cfg.ffn_kind == "swiglu" \
             else F.gelu(gate, approximate="tanh")
-        h = act * up
-    else:
-        h = F.gelu(dense(x, params["wi"], cfg.l2r, cfg.l2r_levels),
-                   approximate="tanh")
-    return dense(h, params["wo"], cfg.l2r, cfg.l2r_levels)
+        return act * up
+    return F.gelu(h, approximate="tanh")
+
+
+def mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor
+              ) -> torch.Tensor:
+    h = dense(x, params["wi"], cfg.l2r, cfg.l2r_levels)  # (..., [2,] d_ff)
+    return dense(mlp_act(cfg, h), params["wo"], cfg.l2r, cfg.l2r_levels)

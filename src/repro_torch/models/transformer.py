@@ -1,14 +1,16 @@
 """Decoder-LM assembly: pattern-based layers, stacked blocks, caches.
 
-The port of ``repro/models/transformer.py`` for attention mixers
-(``global`` / ``local``) and the dense ffn (``mlp``).  An architecture is
-a per-layer sequence of (mixer, ffn) kinds (ModelConfig.layer_kinds),
-grouped into the smallest repeating unit whose params carry a leading
-``layers`` axis (the reference's ``lax.scan`` layout), with aperiodic
-prefix/suffix layers apart.  Here the scan is a Python loop over that
-axis: each step takes the layer's slice of the params and of the stacked
-caches as views, and the caches are written in place.  The other mixers
-and the MoE ffn (``ssd``, ``rec``, ``moe``) are ROADMAP A10 and raise.
+The port of ``repro/models/transformer.py``.  An architecture is a
+per-layer sequence of (mixer, ffn) kinds (ModelConfig.layer_kinds):
+mixers are ``global`` / ``local`` attention, ``ssd`` (Mamba-2,
+models/ssm.py) and ``rec`` (RG-LRU, models/rglru.py); ffns are ``mlp``
+and ``moe`` (models/moe.py).  Layers are grouped into the smallest
+repeating unit whose params carry a leading ``layers`` axis (the
+reference's ``lax.scan`` layout), with aperiodic prefix/suffix layers
+apart.  Here the scan is a Python loop over that axis: each step takes
+the layer's slice of the params and of the stacked caches as views, and
+the caches are written in place: a KV cache by its update, a recurrent
+state (a dict of tensors) by copying the mixer's new state into it.
 
 Three modes:
   train   — full sequence, no cache;
@@ -31,6 +33,9 @@ from .attention import (KVCache, apply_rope, chunked_attention,
 from .common import Param, dense, layer_norm, rms_norm, tree_map
 from .config import ModelConfig
 from .mlp import mlp_apply, mlp_build
+from .moe import moe_apply, moe_build
+from .rglru import init_rglru_state, rglru_apply, rglru_build, rglru_decode
+from .ssm import init_ssm_state, ssm_apply, ssm_build, ssm_decode
 
 __all__ = [
     "attn_build",
@@ -45,12 +50,6 @@ __all__ = [
     "layer_slice",
     "LMState",
 ]
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer kind {kind!r} (MoE, SSM, RG-LRU and encoder-decoder "
-        f"mixers) is not in the port yet (ROADMAP A10)")
 
 
 # --------------------------------------------------------------- attention
@@ -133,12 +132,16 @@ def attn_apply(
 def _mixer_build(cfg: ModelConfig, kind: str) -> dict:
     if kind in ("global", "local"):
         return attn_build(cfg)
-    raise _not_ported(kind)
+    if kind == "ssd":
+        return ssm_build(cfg)
+    if kind == "rec":
+        return rglru_build(cfg)
+    raise ValueError(kind)
 
 
 def _ffn_build(cfg: ModelConfig, kind: str) -> dict:
-    if kind != "mlp":
-        raise _not_ported(kind)
+    if kind == "moe":
+        return moe_build(cfg)
     # MoE models use a wider hidden on their dense layers
     if cfg.n_experts and cfg.dense_d_ff:
         return mlp_build(cfg, d_ff=cfg.dense_d_ff)
@@ -158,7 +161,9 @@ def layer_build(cfg: ModelConfig, kinds: tuple[str, str]) -> dict:
 
 
 def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                 dtype: torch.dtype, device) -> KVCache:
+                 dtype: torch.dtype, device) -> KVCache | dict:
+    """A KV cache in ``dtype`` for attention; an f32 state dict for
+    ``ssd`` and ``rec`` whatever ``dtype`` says, as in the reference."""
     if kind == "global":
         return init_kv_cache(batch, max_len, cfg.n_kv, cfg.head_dim, dtype,
                              quant=cfg.attn_l2r, device=device)
@@ -166,7 +171,11 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return init_kv_cache(batch, min(cfg.window, max_len), cfg.n_kv,
                              cfg.head_dim, dtype, quant=cfg.attn_l2r,
                              device=device)
-    raise _not_ported(kind)
+    if kind == "ssd":
+        return init_ssm_state(cfg, batch, device=device)
+    if kind == "rec":
+        return init_rglru_state(cfg, batch, device=device)
+    raise ValueError(kind)
 
 
 def layer_apply(
@@ -178,25 +187,45 @@ def layer_apply(
     mode: str,
     rope_positions: torch.Tensor,
     positions: torch.Tensor,
-    cache: KVCache | None,
+    cache: KVCache | dict | None,
 ):
     """One (mixer + ffn) residual layer.  Returns (x, cache, aux): aux is
-    the MoE router loss, 0.0 for every layer the port has."""
+    the MoE router loss (an f32 scalar tensor), 0.0 for other ffns.  In
+    prefill and decode a recurrent state is written in place: the
+    mixer's new tensors are copied into ``cache``'s."""
     mixer_kind, ffn_kind = kinds
-    if mixer_kind not in ("global", "local"):
-        raise _not_ported(mixer_kind)
     norm = layer_norm_fn(cfg)
     h = norm(x, params["mixer_norm"])
-    mixed, cache = attn_apply(
-        cfg, params["mixer"], h, mode=mode, rope_positions=rope_positions,
-        positions=positions, cache=cache,
-        window=cfg.window if mixer_kind == "local" else None)
+    if mixer_kind in ("global", "local"):
+        mixed, cache = attn_apply(
+            cfg, params["mixer"], h, mode=mode,
+            rope_positions=rope_positions, positions=positions, cache=cache,
+            window=cfg.window if mixer_kind == "local" else None)
+    elif mixer_kind in ("ssd", "rec"):
+        apply, decode = (ssm_apply, ssm_decode) if mixer_kind == "ssd" \
+            else (rglru_apply, rglru_decode)
+        if mode == "decode":
+            mixed, new = decode(cfg, params["mixer"], h, cache)
+        else:
+            mixed, new = apply(cfg, params["mixer"], h,
+                               cache if mode == "prefill" else None)
+        if cache is None:
+            cache = new
+        else:
+            for key, t in new.items():
+                cache[key].copy_(t)
+    else:
+        raise ValueError(mixer_kind)
     x = x + mixed
+    aux = 0.0
     if ffn_kind != "none":
-        if ffn_kind != "mlp":
-            raise _not_ported(ffn_kind)
-        x = x + mlp_apply(cfg, params["ffn"], norm(x, params["ffn_norm"]))
-    return x, cache, 0.0
+        h = norm(x, params["ffn_norm"])
+        if ffn_kind == "moe":
+            out, aux = moe_apply(cfg, params["ffn"], h)
+        else:
+            out = mlp_apply(cfg, params["ffn"], h)
+        x = x + out
+    return x, cache, aux
 
 
 def layer_norm_fn(cfg: ModelConfig) -> Callable:
@@ -253,7 +282,8 @@ class LMState:
     """Serving state: caches grouped like the params + next position."""
 
     prefix: list
-    stack: Any  # per unit layer, a KVCache whose tensors lead with (repeats,)
+    stack: Any  # per unit layer, a KVCache or state dict whose tensors
+    #             lead with (repeats,)
     suffix: list
     pos: torch.Tensor  # (B,) int32, next position to write
 
@@ -266,6 +296,9 @@ def init_lm_state(cfg: ModelConfig, batch: int, max_len: int,
 
     def mk(kk, lead=()):
         c = _mixer_cache(cfg, kk[0], batch, max_len, dtype, device)
+        if isinstance(c, dict):
+            return {k: v.expand(*lead, *v.shape).contiguous()
+                    for k, v in c.items()}
         return KVCache(*(None if f is None else
                          f.expand(*lead, *f.shape).contiguous() for f in c))
 
@@ -289,7 +322,8 @@ def lm_forward(
 ):
     """Backbone forward.
 
-    Returns (hidden (B, S, d), new_state, aux_loss).  ``tokens`` xor
+    Returns (hidden (B, S, d), new_state, aux_loss): aux_loss is the MoE
+    router losses summed over layers (an f32 scalar).  ``tokens`` xor
     ``embeds``.  In prefill and decode the caches of ``state`` are
     written in place and ``new_state`` holds the same caches with
     ``pos`` advanced by S.
@@ -312,7 +346,7 @@ def lm_forward(
     if rope_positions is None:
         rope_positions = positions
 
-    aux_total = 0.0
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run_layer(x, lp, kinds, cache):
         return layer_apply(cfg, lp, kinds, x, mode=mode,

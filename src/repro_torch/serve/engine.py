@@ -2,8 +2,11 @@
 step factories, bucketed prefill, the progressive LM head, batched
 greedy decoding.
 
-The port of ``repro/serve/engine.py`` for LM families on one card.
-PyTorch runs eagerly, so the factories return plain functions where the
+The port of ``repro/serve/engine.py`` on one card: LM families, and the
+encoder-decoder family (``cfg.family == "encdec"``, whisper) whose
+prefill batches hold ``{"tokens", "frames"}`` and whose decode steps
+read the cross-attention K/V cached at prefill.  PyTorch runs eagerly,
+so the factories return plain functions where the
 reference returns functions to ``jax.jit``, and the serving state is
 updated in place where the reference donates it: a decode step writes
 the caches and ``pos`` into the tensors it was given and returns them.
@@ -30,6 +33,7 @@ from repro_torch.kernels.l2r_gemm.ops import CUDA_WALK
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import quantize_tree
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import encdec_forward, init_encdec_state
 from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
                                             lm_forward, logits_from_hidden)
 
@@ -37,12 +41,6 @@ __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
            "supports_bucketed_prefill", "progressive_logits_from_hidden",
            "greedy_generate"]
-
-
-def _lm_only(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder serving is not in the "
-                                  "port yet (ROADMAP A10)")
 
 
 # ------------------------------------------------------- weight preparation
@@ -68,12 +66,18 @@ def prepare_params(cfg: ModelConfig, params, desc=None):
     x) the int8 weight bytes.
 
     ``desc`` is the Param descriptor tree (for eligibility); defaults to
-    ``lm_build(cfg)``.
+    ``lm_build(cfg)`` for LM families, and encdec callers pass
+    ``encdec_build(cfg)``.  Eligibility is the reference's: every 2-D
+    normal-init leaf, so the conv weights of ``ssd`` and ``rec`` mixers
+    and whisper's position tables become records too, and the forward
+    then fails on them, in both packages (ROADMAP, "Caveats on the
+    reference"); those families serve raw params, each ``dense``
+    quantizing its weight per call.
     """
     if cfg.l2r is None:
         return params
     if desc is None:
-        _lm_only(cfg)
+        assert cfg.family != "encdec", "pass the encdec desc tree explicitly"
         desc = lm_build(cfg)
     out = quantize_tree(desc, params, cfg.l2r, prestack=True)
     head = out["embed"].T if cfg.tie_embeddings else out.get("head")
@@ -106,6 +110,7 @@ def _check_step_flags(progressive: bool, early_exit: bool,
 
 def _check_progressive(cfg: ModelConfig, progressive: bool) -> None:
     if progressive:
+        assert cfg.family != "encdec", "progressive serving: LM families only"
         assert cfg.l2r is not None, \
             "progressive serving streams the quantized head: set cfg.l2r"
 
@@ -129,7 +134,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     """(params, batch[, policy]) -> (state, last_token_logits (B, 1, V)).
 
     ``batch`` holds ``tokens`` (B, S) int (or ``embeds``) and optionally
-    ``rope_positions``; the state's caches are allocated on the batch's
+    ``rope_positions``; for the encdec family ``tokens`` and ``frames``
+    (B, encoder_seq, d).  The state's caches are allocated on the batch's
     device, ``max_len`` long, in ``cache_dtype``.  The head runs on the
     last prompt position only.
 
@@ -142,20 +148,27 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     trailing argument) gives each batch row its precision class.
     """
     _check_step_flags(progressive, early_exit, policy)
-    _lm_only(cfg)
     _check_progressive(cfg, progressive)
     default_policy = policy
 
     def prefill(params, batch, policy=None):
-        tokens = batch.get("tokens")
-        embeds = batch.get("embeds")
-        src = tokens if tokens is not None else embeds
-        state = init_lm_state(cfg, src.shape[0], max_len, cache_dtype,
-                              device=src.device)
-        hidden, state, _ = lm_forward(
-            cfg, params, tokens=tokens, embeds=embeds,
-            rope_positions=batch.get("rope_positions"), mode="prefill",
-            state=state)
+        if cfg.family == "encdec":
+            tokens = batch["tokens"]
+            state = init_encdec_state(cfg, tokens.shape[0], max_len,
+                                      cache_dtype, device=tokens.device)
+            hidden, state, _ = encdec_forward(
+                cfg, params, tokens=tokens, frames=batch["frames"],
+                mode="prefill", state=state)
+        else:
+            tokens = batch.get("tokens")
+            embeds = batch.get("embeds")
+            src = tokens if tokens is not None else embeds
+            state = init_lm_state(cfg, src.shape[0], max_len, cache_dtype,
+                                  device=src.device)
+            hidden, state, _ = lm_forward(
+                cfg, params, tokens=tokens, embeds=embeds,
+                rope_positions=batch.get("rope_positions"), mode="prefill",
+                state=state)
         head = _head(cfg, params, hidden[:, -1:], progressive, early_exit,
                      policy if policy is not None else default_policy)
         return (state, *head) if progressive else (state, head)
@@ -332,14 +345,17 @@ def make_decode_step(cfg: ModelConfig, progressive: bool = False,
     argument) streams the head under per-slot precision classes.
     """
     _check_step_flags(progressive, early_exit, policy)
-    _lm_only(cfg)
     _check_progressive(cfg, progressive)
     default_policy = policy
 
     def decode(params, state, tokens, rope_positions=None, policy=None):
-        hidden, new, _ = lm_forward(
-            cfg, params, tokens=tokens, rope_positions=rope_positions,
-            mode="decode", state=state)
+        if cfg.family == "encdec":
+            hidden, new, _ = encdec_forward(cfg, params, tokens=tokens,
+                                            mode="decode", state=state)
+        else:
+            hidden, new, _ = lm_forward(
+                cfg, params, tokens=tokens, rope_positions=rope_positions,
+                mode="decode", state=state)
         state.pos.copy_(new.pos)  # the caches are already written in place
         new.pos = state.pos
         head = _head(cfg, params, hidden, progressive, early_exit,

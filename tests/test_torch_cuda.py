@@ -1017,3 +1017,111 @@ def test_prepared_checkpoint_round_trip_onto_the_card(dev, tmp_path):
         return req.output, req.exit_levels
 
     assert serve(live) == serve(loaded)
+
+
+# ------------------------------------------------ slice 10: the other mixers
+WHISPER_B5 = [  # (sq, skv, h, kvh, dh, causal): whisper-base's B5 calls
+    (1500, 1500, 8, 8, 64, False),  # the encoder's self-attention
+    (128, 1500, 8, 8, 64, False),  # the prefill's cross-attention
+    (1, 1500, 8, 8, 64, False),  # a decode step's cross-attention
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WHISPER_B5)
+def test_b5_at_whisper_shapes(dev, case, dtype):
+    """Skv = 1500 is no multiple of B5's 64-key tile; Sq = 1 is a decode
+    step's cross-attention."""
+    q, k, v = _qkv(dev, case, dtype, seed=3)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=case[5])
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_kernel_plain(q, k, v, case[5]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b5_at_deepseek_prefill_shape(dev, dtype):
+    """deepseek-moe-16b's prefill attention: causal, S 2048, 16 heads of
+    128 (B5's widest head), no GQA."""
+    case = (2048, 2048, 16, 16, 128, True)
+    q, k, v = _qkv(dev, case, dtype, seed=4)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_kernel_plain(q, k, v, True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 1920])
+@pytest.mark.parametrize("k,n", [(2048, 2816), (1408, 2048)])
+def test_b1_at_routed_expert_shapes(dev, m, k, n):
+    """deepseek-moe-16b's expert matmuls (M = the capacity: 8 a decode
+    step, 1920 a prefill of 8 x 2048), the weight quantized inside the
+    call: l2r_matmul_f on the card equals the same call on the CPU bit
+    for bit (one B1 launch), empty capacity rows included."""
+    g = torch.Generator().manual_seed(m + k)
+    x = torch.randn((m, k), generator=g).to(torch.bfloat16)
+    x[m // 2:] = 0
+    w = torch.randn((k, n), generator=g) / k ** 0.5
+    ref = ops.l2r_matmul_f(x, w, QuantConfig())
+    before = kernel.LAUNCHES["l2r_stacked_gemm"]
+    got = ops.l2r_matmul_f(x.to(dev), w.to(dev), QuantConfig())
+    assert kernel.LAUNCHES["l2r_stacked_gemm"] == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+def _moe_layer(dev):
+    """deepseek-moe-16b's MoE layer at full width (64 experts, top-6, 2
+    shared, d 2048, expert hidden 1408), seeded, on ``dev``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import moe_build
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              l2r=QuantConfig())
+    params = materialize(moe_build(cfg), torch.Generator(device=dev)
+                         .manual_seed(4), device=dev)
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_card_is_deterministic_and_routes_as_cpu(dev):
+    """Two runs of a MoE layer on the card give identical bits (no atomic
+    scatter-add), and its routing integers on bf16-rounded logits (ties
+    included) equal the CPU's."""
+    from repro_torch.models.moe import moe_apply, moe_capacity, moe_route
+
+    cfg, params = _moe_layer(dev)
+    x = torch.randn((8, 64, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)
+                    ).to(torch.bfloat16)
+    a = moe_apply(cfg, params, x)
+    b = moe_apply(cfg, params, x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.isfinite(a[0].float()).all()
+    lg = torch.randn((16384, 64), generator=torch.Generator().manual_seed(6))
+    lg[:, :4] += 2.0  # four favoured experts: past the capacity
+    lg = (lg * 0.5).to(torch.bfloat16).float()
+    cap = moe_capacity(cfg, 16384)
+    got = moe_route(cfg, lg.to(dev), cap)
+    ref = moe_route(cfg, lg, cap)
+    for g_, r_ in zip(got[2:], ref[2:]):
+        assert torch.equal(g_.cpu(), r_)
+    assert not ref[4].all()  # a capacity of 1920 drops some assignments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 7, 2048])
+def test_rglru_scan_on_card_equals_cpu_bits(dev, s):
+    from repro_torch.models.rglru import lru_scan
+
+    g = torch.Generator().manual_seed(s)
+    a = torch.rand((4, s, 256), generator=g) * 0.999 + 0.001
+    b = torch.randn((4, s, 256), generator=g)
+    ra, rb = lru_scan(a, b)
+    ga, gb = lru_scan(a.to(dev), b.to(dev))
+    assert torch.equal(ga.cpu(), ra) and torch.equal(gb.cpu(), rb)

@@ -43,6 +43,8 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.configs", "repro_torch.configs.registry",
                 "repro_torch.models.config", "repro_torch.models.common",
                 "repro_torch.models.mlp", "repro_torch.models.attention",
+                "repro_torch.models.ssm", "repro_torch.models.rglru",
+                "repro_torch.models.moe", "repro_torch.models.encdec",
                 "repro_torch.models.transformer", "repro_torch.serve",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.serve.batching", "repro_torch.serve.gateway",
@@ -121,6 +123,9 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
     from repro_torch.models.attention import init_kv_cache
     from repro_torch.models.common import materialize
     from repro_torch.models.convert import lm_params_from_jax
+    from repro_torch.models.encdec import init_encdec_state
+    from repro_torch.models.rglru import init_rglru_state
+    from repro_torch.models.ssm import init_ssm_state
     from repro_torch.models.transformer import init_lm_state, lm_build
 
     import dataclasses
@@ -142,6 +147,12 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
                  lambda: init_kv_cache(1, 4, 1, 8, device="cuda"),
                  lambda: init_lm_state(cfg, 1, 4),
                  lambda: init_lm_state(cfg, 1, 4, device="cuda"),
+                 lambda: init_lm_state(get_smoke("mamba2-130m"), 1, 4),
+                 lambda: init_ssm_state(get_smoke("mamba2-130m"), 1),
+                 lambda: init_rglru_state(get_smoke("recurrentgemma-2b"), 1),
+                 lambda: init_encdec_state(get_smoke("whisper-base"), 1, 4),
+                 lambda: init_encdec_state(get_smoke("whisper-base"), 1, 4,
+                                           device="cuda"),
                  lambda: main(["--arch", "smollm-135m", "--smoke"]),
                  lambda: main(["--arch", "smollm-135m", "--smoke", "--wq"]),
                  lambda: main(["--arch", "smollm-135m", "--smoke",

@@ -31,6 +31,8 @@ from repro_torch.configs import get_smoke
 from repro_torch.core import quant as tq
 from repro_torch.launch import serve as launch
 from repro_torch.models import transformer as tt
+from repro_torch.models.common import materialize
+from repro_torch.models.encdec import encdec_build
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.serve import engine as te
 
@@ -137,6 +139,8 @@ def test_prepare_params_is_the_identity_without_l2r(params):
 
 
 def test_unported_options_raise_naming_their_slice():
+    """Every slice named here is ported now: the options that used to
+    raise run, and what the reference refuses the port refuses alike."""
     cfg = get_smoke(ARCH)
     # the rest of serving (A11) is ported: progressive steps need only an
     # L2R config, as the reference's assert it
@@ -144,8 +148,9 @@ def test_unported_options_raise_naming_their_slice():
         te.make_prefill_step(cfg, 16, progressive=True)
     with pytest.raises(AssertionError, match="cfg.l2r"):
         te.make_decode_step(cfg, progressive=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tt.lm_build(get_smoke("deepseek-moe-16b"))
+    # the other mixers (A10) are ported: a MoE model builds
+    moe = tt.lm_build(get_smoke("deepseek-moe-16b"))
+    assert set(moe["stack"][0]["ffn"]) >= {"router", "wi", "wo", "shared_wi"}
     # digit-serial attention (A9b) is ported: attn_l2r runs
     attn_l2r = dataclasses.replace(cfg, attn_l2r=tq.QuantConfig())
     tp = {"wq": torch.zeros(96, 96), "wk": torch.zeros(96, 32),
@@ -155,8 +160,17 @@ def test_unported_options_raise_naming_their_slice():
                            rope_positions=pos, positions=pos, cache=None,
                            window=None)
     assert out.shape == (1, 2, 96) and not out.any()
-    with pytest.raises(NotImplementedError, match="A10"):
-        te.make_prefill_step(dataclasses.replace(cfg, family="encdec"), 16)
+    # encoder-decoder serving (A10) runs: a prefill step on the CPU
+    wcfg = get_smoke("whisper-base")
+    wp = materialize(encdec_build(wcfg), torch.Generator().manual_seed(0),
+                     device="cpu")
+    state, logits = te.make_prefill_step(wcfg, 16, torch.float32)(
+        wp, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "frames": torch.zeros((1, wcfg.encoder_seq, wcfg.d_model))})
+    assert logits.shape == (1, 1, wcfg.vocab) and state.pos.tolist() == [4]
+    # ... and the launcher refuses it, as the reference's does
+    with pytest.raises(AssertionError, match="use examples for enc-dec"):
+        launch.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [
