@@ -149,9 +149,28 @@ Phases (any failure exits non-zero; nothing is caught):
      (S 1500; cross Sq 128 and 1 over 1500 keys) within its limits,
      timed; 16f B1 at mamba2's in_proj and deepseek's expert shapes,
      bit for bit, timed.
+ 17. training: 17a SmolLM-135M at its published widths (30 layers, d
+     576, 9 / 3 heads of 64, vocab 49152; f32 compute, seeded random
+     weights) trained 8 steps of ``make_train_step`` (remat, cross-entropy
+     chunks of 512, AdamW) at batch 8 x 2048 on the data pipeline's
+     structured stream: 60 B5 launches a step exactly (the forward and
+     remat's recompute; the backward is the plain loop's gradient),
+     finite losses, every leaf moved; warm step ms, tokens/s, peak memory
+     and a profile of a step; 17b one step from there with B5 against the
+     same step with B5's plain version: loss, grad norm, each leaf's
+     gradient and update within TRAIN_B5_TOL on the weights rescaled to
+     their width (``fan_in_scaled``; the reading on 17a's own weights
+     printed beside it), every leaf's gradient finite and non-zero; 17c one step of each of the ten smoke configs on the
+     card against the CPU (gradients, params, loss; the params moved);
+     17d B5 and B4 with their gradients at fault C2's input (1, 8, 1, 64)
+     and SmolLM-135M's shape, f32 and bf16: the gradient equal to the
+     plain route's on the card (C2's input also to the CPU's), forward +
+     backward timed beside the plain route's, the backward's device time,
+     and SDPA's forward + backward (printed, not held).
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
-and B5 with phase 16's per model), the card again, and the result line.
+and B5 with phase 16's per model, B5 with phase 17's training run and
+B4 and B5 with their 17d rows), the card again, and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -2904,6 +2923,449 @@ def phase_mixers(dev) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ slice 11
+# training: SmolLM-135M at its published widths through make_train_step
+# (f32 compute, remat, the pipeline's structured stream), B5 under every
+# attention forward; the step on B5 against the step on its plain
+# version; the ten smoke architectures on the card against the CPU; the
+# kernels' backward (the plain loop's gradient, fault C2) against the
+# plain route's
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_XENT = 8, 2048, 8, 512
+B5_PER_TRAIN_STEP = 2 * 30  # forward and remat's recompute, 30 layers
+# 17b (B5 against its plain version, one card): the loss within 1e-5 of
+# itself, the grad norm 1e-4, each leaf's gradient within 1e-3 of its
+# norm plus 1e-6 of the whole gradient's (the form of 17c and the CPU
+# parity tests: a leaf whose gradient nearly cancels, like the key
+# projection's under softmax's shift invariance, carries more rounding
+# than its own norm), each leaf's update (p' - p) within 1e-2 of the
+# update's norm (a gradient element near 0 can flip the sign of its
+# first Adam update)
+TRAIN_B5_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-3,
+                "grad_abs": 1e-6, "update": 1e-2}
+# 17c (the card against the CPU, smoke configs, a conditioned optimizer
+# state at lr 1e-3): the loss within 1e-5 of itself, each leaf's gradient
+# within rtol of its norm plus 1e-6 of the whole gradient's, each param
+# within 1e-5 (1 % of lr); whisper-base's smoke decoder magnifies last
+# bits (its stacked weights draw their std from the layers axis)
+SMOKE_GRAD_RTOL = {"whisper-base": 3e-3}
+SMOKE_GRAD_RTOL_DEFAULT = 1e-3
+BWD_SHAPES = [  # (name, B, S, H, Kv, dh): fault C2's input, SmolLM's
+    ("c2", 1, 8, 1, 1, 64), ("smollm", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64)]
+
+
+def tree_close(got: list, want: list, rtol: float, atol: float = 0.0):
+    """max over leaves of |got - want| / (rtol |want| + atol), norm-wise
+    per leaf (<= 1 passes); NaN where the NaN patterns differ."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            return float("nan")
+        ok = ~torch.isnan(b)
+        err = (a[ok] - b[ok]).norm().item()
+        lim = rtol * b[ok].norm().item() + atol
+        worst = max(worst, err / lim if lim else (0.0 if err == 0 else
+                                                  float("inf")))
+    return worst
+
+
+def train_smollm(dev) -> dict:
+    """17a: SmolLM-135M trained TRAIN_STEPS steps at batch 8 x 2048 with
+    exact B5 launches a step, finite losses and every leaf moved; the
+    warm step timed and profiled."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedPipeline
+    from repro_torch.models.common import materialize, tree_leaves
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
+    params = materialize(lm_build(cfg), torch.Generator(device=dev)
+                         .manual_seed(170), device=dev)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(remat=True, seq_shard=False, xent_chunk=TRAIN_XENT)
+    step = make_train_step(cfg, ocfg, tcfg)
+    pipe = ShardedPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, launched = [], [], 0
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 next(pipe).items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        new_p, new_o, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = counts()
+        require(n == only(flash_attention=B5_PER_TRAIN_STEP),
+                f"train step {i} launches {n}, expected "
+                f"{B5_PER_TRAIN_STEP} of B5 and no other")
+        launched += n["flash_attention"]
+        losses.append(m["loss"].item())
+        require(np.isfinite(losses[-1]), f"train step {i}: loss "
+                f"{losses[-1]}")
+        still = [j for j, (a, b) in enumerate(zip(tree_leaves(params),
+                                                  tree_leaves(new_p)))
+                 if torch.equal(a, b)]
+        require(not still, f"train step {i}: leaves {still} did not move")
+        params, opt = new_p, new_o
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+    prof = profile_forward(lambda: step(params, opt, batch))
+    warm = statistics.median(times[2:])
+    run = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "compute_dtype": "float32", "remat": True,
+           "xent_chunk": TRAIN_XENT, "step_ms": times,
+           "warm_step_ms": warm,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / warm * 1e3,
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "launches": launched, "launches_per_step": B5_PER_TRAIN_STEP,
+           "profile": prof}
+    return {"cfg": cfg, "ocfg": ocfg, "tcfg": tcfg, "params": params,
+            "opt": opt, "batch": batch, "run": run}
+
+
+def b5_vs_plain_step(tr: dict, params) -> dict:
+    """One step of 17a's model from ``params`` and 17a's optimizer state,
+    on B5 and on B5's plain version: the loss, the grad norm, each leaf's
+    gradient and update; every leaf's gradient on B5 finite and
+    non-zero."""
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+
+    opt, batch = tr["opt"], tr["batch"]
+    loss_fn = make_loss_fn(tr["cfg"], tr["tcfg"])
+
+    def one():
+        with no_tf32():
+            loss, _, grads = value_and_grad(loss_fn, params, batch)
+            new_p, _, om = adamw_update(tr["ocfg"], grads, params, opt)
+        return loss, tree_leaves(grads), tree_leaves(new_p), om
+
+    reset_counts()
+    loss, grads, new_p, om = one()
+    n_kernel = counts()
+    reset_counts()
+    p_loss, p_grads, p_new, p_om = swapped_b5(
+        one, fa.flash_attention_kernel_plain)
+    n_plain = counts()
+    require(n_kernel == only(flash_attention=B5_PER_TRAIN_STEP)
+            and n_plain == only(), f"17b launches {n_kernel} / {n_plain}")
+    zero = [i for i, g in enumerate(grads)
+            if not (torch.isfinite(g).all() and torch.count_nonzero(g))]
+    require(not zero, f"17b: leaves {zero} got a zero or non-finite "
+            f"gradient on B5")
+    old = tree_leaves(params)
+    upd = [a - o for a, o in zip(new_p, old)]
+    p_upd = [a - o for a, o in zip(p_new, old)]
+    return {"loss": loss.item(), "plain_loss": p_loss.item(),
+            "loss_rel": abs(loss.item() - p_loss.item()) / abs(p_loss.item()),
+            "grad_norm": om["grad_norm"].item(),
+            "grad_norm_rel": abs(om["grad_norm"].item()
+                                 - p_om["grad_norm"].item())
+            / p_om["grad_norm"].item(),
+            "grad_worst": tree_close(
+                grads, p_grads, TRAIN_B5_TOL["grad"],
+                TRAIN_B5_TOL["grad_abs"] * p_om["grad_norm"].item()),
+            "update_worst": tree_close(upd, p_upd, TRAIN_B5_TOL["update"]),
+            "per_leaf": {key: {"grad_norm": b.norm().item(),
+                               "grad_rel_err": (a - b).norm().item()
+                               / b.norm().item(),
+                               "update_rel_err": (u - pu).norm().item()
+                               / pu.norm().item()}
+                         for (key, _), a, b, u, pu in zip(
+                             _leaves(params), grads, p_grads, upd, p_upd)}}
+
+
+def train_b5_vs_plain(tr: dict) -> dict:
+    """17b: B5 against its plain version in one step from 17a's state,
+    held to TRAIN_B5_TOL on 17a's weights rescaled to their width
+    (``fan_in_scaled``); the reading on 17a's own weights is printed
+    beside it.  ``materialize`` draws the stacked matrices with std
+    1/sqrt(30), the layers axis, not 1/sqrt(their width): the 30-layer
+    stack then magnifies any last-bit difference in its activations
+    (B5's included) in every gradient element, as whisper's decoder does
+    in 16c."""
+    out = {"scaled": b5_vs_plain_step(tr, fan_in_scaled(tr["cfg"],
+                                                        tr["params"])),
+           "served": b5_vs_plain_step(tr, tr["params"]),
+           "limits": TRAIN_B5_TOL}
+    held = out["scaled"]
+    require(held["loss_rel"] <= TRAIN_B5_TOL["loss"]
+            and held["grad_norm_rel"] <= TRAIN_B5_TOL["grad_norm"]
+            and held["grad_worst"] <= 1 and held["update_worst"] <= 1,
+            f"17b: the step on B5 and on its plain version differ: {out}")
+    return out
+
+
+def smoke_batch(cfg, seed: int) -> dict:
+    """numpy inputs as tests/test_models_smoke.py:_batch builds them."""
+    rng = np.random.default_rng(seed)
+    b, s = 2, 16
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    elif cfg.embeds_input:
+        batch["embeds"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+        if cfg.rope_mode == "mrope":
+            pos = np.tile(np.arange(s), (b, 1))
+            batch["rope_positions"] = np.stack([pos, pos * 0, pos * 0]) \
+                .astype(np.int32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    batch["labels"] = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    return batch
+
+
+def train_smoke_card_vs_cpu(dev) -> dict:
+    """17c: one train step of each of the ten smoke configs on the card
+    against the CPU, from the same params and a reached optimizer state
+    (step 3, m ~ 1e-3, v = m^2 + 1e-6); the params moved.  mamba2-130m's
+    gradient is NaN on both (the reference's SSD backward, ROADMAP
+    Caveats): held to the same NaN elements."""
+    from repro_torch.configs import ARCHS, get_smoke
+    from repro_torch.device import no_tf32
+    from repro_torch.models.common import (materialize, tree_leaves, tree_map,
+                                           tree_unflatten)
+    from repro_torch.models.encdec import encdec_build
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.optim.adamw import AdamWConfig, OptState
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    tcfg = TrainConfig(remat=True, seq_shard=False, xent_chunk=8)
+    rows = {}
+    for arch in ARCHS:
+        cfg = get_smoke(arch)
+        build = encdec_build if cfg.family == "encdec" else lm_build
+        params = materialize(build(cfg), torch.Generator().manual_seed(171),
+                             device="cpu")
+        g = torch.Generator().manual_seed(172)
+        ms = [torch.randn(p.shape, generator=g) * 1e-3
+              for p in tree_leaves(params)]
+        batch = smoke_batch(cfg, 173)
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2),
+                               tcfg)
+        res = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda x: x.to(d), params)
+            m = [x.to(d) for x in ms]
+            opt = OptState(torch.tensor(3, dtype=torch.int32, device=d),
+                           tree_unflatten(params, m),
+                           tree_unflatten(params, [x * x + 1e-6 for x in m]))
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            with no_tf32():
+                _, _, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
+            reset_counts()
+            p2, _, met = step(p, opt, b)
+            res[str(d)] = (tree_leaves(grads), tree_leaves(p2),
+                           {k: v.item() for k, v in met.items()}, counts(),
+                           tree_leaves(p))
+        g_c, p_c, m_c, _, _ = res["cpu"]
+        g_d, p_d, m_d, n_d, p_in = res[str(dev)]
+        nan = arch == "mamba2-130m"
+        gn = 0.0 if nan else m_c["grad_norm"]
+        rtol = SMOKE_GRAD_RTOL.get(arch, SMOKE_GRAD_RTOL_DEFAULT)
+        row = {"loss": m_d["loss"], "cpu_loss": m_c["loss"],
+               "loss_rel": abs(m_d["loss"] - m_c["loss"]) / abs(m_c["loss"]),
+               "grad_worst": tree_close(g_d, g_c, rtol, 1e-6 * gn),
+               "param_max_abs": max(
+                   float(np.nan_to_num((a.cpu() - b).abs().max().item()))
+                   for a, b in zip(p_d, p_c)),
+               "moved": all(not torch.equal(a, b) for a, b in zip(p_d, p_in)),
+               "B5_launches": n_d["flash_attention"], "grad_rtol": rtol,
+               "nan_gradient": nan}
+        require(np.isfinite(row["loss"]) and row["loss_rel"] <= 1e-5
+                and row["grad_worst"] <= 1 and row["param_max_abs"] <= 1e-5
+                and row["moved"],
+                f"17c: {arch} on the card against the CPU: {row}")
+        print(f"phase 17c: {arch}: " + json.dumps(row), flush=True)
+        rows[arch] = row
+    return rows
+
+
+def sdpa_fwd_bwd(q, k, v, w):
+    """The yardstick: scaled_dot_product_attention forward and backward
+    (causal) on (B, H, S, dh) copies, kv heads repeated beforehand."""
+    import torch.nn.functional as F
+
+    g = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.detach().repeat_interleave(r, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True)
+                  for x, r in ((q, 1), (k, g), (v, g)))
+    wt = w.transpose(1, 2).contiguous()
+
+    def fn():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad((out.float() * wt).sum(), (qt, kt, vt))
+    return fn
+
+
+def backward_rows(dev) -> list[dict]:
+    """17d: kernels B5 and B4 forward with the plain loop's gradient at
+    fault C2's input and at SmolLM-135M's training shape, f32 and bf16:
+    the gradient against the plain route's on the card (C2's input also
+    against the CPU's), the forward + backward timed beside the plain
+    route's, the backward alone (device time) and SDPA's forward +
+    backward (printed, not held)."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.device import no_tf32
+    from repro_torch.models import attention as ta
+
+    rows = []
+    for name, b, s, h, kvh, dh in BWD_SHAPES:
+        for l2r in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(174)
+                q, k, v = (x.requires_grad_(True) for x in attn_qkv(
+                    g, dev, b, s, s, h, kvh, dh, dtype))
+                w = torch.randn((b, s, h, dh), generator=g, device=dev)
+                quant = QuantConfig() if l2r else None
+                lib = "flash_attention_l2r" if l2r else "flash_attention"
+
+                def kernel_route():
+                    out = ta.chunked_attention(q, k, v, l2r=quant)
+                    return out, torch.autograd.grad(
+                        (out.float() * w).sum(), (q, k, v))
+
+                def plain_route(q=q, k=k, v=v):
+                    with no_tf32():
+                        out = ta._chunked_plain(q, k, v, True, None, None,
+                                                None, None, None, 0,
+                                                torch.float32, quant, None)
+                        return out, torch.autograd.grad(
+                            (out.float() * w).sum(), (q, k, v))
+
+                reset_counts()
+                out, grads = kernel_route()
+                n = counts()
+                require(n == only(**{lib: 1}), f"17d {name}: launches {n}")
+                p_out, p_grads = plain_route()
+                err = max(((a.float() - r.float()).abs().max()
+                           / r.float().abs().max().clamp_min(1e-30)).item()
+                          for a, r in zip(grads, p_grads))
+                fwd_err, _ = attn_err(out, p_out)
+                row = {"name": f"{name} {'B4' if l2r else 'B5'}",
+                       "B": b, "S": s, "H": h, "Kv": kvh, "dh": dh,
+                       "dtype": str(dtype).split(".")[-1],
+                       "grad_max_rel_err": err, "fwd_max_abs_err": fwd_err}
+                if name == "c2":  # the pin: against the CPU's plain route
+                    cq, ck, cv = (x.detach().cpu().requires_grad_(True)
+                                  for x in (q, k, v))
+                    c_out = ta.chunked_attention(cq, ck, cv, l2r=quant)
+                    c_grads = torch.autograd.grad(
+                        (c_out.float() * w.cpu()).sum(), (cq, ck, cv))
+                    row["cpu_grad_max_rel_err"] = max(
+                        ((a.cpu().float() - r.float()).abs().max()
+                         / r.float().abs().max()).item()
+                        for a, r in zip(grads, c_grads))
+                    require(row["cpu_grad_max_rel_err"] <=
+                            (1e-5 if dtype == torch.float32 else 2.0 ** -6),
+                            f"17d: C2's input on the card: {row}")
+                require(err <= 1e-6, f"17d: the kernel route's gradient is "
+                        f"not the plain route's: {row}")
+                if name == "smollm":
+                    row["fwd_bwd_ms"] = time_ms(kernel_route, iters=3,
+                                                warmup=1)
+                    row["plain_fwd_bwd_ms"] = time_ms(plain_route, iters=3,
+                                                      warmup=1)
+                    out = ta.chunked_attention(q, k, v, l2r=quant)
+                    bwd = lambda: torch.autograd.grad(  # noqa: E731
+                        out, (q, k, v), w.to(out.dtype), retain_graph=True)
+                    row["bwd_ms"] = time_ms(bwd, iters=3, warmup=1)
+                    row["bwd_device_ms"] = profile_forward(bwd)["device_ms"]
+                    if not l2r:
+                        with no_tf32():
+                            row["sdpa_fwd_bwd_ms"] = time_ms(
+                                sdpa_fwd_bwd(q, k, v, w), iters=5, warmup=1)
+                    pairs = visible_pairs(s, s, True, None)
+                    nbytes = (2 * q.numel() + 2 * k.numel()) \
+                        * q.element_size() * 2  # fwd + bwd, read + written
+                    row["fwd_bound_ms"], row["fwd_bound_by"] = attn_bound(
+                        b, h, dh, pairs, dtype,
+                        (2 * q.numel() + 2 * k.numel()) * q.element_size())
+                    fwd_ops, _ = attn_bound(b, h, dh, pairs, dtype, 0)
+                    row["fwd_bwd_bound_ms"] = max(  # 7 products: 2 + 5
+                        fwd_ops * 3.5, nbytes / PEAK_BYTES * 1e3)
+                    del out
+                rows.append(row)
+                print("phase 17d: " + json.dumps(row), flush=True)
+                del q, k, v, grads, p_grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train(dev) -> dict:
+    """Training (phase 17): SmolLM-135M at full width (17a), the step on
+    B5 against its plain version (17b), the ten smoke configs on the
+    card against the CPU (17c), the kernels' backward (17d)."""
+    t_phase = time.perf_counter()
+    smi = card()
+    tr = train_smollm(dev)
+    run = tr["run"]
+    prof = run["profile"]
+    print(f"phase 17a: SmolLM-135M trained {TRAIN_STEPS} steps at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} (f32, remat) on {smi}: warm step "
+          f"{run['warm_step_ms']} ms, {run['tokens_per_s']} tokens/s, peak "
+          f"{run['peak_memory_gb']} GB; step device {prof.get('device_ms')} "
+          f"ms (B5 {prof.get('B5_ms')}, other {prof.get('other_ms')}), idle "
+          f"{prof.get('idle_share')}; {B5_PER_TRAIN_STEP} B5 launches a "
+          f"step; losses {run['losses']}", flush=True)
+    print("phase 17a: " + json.dumps(run), flush=True)
+    b5 = train_b5_vs_plain(tr)
+    print("phase 17b: the step on B5 == the step on its plain version "
+          "within limits (rescaled weights; 17a's own printed): "
+          + json.dumps(b5), flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    smoke = train_smoke_card_vs_cpu(dev)
+    rows = backward_rows(dev)
+    f32 = next(r for r in rows if r["name"] == "smollm B5"
+               and r["dtype"] == "float32")
+    layers = B5_PER_TRAIN_STEP // 2
+    train = {"per": f"phase 17a: SmolLM-135M, batch {TRAIN_BATCH} x "
+                    f"{TRAIN_SEQ}, f32, remat: {layers} attention layers, "
+                    f"B5 launched in the forward and again in the "
+                    f"recompute; the backward is the plain loop's "
+                    f"gradient (17d's f32 row x {layers})",
+             "launches": run["launches"],
+             "launches_per_step": B5_PER_TRAIN_STEP,
+             "device_ms_per_step": prof.get("B5_ms"),
+             "bound_ms_per_step": f32["fwd_bound_ms"] * B5_PER_TRAIN_STEP,
+             "bound_by": f32["fwd_bound_by"],
+             "plain_backward_device_ms_per_step":
+             f32["bwd_device_ms"] * layers
+             if isinstance(f32["bwd_device_ms"], float) else "not measured",
+             "sdpa_fwd_bwd_ms_per_step": f32["sdpa_fwd_bwd_ms"] * layers,
+             "step_ms": run["warm_step_ms"],
+             "tokens_per_s": run["tokens_per_s"],
+             "step_device_ms": prof.get("device_ms"),
+             "idle_share": prof.get("idle_share")}
+    print(f"phase 17a: B5 {train['device_ms_per_step']} ms of device time "
+          f"a step beside the plain backward's "
+          f"{train['plain_backward_device_ms_per_step']} ms (17d) and "
+          f"SDPA's forward + backward {train['sdpa_fwd_bwd_ms_per_step']} "
+          f"ms, on {smi}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 17: {seconds:.1f} s", flush=True)
+    return {"run": run, "b5_vs_plain": b5, "smoke": smoke, "rows": rows,
+            "train": train, "seconds": seconds}
+
+
 def lm_totals(rows: list[dict], where: tuple[str, ...]) -> dict:
     """Σ count × per-shape median over the rows of one LM step."""
     pick = [r for r in rows if r["where"] in where]
@@ -3021,6 +3483,9 @@ def main() -> int:
     lm_attn = phase_lm_attn(dev, b4["rows"])
     serve = phase_serve(dev, lm)
     mix = phase_mixers(dev)
+    train = phase_train(dev)
+    bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
+                       if r["name"].endswith(kid)]
     del lm["step_logits"]
     head = next(r for r in serve["rows"] if r["count"])
     lm_dec = lm_totals(lm["rows"], ("decode", "head"))
@@ -3113,7 +3578,8 @@ def main() -> int:
                          "prefill_ms": lm_attn["run"]["prefill_ms"],
                          "decode_ms_per_token":
                          lm_attn["run"]["decode_ms_per_token"],
-                         **lm_attn["b4"]}),
+                         **lm_attn["b4"]},
+                     train_backward=bwd("B4")),
         kernel_entry("flash_attention", b5["rows"], b5["launches"],
                      "the three SmolLM-135M attention calls of phase 10b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
@@ -3131,7 +3597,8 @@ def main() -> int:
                              "flash_attention"],
                          **lm["b5"]},
                      mixers=mixer_summary(mix, "B5", "flash_attention"),
-                     mixer_shapes=mix["b5_rows"]),
+                     mixer_shapes=mix["b5_rows"],
+                     train=train["train"], train_backward=bwd("B5")),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

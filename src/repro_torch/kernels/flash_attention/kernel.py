@@ -24,7 +24,12 @@ are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv, dh), out
 (B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
-the kernel (or raises), a CPU tensor takes the plain version.  The plain
+the kernel (or raises), a CPU tensor takes the plain version.  The
+kernels have no backward: :class:`FlashAttentionL2R` here and
+``ops.FlashAttention`` launch B4 and B5 forward and take the gradient of
+a plain function the caller names (models/attention.py passes its
+query-chunk loop with the call's own arguments), recomputed under
+autograd (:func:`plain_grads`).  The plain
 versions walk KV blocks with the reference's online softmax (``bkv``
 keys at a time, by default the kernels' own KV tile, so that the running
 max and the rounding of p to v's dtype follow the kernel's steps) in
@@ -52,7 +57,7 @@ __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
            "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile",
            "l2r_masks", "l2r_width", "l2r_kernel_operands",
-           "flash_attention_l2r_launch"]
+           "flash_attention_l2r_launch", "plain_grads", "FlashAttentionL2R"]
 
 #: kernel launches per library since the counts were last reset (plain
 #: calls are not counted)
@@ -350,3 +355,39 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     return flash_attention_l2r_launch(
         l2r_kernel_operands(q, k, v, n_bits, log2_radix), dh, n_bits,
         log2_radix, levels, causal, window, scale)
+
+
+# ------------------------------------------------------------- autograd
+def plain_grads(plain, saved, needs, grad_out) -> tuple:
+    """The backward of a kernel with no backward of its own: ``plain(q, k,
+    v)`` recomputed from the saved inputs under autograd (TF32 off), and
+    its ``torch.autograd.grad`` for each input whose ``needs`` is set
+    (None for the others, and for an input the function does not use)."""
+    with torch.enable_grad(), no_tf32():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(saved, needs)]
+        want = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*xs), want, grad_out,
+                                         allow_unused=True) if want else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class FlashAttentionL2R(torch.autograd.Function):
+    """Kernel B4 with a gradient: the forward is :func:`flash_attention_l2r`
+    (one launch on a CUDA tensor), the backward the gradient of
+    ``plain(q, k, v)``, which the caller makes compute the same function.
+    The rounding of q and k to int8 has no gradient, so q and k receive
+    theirs through the per-vector scales alone, as under ``jax.grad``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_bits, log2_radix, levels, causal, window,
+                scale, plain):
+        ctx.save_for_backward(q, k, v)
+        ctx.plain = plain
+        return flash_attention_l2r(q, k, v, n_bits, log2_radix, levels,
+                                   causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*plain_grads(ctx.plain, ctx.saved_tensors,
+                             ctx.needs_input_grad[:3], grad_out),
+                *(None,) * 7)

@@ -206,6 +206,10 @@ def chunked_attention(
       (``kernels/flash_attention/kernel.py:flash_attention_l2r``, which
       quantizes q and k per vector and walks 64-key tiles);
     * without, where :func:`b5_fits` holds, one launch of kernel B5;
+    * both kernels differentiate as the loop below does: their autograd
+      Functions (``kernel.FlashAttentionL2R``, ``ops.FlashAttention``)
+      recompute this call's plain loop, with its own arguments, in the
+      backward and return its gradient (no launch there);
     * every other call, and every CPU call, runs the reference's loop:
       static query chunks with exact KV ranges, an online softmax over KV
       chunks in f32, p cast to v's dtype before PV (true f32 products,
@@ -218,19 +222,22 @@ def chunked_attention(
     ``q_chunk``/``kv_chunk`` do not apply to them.
     """
     del head_shard  # no mesh in the port
+
+    def plain(q, k, v):
+        with no_tf32():
+            return _chunked_plain(q, k, v, causal, window, scale, softcap,
+                                  q_chunk, kv_chunk, q_offset, score_dtype,
+                                  l2r, levels)
+
     if l2r is not None and b4_fits(q, k, v, softcap, q_offset, l2r):
-        return fa_kernel.flash_attention_l2r(
+        return fa_kernel.FlashAttentionL2R.apply(
             q.contiguous(), k.contiguous(), v.contiguous(), l2r.n_bits,
-            l2r.log2_radix, levels, causal=causal, window=window,
-            scale=scale)
+            l2r.log2_radix, levels, causal, window, scale, plain)
     if l2r is None and b5_fits(q, k, v, softcap, q_offset):
-        return fa_ops.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=causal,
-                                      window=window, scale=scale)
-    with no_tf32():
-        return _chunked_plain(q, k, v, causal, window, scale, softcap,
-                              q_chunk, kv_chunk, q_offset, score_dtype,
-                              l2r, levels)
+        return fa_ops.FlashAttention.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
+            scale, plain)
+    return plain(q, k, v)
 
 
 def _l2r_chunk_scores(q, k, l2r: QuantConfig, levels: int | None, scale):

@@ -36,6 +36,8 @@ __all__ = [
     "Param",
     "materialize",
     "tree_map",
+    "tree_leaves",
+    "tree_unflatten",
     "dense",
     "quantize_desc",
     "quantize_params",
@@ -71,6 +73,21 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples in ``jax.tree.leaves``
+    order (dict keys sorted)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, values):
+    """``tree``'s structure with its leaves replaced, in order, by
+    ``values``."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
 
 
 def materialize(tree, generator: torch.Generator | None = None,

@@ -8,7 +8,10 @@ layer with HWIO conv weights) crosses with :func:`params_from_jax`; an
 LM (``materialize(lm_build(cfg), key)``: nested dicts, the ``prefix`` and
 ``suffix`` lists and the ``stack`` leaves with their leading ``layers``
 axis) with :func:`lm_params_from_jax`.  ``.npz`` trees saved by the
-reference's checkpoint manager load the same way.
+reference's checkpoint manager load the same way.  The optimizer's
+``OptState`` and the error-feedback ``EFState`` cross with
+:func:`opt_state_from_jax` and :func:`ef_state_from_jax`, so both
+packages can train on from one state.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
+from repro_torch.optim.compression import EFState
 
-__all__ = ["params_from_jax", "lm_params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax", "opt_state_from_jax",
+           "ef_state_from_jax"]
 
 
 def params_from_jax(tree: dict, device: str | torch.device | None = None
@@ -52,3 +58,18 @@ def lm_params_from_jax(tree, device: str | torch.device | None = None):
         return _tensor(t, dev)
 
     return walk(tree)
+
+
+def opt_state_from_jax(state, device: str | torch.device | None = None):
+    """A reference ``OptState`` (step, m, v) -> the port's
+    :class:`~repro_torch.optim.adamw.OptState` of tensors on ``device``."""
+    dev = resolve_device(device)
+    return OptState(step=_tensor(state.step, dev),
+                    m=lm_params_from_jax(state.m, dev),
+                    v=lm_params_from_jax(state.v, dev))
+
+
+def ef_state_from_jax(state, device: str | torch.device | None = None):
+    """A reference ``EFState`` -> the port's
+    :class:`~repro_torch.optim.compression.EFState` on ``device``."""
+    return EFState(residual=lm_params_from_jax(state.residual, device))

@@ -25,6 +25,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -170,6 +171,7 @@ def encdec_forward(
     enc_out: torch.Tensor | None = None,
     mode: str = "train",
     state: EncDecState | None = None,
+    remat: bool = False,
 ):
     """Decoder forward (runs the encoder when ``enc_out`` is not given).
 
@@ -177,7 +179,10 @@ def encdec_forward(
     from the state (computed at prefill) and no frames are needed; in
     train and prefill they are computed from ``enc_out`` per layer, and
     prefill writes them into the state.  ``new_state`` holds the state's
-    tensors, written in place, with ``pos`` advanced by S.
+    tensors, written in place, with ``pos`` advanced by S.  ``remat``
+    checkpoints each decoder block (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` of its scanned block); the encoder is
+    not checkpointed, as in the reference.
     """
     compute_dtype = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
@@ -194,7 +199,8 @@ def encdec_forward(
     x = x + params["dec_pos"][positions.long()].to(compute_dtype)
 
     h, kv = cfg.n_heads, cfg.n_kv
-    for i in range(cfg.n_layers):
+
+    def block(x, i):
         lp = layer_slice(params["dec_stack"], i)
         self_c = layer_slice(state.self_cache, i) if state is not None \
             else None
@@ -216,7 +222,11 @@ def encdec_forward(
                                  causal=False, scale=cfg.attn_scale)
         x = x + dense(attn.reshape(b, s, h * cfg.head_dim),
                       lp["cross"]["wo"], cfg.l2r, cfg.l2r_levels)
-        x = x + mlp_apply(cfg, lp["ffn"], _ln(cfg, x, lp["ffn_norm"]))
+        return x + mlp_apply(cfg, lp["ffn"], _ln(cfg, x, lp["ffn_norm"]))
+
+    for i in range(cfg.n_layers):
+        x = checkpoint(block, x, i, use_reentrant=False) if remat \
+            else block(x, i)
     x = _ln(cfg, x, params["dec_norm"])
 
     new_state = None

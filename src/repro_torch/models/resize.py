@@ -70,15 +70,33 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     the error.  Rounding that round-to-odd f64 (53 >= 24 + 2 bits) to f32
     is the correct rounding of the exact ``a*b + c``, so double rounding
     cannot occur (Boldo and Melquiond's round-to-odd).
+
+    Differentiable as ``a * b + c`` (the gradient ``jax.grad`` gives the
+    reference's fused combine), whatever torch's ``nextafter`` supports.
     """
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    t = s - p
-    err = (p - (s - t)) + (cd - t)
-    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
-    odd_fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    return torch.where(odd_fix, torch.nextafter(s, toward), s).float()
+    return _FmaF32.apply(a, b, c)
+
+
+class _FmaF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = (a.shape, b.shape, c.shape)
+        p = a.double() * b.double()
+        cd = c.double()
+        s = p + cd
+        t = s - p
+        err = (p - (s - t)) + (cd - t)
+        toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+        odd_fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+        return torch.where(odd_fix, torch.nextafter(s, toward), s).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga, gb, gc = ctx.shapes
+        return ((g * b).sum_to_size(ga), (g * a).sum_to_size(gb),
+                g.sum_to_size(gc))
 
 
 def _column(w: torch.Tensor, k: int, axis: int) -> torch.Tensor:

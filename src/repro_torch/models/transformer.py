@@ -24,6 +24,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import QuantizedWeights
 from repro_torch.device import resolve_device
@@ -319,6 +320,7 @@ def lm_forward(
     rope_positions: torch.Tensor | None = None,
     mode: str = "train",
     state: LMState | None = None,
+    remat: bool = False,
 ):
     """Backbone forward.
 
@@ -326,7 +328,12 @@ def lm_forward(
     router losses summed over layers (an f32 scalar).  ``tokens`` xor
     ``embeds``.  In prefill and decode the caches of ``state`` are
     written in place and ``new_state`` holds the same caches with
-    ``pos`` advanced by S.
+    ``pos`` advanced by S.  ``remat`` checkpoints each block of the
+    stacked layers (``torch.utils.checkpoint``; the reference's
+    ``jax.checkpoint`` of its scanned block): one block's activations
+    live in the backward, which runs the block's forward again, so a
+    kernel under it launches twice a step.  Prefix and suffix layers
+    are not checkpointed, as in the reference.
     """
     prefix_k, repeats, unit, suffix_k = cfg.block_grouping()
     compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -360,13 +367,21 @@ def lm_forward(
         new_prefix.append(c2)
         aux_total += aux
 
-    for blk in range(repeats):  # the reference's scan over the stack
+    def block(x, aux_acc, blk):
         for u_idx, kk in enumerate(unit):
             c = layer_slice(state.stack[u_idx], blk) \
                 if state is not None else None
             x, _, aux = run_layer(x, layer_slice(params["stack"][u_idx], blk),
                                   kk, c)
-            aux_total += aux
+            aux_acc = aux_acc + aux
+        return x, aux_acc
+
+    for blk in range(repeats):  # the reference's scan over the stack
+        if remat:
+            x, aux_total = checkpoint(block, x, aux_total, blk,
+                                      use_reentrant=False)
+        else:
+            x, aux_total = block(x, aux_total, blk)
 
     new_suffix = []
     for i, kk in enumerate(suffix_k):

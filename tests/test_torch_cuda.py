@@ -1125,3 +1125,107 @@ def test_rglru_scan_on_card_equals_cpu_bits(dev, s):
     ra, rb = lru_scan(a, b)
     ga, gb = lru_scan(a.to(dev), b.to(dev))
     assert torch.equal(ga.cpu(), ra) and torch.equal(gb.cpu(), rb)
+
+
+# ---------------------------------------------------- slice 11: training
+C2_CASES = [  # (q shape, kv shape, kwargs): C2's smallest input first
+    ((1, 8, 1, 64), (1, 8, 1, 64), {}),
+    ((2, 40, 4, 16), (2, 40, 2, 16), {"window": 9})]
+# gradients on the card against the CPU's: the same plain loop in another
+# summation order (f32), or with p rounding to bf16 the other way (bf16)
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _attn_grads(q, k, v, w, **kw):
+    from repro_torch.models.attention import chunked_attention
+
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = chunked_attention(*xs, **kw)
+    return out, torch.autograd.grad((out.float() * w).sum(), xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2r", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", C2_CASES)
+def test_attention_kernels_carry_the_plain_gradient(dev, case, dtype, l2r):
+    """Fault C2, pinned: on the card the output of kernel B5 (B4 with
+    ``l2r``) has a gradient, and it equals the CPU's plain route's within
+    GRAD_TOL of the largest; the kernel launched once, the backward
+    launched nothing."""
+    shape_q, shape_kv, kw = case
+    g = torch.Generator().manual_seed(11)
+    host = [torch.randn(s, generator=g).to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+    w = torch.randn(shape_q, generator=g)
+    if l2r:
+        kw = {**kw, "l2r": QuantConfig()}
+    lib = "flash_attention_l2r" if l2r else "flash_attention"
+    before = dict(fa.LAUNCHES)
+    out, grads = _attn_grads(*(x.to(dev) for x in host), w.to(dev), **kw)
+    assert type(out.grad_fn).__name__ == (
+        "FlashAttentionL2RBackward" if l2r else "FlashAttentionBackward")
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == lib) for n in before}
+    ref_out, ref = _attn_grads(*host, w, **kw)
+    _close(out, ref_out.to(dev), dtype)
+    for got, want in zip(grads, ref):
+        assert got.dtype == dtype and got.device.type == "cuda"
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_on_card_equals_cpu(dev):
+    """One remat step of the smoke SmolLM on the card (B5 under every
+    attention, twice a layer: forward and recompute) against the same
+    step on the CPU: loss, every leaf's gradient (finite, non-zero, within
+    1e-3 of its norm plus 1e-6 of the whole gradient's) and the updated
+    params (within 1e-5: lr 1e-3 times an O(1) Adam ratio)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.common import (materialize, tree_leaves, tree_map,
+                                           tree_unflatten)
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.optim.adamw import AdamWConfig, OptState, global_norm
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    cfg = get_smoke("smollm-135m")
+    params = materialize(lm_build(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    g = torch.Generator().manual_seed(1)
+    m = [torch.randn(p.shape, generator=g) * 1e-3
+         for p in tree_leaves(params)]
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    tcfg = TrainConfig(remat=True, xent_chunk=8)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2), tcfg)
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda x: x.to(d), params)
+        ms = [x.to(d) for x in m]
+        opt = OptState(torch.tensor(3, dtype=torch.int32, device=d),
+                       tree_unflatten(params, ms),
+                       tree_unflatten(params, [x * x + 1e-6 for x in ms]))
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, _, grads = value_and_grad(make_loss_fn(cfg, tcfg), p, b)
+        before = fa.LAUNCHES["flash_attention"]
+        p2, _, metrics = step(p, opt, b)
+        launched = fa.LAUNCHES["flash_attention"] - before
+        out[str(d)] = (loss.item(), grads, p2, metrics, launched)
+    loss_c, grads_c, p_c, met_c, n_c = out["cpu"]
+    loss_d, grads_d, p_d, met_d, n_d = out[str(dev)]
+    assert (n_c, n_d) == (0, 2 * cfg.n_layers)
+    assert abs(loss_d - loss_c) <= 1e-5 * abs(loss_c)
+    gn = global_norm(grads_c).item()
+    for a, b in zip(tree_leaves(grads_d), tree_leaves(grads_c)):
+        a = a.cpu()
+        assert torch.isfinite(a).all() and torch.count_nonzero(a)
+        assert (a - b).norm().item() <= 1e-3 * b.norm().item() + 1e-6 * gn
+    for a, b in zip(tree_leaves(p_d), tree_leaves(p_c)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+    assert abs(met_d["grad_norm"].item() - met_c["grad_norm"].item()) \
+        <= 1e-3 * met_c["grad_norm"].item()
+

@@ -49,7 +49,12 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.serve.batching", "repro_torch.serve.gateway",
                 "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-                "repro_torch.checkpoint.quantized"]
+                "repro_torch.checkpoint.quantized", "repro_torch.optim",
+                "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                "repro_torch.data", "repro_torch.data.pipeline",
+                "repro_torch.runtime", "repro_torch.runtime.fault",
+                "repro_torch.train", "repro_torch.train.step",
+                "repro_torch.launch.train"]
 
 
 def _env():
@@ -120,6 +125,7 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
         monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke
     from repro_torch.launch.serve import main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models.attention import init_kv_cache
     from repro_torch.models.common import materialize
     from repro_torch.models.convert import lm_params_from_jax
@@ -157,6 +163,9 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_cuda(
                  lambda: main(["--arch", "smollm-135m", "--smoke", "--wq"]),
                  lambda: main(["--arch", "smollm-135m", "--smoke",
                                "--gateway"]),
+                 lambda: train_main(["--arch", "smollm-135m", "--smoke"]),
+                 lambda: train_main(["--arch", "whisper-base", "--smoke",
+                                     "--device", "cuda"]),
                  lambda: ContinuousBatcher(cfg, params),
                  lambda: ContinuousBatcher(cfg, params, device="cuda"),
                  lambda: ServingGateway(cfg, params),
