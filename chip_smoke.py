@@ -167,10 +167,32 @@ Phases (any failure exits non-zero; nothing is caught):
      plain route's on the card (C2's input also to the CPU's), forward +
      backward timed beside the plain route's, the backward's device time,
      and SDPA's forward + backward (printed, not held).
+ 18. the consensus level walk on a 2 x 2 (data x model) mesh: four ranks
+     of one gloo process group (``launch/mesh.py:spawn_local``), all on
+     the one card (four processes sharing it, not a multi-GPU figure),
+     each loading the libraries phase 1 built; the backbones replicated,
+     the heads split by class.  18a VGG-16 as phase 3 (224x224, batch 8,
+     1000 classes, the same weights and 3 batches), fc8's cache 500
+     classes a rank, classified with the scan (119 B1 + 1 B2 a forward a
+     rank, B2 at N 500 on the rank's 4 rows) and with early exit (119 B1
+     + one per level run); 18b SmolLM-135M as phase 15 with the head
+     cache 24,576 columns a rank (half of phase 15's bytes): a 8 x 2048
+     progressive prefill and 8 decode steps with the scan and with early
+     exit (launches as 15a/15b a rank), then the gateway over 15e's
+     requests; 18c on every rank: each walk's collectives equal to the
+     count the code derives (``sharded_walk_collectives``), each walk's
+     head input identical on every rank (a MAX and a MIN all-reduce of a
+     checksum), B2 and B1's level slabs at the rank's shard shapes bit
+     for bit against their plain versions.  Classes, levels and logits
+     equal phase 4's, tokens, levels and logits 15a/15b's, the gateway's
+     tokens, levels and stats 15e's, bit for bit on every rank; prefill
+     ms, decode ms a token, the walk's ms a step and the collectives'
+     share of it, peak memory, per rank.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
-and B5 with phase 16's per model, B5 with phase 17's training run and
-B4 and B5 with their 17d rows), the card again, and the result line.
+and B5 with phase 16's per model, B5 with phase 17's training run,
+B4 and B5 with their 17d rows, B1 and B2 with phase 18's per rank), the
+card again, and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -876,7 +898,10 @@ def phase_progressive(dev, vgg: dict) -> dict:
         lr + 1 if lr < N_LEVELS else N_LEVELS for lr in levels_run]
     out["idle_queue_sync_ms"] = idle_sync_ms(dev)
     print("phase 4: " + json.dumps(out), flush=True)
-    return out
+    # phase 18 holds the mesh's classes, levels and logits to these
+    results = {ee: [tuple(t.cpu() for t in r) for r in run_[0]]
+               for ee, run_ in run.items()}
+    return {**out, "results": results}
 
 
 def phase_pairs_path(dev, vgg: dict) -> dict:
@@ -1407,10 +1432,11 @@ LM_GEMMS = [  # (K, N, launches per layer): wq and wo, wk and wv, wi, mlp wo
 LM_HEAD = (576, 49152)  # the tied head, one launch a step on M = 8 rows
 
 
-def lm_model(dev):
+def lm_model(dev, mesh=None):
     """The full SmolLM-135M config with l2r (n=8, radix 4) at full depth,
-    seeded random weights, and its load-time weight cache: (cfg,
-    prepared params, prepare_params seconds)."""
+    seeded random weights, and its load-time weight cache (the head's
+    vocab-sharded over ``mesh``'s model axis): (cfg, prepared params,
+    prepare_params seconds)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1425,7 +1451,7 @@ def lm_model(dev):
                          device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prepared = prepare_params(cfg, params)
+    prepared = prepare_params(cfg, params, mesh=mesh)
     torch.cuda.synchronize()
     return cfg, prepared, time.perf_counter() - t0
 
@@ -1999,16 +2025,21 @@ def level_hist(levels: torch.Tensor) -> list[int]:
                           minlength=N_LEVELS).tolist()
 
 
-def progressive_run(cfg, params, prompt, early_exit: bool) -> dict:
-    """A progressive prefill and LM_STEPS decode steps, each call's
+def progressive_run(cfg, params, prompt, early_exit: bool,
+                    steps: int = LM_STEPS, mesh=None) -> dict:
+    """A progressive prefill and ``steps`` decode steps, each call's
     launches counted and required: 180 B1 (+ 30 B5 in the prefill) and one
     B2 scan, or with early exit one B1 level slab per level the walk
-    reports (the largest exit level + 1) in place of B2."""
+    reports (the largest exit level + 1) in place of B2.  With ``mesh``
+    the backbone runs replicated (hints off) and the head as the
+    consensus walk; the counts are this rank's.  The cache holds
+    LM_PROMPT + LM_STEPS positions either way."""
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
 
+    step_kw = dict(progressive=True, early_exit=early_exit, mesh=mesh)
     prefill = make_prefill_step(cfg, LM_PROMPT + LM_STEPS, torch.float32,
-                                progressive=True, early_exit=early_exit)
-    decode = make_decode_step(cfg, progressive=True, early_exit=early_exit)
+                                **step_kw)
+    decode = make_decode_step(cfg, **step_kw)
 
     def want(lv, extra):
         walked = int(lv.max()) + 1
@@ -2034,7 +2065,7 @@ def progressive_run(cfg, params, prompt, early_exit: bool) -> dict:
         walked.append(int(lv.max()) + 1)
         toks, lvs, lgs = [tok], [lv], [logits[:, 0]]
         t0 = time.perf_counter()
-        for i in range(LM_STEPS):
+        for i in range(steps):
             reset_counts()
             state, tok, logits, lv = decode(params, state, tok)
             n = counts()
@@ -2047,7 +2078,7 @@ def progressive_run(cfg, params, prompt, early_exit: bool) -> dict:
             lvs.append(lv)
             lgs.append(logits[:, 0])
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / LM_STEPS
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
     return {"tokens": torch.cat(toks, 1), "levels": torch.cat(lvs, 1),
             "logits": lgs, "prefill_ms": prefill_ms, "step_ms": step_ms,
             "launches": launched, "levels_walked": walked}
@@ -2176,6 +2207,18 @@ def serve_requests(cfg, max_new_cap: int | None = None):
         for i, (p, mn) in enumerate(zip(prompts, max_new))]
 
 
+def served(reqs) -> list:
+    """Each request's tokens, exit levels and prefill exit level."""
+    return [(r.output, r.exit_levels, r.prefill_exit_level) for r in reqs]
+
+
+def served_stats(engine) -> dict:
+    """An engine's stats without what the host clock measures."""
+    st = engine.stats(latency=False)
+    st.pop("tokens_per_s", None)
+    return st
+
+
 def engine_stats(st: dict, launched: dict, seconds: float) -> dict:
     keep = ("steps", "prefills", "tokens", "completed", "buckets",
             "mean_exit_level", "mean_prefill_exit_level",
@@ -2247,6 +2290,8 @@ def batcher_vs_gateway(cfg, params, dev) -> dict:
         n = counts()
         gw.close()
         gst = gw.stats()
+        out["gateway_reqs"] = served(greqs)
+        out["gateway_stats"] = served_stats(gw)
         out["gateway"] = {**engine_stats(gst, n, g_s),
                           "tokens_per_s": gst["tokens_per_s"],
                           "warmup_s": warm_s,
@@ -2473,6 +2518,14 @@ def phase_serve(dev, lm: dict) -> dict:
         del state
     print("phase 15a: progressive decode step profile: "
           + json.dumps(prof_decode), flush=True)
+    # phase 18 holds the mesh's prefill and first MESH_STEPS steps to these
+    n = MESH_STEPS + 1
+    mesh_ref = {ee: (r["tokens"][:, :n].cpu(), r["levels"][:, :n].cpu(),
+                     [lg.cpu() for lg in r["logits"][:n]])
+                for ee, r in ((False, scan), (True, early))}
+    hq = params["head_q"]
+    head_bytes = hq.q.numel() + hq.planes.stack.numel() + \
+        hq.scale.numel() * hq.scale.element_size()
     del scan["logits"], early["logits"]
 
     rows = b2_head_rows(dev)
@@ -2486,7 +2539,8 @@ def phase_serve(dev, lm: dict) -> dict:
     return {"run": run, "early": exit_run, "rows": rows,
             "buckets": buckets, "engines": engines, "launcher": launcher,
             "prof_decode": prof_decode, "prof_head": prof_head,
-            "seconds": seconds}
+            "seconds": seconds, "mesh_ref": mesh_ref,
+            "head_bytes": head_bytes}
 
 
 # ------------------------------------------------------------------ slice 10
@@ -3374,6 +3428,386 @@ def lm_totals(rows: list[dict], where: tuple[str, ...]) -> dict:
                         "bound_ms")}
 
 
+# ------------------------------------------------------------------ slice 12
+# the consensus level walk on a 2x2 mesh: four ranks of one process group
+# over gloo, every rank on the machine's one card (NCCL refuses two ranks
+# on one device), the backbone replicated and the head split by class
+MESH_SHAPE = (2, 2)  # (data, model)
+MESH_WORLD = MESH_SHAPE[0] * MESH_SHAPE[1]
+MESH_STEPS = 8  # decode steps after the 8 x 2048 prefill (18b)
+MESH_DEADLINE_S = 900
+
+
+class WalkProbe:
+    """While active, ``module.streaming_argmax`` is wrapped: each walk of
+    this rank (its caller passes the mesh) is timed (host clock between
+    synchronizes), its collectives are counted and required equal to
+    ``sharded_walk_collectives`` for the levels it ran, and its head
+    input (int8 codes and scales) is required identical on every rank (a
+    MAX and a MIN all-reduce of a checksum, outside the walk's count).
+    The walk's collectives (policy.all_reduce, progressive.all_gather)
+    are wrapped too and timed the same way, host staging included."""
+
+    def __init__(self, module, mesh):
+        self.module, self.mesh = module, mesh
+        self.walks: list[dict] = []
+        self.inputs: list = []
+        self.coll_s = 0.0
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.coll_s += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        from repro_torch.core import policy, progressive
+
+        self.patched = [(self.module, "streaming_argmax", self._walk),
+                        (policy, "all_reduce", None),
+                        (progressive, "all_gather", None)]
+        self.real_fns = []
+        for mod, name, new in self.patched:
+            real = getattr(mod, name)
+            self.real_fns.append(real)
+            setattr(mod, name, new or self._timed(real))
+        self.real = self.real_fns[0]
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), real in zip(self.patched, self.real_fns):
+            setattr(mod, name, real)
+
+    def _walk(self, xq, wq, xs, ws, *args, **kw):
+        from repro_torch.core.progressive import sharded_walk_collectives
+        from repro_torch.sharding import collectives
+
+        torch.cuda.synchronize()
+        before = dict(collectives.COUNTS)
+        coll_s = self.coll_s
+        t0 = time.perf_counter()
+        out = self.real(xq, wq, xs, ws, *args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        made = {k: collectives.COUNTS[k] - before[k] for k in before}
+        early = kw.get("early_exit", False)
+        run = int(out[2].max()) + 1 if early else N_LEVELS
+        want = sharded_walk_collectives(run, True, True, early)
+        require(made == want, f"a walk of {run} levels made collectives "
+                              f"{made}, the code derives {want}")
+        self.walks.append({"ms": ms, "levels": run, "collectives": made,
+                           "collective_ms": (self.coll_s - coll_s) * 1e3})
+        self.inputs.append((xq, xs))
+        same_on_every_rank(self.mesh, xq, xs)
+        return out
+
+
+def same_on_every_rank(mesh, xq, xs) -> None:
+    """Require this rank's head input equal to every other rank's: a
+    position-weighted checksum of the int8 codes and of the scales' bits,
+    MAX- and MIN-reduced over the whole mesh."""
+    from repro_torch.sharding.collectives import all_reduce
+
+    q = xq.reshape(-1).to(torch.int64)
+    w = torch.arange(q.numel(), device=q.device) % 65521 + 1
+    c = torch.stack([(q * w).sum(), xs.to(torch.float32).contiguous()
+                     .view(torch.int32).to(torch.int64).sum()])
+    group = mesh.group(("data", "model"))
+    require(torch.equal(all_reduce(c, "max", group),
+                        all_reduce(c, "min", group)),
+            "the head input differs between ranks: the replicated backbone "
+            "is not replicated")
+
+
+def shard_shape_check(xq_rows, cache, where: str) -> dict:
+    """Kernel B2 and B1's level slabs at this rank's shard shape (its rows
+    of the head input against its slice of the head cache, the cache's
+    K-major D-plane view read in place), bit for bit against their plain
+    versions; B2 timed beside its plain version, its bound and
+    torch._int_mm on the unstacked slice (checked against the final
+    plane)."""
+    from repro_torch.core.quant import stack_planes_lhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    a = stack_planes_lhs(xq_rows)
+    b = cache.planes.core_stack(shifted=True)
+    got = kernel.l2r_gemm_streaming_planes(a, b)
+    require(torch.equal(got, kernel.l2r_gemm_streaming_planes_plain(a, b)),
+            f"B2 != plain at the shard shape of {where}")
+    for t in range(N_LEVELS):
+        require(torch.equal(
+            kernel.l2r_gemm_stacked_planes(a, b, levels=t + 1,
+                                           first_level=t),
+            kernel.l2r_gemm_stacked_planes_plain(a, b, levels=t + 1,
+                                                 first_level=t)),
+            f"B1 level slab {t} != plain at the shard shape of {where}")
+    lib, lib_fn, padded = int_mm(xq_rows, cache.q)
+    require(torch.equal(lib, got[-1]), f"torch._int_mm disagrees with B2's "
+                                       f"final plane at {where}")
+    (m, k), n, d = xq_rows.shape, b.shape[1], 4
+    bound_ms, by = bound(2 * m * n * k * d * d,
+                         m * d * k + d * k * n + N_LEVELS * m * n * 4)
+    fn = lambda: kernel.l2r_gemm_streaming_planes(a, b)  # noqa: E731
+    return {"where": where, "m": m, "k": k, "n": n, "ms": time_ms(fn),
+            "kernel_ms": stream_ms(fn),
+            "plain_ms": time_ms(
+                lambda: kernel.l2r_gemm_streaming_planes_plain(a, b),
+                iters=3, warmup=1),
+            "library_ms": time_ms(lib_fn), "int_mm_padded": padded,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def mesh_rows(mesh, xq):
+    m_l = xq.shape[0] // MESH_SHAPE[0]
+    r0 = mesh.index("data") * m_l
+    return xq[r0:r0 + m_l]
+
+
+def mesh_vgg(dev, mesh) -> dict:
+    """18a on this rank: phase 3's weights and batches, fc8's cache split
+    over the model axis (500 classes a rank), each batch classified with
+    the scan (119 B1 + 1 B2 launches) and with early exit (119 B1 + one
+    per level run)."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import cnn
+
+    cfg = QuantConfig()
+    params = cnn.vgg16_build(1000, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    weights_q = cnn.vgg16_quantize_weights(params, cfg, mesh=mesh)
+    require(weights_q["fc8"].q.shape[-1] == 1000 // MESH_SHAPE[1],
+            "fc8's cache is not split by class")
+    gi = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randn((BATCH, 224, 224, 3), generator=gi, device=dev)
+               for _ in range(3)]
+    out = {"results": {}, "launches": {}}
+    with WalkProbe(cnn, mesh) as probe:
+        for early_exit in (False, True):
+            res, launched = [], {k: 0 for k in KERNELS}
+            for x in batches:
+                reset_counts()
+                pred, lv, logits = cnn.vgg16_classify_progressive(
+                    params, x, cfg, weights_q, early_exit=early_exit,
+                    device=dev, mesh=mesh)
+                torch.cuda.synchronize()
+                n = counts()
+                want = only(l2r_stacked_gemm=119 + int(lv.max()) + 1) \
+                    if early_exit else only(l2r_stacked_gemm=119,
+                                            l2r_streaming_gemm=1)
+                require(n == want, f"18a launches {n} (early_exit="
+                                   f"{early_exit}), expected {want}")
+                launched = {k: launched[k] + n[k] for k in n}
+                res.append((pred.cpu(), lv.cpu(), logits.cpu()))
+            out["results"][early_exit] = res
+            out["launches"][early_exit] = launched
+    out["walks"] = probe.walks
+    out["shard_shape"] = shard_shape_check(
+        mesh_rows(mesh, probe.inputs[0][0]), weights_q["fc8"], "fc8")
+    return out
+
+
+def mesh_lm(dev, mesh, head_bytes_whole: int) -> dict:
+    """18b on this rank: phase 13's model with the head cache split by
+    vocabulary (24,576 columns a rank), a progressive prefill of 8 x 2048
+    tokens and MESH_STEPS decode steps with the scan and with early exit
+    (launches per call as phase 15's), then the gateway over phase 15e's
+    requests."""
+    import hashlib
+
+    from repro_torch.serve import ServingGateway, engine
+
+    cfg, params, prep_s = lm_model(dev, mesh=mesh)
+    hq = params["head_q"]
+    head_bytes = hq.q.numel() + hq.planes.stack.numel() + \
+        hq.scale.numel() * hq.scale.element_size()
+    require(2 * head_bytes == head_bytes_whole,
+            f"this rank's head cache is {head_bytes} bytes; phase 15's "
+            f"whole cache {head_bytes_whole}")
+    prompt = lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 130)
+    out = {"head_cache_bytes": head_bytes, "prepare_params_s": prep_s}
+    with WalkProbe(engine, mesh) as probe:
+        for early_exit in (False, True):
+            r = progressive_run(cfg, params, prompt, early_exit,
+                                steps=MESH_STEPS, mesh=mesh)
+            logits = torch.stack(r["logits"]).cpu()
+            out[early_exit] = {
+                "tokens": r["tokens"].cpu(), "levels": r["levels"].cpu(),
+                "logits": logits,
+                "logits_sha256": hashlib.sha256(
+                    logits.view(torch.int16).numpy().tobytes()).hexdigest(),
+                "prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
+                "launches": r["launches"]}
+        walks = probe.walks
+        out["shard_shape"] = shard_shape_check(
+            mesh_rows(mesh, probe.inputs[-1][0]), hq, "the LM head")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gw = ServingGateway(cfg, params, n_slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, progressive=True,
+                            early_exit=True, prefill_group=SERVE_GROUP,
+                            device=dev, mesh=mesh)
+        warm_s = time.perf_counter() - t0
+        reqs = serve_requests(cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        gw.run(reqs)
+        torch.cuda.synchronize()
+        out["gateway"] = {"reqs": served(reqs), "stats": served_stats(gw),
+                          "seconds": time.perf_counter() - t0,
+                          "warmup_s": warm_s, "launches": counts()}
+        gw.close()
+    # walks: the scan's prefill and steps, early exit's, the gateway's
+    out["walk_ms_per_step"] = {
+        ee: statistics.median(w["ms"] for w in walks[i + 1:i + 1 + MESH_STEPS])
+        for ee, i in ((False, 0), (True, MESH_STEPS + 1))}
+    out["collective_share_of_walk"] = sum(
+        w["collective_ms"] for w in walks) / sum(w["ms"] for w in walks)
+    out["walks"] = len(walks)
+    return out
+
+
+def mesh_rank(head_bytes_whole: int) -> dict:
+    """One rank of phase 18 (run by spawn_local): the card, the mesh, 18a
+    and 18b.  The kernels were built in phase 1: a rank only loads them."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for name, src in _build.sources().items():
+        require(_build._target(src).exists(),
+                f"{name} is not built: phase 18's ranks only load kernels")
+    mesh = make_local_mesh(*MESH_SHAPE)
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank(), "coords": mesh.coords(),
+           "backend": dist.get_backend()}
+    out["vgg"] = mesh_vgg(dev, mesh)
+    out["vgg_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["lm"] = mesh_lm(dev, mesh, head_bytes_whole)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    if out["rank"]:  # the logits travel once, from rank 0
+        for ee in (False, True):
+            del out["lm"][ee]["logits"]
+    return out
+
+
+def phase_mesh(dev, prog: dict, serve: dict) -> dict:
+    """Phase 18: four ranks (2 x 2 mesh) on the one card over gloo, each
+    holding the backbone whole and its slice of the head; their results
+    against phases 4, 15a/15b and 15e bit for bit."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn_local
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    print(f"phase 18: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+          f"{MESH_SHAPE[1]} (data x model) mesh over gloo, all on the one "
+          f"card ({smi}): four processes sharing one card, not a multi-GPU "
+          f"figure", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_local(MESH_WORLD, mesh_rank, serve["head_bytes"],
+                        deadline_s=MESH_DEADLINE_S)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        rk = r["rank"]
+        require(r["backend"] == "gloo", f"rank {rk}: backend {r['backend']}")
+        for ee in (False, True):
+            for got, ref in zip(r["vgg"]["results"][ee],
+                                prog["results"][ee]):
+                require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                        f"rank {rk}: 18a classes, levels or logits "
+                        f"(early_exit={ee}) differ from phase 4's")
+            tok, lv, lgs = serve["mesh_ref"][ee]
+            lm = r["lm"][ee]
+            require(torch.equal(lm["tokens"], tok)
+                    and torch.equal(lm["levels"], lv),
+                    f"rank {rk}: 18b tokens or exit levels (early_exit="
+                    f"{ee}) differ from phase 15's")
+            require(lm["logits_sha256"] == ranks[0]["lm"][ee]
+                    ["logits_sha256"], f"rank {rk}: 18b logits differ from "
+                                       f"rank 0's")
+        require(r["lm"]["gateway"]["reqs"] == serve["engines"]["gateway_reqs"],
+                f"rank {rk}: the gateway's tokens or exit levels differ from "
+                f"phase 15e's")
+        require(r["lm"]["gateway"]["stats"]
+                == serve["engines"]["gateway_stats"],
+                f"rank {rk}: the gateway's stats differ from phase 15e's")
+    for ee in (False, True):
+        require(torch.equal(ranks[0]["lm"][ee]["logits"],
+                            torch.stack(serve["mesh_ref"][ee][2])),
+                f"18b logits (early_exit={ee}) differ from phase 15's")
+    lm0, vgg0 = ranks[0]["lm"], ranks[0]["vgg"]
+    out = {
+        "card": smi, "backend": "gloo", "ranks": MESH_WORLD,
+        "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+        "seconds": seconds,
+        "per_rank": [{
+            "rank": r["rank"], "coords": r["coords"], "peak_gb": r["peak_gb"],
+            "seconds": r["seconds"], "vgg_s": r["vgg_s"],
+            "vgg_launches": r["vgg"]["launches"],
+            "vgg_walk_ms": [w["ms"] for w in r["vgg"]["walks"]],
+            "lm_prefill_ms": {ee: r["lm"][ee]["prefill_ms"]
+                              for ee in (False, True)},
+            "lm_decode_ms_per_token": {ee: r["lm"][ee]["step_ms"]
+                                       for ee in (False, True)},
+            "lm_launches": {ee: r["lm"][ee]["launches"]
+                            for ee in (False, True)},
+            "walk_ms_per_decode_step": r["lm"]["walk_ms_per_step"],
+            "collective_share_of_walk": r["lm"]["collective_share_of_walk"],
+            "head_cache_bytes": r["lm"]["head_cache_bytes"],
+            "gateway_s": r["lm"]["gateway"]["seconds"],
+            "gateway_launches": r["lm"]["gateway"]["launches"],
+            "shard_shapes": [r["vgg"]["shard_shape"],
+                             r["lm"]["shard_shape"]]}
+            for r in ranks],
+        "collectives_per_walk": {
+            "vgg_scan": vgg0["walks"][0]["collectives"],
+            "vgg_early_exit": vgg0["walks"][3]["collectives"],
+            "vgg_early_exit_levels": vgg0["walks"][3]["levels"]},
+        "head_cache_bytes_whole": serve["head_bytes"],
+        "lm_walks_per_rank": lm0["walks"]}
+    print("phase 18: " + json.dumps(out, default=str), flush=True)
+    print(f"phase 18: 18a VGG-16 (224x224, batch 8, 1000 classes; fc8 500 "
+          f"a rank, 4 rows a rank in the walk) == phase 4 and 18b "
+          f"SmolLM-135M (8 x 2048 prefill + {MESH_STEPS} steps, scan and "
+          f"early exit; the gateway over 15e's {SERVE_REQUESTS} requests) "
+          f"== phases 15a/15b/15e, bit for bit on every rank; launches and "
+          f"collectives exact; head cache half of phase 15's on each rank; "
+          f"{seconds:.1f} s", flush=True)
+    return out
+
+
+def mesh_summary(mesh: dict, lib: str) -> dict:
+    """Kernel ``lib``'s launches on each rank of phase 18 (18a's three
+    batches, 18b's prefill and steps, the gateway run), by control flow,
+    and B2's times at each rank's shard shapes."""
+    out = {"per": f"phase 18: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+                  f"{MESH_SHAPE[1]} mesh over gloo on one card; launches "
+                  f"per rank: 18a over 3 VGG-16 forwards, 18b over the "
+                  f"prefill and {MESH_STEPS} steps, and the gateway run",
+           "card": mesh["card"], "per_rank": []}
+    for r in mesh["per_rank"]:
+        row = {"rank": r["rank"], "gateway": r["gateway_launches"][lib]}
+        for ee, key in ((False, "scan"), (True, "early_exit")):
+            row[f"vgg_{key}"] = r["vgg_launches"][ee][lib]
+            row[f"lm_{key}"] = r["lm_launches"][ee][lib]
+        if lib == "l2r_streaming_gemm":
+            row["shard_shapes"] = r["shard_shapes"]
+        out["per_rank"].append(row)
+    return out
+
+
 def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
                  weight=lambda r: r["count"], **extra) -> dict:
     """The JSON record of one kernel: times per run of its main path (the
@@ -3484,6 +3918,7 @@ def main() -> int:
     serve = phase_serve(dev, lm)
     mix = phase_mixers(dev)
     train = phase_train(dev)
+    mesh = phase_mesh(dev, prog, serve)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -3532,7 +3967,8 @@ def main() -> int:
                          "device_ms_decode_step":
                          serve["prof_decode"].get("B1_ms")},
                      mixers=mixer_summary(mix, "B1", "l2r_stacked_gemm"),
-                     mixer_shapes=mix["b1_rows"]),
+                     mixer_shapes=mix["b1_rows"],
+                     mesh=mesh_summary(mesh, "l2r_stacked_gemm")),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -3553,7 +3989,8 @@ def main() -> int:
                          serve["prof_decode"].get("B2_ms"),
                          "decode_ms_per_token":
                          serve["run"]["decode_ms_per_token"],
-                         "shapes": serve["rows"]}),
+                         "shapes": serve["rows"]},
+                     mesh=mesh_summary(mesh, "l2r_streaming_gemm")),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "

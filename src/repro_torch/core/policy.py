@@ -1,8 +1,8 @@
 """Per-request precision classes: the one decision fold of every
 streaming walk.
 
-The port of ``repro/core/policy.py`` (single device).  A row of a
-streaming walk commits by its class:
+The port of ``repro/core/policy.py``.  A row of a streaming walk commits
+by its class:
 
   * ``exact``      — never early-commits; the walk runs full depth for
                      it and the committed value is the full-precision
@@ -21,8 +21,8 @@ mixed batch serves each row by its own rule inside one level loop.
 ``core/progressive.py:streaming_argmax`` runs over the MSDF prefix
 stream, and :func:`attn_walk_machinery` the decode-attention fold that
 ``models/attention.py:decode_attention`` runs over the score stream.
-The cross-shard reductions of the reference's consensus walk
-(``model_ax``/``dp``) come with the multi-device slice (ROADMAP A13).
+With a mesh the head fold reduces across the ranks that hold the head's
+column slices (the reference's consensus walk).
 
 Every float operation keeps the reference's operands and order, so the
 decisions, committed classes and exit levels are bit-identical to it.
@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.collectives import all_reduce
 
 __all__ = [
     "MODE_EXACT",
@@ -206,9 +208,11 @@ def policy_commit(policy: LevelPolicy | None, decided: torch.Tensor,
 
 def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
                         safety: float, n_levels: int, m_global: int,
+                        n_total: int | None = None,
                         policy: LevelPolicy | None = None,
-                        early_exit: bool = False):
-    """The head-argmax decision fold of a single-device walk.
+                        early_exit: bool = False, mesh=None,
+                        model_ax: str | None = None, dp: tuple = ()):
+    """The head-argmax decision fold: local and sharded are one fold.
 
     Returns ``(fold, init, done_fn, finalize)`` for the streaming
     emitters (``streaming_matmul_scan`` / ``streaming_matmul_while``):
@@ -223,19 +227,50 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
     Float order follows the reference: ``values = acc * xsf * wsr (+
     bias)``, ``bvec = bound * xsf * wsr * f32(1 + safety) + 8 eps *
     max|values|``.
+
+    **Sharded.**  With ``mesh``, ``model_ax`` names the mesh axis the
+    columns are split over (``xsf``, ``wsr``, ``bias`` and the stream are
+    this rank's slices; column ``j`` is global column ``index(model_ax) *
+    n_l + j`` of ``n_total``) and ``dp`` the axes the rows are split over
+    (``m_global`` rows in all).  Each level's decision then comes from
+    exact reductions over the ``model_ax`` group (sharding/collectives.py):
+    one MAX of the row maxima (of ``|values|``, of ``values``, and with a
+    policy of the dequantized prefix), one MIN of the candidate first
+    indices, one MAX of the owner's lower bound and the runner-up's upper
+    bound.  Max and min of the same floats are exact in any order, so
+    decisions, committed tokens and exit levels are the single-device
+    walk's bit for bit.  With ``early_exit`` the rows decided are summed
+    over the ``dp`` group each level, so every rank stops at the same
+    level (core/progressive.py:sharded_walk_collectives counts them).
     """
     dev = xsf.device
     m_l = xsf.shape[0]
     n_l = wsr.shape[-1]
+    n_total = n_l if n_total is None else n_total
     bounds_f32 = bounds_f32.to(dev)
     # JAX folds the Python scalar 1 + safety into float32 once
     widen = torch.tensor(np.float32(1.0 + safety), device=dev)
     eps = torch.tensor(_EPS, device=dev)
-    col = torch.arange(n_l, dtype=torch.int32, device=dev)
+    off = mesh.index(model_ax) * n_l if model_ax else 0
+    col = off + torch.arange(n_l, dtype=torch.int32, device=dev)
+    model_group = mesh.group(model_ax) if model_ax else None
+    dp_group = mesh.group(dp) if dp else None
 
-    def gmax_first(vals):
-        """(max, FIRST index achieving it): jnp.argmax's tie-break."""
-        return vals.amax(-1), vals.argmax(-1).to(torch.int32)
+    def reduce(op: str, *rows):
+        """``rows`` (each (M_l,)) reduced over the model group at once."""
+        if model_group is None:
+            return rows
+        return tuple(all_reduce(torch.stack(rows), op, model_group))
+
+    def first_index(vals, vmax_l, vmax):
+        """The first index achieving the row maximum ``vmax``
+        (jnp.argmax's tie-break): sharded, this shard's first one as a
+        global index, or n_total where it holds none, to be MIN-reduced."""
+        amax_l = vals.argmax(-1).to(torch.int32)
+        if model_group is None:
+            return amax_l
+        return torch.where(vmax_l == vmax, amax_l + off,
+                           torch.full_like(amax_l, n_total))
 
     def dequant_roundtrip(partial):
         """The l2r_matmul_f dequantization: f32 product, output cast,
@@ -252,12 +287,26 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
         values = partial.to(torch.float32) * xsf * wsr
         if bias is not None:
             values = values + bias.to(torch.float32)
-        vmax_abs = values.abs().amax(-1, keepdim=True)
+        vmax_l = values.amax(-1)
+        maxima = [values.abs().amax(-1), vmax_l]
+        if policy is not None:
+            # budget clamp: commit the row from the out_dtype round-trip
+            # of THIS prefix, the value a levels=clamp run would commit
+            _, full = dequant_roundtrip(partial)
+            fmax_l = full.amax(-1)
+            maxima.append(fmax_l)
+        maxima = reduce("max", *maxima)
+        vmax_abs = maxima[0][:, None]
+        cands = [first_index(values, vmax_l, maxima[1])]
+        if policy is not None:
+            cands.append(first_index(full, fmax_l, maxima[2]))
+        cands = reduce("min", *cands)
+        gtop = cands[0]
         bvec = bounds_f32[idx] * xsf * wsr * widen + eps * vmax_abs
-        _, gtop = gmax_first(values)
         own = col[None, :] == gtop[:, None]
-        lb_top = torch.where(own, values - bvec, -torch.inf).amax(-1)
-        ub_others = torch.where(own, -torch.inf, values + bvec).amax(-1)
+        lb_top, ub_others = reduce(
+            "max", torch.where(own, values - bvec, -torch.inf).amax(-1),
+            torch.where(own, -torch.inf, values + bvec).amax(-1))
         if policy is None:
             decided = lb_top > ub_others
         else:
@@ -265,17 +314,18 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
         newly, forced = policy_commit(policy, decided, idx, done)
         tok = torch.where(newly, gtop, tok)
         if policy is not None:
-            # budget clamp: commit the row from the out_dtype round-trip
-            # of THIS prefix, the value a levels=clamp run would commit
-            _, full = dequant_roundtrip(partial)
-            _, ftok = gmax_first(full)
-            tok = torch.where(forced, ftok, tok)
+            tok = torch.where(forced, cands[1], tok)
         commit = newly | forced
         lv = torch.where(commit, idx, lv)
         done = done | commit
         # only the early-exit loop reads the flag; the scan skips the sum
-        all_done = (done.sum() == m_global) if early_exit \
-            else torch.zeros((), dtype=torch.bool, device=dev)
+        if early_exit:
+            n_done = done.sum().to(torch.int32)
+            if dp_group is not None:
+                n_done = all_reduce(n_done, "sum", dp_group)
+            all_done = n_done == m_global
+        else:
+            all_done = torch.zeros((), dtype=torch.bool, device=dev)
         return tok, lv, done, all_done
 
     init = (torch.zeros((m_l,), dtype=torch.int32, device=dev),
@@ -292,7 +342,9 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
         # so `acc` is the full (or levels-truncated) result on both flows
         tok, lv, done, _ = carry
         logits, full = dequant_roundtrip(acc)
-        _, fallback = gmax_first(full)
+        fmax_l = full.amax(-1)
+        (fmax,) = reduce("max", fmax_l)
+        (fallback,) = reduce("min", first_index(full, fmax_l, fmax))
         tok = torch.where(done, tok, fallback)
         return logits, tok, lv
 

@@ -1,6 +1,6 @@
 """Streaming progressive precision: the MSDF prefix stream and its folds.
 
-The port of ``repro/core/progressive.py`` (single device).  The walk over
+The port of ``repro/core/progressive.py``.  The walk over
 significance levels s = 2D-2 .. 0, most significant first, emits after
 every level a prefix that is bit-identical to the stacked schedule
 truncated at that depth (``l2r_matmul_int_stacked(..., levels=t+1)``).
@@ -34,16 +34,25 @@ Routes follow the operands' device; there is no backend switch:
 Decision bounds: :func:`level_bounds` gives per-level hard bounds on the
 unseen tail (core/online.py:tail_bound) as an up-rounded float32, an
 int32 with an exactness guard (``decidable``) and Python ints.
+
+Under a mesh (launch/mesh.py) :func:`streaming_argmax` runs the
+reference's consensus walk on ``torch.distributed``: each rank walks its
+rows against its slice of the columns and the decision fold reduces
+across ranks (:func:`sharded_walk_axes`, :func:`_streaming_argmax_sharded`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import no_tf32
+from repro_torch.sharding import ctx
+from repro_torch.sharding.axes import dp_axes
+from repro_torch.sharding.collectives import all_gather
 
 from .l2r_gemm import _f32_dot_exact, _int_dot, wrap_int32
 from .online import msdf_levels, tail_bound
@@ -60,6 +69,8 @@ __all__ = [
     "streaming_matmul_while",
     "l2r_matmul_int_streaming",
     "streaming_argmax",
+    "sharded_walk_axes",
+    "sharded_walk_collectives",
     "decision_state",
     "earliest_decision_level",
     "scan_plain",
@@ -429,6 +440,7 @@ def streaming_argmax(
     early_exit: bool = False,
     policy: LevelPolicy | None = None,
     cuda_walk: LevelWalk | None = None,
+    mesh=None,
 ):
     """Stream a quantized classifier/LM-head matmul, committing the argmax
     of the *dequantized* scores at the earliest sound level.
@@ -452,7 +464,25 @@ def streaming_argmax(
 
     Returns ``(logits (M, N) out_dtype, tok (M,) int32, exit_level (M,)
     int32)``; exit_level L-1 means the full stream.
+
+    **Sharded walk.**  With a mesh (``mesh=``, else the installed one,
+    sharding/ctx.py) whose ``model`` axis divides N or whose data axes
+    divide M, every rank of the mesh calls this with the same arguments
+    and the walk runs as the consensus walk
+    (:func:`_streaming_argmax_sharded`); every rank gets the global
+    result, bit-identical to the single-device walk's.  ``wq`` may then
+    be this rank's slice of a vocab-sharded cache (a PlaneOperands with a
+    ``shard``, ``ws`` its scales).
     """
+    axes = sharded_walk_axes(_lhs_lead(xq), _n_total(wq), mesh)
+    if axes is not None:
+        return _streaming_argmax_sharded(
+            xq, wq, xs, ws, n_bits, log2_radix, levels, bias, out_dtype,
+            safety, early_exit, policy, cuda_walk, *axes)
+    if _shard(wq) is not None:
+        raise ValueError(f"{wq.describe()} holds one rank's slice of the "
+                         f"columns ({wq.shard.n_total} in all): walk it on "
+                         f"the mesh it was built on (mesh=)")
     d = plane_count(n_bits, log2_radix)
     bounds = level_bounds(d, log2_radix, _contract_k(xq), levels)
     n_levels = len(bounds.exact)
@@ -476,6 +506,160 @@ def streaming_argmax(
             xq, wq, fold, init, n_bits, log2_radix, levels,
             cuda_walk=cuda_walk)
     return finalize(acc, carry)
+
+
+# ------------------------------------------------- sharded streaming walk
+def _shard(wq):
+    return wq.shard if isinstance(wq, PlaneOperands) else None
+
+
+def _n_total(wq) -> int:
+    """The walk's global column count: a sharded cache's whole N."""
+    shard = _shard(wq)
+    return shard.n_total if shard is not None else _rhs_n(wq)
+
+
+def sharded_walk_axes(lead: tuple[int, ...], n: int, mesh=None):
+    """Mesh routing of the streaming walk: ``(mesh, dp_axes, model_axis)``
+    when the consensus walk applies, None otherwise.
+
+    ``mesh`` defaults to the installed mesh (sharding/ctx.py).  The walk
+    splits the rows (M) over the data-parallel axes and the columns (N)
+    over ``model``; an axis that does not divide its dim is dropped (that
+    side is replicated), and when neither is usable (or the mesh is
+    trivial) the caller takes the single-device walk.  Only 2-D tiles
+    (one lead dim) are sharded.
+    """
+    mesh = mesh if mesh is not None else ctx.get_mesh()
+    if mesh is None or len(lead) != 1:
+        return None
+    m = lead[0]
+    dp = dp_axes(mesh)
+    dp_size = ctx.mesh_axis_size(mesh, dp)
+    if dp_size <= 1 or m % dp_size:
+        dp = ()
+    model = "model" if "model" in mesh.axis_names else None
+    if model is not None and (mesh.shape["model"] <= 1
+                              or n % mesh.shape["model"]):
+        model = None
+    if not dp and model is None:
+        return None
+    return mesh, dp, model
+
+
+def sharded_walk_collectives(levels_run: int, model_sharded: bool,
+                             rows_sharded: bool, early_exit: bool) -> dict:
+    """The collectives of one consensus walk that ran ``levels_run``
+    levels (sharding/collectives.py counts): over the model group three
+    all-reduces a level and two in the final fallback, and one gather of
+    the logits; over the data group one all-reduce a level with
+    ``early_exit``, and two gathers (logits; tokens with exit levels)."""
+    reduces = 3 * levels_run + 2 if model_sharded else 0
+    if rows_sharded and early_exit:
+        reduces += levels_run
+    return {"all_reduce": reduces,
+            "all_gather": int(model_sharded) + 2 * int(rows_sharded)}
+
+
+def _row_slice(xq, r0: int, rows: int):
+    if isinstance(xq, PlaneOperands):
+        return dataclasses.replace(xq, stack=xq.stack[r0:r0 + rows])
+    return xq[r0:r0 + rows]
+
+
+def _col_slice(wq, c0: int, cols: int):
+    """Columns [c0, c0 + cols) of a (K, N) operand or (D*K, N) stack, as
+    a view (a K-major cache stays K-major)."""
+    if isinstance(wq, PlaneOperands):
+        if wq.stack.ndim != 2 or wq.axis % 2 != 0:
+            raise ValueError(f"the sharded walk splits the columns of a "
+                             f"(D*K, N) stack, got {wq.describe()}")
+        return dataclasses.replace(wq, stack=wq.stack[:, c0:c0 + cols])
+    return wq[:, c0:c0 + cols]
+
+
+def _local_cols(x: torch.Tensor | None, n_total: int, c0: int, cols: int):
+    """This rank's columns of a per-column vector whose last dim is
+    global (``n_total``); a local or broadcast one is returned as is."""
+    if x is None or x.shape[-1] != n_total:
+        return x
+    return x[..., c0:c0 + cols]
+
+
+def _streaming_argmax_sharded(xq, wq, xs, ws, n_bits, log2_radix, levels,
+                              bias, out_dtype, safety, early_exit, policy,
+                              cuda_walk, mesh, dp, model_ax):
+    """The consensus level walk behind :func:`streaming_argmax`.
+
+    Each rank takes rows ``[i * M/dp, (i+1) * M/dp)`` of the activations
+    (i its index over the ``dp`` axes) and columns ``[j * N/m, (j+1) *
+    N/m)`` of the weights (j its index over ``model_ax``): a global
+    operand is sliced here (a view), a vocab-sharded cache must hold
+    exactly that slice.  K is never split, so each rank's accumulator is
+    the integer-exact block of the single-device one at every level, and
+    the shared decision fold (core/policy.py:head_walk_machinery) reduces
+    its per-level decisions across ranks.  With ``early_exit`` the rows
+    decided are summed over the data axes every level and every rank
+    stops at the same level, the slowest row's.  Then the tokens and exit
+    levels are gathered over the data axes and the logits over both, so
+    every rank returns the global ``(logits (M, N), tok (M,), exit_level
+    (M,))``.
+    """
+    d = plane_count(n_bits, log2_radix)
+    bounds = level_bounds(d, log2_radix, _contract_k(xq), levels)
+    n_levels = len(bounds.exact)
+    m = _lhs_lead(xq)[-1]
+    n_total = _n_total(wq)
+    if policy is not None:
+        if tuple(policy.mode.shape) != (m,):
+            raise ValueError(f"policy rows {tuple(policy.mode.shape)} != "
+                             f"batch rows ({m},)")
+    if dp:
+        m_l = m // ctx.mesh_axis_size(mesh, dp)
+        r0 = mesh.index(dp) * m_l
+        xq, xs = _row_slice(xq, r0, m_l), xs[r0:r0 + m_l]
+        if policy is not None:
+            policy = LevelPolicy(*(t[r0:r0 + m_l] for t in policy))
+    shard = _shard(wq)
+    if model_ax:
+        n_l = n_total // mesh.shape[model_ax]
+        c0 = mesh.index(model_ax) * n_l
+        if shard is None:
+            wq = _col_slice(wq, c0, n_l)
+        elif (shard.axis, shard.offset, _rhs_n(wq)) != (model_ax, c0, n_l):
+            raise ValueError(f"{wq.describe()} holds columns [{shard.offset}"
+                             f", {shard.offset + _rhs_n(wq)}) over "
+                             f"{shard.axis!r}; this rank walks [{c0}, "
+                             f"{c0 + n_l}) over {model_ax!r}")
+        ws = _local_cols(ws.reshape(1, -1), n_total, c0, n_l)
+        bias = _local_cols(bias, n_total, c0, n_l)
+    elif shard is not None:
+        raise ValueError(f"{wq.describe()} holds one rank's slice of the "
+                         f"columns, but the mesh's model axis does not "
+                         f"split them")
+    wsr = ws.reshape(1, -1).to(torch.float32)
+    xsf = xs.to(torch.float32)
+    if policy is not None:
+        policy = policy.to(xsf.device)
+    fold, init, done_fn, finalize = head_walk_machinery(
+        bounds.f32, xsf, wsr, bias, out_dtype, safety=safety,
+        n_levels=n_levels, m_global=m, n_total=n_total, policy=policy,
+        early_exit=early_exit, mesh=mesh, model_ax=model_ax, dp=dp)
+    if early_exit:
+        acc, carry, _ = streaming_matmul_while(
+            xq, wq, fold, init, done_fn, n_bits, log2_radix, levels,
+            cuda_walk)
+    else:
+        acc, carry, _ = streaming_matmul_scan(
+            xq, wq, fold, init, n_bits, log2_radix, levels,
+            cuda_walk=cuda_walk)
+    logits, tok, lv = finalize(acc, carry)
+    if model_ax:
+        logits = all_gather(logits, mesh.group(model_ax), dim=-1)
+    if dp:
+        logits = all_gather(logits, mesh.group(dp), dim=0)
+        tok, lv = all_gather(torch.stack([tok, lv]), mesh.group(dp), dim=1)
+    return logits, tok, lv
 
 
 def earliest_decision_level(result: ProgressiveResult) -> torch.Tensor:

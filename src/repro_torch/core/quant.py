@@ -10,21 +10,26 @@ Low planes hold unsigned digits in [0, radix); the **top plane is signed**
 
 The formulas and their order are the reference's, so the same float input
 gives the same integers (``torch.round`` and ``jnp.round`` both round half
-to even).  Sharded weight caches belong to a later slice and are not here.
+to even).  A weight cache built under a mesh (``quantize_weights(...,
+shard=, mesh=)``) holds only this rank's slice of the output channels and
+records where it lies (:class:`ColumnShard`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.analysis.overflow import check_or_raise
+from repro_torch.sharding.ctx import mesh_axis_size, safe_axes
 
 __all__ = [
     "QuantConfig",
     "QuantizedWeights",
     "PlaneOperands",
+    "ColumnShard",
     "quantize",
     "quantize_weights",
     "dequantize",
@@ -227,6 +232,18 @@ def _pad_blocks(st: torch.Tensor, axis: int, n: int) -> torch.Tensor:
     return torch.cat([st, st.new_zeros(shape)], dim=axis)
 
 
+class ColumnShard(NamedTuple):
+    """Where a sharded weight cache's output channels (its last dim) lie:
+    this rank holds columns ``[offset, offset + n_local)`` of
+    ``n_total``, split over the mesh axis ``axis`` (a name or a tuple of
+    names)."""
+
+    mesh: Any
+    axis: Any
+    n_total: int
+    offset: int
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneOperands:
     """A digit-plane stack as a first-class operand.
@@ -242,6 +259,8 @@ class PlaneOperands:
       pad_planes: trailing zero plane blocks after the D real planes (the
                streaming walk reads fixed-width windows of a (2D-1)-block
                stack; ``window_pad=True`` caches carry the zeros).
+      shard:   a :class:`ColumnShard` when the stack holds one rank's
+               slice of the output channels (None: all of them).
 
     The two layouts convert exactly in both directions
     (:meth:`with_layout`), so every consumer accepts either.
@@ -255,6 +274,7 @@ class PlaneOperands:
     axis: int
     shifted: bool
     pad_planes: int = 0
+    shard: ColumnShard | None = None
 
     @property
     def d(self) -> int:
@@ -365,12 +385,15 @@ class QuantizedWeights:
 
     ``q`` keeps the weight's natural shape ((K, N) dense, (kh, kw, cin,
     cout) conv); ``scale`` broadcasts against the output channels;
-    ``planes`` optionally caches the reversed RHS plane stack.
+    ``planes`` optionally caches the reversed RHS plane stack.  ``shard``
+    is set when all three hold one rank's slice of the output channels
+    (:class:`ColumnShard`).
     """
 
     q: torch.Tensor
     scale: torch.Tensor
     planes: PlaneOperands | None = None
+    shard: ColumnShard | None = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -379,6 +402,24 @@ class QuantizedWeights:
     @property
     def ndim(self) -> int:
         return self.q.ndim
+
+    def stream_operand(self, n_bits: int, log2_radix: int):
+        """The right operand a (K, N) streaming walk reads: the cached
+        plane stack where it matches the digit config, else ``q``.  A
+        sharded cache must offer its stack, which carries the shard (its
+        ``q`` alone would pass for a whole weight)."""
+        p = self.planes
+        if p is not None and p.matches(n_bits, log2_radix, ndim=2,
+                                       side="rhs"):
+            return p
+        if self.shard is not None:
+            raise ValueError(
+                f"a sharded weight cache (columns [{self.shard.offset}, "
+                f"{self.shard.offset + self.q.shape[-1]}) of "
+                f"{self.shard.n_total}) streams through its plane stack: "
+                f"build it with prestack=True for n_bits={n_bits}, "
+                f"log2_radix={log2_radix}")
+        return self.q
 
 
 def quantize_weights(
@@ -390,6 +431,8 @@ def quantize_weights(
     window_pad: bool = False,
     plane_shifted: bool = False,
     k_major: bool = False,
+    shard: tuple | None = None,
+    mesh=None,
 ) -> QuantizedWeights:
     """Symmetric per-channel weight quantization -> :class:`QuantizedWeights`.
 
@@ -402,10 +445,23 @@ def quantize_weights(
     streaming window to that cache.  ``k_major`` lays the cache out with
     its contraction axis innermost in memory, the layout kernel B1 reads
     (made here, once, not per forward).
+
+    ``shard`` + ``mesh`` keep only this rank's slice of the cache: a
+    spec over the raw weight's dims that may name a mesh axis for the
+    last dim only (``(None, "model")``: an LM head's vocab shard).  Where
+    that axis divides the output channels, ``q``, ``scale`` and the plane
+    stack hold this rank's contiguous slice of them (the stack a K-major
+    copy with ``k_major``), equal to the matching columns of the whole
+    cache, and ``shard`` records the slice (:class:`ColumnShard`); an
+    axis that does not divide them leaves the cache whole, as the
+    reference replicates it.
     """
     wf = w.to(torch.float32)
     q, scale = _symmetric_quant(
         wf, _amax(wf, {a % w.ndim for a in channel_axes}), cfg)
+    col = None
+    if shard is not None and mesh is not None:
+        q, scale, col = _column_slice(q, scale, tuple(shard), mesh)
     planes = None
     if prestack:
         axis = 0 if plane_axis is None else plane_axis
@@ -415,4 +471,26 @@ def quantize_weights(
                                            axis=axis, shifted=plane_shifted,
                                            window_pad=window_pad,
                                            k_major=k_major)
-    return QuantizedWeights(q, scale, planes)
+        planes = dataclasses.replace(planes, shard=col)
+    return QuantizedWeights(q, scale, planes, col)
+
+
+def _column_slice(q: torch.Tensor, scale: torch.Tensor, shard: tuple, mesh):
+    """This rank's slice of the output channels of (q, scale) under the
+    spec ``shard``, and its :class:`ColumnShard` (None: whole)."""
+    axes = safe_axes(mesh, tuple(q.shape), shard)
+    if any(a is not None for a in axes[:-1]):
+        raise ValueError(f"quantize_weights: shard={shard!r} splits a dim "
+                         f"other than the output channels; only the last "
+                         f"dim of a weight cache is sharded")
+    ax = axes[-1]
+    if ax is None or mesh_axis_size(mesh, ax) == 1:
+        return q, scale, None
+    n = q.shape[-1]
+    n_l = n // mesh_axis_size(mesh, ax)
+    off = mesh.index(ax) * n_l
+    # a per-tensor scale (last dim 1) is every slice's
+    sc = scale[..., off:off + n_l].contiguous() if scale.shape[-1] == n \
+        else scale
+    return (q[..., off:off + n_l].contiguous(), sc,
+            ColumnShard(mesh, ax, n, off))

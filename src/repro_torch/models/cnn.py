@@ -31,6 +31,8 @@ from repro_torch.device import no_tf32, resolve_device
 from repro_torch.kernels.l2r_gemm.ops import (CUDA_WALK, l2r_conv2d,
                                               l2r_matmul_f)
 from repro_torch.models.resize import resize_7x7 as _resize_7x7
+from repro_torch.sharding import ctx
+from repro_torch.sharding.collectives import gather_columns
 
 __all__ = ["vgg16_build", "vgg16_apply", "vgg16_classify_progressive",
            "vgg16_quantize_weights", "VGG16", "VGG16_CONV_LAYERS"]
@@ -69,17 +71,27 @@ def vgg16_build(n_classes: int = 1000, in_channels: int = 3,
 
 
 def vgg16_quantize_weights(params: dict, cfg: QuantConfig = QuantConfig(),
-                           prestack: bool = True
+                           prestack: bool = True, mesh=None
                            ) -> dict[str, QuantizedWeights]:
     """The L2R weight cache: every weight -> int8 + per-out-channel scale,
     built once at model load.  ``prestack=True`` also caches each layer's
     pre-shifted reversed plane stack (contraction axis -2 for convs, 0
     for the FC head) — kernel B1's operand format, K-major in memory —
-    so no weight plane is extracted or transposed per forward."""
+    so no weight plane is extracted or transposed per forward.
+
+    ``mesh`` (default: the installed mesh, sharding/ctx.py) splits fc8's
+    cache over the ``model`` axis by class: this rank keeps its slice
+    (core/quant.py:quantize_weights ``shard=``), the layout the consensus
+    walk of :func:`vgg16_classify_progressive` reads.  The trunk's caches
+    stay whole."""
+    if mesh is None:
+        mesh = ctx.get_mesh()
     return {name: quantize_weights(
                 p["w"], cfg, prestack=prestack,
                 plane_axis=-2 if p["w"].ndim == 4 else 0,
-                plane_shifted=True, k_major=True)
+                plane_shifted=True, k_major=True,
+                shard=(None, "model") if name == "fc8" else None,
+                mesh=mesh if name == "fc8" else None)
             for name, p in params.items()}
 
 
@@ -114,8 +126,9 @@ def vgg16_apply(
         x, weights_q = _vgg16_trunk(params, torch.as_tensor(images, device=dev),
                                     l2r, levels, weights_q)
         if l2r is not None:
-            return l2r_matmul_f(x, None, l2r, levels, w_q=weights_q["fc8"]) \
-                + params["fc8"]["b"]
+            w8 = weights_q["fc8"]
+            return gather_columns(l2r_matmul_f(x, None, l2r, levels, w_q=w8),
+                                  w8.shard) + params["fc8"]["b"]
         return x @ params["fc8"]["w"] + params["fc8"]["b"]
 
 
@@ -134,6 +147,7 @@ def vgg16_classify_progressive(
     weights_q: dict[str, QuantizedWeights] | None = None,
     early_exit: bool = False,
     device: str | torch.device | None = None,
+    mesh=None,
 ):
     """Classification with online early exit on the fc8 logit stream, on
     ``device`` (CUDA unless ``device="cpu"``).
@@ -152,6 +166,13 @@ def vgg16_classify_progressive(
 
     Returns ``(pred (B,) int32, exit_level (B,) int32, logits (B, C))``;
     exit_level counts MSDF levels consumed (2D-2 = needed everything).
+
+    Under a mesh (``mesh=``, else the installed one) every rank runs the
+    trunk and the head streams as the consensus walk: images split over
+    the data axes, fc8's classes over ``model`` (a cache from
+    ``vgg16_quantize_weights(mesh=)`` holds this rank's classes), early
+    exit at the slowest image; every rank returns the single-device
+    results bit for bit.
     """
     dev = _forward_device(params, device)
     with torch.no_grad(), no_tf32():
@@ -161,13 +182,11 @@ def vgg16_classify_progressive(
         # quantized exactly as l2r_matmul_f does, so the streamed
         # accumulator is the one-shot fc8 accumulator
         xq, xs = quantize(x, l2r, axis=0 if l2r.per_channel else None)
-        p = w_q.planes
-        wq_in = p if (p is not None and p.matches(
-            l2r.n_bits, l2r.log2_radix, ndim=2, side="rhs")) else w_q.q
         logits, pred, exit_level = streaming_argmax(
-            xq, wq_in, xs, w_q.scale, l2r.n_bits, l2r.log2_radix,
-            bias=params["fc8"]["b"], out_dtype=x.dtype, early_exit=early_exit,
-            cuda_walk=CUDA_WALK)
+            xq, w_q.stream_operand(l2r.n_bits, l2r.log2_radix), xs,
+            w_q.scale, l2r.n_bits, l2r.log2_radix, bias=params["fc8"]["b"],
+            out_dtype=x.dtype, early_exit=early_exit, cuda_walk=CUDA_WALK,
+            mesh=mesh)
     return pred, exit_level, logits
 
 

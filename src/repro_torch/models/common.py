@@ -31,10 +31,13 @@ from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.l2r_gemm.ops import l2r_gemm, l2r_matmul_f
+from repro_torch.sharding.axes import P
 
 __all__ = [
     "Param",
     "materialize",
+    "abstract",
+    "partition_specs",
     "tree_map",
     "tree_leaves",
     "tree_unflatten",
@@ -116,6 +119,23 @@ def materialize(tree, generator: torch.Generator | None = None,
         return w.to(dtype)
 
     return tree_map(make, tree)
+
+
+def abstract(tree, param_dtype: torch.dtype = torch.float32):
+    """Stand-ins on the ``meta`` device (shapes and dtypes, no memory):
+    the reference's ShapeDtypeStruct tree."""
+    def f(p: Param) -> torch.Tensor:
+        dtype = param_dtype if p.dtype == torch.float32 else p.dtype
+        return torch.empty(p.shape, dtype=dtype, device="meta")
+
+    return tree_map(f, tree)
+
+
+def partition_specs(tree, rules: dict):
+    """Logical axes -> mesh axes: a tree of sharding/axes.py:P specs
+    (``rules`` values: an axis name, a tuple of names, or None)."""
+    return tree_map(lambda p: P(*(rules.get(a, None) if a is not None
+                                  else None for a in p.axes)), tree)
 
 
 def count_params(tree) -> int:

@@ -15,9 +15,9 @@ experts run one expert at a time, each matmul through ``l2r_matmul_f``
 with an L2R config (one launch of kernel B1 per expert and matmul on the
 card, the expert's weight quantized on every call as the reference's
 vmapped call does: expert stacks are not in the load-time weight
-cache).  The mesh-only ``moe_apply_dp_local``
-is not ported: without a mesh the reference takes :func:`moe_apply`, and
-so does every call here.
+cache).  The mesh-only ``moe_apply_dp_local`` and ``_dp_groups`` are
+not ported (ROADMAP A13b): without a mesh the reference takes
+:func:`moe_apply`, and so does every call here.
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import QuantizedWeights
 from repro_torch.device import resolve_device
+from repro_torch.sharding.collectives import gather_columns
 
 from .attention import (KVCache, apply_rope, chunked_attention,
                         decode_attention, init_kv_cache, update_kv_cache)
@@ -404,8 +405,11 @@ def logits_from_hidden(cfg: ModelConfig, params: dict, hidden: torch.Tensor
     """LM head.  With an L2R config the head matmul runs through the
     digit-plane pipeline like every other matmul; a ``head_q`` cache
     entry (serve/engine.py:prepare_params) skips the per-step head-weight
-    quantization."""
+    quantization; a vocab-sharded one (``prepare_params(mesh=)``) gives
+    this rank's columns, gathered over its mesh axis."""
     if cfg.l2r is not None and "head_q" in params:
-        return dense(hidden, params["head_q"], cfg.l2r, cfg.l2r_levels)
+        head_q = params["head_q"]
+        return gather_columns(dense(hidden, head_q, cfg.l2r, cfg.l2r_levels),
+                              head_q.shard)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return dense(hidden, w.to(hidden.dtype), cfg.l2r, cfg.l2r_levels)

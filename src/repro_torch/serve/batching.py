@@ -12,8 +12,11 @@ shape), tracks per-slot positions in the LMState, and:
 
 The reference donates the state to its jitted decode step; here the
 decode step updates the state in place, and ``donate_state=True``
-asserts that every state tensor keeps its storage across a step.  The
-mesh-aware modes (``mesh=``, ``state_sharding``) are ROADMAP A13.
+asserts that every state tensor keeps its storage across a step.
+
+With a mesh every rank holds the whole slot state and runs the same host
+schedule; only the progressive head walk is sharded (the reference's
+``state_sharding="replicated"``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.core.policy import LevelPolicy, PrecisionClass
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
+from repro_torch.sharding import ctx
 
 from .engine import (bucket_for, make_bucket_prefill_step, make_decode_step,
                      make_prefill_step, prefill_buckets,
@@ -244,9 +248,19 @@ class ContinuousBatcher:
                  progressive: bool = False, early_exit: bool = False,
                  donate_state: bool = True, bucketed: bool | None = None,
                  default_class: PrecisionClass | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None, state_sharding: str = "replicated"):
         """Slots, caches and steps live on ``device`` (CUDA unless given;
         raises without it); ``params`` must already be there.
+
+        ``mesh`` (default: the installed mesh, sharding/ctx.py) makes the
+        engine mesh-aware: every rank of the mesh builds this engine with
+        the same arguments and requests, holds the whole slot state
+        (``state_sharding="replicated"``) and steps the backbone on it,
+        and the progressive head streams as the consensus walk.  Tokens,
+        exit levels and stats equal the unmeshed engine's bit for bit.
+        The reference's ``"batch"`` and ``"specs"`` state layouts are not
+        ported (ROADMAP A13b).
 
         ``donate_state=True`` (default) asserts after every decode step
         that each state tensor kept its storage: the step wrote the
@@ -266,10 +280,19 @@ class ContinuousBatcher:
         :class:`~repro_torch.core.policy.LevelPolicy` rows, so one decode
         loop serves a mixed exact / budget / bounded batch.
         """
+        if state_sharding not in ("replicated", "batch", "specs"):
+            raise ValueError(f"state_sharding={state_sharding!r}: one of "
+                             f"'replicated', 'batch', 'specs'")
+        if state_sharding != "replicated":
+            raise NotImplementedError(
+                f"ContinuousBatcher(state_sharding={state_sharding!r}): the "
+                f"sharded slot-state layouts are ROADMAP A13b; the port "
+                f"serves a mesh with replicated state")
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh if mesh is not None else ctx.get_mesh()
         self.n_slots = n_slots
         self.max_len = max_len
         self.progressive = progressive
@@ -283,11 +306,11 @@ class ContinuousBatcher:
         self.cur_tok = torch.zeros((n_slots, 1), dtype=torch.int32,
                                    device=self.device)
         self.queue: list[Request] = []
-        self._decode = make_decode_step(cfg, progressive=progressive,
-                                        early_exit=early_exit)
+        step_kw = dict(progressive=progressive, early_exit=early_exit,
+                       mesh=self.mesh)
+        self._decode = make_decode_step(cfg, **step_kw)
         self._prefill1 = make_prefill_step(cfg, max_len, cache_dtype,
-                                           progressive=progressive,
-                                           early_exit=early_exit)
+                                           **step_kw)
         if bucketed is None:
             local = any(k == "local" for k, _ in cfg.layer_kinds())
             bucketed = supports_bucketed_prefill(cfg) and \
@@ -296,8 +319,7 @@ class ContinuousBatcher:
         if bucketed:
             self._buckets = prefill_buckets(max_len)
             self._bucket_prefill = make_bucket_prefill_step(
-                cfg, max_len, cache_dtype, progressive=progressive,
-                early_exit=early_exit)
+                cfg, max_len, cache_dtype, **step_kw)
         self.steps = 0
         # saved-levels accounting (progressive mode): histograms over the
         # exit level of every decoded token and of every streamed prefill

@@ -2,7 +2,7 @@
 step factories, bucketed prefill, the progressive LM head, batched
 greedy decoding.
 
-The port of ``repro/serve/engine.py`` on one card: LM families, and the
+The port of ``repro/serve/engine.py``: LM families, and the
 encoder-decoder family (``cfg.family == "encdec"``, whisper) whose
 prefill batches hold ``{"tokens", "frames"}`` and whose decode steps
 read the cross-attention K/V cached at prefill.  PyTorch runs eagerly,
@@ -10,8 +10,13 @@ so the factories return plain functions where the
 reference returns functions to ``jax.jit``, and the serving state is
 updated in place where the reference donates it: a decode step writes
 the caches and ``pos`` into the tensors it was given and returns them.
-The sharding of caches and head (``state_specs``, ``mesh=``) is ROADMAP
-A13 and not here.
+
+Under a mesh (``mesh=``, else the installed one, sharding/ctx.py) every
+rank runs the same steps on the whole batch with the backbone replicated,
+and the progressive head streams as the consensus walk over the vocab
+shard ``prepare_params(mesh=)`` keeps (core/progressive.py).
+:func:`state_specs` gives the reference's cache layouts, which only the
+reference's sharded state modes use.
 
 ``progressive=True`` streams the LM head most-significant level first
 (:func:`progressive_logits_from_hidden`): on the card the scan is one
@@ -33,18 +38,21 @@ from repro_torch.kernels.l2r_gemm.ops import CUDA_WALK
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import quantize_tree
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.encdec import encdec_forward, init_encdec_state
+from repro_torch.models.encdec import (EncDecState, encdec_forward,
+                                       init_encdec_state)
 from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
                                             lm_forward, logits_from_hidden)
+from repro_torch.sharding import ctx
+from repro_torch.sharding.axes import P, dp_axes
 
 __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
            "supports_bucketed_prefill", "progressive_logits_from_hidden",
-           "greedy_generate"]
+           "state_specs", "greedy_generate"]
 
 
 # ------------------------------------------------------- weight preparation
-def prepare_params(cfg: ModelConfig, params, desc=None):
+def prepare_params(cfg: ModelConfig, params, desc=None, mesh=None):
     """Load-time serving weights: build the L2R weight cache ONCE.
 
     When ``cfg.l2r`` is set, every eligible matmul weight becomes a
@@ -73,9 +81,17 @@ def prepare_params(cfg: ModelConfig, params, desc=None):
     then fails on them, in both packages (ROADMAP, "Caveats on the
     reference"); those families serve raw params, each ``dense``
     quantizing its weight per call.
+
+    ``mesh`` (default: the installed mesh, sharding/ctx.py) splits the
+    head cache over the ``model`` axis by vocabulary: this rank keeps its
+    contiguous K-major slice of the int8 head, its scales and its plane
+    stack (core/quant.py:quantize_weights ``shard=``), the layout the
+    consensus head walk reads.  The backbone's records stay whole.
     """
     if cfg.l2r is None:
         return params
+    if mesh is None:
+        mesh = ctx.get_mesh()
     if desc is None:
         assert cfg.family != "encdec", "pass the encdec desc tree explicitly"
         desc = lm_build(cfg)
@@ -84,8 +100,102 @@ def prepare_params(cfg: ModelConfig, params, desc=None):
     if head is not None and not isinstance(head, QuantizedWeights):
         out = {**out, "head_q": quantize_weights(
             head, cfg.l2r, prestack=True, window_pad=True,
-            plane_shifted=True, k_major=True)}
+            plane_shifted=True, k_major=True,
+            shard=(None, "model") if mesh is not None else None,
+            mesh=mesh)}
     return out
+
+
+# ------------------------------------------------------------- shardings
+def _model_axis_for_cache(cfg: ModelConfig, mesh) -> tuple:
+    """(kv_heads_axis, head_dim_axis) for KV caches."""
+    m = mesh.shape.get("model", 1)
+    if cfg.n_kv % m == 0:
+        return ("model", None)
+    if cfg.head_dim % m == 0:
+        return (None, "model")
+    return (None, None)
+
+
+def _bspec(mesh, batch: int):
+    axes = dp_axes(mesh)
+    size = ctx.mesh_axis_size(mesh, axes)
+    if batch % size == 0 and size > 1:
+        return axes
+    if batch % mesh.shape.get("data", 1) == 0:
+        return "data"
+    return None
+
+
+def _add_layer(spec):
+    """A unit layer's spec tree with the stacked (repeats,) axis first."""
+    if isinstance(spec, P):
+        return P(None, *spec)
+    if isinstance(spec, dict):
+        return {k: _add_layer(v) for k, v in spec.items()}
+    return type(spec)(*(None if v is None else _add_layer(v) for v in spec))
+
+
+def state_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                kv_shard: str = "heads"):
+    """The reference's spec tree of ``init_lm_state`` /
+    ``init_encdec_state`` (sharding/axes.py:P leaves): batch over the DP
+    axes when it divides; the model axis on kv-heads (or head_dim) with
+    ``kv_shard="heads"``, on the cache's sequence dim with ``"seq"``; SSM
+    and RG-LRU states on their channel dim."""
+    b = _bspec(mesh, batch)
+    kvh, hd = _model_axis_for_cache(cfg, mesh)
+    m = mesh.shape.get("model", 1)
+
+    def kv_spec():
+        # the plane-stacked key cache's axis (2D-1)*dh is never sharded
+        planes = cfg.attn_l2r is not None
+        if kv_shard == "seq":
+            return KVCache(
+                k=P(b, "model", None, None), v=P(b, "model", None, None),
+                positions=P(b, "model"),
+                k_planes=P(b, "model", None, None) if planes else None,
+                k_scale=P(b, "model", None) if planes else None)
+        return KVCache(
+            k=P(b, None, kvh, hd), v=P(b, None, kvh, hd),
+            positions=P(b, None),
+            k_planes=P(b, None, kvh, None) if planes else None,
+            k_scale=P(b, None, kvh) if planes else None)
+
+    def mixer_spec(kind: str):
+        if kind in ("global", "local"):
+            return kv_spec()
+        if kind == "ssd":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            conv_dim = d_inner + 2 * cfg.ssm_state
+            heads = d_inner // cfg.ssm_head_dim
+            return {
+                "ssd": P(b, "model" if heads % m == 0 else None, None, None),
+                "conv": P(b, None, "model" if conv_dim % m == 0 else None),
+            }
+        if kind == "rec":
+            w = cfg.lru_width or cfg.d_model
+            wa = "model" if w % m == 0 else None
+            return {"h": P(b, wa), "conv": P(b, None, wa)}
+        raise ValueError(kind)
+
+    if cfg.family == "encdec":
+        c = kv_spec()
+        return EncDecState(
+            self_cache=KVCache(k=P(None, *c.k), v=P(None, *c.v),
+                               positions=P(None, *c.positions)),
+            cross_k=P(None, b, None, kvh, hd),
+            cross_v=P(None, b, None, kvh, hd),
+            pos=P(b),
+        )
+    prefix, repeats, unit, suffix = cfg.block_grouping()
+    return LMState(
+        prefix=[mixer_spec(kk[0]) for kk in prefix],
+        stack=([_add_layer(mixer_spec(kk[0])) for kk in unit]
+               if repeats else None),
+        suffix=[mixer_spec(kk[0]) for kk in suffix],
+        pos=P(b),
+    )
 
 
 # ------------------------------------------------------------ step factories
@@ -116,13 +226,14 @@ def _check_progressive(cfg: ModelConfig, progressive: bool) -> None:
 
 
 def _head(cfg: ModelConfig, params, hidden, progressive: bool,
-          early_exit: bool, policy: LevelPolicy | None):
+          early_exit: bool, policy: LevelPolicy | None, mesh):
     """The LM head on ``hidden`` (B, 1, d): ``logits`` one-shot, or
     ``(logits, tok (B, 1) int32, exit_level (B, 1) int32)`` streamed."""
     if not progressive:
         return logits_from_hidden(cfg, params, hidden)
     logits, tok, lv = progressive_logits_from_hidden(
-        cfg, params, hidden, early_exit=early_exit, policy=policy)
+        cfg, params, hidden, early_exit=early_exit, mesh=mesh,
+        policy=policy)
     return logits, tok.to(torch.int32), lv
 
 
@@ -130,6 +241,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
                       cache_dtype: torch.dtype = torch.bfloat16,
                       progressive: bool = False,
                       early_exit: bool = False,
+                      mesh=None,
                       policy: LevelPolicy | None = None) -> Callable:
     """(params, batch[, policy]) -> (state, last_token_logits (B, 1, V)).
 
@@ -146,6 +258,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     ``early_exit`` stops the level loop once every row has decided.
     ``policy`` (the factory default, overridable per call as the
     trailing argument) gives each batch row its precision class.
+    ``mesh`` overrides the installed mesh for the head's walk; the
+    backbone runs whole on every rank.
     """
     _check_step_flags(progressive, early_exit, policy)
     _check_progressive(cfg, progressive)
@@ -170,7 +284,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
                 rope_positions=batch.get("rope_positions"), mode="prefill",
                 state=state)
         head = _head(cfg, params, hidden[:, -1:], progressive, early_exit,
-                     policy if policy is not None else default_policy)
+                     policy if policy is not None else default_policy, mesh)
         return (state, *head) if progressive else (state, head)
 
     return prefill
@@ -236,6 +350,7 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_len: int,
                              cache_dtype: torch.dtype = torch.bfloat16,
                              progressive: bool = False,
                              early_exit: bool = False,
+                             mesh=None,
                              policy: LevelPolicy | None = None) -> Callable:
     """(params, tokens (B, Lb), true_len (B,)[, policy]) ->
     make_prefill_step's returns.
@@ -252,7 +367,8 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_len: int,
     pad the batch with dummy rows (``true_len = 1``) and ignore their
     outputs.  Attention families only (:func:`supports_bucketed_prefill`);
     local (ring) windows require the bucket to fit the window, asserted
-    per call.  ``policy`` works as in :func:`make_prefill_step`.
+    per call.  ``policy`` and ``mesh`` work as in
+    :func:`make_prefill_step`.
     """
     _check_step_flags(progressive, early_exit, policy)
     assert supports_bucketed_prefill(cfg), \
@@ -276,14 +392,14 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_len: int,
         h_last = hidden[rows, true_len.long() - 1][:, None]  # (B, 1, d)
         state = _mask_bucket_state(state, true_len)
         head = _head(cfg, params, h_last, progressive, early_exit,
-                     policy if policy is not None else default_policy)
+                     policy if policy is not None else default_policy, mesh)
         return (state, *head) if progressive else (state, head)
 
     return prefill
 
 
 def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
-                                   early_exit: bool = False,
+                                   early_exit: bool = False, mesh=None,
                                    policy: LevelPolicy | None = None):
     """Stream the LM head level by level, committing each row's token at
     its earliest sound MSDF level.
@@ -304,14 +420,17 @@ def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
     stack matches the config: on the card kernel B2 (the scan) and B1's
     level slabs (early exit) read its pre-shifted, K-major planes in
     place, with no per-step operand preparation.
+
+    Under a mesh (``mesh=``, else the installed one) the head streams as
+    the consensus walk (rows over the data axes, the vocabulary over
+    ``model``, a ``prepare_params(mesh=)`` cache holding this rank's
+    slice), with the single-device results on every rank.
     """
     qcfg = cfg.l2r or QuantConfig()
     if "head_q" in params:  # the prepare_params load-time head cache
-        wq, ws = params["head_q"].q, params["head_q"].scale
-        p = params["head_q"].planes
-        if p is not None and p.matches(qcfg.n_bits, qcfg.log2_radix,
-                                       ndim=2, side="rhs"):
-            wq = p  # cached plane stack: zero per-step operand prep
+        head_q = params["head_q"]
+        wq, ws = head_q.stream_operand(qcfg.n_bits, qcfg.log2_radix), \
+            head_q.scale
     else:
         w = params["embed"].T if cfg.tie_embeddings else params["head"]
         wq, ws = quantize(w.to(hidden.dtype), qcfg, axis=-1)
@@ -323,12 +442,13 @@ def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
     logits, tok, lv = streaming_argmax(
         xq, wq, xs, ws, qcfg.n_bits, qcfg.log2_radix, levels=cfg.l2r_levels,
         out_dtype=hidden.dtype, early_exit=early_exit, policy=policy,
-        cuda_walk=CUDA_WALK)
+        cuda_walk=CUDA_WALK, mesh=mesh)
     return logits.reshape(*lead, -1), tok.reshape(lead), lv.reshape(lead)
 
 
 def make_decode_step(cfg: ModelConfig, progressive: bool = False,
                      early_exit: bool = False,
+                     mesh=None,
                      policy: LevelPolicy | None = None) -> Callable:
     """(params, state, tokens (B, 1)[, rope_positions, policy]) ->
     (state, next_tokens (B, 1) int32, logits (B, 1, V)).
@@ -343,6 +463,7 @@ def make_decode_step(cfg: ModelConfig, progressive: bool = False,
     row has decided (the logits are then the exit-level prefix).
     ``policy`` (the factory default, overridable per call as the trailing
     argument) streams the head under per-slot precision classes.
+    ``mesh`` works as in :func:`make_prefill_step`.
     """
     _check_step_flags(progressive, early_exit, policy)
     _check_progressive(cfg, progressive)
@@ -359,7 +480,7 @@ def make_decode_step(cfg: ModelConfig, progressive: bool = False,
         state.pos.copy_(new.pos)  # the caches are already written in place
         new.pos = state.pos
         head = _head(cfg, params, hidden, progressive, early_exit,
-                     policy if policy is not None else default_policy)
+                     policy if policy is not None else default_policy, mesh)
         if progressive:
             logits, tok, lv = head
             return new, tok, logits, lv

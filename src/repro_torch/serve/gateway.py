@@ -36,8 +36,14 @@ independent, and decode rows are independent.  (On the card, PyTorch's
 row reductions, rms_norm's mean among them, give each row more threads
 when a call holds fewer than 16 rows; a prompt shorter than 16 tokens
 can then round differently in the batcher's one-row prefill than in a
-packed one.)  The reference's ``mesh=``
-(replicated state, sharded head walk) is ROADMAP A13.
+packed one.)
+
+With a mesh (``mesh=``) every rank runs the same gateway on the same
+requests with the whole slot state, and the progressive head streams as
+the consensus walk.  The ranks must then take the same schedule, so the
+loop reads EOS retirements only after the emit queue has drained (a host
+wait a step), and ``run(realtime=True)``, whose admissions follow each
+rank's own clock, is refused.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from repro_torch.core.policy import LevelPolicy, PrecisionClass
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
+from repro_torch.sharding import ctx
 
 from .batching import (Request, _check_params_device, _row, _splice,
                        _storage, latency_percentiles, progressive_stats,
@@ -147,6 +154,11 @@ class ServingGateway:
     ``bounded(0.0)``); admission splices each request's class into the
     per-slot LevelPolicy rows, and packed prefills carry a per-row group
     policy.
+
+    ``mesh`` (default: the installed mesh, sharding/ctx.py) serves with
+    replicated state and the sharded head walk, as the batcher's
+    ``mesh=``; tokens, exit levels and the stats' counts and histograms
+    equal the unmeshed gateway's bit for bit.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -156,13 +168,14 @@ class ServingGateway:
                  aot_warmup: bool = True, async_emit: bool = True,
                  emit_queue_depth: int = 8,
                  default_class: PrecisionClass | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         assert supports_bucketed_prefill(cfg), \
             "gateway serving needs bucketed prefill: attention families only"
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh if mesh is not None else ctx.get_mesh()
         self.n_slots = n_slots
         self.max_len = max_len
         self.cache_dtype = cache_dtype
@@ -187,11 +200,11 @@ class ServingGateway:
             [self.default_class] * n_slots, device=self.device)
             if progressive else None)
 
-        self._prefill_fn = make_bucket_prefill_step(
-            cfg, max_len, cache_dtype, progressive=progressive,
-            early_exit=early_exit)
-        self._decode_fn = make_decode_step(cfg, progressive=progressive,
-                                           early_exit=early_exit)
+        step_kw = dict(progressive=progressive, early_exit=early_exit,
+                       mesh=self.mesh)
+        self._prefill_fn = make_bucket_prefill_step(cfg, max_len, cache_dtype,
+                                                    **step_kw)
+        self._decode_fn = make_decode_step(cfg, **step_kw)
         self.warmup_s: dict = {}
         if aot_warmup:
             self.warmup()
@@ -294,6 +307,10 @@ class ServingGateway:
         ``realtime=True`` honors future ``Request.t_arrival`` stamps (a
         pre-stamped trace replays in real time); otherwise every queued
         request is admissible at once."""
+        if realtime and self.mesh is not None:
+            raise ValueError("run(realtime=True) admits by each rank's own "
+                             "clock; under a mesh the ranks must take the "
+                             "same schedule")
         if requests is not None:
             for r in requests:
                 self.submit(r)
@@ -464,6 +481,8 @@ class ServingGateway:
                 slot, self.default_class)
 
     def _drain_eos_signals(self):
+        if self.mesh is not None:  # every rank reads the same signals
+            self._flush_emit()
         with self._eos_lock:
             signals, self._eos_signals = self._eos_signals, set()
         for slot, gen in signals:

@@ -1,0 +1,132 @@
+"""Logical-axis -> mesh-axis rules for params, optimizer state and data.
+
+The port of ``repro/sharding/axes.py``: pure functions of shapes and a
+mesh's ``shape`` and ``axis_names``, returning :class:`P` specs (the
+reference's ``PartitionSpec``, as a tuple of per-dim entries: a mesh
+axis name, a tuple of names, or None).
+
+Production meshes (launch/mesh.py): (data=16, model=16) and (pod=2,
+data=16, model=16).  Parameter logical axes: ``vocab``, ``qkv``, ``ffn``
+and ``experts`` -> "model"; ``embed`` and ``layers`` replicated.  The
+optimizer state additionally shards its largest replicated divisible
+dim over "data" (ZeRO-1).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.sharding.ctx import mesh_axis_size
+
+__all__ = [
+    "P",
+    "PARAM_RULES",
+    "dp_axes",
+    "batch_spec",
+    "safe_spec",
+    "param_specs",
+    "zero1_specs",
+    "logical_rules",
+]
+
+PARAM_RULES: dict[str, Any] = {
+    "vocab": "model",
+    "embed": None,
+    "qkv": "model",
+    "ffn": "model",
+    "experts": "model",
+    "layers": None,
+}
+
+
+def _entry(e):
+    """A spec entry as the reference's PartitionSpec keeps it: a list as
+    a tuple, a tuple of one name as that name."""
+    if isinstance(e, (list, tuple)):
+        e = tuple(e)
+        return e[0] if len(e) == 1 else e
+    return e
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dim of the operand (a mesh
+    axis name, a tuple of names, or None = replicated)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}" if len(self) != 1 \
+            else f"P({self[0]!r})"
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def logical_rules(mesh) -> dict[str, Any]:
+    return dict(PARAM_RULES)
+
+
+def batch_spec(mesh, batch_size: int) -> P:
+    """Tokens/labels (B, S): batch over the DP axes when divisible."""
+    axes = dp_axes(mesh)
+    size = mesh_axis_size(mesh, axes)
+    if batch_size % size == 0:
+        return P(axes, None)
+    if batch_size % mesh.shape["data"] == 0:
+        return P("data", None)
+    return P(None, None)
+
+
+def safe_spec(shape: tuple[int, ...], spec: tuple, mesh) -> P:
+    """Replicate any sharded dim the mesh does not divide, and dedupe
+    mesh axes (the leading dim that names an axis keeps it)."""
+    fixed = []
+    used: set = set()
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for dim, ax in zip(shape, spec):
+        if ax is not None and dim % mesh_axis_size(mesh, ax) != 0:
+            ax = None
+        if ax is not None:
+            key = tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+            if used & set(key):
+                ax = None
+            else:
+                used |= set(key)
+        fixed.append(ax)
+    return P(*fixed)
+
+
+def _base_spec(p, rules: dict, mesh) -> P:
+    return safe_spec(p.shape, P(*(rules.get(a, None) if a is not None
+                                  else None for a in p.axes)), mesh)
+
+
+def param_specs(desc_tree, mesh):
+    """The P tree of a Param descriptor tree (models/common.py:Param)."""
+    from repro_torch.models.common import tree_map
+
+    rules = logical_rules(mesh)
+    return tree_map(lambda p: _base_spec(p, rules, mesh), desc_tree)
+
+
+def zero1_specs(desc_tree, mesh):
+    """Optimizer-state specs: the param spec plus "data" on the largest
+    still-replicated dim that divides (ZeRO-1)."""
+    from repro_torch.models.common import tree_map
+
+    rules = logical_rules(mesh)
+    dsize = mesh.shape["data"]
+
+    def f(p):
+        spec = list(_base_spec(p, rules, mesh))
+        best, best_dim = None, 0
+        for i, (dim, s) in enumerate(zip(p.shape, spec)):
+            if s is None and dim % dsize == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        if best is not None:
+            spec[best] = "data"
+        return P(*spec)
+
+    return tree_map(f, desc_tree)

@@ -1,0 +1,109 @@
+"""The installed mesh and the interior sharding hints.
+
+The port of ``repro/sharding/ctx.py``.  The installed mesh
+(:func:`set_mesh`) routes the serving stack onto its sharded paths:
+``core/progressive.py:streaming_argmax`` takes the consensus level walk,
+``quantize_weights(..., shard=)`` keeps this rank's slice of a weight
+cache, and the batcher and the gateway pass the mesh to their steps.  A
+mesh left installed by one caller changes all of that for the next, so
+tests restore ``set_mesh(None)`` after each test.
+
+The reference's hints pin tensors for its partitioner.  PyTorch runs
+eagerly with no partitioner, so :func:`hint`, :func:`hint_dp`,
+:func:`hint_uneven` and :func:`constrain` return their input unchanged;
+they keep the reference's check that a spec names no more dims than the
+operand has.  (The reference's ``hints_disabled`` scope, which turns the
+hints off around a replicated backbone, has nothing to turn off here and
+is not ported.)  A mesh is anything with the reference mesh's ``shape``
+(axis name -> size) and ``axis_names`` (launch/mesh.py:Mesh).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_MESH = None
+
+__all__ = ["set_mesh", "get_mesh", "hint", "hint_dp", "hint_uneven",
+           "mesh_axis_size", "safe_axes", "constrain"]
+
+
+def set_mesh(mesh) -> None:
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh():
+    return _MESH
+
+
+def mesh_axis_size(mesh, axis) -> int:
+    """Total size of a mesh axis entry (name, tuple of names, or None)."""
+    if axis is None:
+        return 1
+    if isinstance(axis, (tuple, list)):
+        return math.prod(mesh.shape[a] for a in axis)
+    return mesh.shape[axis]
+
+
+def _check_spec_rank(x: torch.Tensor, spec: tuple, fn: str) -> None:
+    """A spec longer than the operand's rank raises, with the shapes."""
+    if len(spec) > x.ndim:
+        raise ValueError(
+            f"{fn}: spec {spec!r} has {len(spec)} entries but x has rank "
+            f"{x.ndim} (shape {tuple(x.shape)}); a spec must not name more "
+            f"dims than the operand has — extra entries used to be silently "
+            f"dropped")
+
+
+def safe_axes(mesh, shape: tuple[int, ...], spec: tuple) -> tuple:
+    """Per-dim mesh axes of ``spec`` with unknown axis names dropped and
+    non-divisible dims replicated (the weight-cache sharding of
+    core/quant.py reads this too)."""
+    fixed = []
+    for dim, ax in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        if ax is not None and isinstance(ax, (tuple, list)):
+            ax = tuple(a for a in ax if a in mesh.axis_names) or None
+        if ax is not None and not isinstance(ax, (tuple, list)) \
+                and ax not in mesh.axis_names:
+            ax = None
+        fixed.append(ax if ax is None or dim % mesh_axis_size(mesh, ax) == 0
+                     else None)
+    return tuple(fixed)
+
+
+def constrain(x: torch.Tensor, mesh, *spec) -> torch.Tensor:
+    """The reference's constraint against an explicit mesh: ``x``
+    unchanged, after the rank check (identity when ``mesh`` is None)."""
+    if mesh is None:
+        return x
+    _check_spec_rank(x, spec, "constrain")
+    return x
+
+
+def hint(x: torch.Tensor, *spec) -> torch.Tensor:
+    """``x`` unchanged; with a mesh installed, a spec longer than ``x``'s
+    rank raises."""
+    if _MESH is None:
+        return x
+    return constrain(x, _MESH, *spec)
+
+
+def hint_dp(x: torch.Tensor) -> torch.Tensor:
+    """Dim 0 over the data-parallel axes: ``x`` unchanged."""
+    from repro_torch.sharding.axes import dp_axes  # axes imports this
+
+    if _MESH is None:
+        return x
+    return hint(x, dp_axes(_MESH))
+
+
+def hint_uneven(x: torch.Tensor, *spec) -> torch.Tensor:
+    """The hint without the divisibility guard: ``x`` unchanged, after the
+    rank check."""
+    if _MESH is None:
+        return x
+    _check_spec_rank(x, spec, "hint_uneven")
+    return x

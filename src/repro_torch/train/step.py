@@ -131,14 +131,14 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
 
     Microbatching: the global batch is split on the leading axis and
     grads are accumulated in f32 from zeros, in microbatch order, before
-    one optimizer step.  ``mesh`` must be None: the sharded step is the
-    multi-device slice's (ROADMAP A13).
+    one optimizer step.  ``mesh`` must be None: the sharded step is
+    ROADMAP A13b.
     """
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): the sharded train step (sequence "
-            "sharding, ZeRO-1) is not ported; it is ROADMAP A13, the "
-            "multi-device slice")
+            "sharding, ZeRO-1) is not ported; it is ROADMAP A13b, the "
+            "rest of the multi-device slice")
     loss_fn = make_loss_fn(cfg, tcfg)
 
     def train_step(params, opt_state, batch, ef_state=None):

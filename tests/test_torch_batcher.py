@@ -32,6 +32,7 @@ from repro_torch.serve.batching import (ContinuousBatcher, Request,
                                         infer_batch_axes,
                                         latency_percentiles,
                                         progressive_stats, state_batch_axes)
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m"
 

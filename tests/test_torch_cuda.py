@@ -1229,3 +1229,60 @@ def test_smoke_train_step_on_card_equals_cpu(dev):
     assert abs(met_d["grad_norm"].item() - met_c["grad_norm"].item()) \
         <= 1e-3 * met_c["grad_norm"].item()
 
+
+
+def _head_operands(dev, seed: int = 22):
+    """SmolLM-135M's head at batch 8 (K 576, N 49,152): row-quantized
+    hidden states and the float head, seeded on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((8, 576), generator=g, device=dev)
+    w = torch.randn((576, 49152), generator=g, device=dev) * 0.04
+    xq, xs = quantize(x, QuantConfig(), axis=0)
+    return xq, xs, w
+
+
+_HEAD_CACHE = dict(prestack=True, window_pad=True, plane_shifted=True,
+                   k_major=True)
+
+
+def _sharded_head_walk(early_exit: bool):
+    """One rank of a (1, 2) mesh on the card: its vocab half of the head
+    cache, the consensus walk, and its B2 / B1 launches."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(1, 2)
+    xq, xs, w = _head_operands(dev)
+    cache = quantize_weights(w, QuantConfig(), shard=(None, "model"),
+                             mesh=mesh, **_HEAD_CACHE)
+    for name in kernel.LAUNCHES:
+        kernel.LAUNCHES[name] = 0
+    out = tp.streaming_argmax(xq, cache.planes, xs, cache.scale,
+                              early_exit=early_exit, mesh=mesh,
+                              cuda_walk=ops.CUDA_WALK)
+    torch.cuda.synchronize()
+    return ([t.cpu() for t in out], dict(kernel.LAUNCHES),
+            cache.planes.stack.shape[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_head_walk_on_two_ranks_of_one_card(dev, early_exit):
+    """Two gloo ranks on the one card, each walking its 24,576 columns of
+    SmolLM-135M's head on B2 (or B1's level slabs): logits, tokens and
+    exit levels equal the one-process walk's bit for bit."""
+    from repro_torch.launch.mesh import spawn_local
+
+    xq, xs, w = _head_operands(dev)
+    whole = quantize_weights(w, QuantConfig(), **_HEAD_CACHE)
+    ref = tp.streaming_argmax(xq, whole.planes, xs, whole.scale,
+                              early_exit=early_exit, cuda_walk=ops.CUDA_WALK)
+    ranks = spawn_local(2, _sharded_head_walk, early_exit, deadline_s=300)
+    run = int(ref[2].max()) + 1
+    for got, launches, cols in ranks:
+        assert cols == 24576
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r.cpu())
+        assert launches["l2r_streaming_gemm"] == (0 if early_exit else 1)
+        assert launches["l2r_stacked_gemm"] == (run if early_exit else 0)

@@ -30,6 +30,7 @@ from repro_torch.serve import (ContinuousBatcher, Request, ServingGateway,
                                bucket_for, greedy_generate, prefill_buckets,
                                supports_bucketed_prefill)
 from repro_torch.serve import engine as te
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m"
 

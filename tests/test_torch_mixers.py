@@ -44,6 +44,7 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.serve import ContinuousBatcher, Request
 from repro_torch.serve import engine as teng
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 MIXERS = ["mamba2-130m", "recurrentgemma-2b", "deepseek-moe-16b",
           "llama4-maverick-400b-a17b"]

@@ -54,7 +54,10 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.data", "repro_torch.data.pipeline",
                 "repro_torch.runtime", "repro_torch.runtime.fault",
                 "repro_torch.train", "repro_torch.train.step",
-                "repro_torch.launch.train"]
+                "repro_torch.launch.train", "repro_torch.sharding",
+                "repro_torch.sharding.ctx", "repro_torch.sharding.axes",
+                "repro_torch.sharding.collectives",
+                "repro_torch.launch.mesh"]
 
 
 def _env():

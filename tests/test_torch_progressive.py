@@ -28,6 +28,7 @@ from repro_torch.core import progressive as tp
 from repro_torch.core import quant as tq
 from repro_torch.kernels.l2r_gemm import kernel as tk
 from repro_torch.kernels.l2r_gemm import ops as tops
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 CONFIGS = [(4, 1), (4, 2), (8, 1), (8, 2), (8, 4)]
 RAGGED = [(13, 37, 11), (1, 64, 16)]

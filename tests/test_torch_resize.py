@@ -25,6 +25,7 @@ from repro_torch.configs.vgg16_l2r import SMOKE
 from repro_torch.core import quant as tq
 from repro_torch.models.resize import fma_f32, resize_7x7, resize_weights
 from repro_torch.models.resize_table import MAX_SIZE
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 
 def _map(seed, batch, h, w, c=512):

@@ -35,6 +35,7 @@ from repro_torch.models.common import materialize
 from repro_torch.models.encdec import encdec_build
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.serve import engine as te
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m"
 STEPS = 4  # the prefill's token, then three decode steps

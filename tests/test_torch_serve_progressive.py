@@ -38,6 +38,7 @@ from repro_torch.core import quant as tq
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.serve import engine as te
+from test_torch_train import _one_torch_thread  # noqa: F401
 
 ARCH = "smollm-135m"
 STEPS = 3
