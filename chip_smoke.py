@@ -183,16 +183,43 @@ Phases (any failure exits non-zero; nothing is caught):
      count the code derives (``sharded_walk_collectives``), each walk's
      head input identical on every rank (a MAX and a MIN all-reduce of a
      checksum), B2 and B1's level slabs at the rank's shard shapes bit
-     for bit against their plain versions.  Classes, levels and logits
+     for bit against their plain versions (each slab timed beside its
+     bound).  Classes, levels and logits
      equal phase 4's, tokens, levels and logits 15a/15b's, the gateway's
      tokens, levels and stats 15e's, bit for bit on every rank; prefill
      ms, decode ms a token, the walk's ms a step and the collectives'
      share of it, peak memory, per rank.
+ 19. the data-parallel half of the mesh on phase 18's 2 x 2 mesh (four
+     gloo ranks sharing the card).  19d first, on the card alone: B1 at
+     the ranks' decode rows (M 4) and dp-local expert buffers (M 480),
+     B2 at a rank's head walk (M 4, N 24,576), B5 at batch 4 (19a's f32
+     forward, 19c's bf16 prefill), against their plain versions, timed
+     beside their bounds and torch._int_mm / SDPA.  19a SmolLM-135M as
+     17a (seed 170, f32, remat) trained 3 steps of ``make_train_step(
+     mesh=)`` on the pipeline's global batches 8 x 2048 (4 a data rank),
+     the optimizer state ZeRO-1: 60 B5 launches a step a rank, the loss,
+     grad norm and params identical on every rank (MAX / MIN all-reduce
+     of a checksum), each rank's m / v bytes its zero1_specs share; the
+     losses and grad norms beside 17a's (printed), and one step from the
+     width-rescaled weights within TRAIN_B5_TOL of the one-process step
+     (rank 0 runs both); step ms, the collectives' ms and peak memory.
+     19b 15e's requests through ``ContinuousBatcher(state_sharding=
+     "batch")``, 8 slots, 4 a data rank: tokens, exit levels, prefill
+     exit levels, stats and launches equal 15e's batcher, each rank's
+     slot state half of 15e's bytes.  19c deepseek-moe-16b as phase 16
+     (4 layers, prepared) with ``moe_dp_local``, the head split by
+     vocabulary and the routed experts by model rank (half the expert
+     bytes a rank): an 8 x 2048 prefill of the rank's 4 rows and 2 greedy
+     steps, launches as phase 16's, 6 all-to-alls, 5 gathers and 3 sums a
+     call, the same tokens on every rank, and the first MoE layer's
+     group output equal bit for bit to ``moe_apply`` without a mesh on
+     that group's tokens with the whole expert stacks.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
-B4 and B5 with their 17d rows, B1 and B2 with phase 18's per rank), the
-card again, and the result line.
+B4 and B5 with their 17d rows, B1 and B2 with phase 18's per rank, B1,
+B2 and B5 with phase 19's per rank and its 19d rows), the card again,
+and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
@@ -2252,6 +2279,7 @@ def batcher_vs_gateway(cfg, params, dev) -> dict:
     SOLO_TOKENS tokens) is compared and printed with the top-2 margin at
     its first divergence, not required."""
     from repro_torch.serve import ContinuousBatcher, ServingGateway
+    from repro_torch.serve.batching import _tensors
 
     out = {}
     with torch.no_grad():
@@ -2270,6 +2298,11 @@ def batcher_vs_gateway(cfg, params, dev) -> dict:
         out["batcher"] = engine_stats(st, counts(), b_s)
         out["batcher"]["tokens"] = sum(len(r.output) for r in breqs)
         out["batcher"]["tokens_per_s"] = out["batcher"]["tokens"] / b_s
+        # phase 19b holds the "batch" layout to these
+        out["batcher_reqs"] = served(breqs)
+        out["batcher_stats"] = served_stats(eng)
+        out["batcher_state_bytes"] = sum(
+            t.numel() * t.element_size() for t in _tensors(eng.state))
         print("phase 15e: batcher: " + json.dumps(out["batcher"]),
               flush=True)
         del eng
@@ -3047,7 +3080,7 @@ def train_smollm(dev) -> dict:
     opt = adamw_init(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times, losses, launched = [], [], 0
+    times, losses, gnorms, launched = [], [], [], 0
     for i in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
                  next(pipe).items()}
@@ -3063,6 +3096,7 @@ def train_smollm(dev) -> dict:
                 f"{B5_PER_TRAIN_STEP} of B5 and no other")
         launched += n["flash_attention"]
         losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
         require(np.isfinite(losses[-1]), f"train step {i}: loss "
                 f"{losses[-1]}")
         still = [j for j, (a, b) in enumerate(zip(tree_leaves(params),
@@ -3080,6 +3114,7 @@ def train_smollm(dev) -> dict:
            "warm_step_ms": warm,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / warm * 1e3,
            "peak_memory_gb": peak_gb, "losses": losses,
+           "grad_norms": gnorms,
            "launches": launched, "launches_per_step": B5_PER_TRAIN_STEP,
            "profile": prof}
     return {"cfg": cfg, "ocfg": ocfg, "tcfg": tcfg, "params": params,
@@ -3342,10 +3377,9 @@ def backward_rows(dev) -> list[dict]:
                         out, (q, k, v), w.to(out.dtype), retain_graph=True)
                     row["bwd_ms"] = time_ms(bwd, iters=3, warmup=1)
                     row["bwd_device_ms"] = profile_forward(bwd)["device_ms"]
-                    if not l2r:
-                        with no_tf32():
-                            row["sdpa_fwd_bwd_ms"] = time_ms(
-                                sdpa_fwd_bwd(q, k, v, w), iters=5, warmup=1)
+                    with no_tf32():  # B4's: on the float q, k, v
+                        row["sdpa_fwd_bwd_ms"] = time_ms(
+                            sdpa_fwd_bwd(q, k, v, w), iters=5, warmup=1)
                     pairs = visible_pairs(s, s, True, None)
                     nbytes = (2 * q.numel() + 2 * k.numel()) \
                         * q.element_size() * 2  # fwd + bwd, read + written
@@ -3355,6 +3389,8 @@ def backward_rows(dev) -> list[dict]:
                     fwd_ops, _ = attn_bound(b, h, dh, pairs, dtype, 0)
                     row["fwd_bwd_bound_ms"] = max(  # 7 products: 2 + 5
                         fwd_ops * 3.5, nbytes / PEAK_BYTES * 1e3)
+                    row["bwd_bound_ms"] = max(  # the backward's 5 products
+                        fwd_ops * 2.5, nbytes / 2 / PEAK_BYTES * 1e3)
                     del out
                 rows.append(row)
                 print("phase 17d: " + json.dumps(row), flush=True)
@@ -3438,6 +3474,41 @@ MESH_STEPS = 8  # decode steps after the 8 x 2048 prefill (18b)
 MESH_DEADLINE_S = 900
 
 
+class CollectiveClock:
+    """While active, the collectives of ``sharding/collectives.py`` (and
+    the names modules bound from it) are timed on the host clock between
+    synchronizes, host staging included; ``seconds`` accumulates."""
+
+    NAMES = ("all_reduce", "all_gather", "_all_to_all")
+
+    def __init__(self, *modules):
+        from repro_torch.sharding import collectives
+
+        self.modules = (collectives, *modules)
+        self.seconds = 0.0
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m in self.modules
+                      for n in self.NAMES if hasattr(m, n)]
+        for m, n, f in self.saved:
+            setattr(m, n, self._timed(f))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
 class WalkProbe:
     """While active, ``module.streaming_argmax`` is wrapped: each walk of
     this rank (its caller passes the mesh) is timed (host clock between
@@ -3446,41 +3517,24 @@ class WalkProbe:
     input (int8 codes and scales) is required identical on every rank (a
     MAX and a MIN all-reduce of a checksum, outside the walk's count).
     The walk's collectives (policy.all_reduce, progressive.all_gather)
-    are wrapped too and timed the same way, host staging included."""
+    are timed by a :class:`CollectiveClock`."""
 
     def __init__(self, module, mesh):
         self.module, self.mesh = module, mesh
         self.walks: list[dict] = []
         self.inputs: list = []
-        self.coll_s = 0.0
-
-    def _timed(self, fn):
-        def call(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            self.coll_s += time.perf_counter() - t0
-            return out
-        return call
 
     def __enter__(self):
         from repro_torch.core import policy, progressive
 
-        self.patched = [(self.module, "streaming_argmax", self._walk),
-                        (policy, "all_reduce", None),
-                        (progressive, "all_gather", None)]
-        self.real_fns = []
-        for mod, name, new in self.patched:
-            real = getattr(mod, name)
-            self.real_fns.append(real)
-            setattr(mod, name, new or self._timed(real))
-        self.real = self.real_fns[0]
+        self.clock = CollectiveClock(policy, progressive).__enter__()
+        self.real = self.module.streaming_argmax
+        self.module.streaming_argmax = self._walk
         return self
 
     def __exit__(self, *exc):
-        for (mod, name, _), real in zip(self.patched, self.real_fns):
-            setattr(mod, name, real)
+        self.module.streaming_argmax = self.real
+        self.clock.__exit__(*exc)
 
     def _walk(self, xq, wq, xs, ws, *args, **kw):
         from repro_torch.core.progressive import sharded_walk_collectives
@@ -3488,7 +3542,7 @@ class WalkProbe:
 
         torch.cuda.synchronize()
         before = dict(collectives.COUNTS)
-        coll_s = self.coll_s
+        coll_s = self.clock.seconds
         t0 = time.perf_counter()
         out = self.real(xq, wq, xs, ws, *args, **kw)
         torch.cuda.synchronize()
@@ -3500,7 +3554,8 @@ class WalkProbe:
         require(made == want, f"a walk of {run} levels made collectives "
                               f"{made}, the code derives {want}")
         self.walks.append({"ms": ms, "levels": run, "collectives": made,
-                           "collective_ms": (self.coll_s - coll_s) * 1e3})
+                           "collective_ms":
+                           (self.clock.seconds - coll_s) * 1e3})
         self.inputs.append((xq, xs))
         same_on_every_rank(self.mesh, xq, xs)
         return out
@@ -3523,12 +3578,20 @@ def same_on_every_rank(mesh, xq, xs) -> None:
             "is not replicated")
 
 
+def slab_bound(m: int, k: int, n: int, t: int, d: int = 4) -> tuple:
+    """Level ``t``'s slab of the stacked walk: its plane pairs (i + j = t)
+    at 2 m n k operations each, the planes they read and the (M, N) int32
+    it writes."""
+    pairs = min(t, 2 * d - 2 - t) + 1
+    return bound(2 * m * n * k * pairs, pairs * (m * k + k * n) + m * n * 4)
+
+
 def shard_shape_check(xq_rows, cache, where: str) -> dict:
     """Kernel B2 and B1's level slabs at this rank's shard shape (its rows
     of the head input against its slice of the head cache, the cache's
     K-major D-plane view read in place), bit for bit against their plain
-    versions; B2 timed beside its plain version, its bound and
-    torch._int_mm on the unstacked slice (checked against the final
+    versions; B2 and each slab timed beside its plain version, its bound
+    and torch._int_mm on the unstacked slice (checked against the final
     plane)."""
     from repro_torch.core.quant import stack_planes_lhs
     from repro_torch.kernels.l2r_gemm import kernel
@@ -3538,21 +3601,29 @@ def shard_shape_check(xq_rows, cache, where: str) -> dict:
     got = kernel.l2r_gemm_streaming_planes(a, b)
     require(torch.equal(got, kernel.l2r_gemm_streaming_planes_plain(a, b)),
             f"B2 != plain at the shard shape of {where}")
+    (m, k), n = xq_rows.shape, b.shape[1]
+    slabs = []
     for t in range(N_LEVELS):
-        require(torch.equal(
-            kernel.l2r_gemm_stacked_planes(a, b, levels=t + 1,
-                                           first_level=t),
-            kernel.l2r_gemm_stacked_planes_plain(a, b, levels=t + 1,
-                                                 first_level=t)),
-            f"B1 level slab {t} != plain at the shard shape of {where}")
+        slab = lambda: kernel.l2r_gemm_stacked_planes(  # noqa: E731
+            a, b, levels=t + 1, first_level=t)
+        plain = lambda: kernel.l2r_gemm_stacked_planes_plain(  # noqa: E731
+            a, b, levels=t + 1, first_level=t)
+        require(torch.equal(slab(), plain()),
+                f"B1 level slab {t} != plain at the shard shape of {where}")
+        bound_ms, by = slab_bound(m, k, n, t)
+        slabs.append({"level": t, "ms": time_ms(slab),
+                      "kernel_ms": stream_ms(slab),
+                      "plain_ms": time_ms(plain, iters=3, warmup=1),
+                      "bound_ms": bound_ms, "bound_by": by})
     lib, lib_fn, padded = int_mm(xq_rows, cache.q)
     require(torch.equal(lib, got[-1]), f"torch._int_mm disagrees with B2's "
                                        f"final plane at {where}")
-    (m, k), n, d = xq_rows.shape, b.shape[1], 4
+    d = 4
     bound_ms, by = bound(2 * m * n * k * d * d,
                          m * d * k + d * k * n + N_LEVELS * m * n * 4)
     fn = lambda: kernel.l2r_gemm_streaming_planes(a, b)  # noqa: E731
-    return {"where": where, "m": m, "k": k, "n": n, "ms": time_ms(fn),
+    return {"where": where, "m": m, "k": k, "n": n, "b1_slabs": slabs,
+            "ms": time_ms(fn),
             "kernel_ms": stream_ms(fn),
             "plain_ms": time_ms(
                 lambda: kernel.l2r_gemm_streaming_planes_plain(a, b),
@@ -3808,6 +3879,559 @@ def mesh_summary(mesh: dict, lib: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ slice 13
+# the data-parallel half of the mesh on phase 18's 2 x 2 mesh (four gloo
+# ranks sharing the one card): ZeRO-1 training, the "batch" slot-state
+# layout, dp-local MoE dispatch
+DP_STEPS = 3  # 19a's steps of the global batch 8 x 2048
+DP_DEEPSEEK_LAYERS = 4  # phase 16's cut: the dense layer and 3 MoE layers
+DP_DECODE_STEPS = 2
+DP_DEADLINE_S = 900
+DP_B1 = [  # (M, K, N, launches per rank per call, where): decode rows a
+    # rank (19b SmolLM-135M, 19c deepseek-moe-16b) and 19c's dp-local
+    # expert buffers (64 experts, top-6, capacity of 4096 group tokens)
+    (4, 576, 576, 60, "19b q o decode"), (4, 576, 192, 60, "19b k v decode"),
+    (4, 576, 3072, 30, "19b wi decode"), (4, 1536, 576, 30, "19b wo decode"),
+    (4, 2048, 2048, 16, "19c q k v o decode"),
+    (4, 2048, 2 * 10944, 1, "19c layer-0 wi decode"),
+    (4, 10944, 2048, 1, "19c layer-0 wo decode"),
+    (4, 2048, 2 * 2816, 3, "19c shared wi decode"),
+    (4, 2816, 2048, 3, "19c shared wo decode"),
+    (4, 2048, 64, 3, "19c router decode"),
+    (4, 2048, 51200, 1, "19c head decode"),
+    (480, 2048, 2 * 1408, 3 * 64, "19c expert wi prefill"),
+    (480, 1408, 2048, 3 * 64, "19c expert wo prefill"),
+]
+DP_B5 = [  # (where, B, S, H, Kv, dh, dtype, launches per rank per call)
+    ("19a train forward", 4, 2048, 9, 3, 64, torch.float32, 60),
+    ("19c prefill", 4, 2048, 16, 16, 128, torch.bfloat16, 4),
+]
+
+
+def dp_kernel_rows(dev) -> dict:
+    """Kernels B1, B2 and B5 at the shapes phase 19 gives them on a rank,
+    on the card before the ranks start: bit for bit (B1, B2) or within
+    ATTN_TOL (B5) against their plain versions, timed beside their bounds
+    and torch._int_mm / scaled_dot_product_attention."""
+    from repro_torch.core.quant import PlaneOperands, stack_planes_lhs
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    g = torch.Generator(device=dev).manual_seed(190)
+    b1 = [b1_shape_row(g, dev, m, k, n, c, where, "19d")
+          for m, k, n, c, where in DP_B1]
+    # B2: the head walk at a rank's rows (4 of 8) and vocab slice
+    m, (k, n) = 4, (LM_HEAD[0], LM_HEAD[1] // MESH_SHAPE[1])
+    a, bw = operands(g, dev, m, k, n, 8)
+    sa = stack_planes_lhs(a)
+    sb = PlaneOperands.prepare_rhs(bw, shifted=True, window_pad=True,
+                                   k_major=True).core_stack(True)
+    got = kernel.l2r_gemm_streaming_planes(sa, sb)
+    ref = kernel.l2r_gemm_streaming_planes_plain(sa, sb)
+    require(torch.equal(got, ref), "B2 != plain at 19b's rank shape")
+    lib, lib_fn, padded = int_mm(a, bw)
+    require(torch.equal(lib, got[-1]), "torch._int_mm disagrees with B2's "
+                                       "final plane at 19b's rank shape")
+    d = 4
+    bound_ms, by = bound(2 * m * n * k * d * d,
+                         m * d * k + d * k * n + N_LEVELS * m * n * 4)
+    fn = lambda: kernel.l2r_gemm_streaming_planes(sa, sb)  # noqa: E731
+    b2 = {"name": f"19b head walk K={k} N={n}", "m": m, "k": k, "n": n,
+          "count": 1, "ms": time_ms(fn), "kernel_ms": stream_ms(fn),
+          "plain_ms": time_ms(lambda: kernel.l2r_gemm_streaming_planes_plain(
+              sa, sb), iters=3, warmup=1),
+          "library_ms": time_ms(lib_fn), "int_mm_padded": padded,
+          "bound_ms": bound_ms, "bound_by": by, "max_abs_err": 0}
+    print("phase 19d: " + json.dumps(b2), flush=True)
+    del a, bw, sa, sb, got, ref, lib
+    b5 = []
+    for where, b, s, h, kvh, dh, dtype, count in DP_B5:
+        q, k_, v = attn_qkv(g, dev, b, s, s, h, kvh, dh, dtype)
+        with no_tf32():
+            got = fa.flash_attention(q, k_, v, causal=True)
+            ref = fa.flash_attention_kernel_plain(q, k_, v, True)
+        err, excess = attn_err(got, ref)
+        require(excess <= ATTN_TOL[dtype][1], f"B5 at {where}: max |d| "
+                f"{err} from plain, {excess} beyond the relative term")
+        del got, ref
+        with no_tf32():
+            call = lambda: fa.flash_attention(  # noqa: E731
+                q, k_, v, causal=True)
+            _, lib_fn = sdpa(q, k_, v, True, None)
+            row = {"name": where, "count": count, "B": b, "S": s, "H": h,
+                   "Kv": kvh, "dh": dh, "dtype": str(dtype).split(".")[-1],
+                   "ms": time_ms(call, iters=5, warmup=1),
+                   "kernel_ms": stream_ms(call),
+                   "plain_ms": time_ms(lambda: fa.flash_attention_kernel_plain(
+                       q, k_, v, True), iters=3, warmup=1),
+                   "library_ms": time_ms(lib_fn, iters=5, warmup=1)}
+        pairs = visible_pairs(s, s, True, None)
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            b, h, dh, pairs, dtype,
+            (2 * q.numel() + 2 * k_.numel()) * q.element_size())
+        row["max_abs_err"] = err
+        b5.append(row)
+        print("phase 19d: " + json.dumps(row), flush=True)
+        del q, k_, v
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": [b2], "b5": b5}
+
+
+def same_value_on_every_rank(mesh, values: torch.Tensor, what: str):
+    """Require ``values`` (f64 on the card) equal on every rank: a MAX and
+    a MIN all-reduce over the whole mesh."""
+    from repro_torch.sharding.collectives import all_reduce
+
+    group = mesh.group(("data", "model"))
+    require(torch.equal(all_reduce(values, "max", group),
+                        all_reduce(values, "min", group)),
+            f"{what} differs between ranks")
+
+
+def tree_checksum(leaves) -> torch.Tensor:
+    """A position-weighted f64 checksum of each leaf's bits."""
+    out = []
+    for x in leaves:
+        q = x.detach().contiguous().view(torch.int32).reshape(-1) \
+            .to(torch.float64)
+        w = torch.arange(q.numel(), device=q.device) % 65521 + 1
+        out.append((q * w).sum())
+    return torch.stack(out)
+
+
+def zero1_share_bytes(zero) -> int:
+    """m and v bytes a rank holds under ``zero``'s specs (f32)."""
+    import math
+
+    from repro_torch.sharding.ctx import mesh_axis_size
+
+    total = 0
+    for shape, spec in zip(zero.shapes, zero.specs):
+        n = math.prod(shape)
+        for ax in spec:
+            n //= mesh_axis_size(zero.mesh, ax)
+        total += 2 * 4 * n
+    return total
+
+
+def dp_train(dev, mesh, ref17: dict) -> dict:
+    """19a on this rank: SmolLM-135M as phase 17 (seed 170, f32, remat,
+    xent chunks of 512, AdamW) trained DP_STEPS steps of the pipeline's
+    global batches 8 x 2048 on the 2 x 2 mesh, 4 x 2048 a data rank, the
+    optimizer state ZeRO-1; then one step from the width-rescaled weights
+    (rank 0 also runs it in one process) against which TRAIN_B5_TOL
+    holds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedPipeline
+    from repro_torch.device import no_tf32
+    from repro_torch.models.common import materialize, tree_leaves
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train import step as ts
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
+    params0 = materialize(lm_build(cfg), torch.Generator(device=dev)
+                          .manual_seed(170), device=dev)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    tcfg = ts.TrainConfig(remat=True, seq_shard=False, xent_chunk=TRAIN_XENT)
+    zero = ts.zero1_layout(cfg, mesh)
+    step = ts.make_train_step(cfg, ocfg, tcfg, mesh)
+    pipe = ShardedPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+               for _ in range(DP_STEPS)]
+    params, opt = params0, adamw_init(params0, zero)
+    mv_bytes = sum(x.numel() * x.element_size()
+                   for x in tree_leaves((opt.m, opt.v)))
+    want_bytes = zero1_share_bytes(zero)
+    require(mv_bytes == want_bytes, f"19a: this rank's m and v hold "
+                                    f"{mv_bytes} bytes; zero1_specs give "
+                                    f"{want_bytes}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = {"losses": [], "grad_norms": [], "step_ms": [], "coll_ms": [],
+           "launches": []}
+    with CollectiveClock(ts, adamw) as clock:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            reset_counts()
+            c0, t0 = clock.seconds, time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["coll_ms"].append((clock.seconds - c0) * 1e3)
+            n = counts()
+            require(n == only(flash_attention=B5_PER_TRAIN_STEP),
+                    f"19a step {i}: launches {n}, expected "
+                    f"{B5_PER_TRAIN_STEP} of B5 and no other")
+            run["launches"].append(n["flash_attention"])
+            run["losses"].append(m["loss"].item())
+            run["grad_norms"].append(m["grad_norm"].item())
+            same_value_on_every_rank(mesh, torch.cat([
+                torch.stack([m["loss"], m["grad_norm"]]).double(),
+                tree_checksum(tree_leaves(params))]),
+                f"19a step {i}: the loss, grad norm or params")
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    run["mv_bytes"] = mv_bytes
+    run["mv_bytes_one_process"] = sum(8 * x.numel()
+                                      for x in tree_leaves(params0))
+    run["served_vs_17"] = {
+        "loss_rel": [abs(a - b) / abs(b) for a, b in
+                     zip(run["losses"], ref17["losses"])],
+        "grad_norm_rel": [abs(a - b) / abs(b) for a, b in
+                          zip(run["grad_norms"], ref17["grad_norms"])]}
+    del params, opt
+    torch.cuda.empty_cache()
+    # the held check: one step from the width-rescaled weights
+    scaled = fan_in_scaled(cfg, params0)
+    del params0
+    opt = adamw_init(scaled, zero)
+    loss, _, grads = ts.make_grad_fn(cfg, tcfg, mesh)(scaled, batches[0])
+    with no_tf32():
+        new_p, _, om = adamw_update(ocfg, grads, scaled, opt, zero)
+    held = None
+    if mesh.rank == 0:
+        one_loss, _, one_grads = ts.make_grad_fn(cfg, tcfg)(scaled,
+                                                           batches[0])
+        with no_tf32():
+            one_p, _, one_om = adamw_update(ocfg, one_grads, scaled,
+                                            adamw_init(scaled))
+        old = tree_leaves(scaled)
+        upd = [a - o for a, o in zip(tree_leaves(new_p), old)]
+        one_upd = [a - o for a, o in zip(tree_leaves(one_p), old)]
+        gn = one_om["grad_norm"].item()
+        held = {"loss_rel": abs(loss.item() - one_loss.item())
+                / abs(one_loss.item()),
+                "grad_norm_rel": abs(om["grad_norm"].item() - gn) / gn,
+                "grad_worst": tree_close(
+                    tree_leaves(grads), tree_leaves(one_grads),
+                    TRAIN_B5_TOL["grad"], TRAIN_B5_TOL["grad_abs"] * gn),
+                "update_worst": tree_close(upd, one_upd,
+                                           TRAIN_B5_TOL["update"])}
+        require(held["loss_rel"] <= TRAIN_B5_TOL["loss"]
+                and held["grad_norm_rel"] <= TRAIN_B5_TOL["grad_norm"]
+                and held["grad_worst"] <= 1 and held["update_worst"] <= 1,
+                f"19a: the mesh step and the one-process step differ on "
+                f"the rescaled weights: {held}")
+    run["scaled_vs_one_process"] = held
+    del scaled, grads, new_p
+    torch.cuda.empty_cache()
+    return run
+
+
+def dp_batcher(dev, mesh, ref15: dict) -> dict:
+    """19b on this rank: phase 13's model (head 24,576 columns a rank),
+    15e's requests through ``ContinuousBatcher(state_sharding="batch")``
+    with 8 slots, 4 a data rank."""
+    from repro_torch.core import policy, progressive
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.batching import _tensors
+    from repro_torch.sharding import collectives
+
+    cfg, params, _ = lm_model(dev, mesh=mesh)
+    with torch.no_grad():
+        eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, progressive=True,
+                                early_exit=True, device=dev, mesh=mesh,
+                                state_sharding="batch")
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in _tensors(eng.state))
+        reqs = serve_requests(cfg)
+        for r in reqs:
+            eng.submit(r)
+        reset_counts()
+        collectives.reset()
+        t0 = time.perf_counter()
+        with CollectiveClock(policy, progressive) as clock:
+            eng.run()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out = {"reqs": served(reqs), "stats": served_stats(eng),
+           "launches": counts(), "seconds": seconds,
+           "collective_s": clock.seconds,
+           "collectives": dict(collectives.COUNTS),
+           "state_bytes": state_bytes, "rows": int(eng.state.pos.shape[0])}
+    require(out["rows"] == SERVE_SLOTS // MESH_SHAPE[0],
+            f"19b: this rank holds {out['rows']} slot rows")
+    require(2 * state_bytes == ref15["batcher_state_bytes"],
+            f"19b: this rank's slot state is {state_bytes} bytes; 15e's "
+            f"{ref15['batcher_state_bytes']}")
+    require(out["reqs"] == ref15["batcher_reqs"],
+            "19b: tokens or exit levels differ from 15e's batcher")
+    require(out["stats"] == ref15["batcher_stats"],
+            "19b: stats differ from 15e's batcher")
+    launched = {k: v for k, v in out["launches"].items() if v}
+    require(launched == ref15["batcher"]["launches"],
+            f"19b: launches {launched}, 15e's batcher "
+            f"{ref15['batcher']['launches']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+class MoeProbe:
+    """While active, ``moe_apply_dp_local`` records the first call's
+    params and input and the group output it gathers (armed per call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.armed = False
+        self.seen = None
+
+    def __enter__(self):
+        self.real = (self.moe.moe_apply_dp_local, self.moe.gather_rows)
+
+        def dp_local(cfg, params, x):
+            if self.armed and self.seen is None:
+                self.seen = {"params": params, "x": x}
+            return self.real[0](cfg, params, x)
+
+        def gather(y, *args, **kw):
+            if self.armed and self.seen is not None \
+                    and "y" not in self.seen:
+                self.seen["y"] = y
+                self.armed = False
+            return self.real[1](y, *args, **kw)
+
+        self.moe.moe_apply_dp_local, self.moe.gather_rows = dp_local, gather
+        return self
+
+    def take(self, fn):
+        self.armed, self.seen = True, None
+        out = fn()
+        return out, self.seen
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply_dp_local, self.moe.gather_rows = self.real
+
+
+def dp_moe(dev, mesh) -> dict:
+    """19c on this rank: deepseek-moe-16b at its published widths, cut to
+    DP_DEEPSEEK_LAYERS layers as phase 16, ``moe_dp_local`` on, prepared
+    with the head split by vocabulary and the routed experts by model
+    rank (32 of 64); an 8 x 2048 prefill of this rank's 4 rows and
+    DP_DECODE_STEPS greedy steps, each rank's group output of the first
+    MoE layer against ``moe_apply`` without a mesh on its group's tokens
+    and the whole expert stacks, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import moe_apply, shard_experts
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve import engine
+    from repro_torch.sharding import collectives, ctx
+    from repro_torch.sharding.axes import batch_rows
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              l2r=QuantConfig(), n_layers=DP_DEEPSEEK_LAYERS,
+                              moe_dp_local=True)
+    params = materialize(lm_build(cfg), torch.Generator(device=dev)
+                         .manual_seed(160), device=dev)
+    params = engine.prepare_params(cfg, params, mesh=mesh)
+    ffn = params["stack"][0]["ffn"]
+    whole_bytes = sum(ffn[k].numel() * ffn[k].element_size()
+                      for k in ("wi", "wo"))
+    oracle_w = {k: ffn[k][0].clone() for k in ("wi", "wo")}
+    params = shard_experts(cfg, params, mesh)
+    ffn = params["stack"][0]["ffn"]
+    expert_bytes = sum(ffn[k].numel() * ffn[k].element_size()
+                       for k in ("wi", "wo"))
+    require(2 * expert_bytes == whole_bytes,
+            f"19c: this rank's expert stacks are {expert_bytes} bytes, the "
+            f"whole model's {whole_bytes}")
+    torch.cuda.empty_cache()
+    prompt = lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 191)
+    axes, r0, n_rows = batch_rows(mesh, LM_BATCH)
+    require(n_rows == LM_BATCH // MESH_SHAPE[0], f"19c: {n_rows} rows")
+    prefill = engine.make_prefill_step(cfg, LM_PROMPT + DP_DECODE_STEPS,
+                                       torch.float32, mesh=mesh)
+    decode = engine.make_decode_step(cfg, mesh=mesh)
+    b1, b5 = MIXERS["deepseek-moe-16b"]["prefill"]
+    moe_layers = DP_DEEPSEEK_LAYERS - 1
+    # a MoE layer: the exchange there and back, the gather of its rows,
+    # one sum for the aux loss; the head: its columns and its rows
+    per_call = {"all_to_all": 2 * moe_layers, "all_gather": moe_layers + 2,
+                "all_reduce": moe_layers}
+    out = {"calls": [], "expert_bytes": expert_bytes,
+           "expert_bytes_whole": whole_bytes, "oracle": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), MoeProbe() as probe, \
+            CollectiveClock(engine) as clock:
+        tok = None
+        state = None
+        for i in range(1 + DP_DECODE_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset()
+            c0, t0 = clock.seconds, time.perf_counter()
+            with ctx.row_shard(mesh, axes):  # this rank's rows
+                if i == 0:
+                    (state, logits), seen = probe.take(lambda: prefill(
+                        params, {"tokens": prompt[r0:r0 + n_rows]}))
+                else:
+                    (state, tok, logits), seen = probe.take(lambda: decode(
+                        params, state, tok[r0:r0 + n_rows]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                tok = torch.argmax(logits, -1).to(torch.int32)
+            n = counts()
+            want = only(l2r_stacked_gemm=b1,
+                        flash_attention=b5 if i == 0 else 0)
+            require(n == want, f"19c call {i}: launches {n}, expected "
+                               f"{want}")
+            made = dict(collectives.COUNTS)
+            require(made == per_call, f"19c call {i}: collectives {made}, "
+                                      f"expected {per_call}")
+            require(tuple(logits.shape[:2]) == (LM_BATCH, 1)
+                    and bool(torch.isfinite(logits).all()),
+                    f"19c call {i}: logits {tuple(logits.shape)}")
+            # the oracle: the unmeshed moe_apply on this rank's group
+            x = seen["x"].reshape(-1, cfg.d_model)
+            t_g = x.shape[0] // MESH_SHAPE[1]
+            j = mesh.index("model")
+            x_g = x[j * t_g:(j + 1) * t_g][None]
+            want_y, _ = moe_apply(cfg, {**seen["params"], **oracle_w}, x_g)
+            same = torch.equal(want_y.reshape(t_g, -1), seen["y"])
+            require(same, f"19c call {i}: the group output differs from "
+                          f"moe_apply on the group's tokens")
+            out["oracle"].append({"tokens": t_g, "equal": same})
+            out["calls"].append({"ms": ms, "launches": n, "collectives": made,
+                                 "collective_ms": (clock.seconds - c0) * 1e3,
+                                 "tokens": tok[:, 0].tolist()})
+            same_value_on_every_rank(mesh, tok.double().reshape(-1),
+                                     f"19c call {i}: the tokens")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state, oracle_w
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(ref17: dict, ref15: dict) -> dict:
+    """One rank of phase 19 (run by spawn_local): the card, the mesh, 19a,
+    19b, 19c.  The kernels were built in phase 1: a rank only loads
+    them."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for name, src in _build.sources().items():
+        require(_build._target(src).exists(),
+                f"{name} is not built: phase 19's ranks only load kernels")
+    mesh = make_local_mesh(*MESH_SHAPE)
+    out = {"rank": dist.get_rank(), "coords": mesh.coords(),
+           "backend": dist.get_backend()}
+    for key, fn, args in (("train", dp_train, (ref17,)),
+                          ("batcher", dp_batcher, (ref15,)),
+                          ("moe", dp_moe, ())):
+        t0 = time.perf_counter()
+        out[key] = fn(dev, mesh, *args)
+        out[key]["seconds_total"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp(dev, train: dict, serve: dict) -> dict:
+    """Phase 19: four ranks (2 x 2 mesh) on the one card over gloo: 19a
+    ZeRO-1 training against phase 17, 19b the "batch" slot layout against
+    15e's batcher, 19c dp-local MoE against its per-group oracle; 19d the
+    kernels at the ranks' shapes (first, on the card alone)."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn_local
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    t0 = time.perf_counter()
+    rows = dp_kernel_rows(dev)
+    print(f"phase 19: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+          f"{MESH_SHAPE[1]} (data x model) mesh over gloo, all on the one "
+          f"card ({smi}): four processes sharing one card, not a "
+          f"multi-GPU figure", flush=True)
+    ref17 = {k: train["run"][k] for k in ("losses", "grad_norms")}
+    ref15 = serve["engines"]
+    t1 = time.perf_counter()
+    ranks = spawn_local(MESH_WORLD, dp_rank, ref17,
+                        {k: ref15[k] for k in (
+                            "batcher", "batcher_reqs", "batcher_stats",
+                            "batcher_state_bytes")},
+                        deadline_s=DP_DEADLINE_S)
+    ranks_s = time.perf_counter() - t1
+    for r in ranks:
+        require(r["backend"] == "gloo", f"rank {r['rank']}: backend "
+                                        f"{r['backend']}")
+        require(r["moe"]["calls"][-1]["tokens"]
+                == ranks[0]["moe"]["calls"][-1]["tokens"],
+                f"rank {r['rank']}: 19c tokens differ from rank 0's")
+    held = ranks[0]["train"]["scaled_vs_one_process"]
+    out = {"card": smi, "backend": "gloo", "ranks": MESH_WORLD,
+           "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+           "seconds": time.perf_counter() - t0, "ranks_s": ranks_s,
+           "rows": rows, "train_scaled_vs_one_process": held,
+           "per_rank": [{
+               "rank": r["rank"], "coords": r["coords"],
+               "train": {k: r["train"][k] for k in (
+                   "step_ms", "coll_ms", "losses", "grad_norms",
+                   "launches", "peak_gb", "mv_bytes",
+                   "mv_bytes_one_process", "served_vs_17",
+                   "seconds_total")},
+               "batcher": {k: r["batcher"][k] for k in (
+                   "seconds", "collective_s", "collectives", "launches",
+                   "state_bytes", "rows", "seconds_total")},
+               "moe": {k: r["moe"][k] for k in (
+                   "calls", "oracle", "expert_bytes", "expert_bytes_whole",
+                   "peak_gb", "seconds_total")}}
+               for r in ranks]}
+    print("phase 19: " + json.dumps(out, default=str), flush=True)
+    tr0 = ranks[0]["train"]
+    print(f"phase 19: 19a SmolLM-135M {DP_STEPS} ZeRO-1 steps of 8 x "
+          f"{TRAIN_SEQ} (4 a data rank): {B5_PER_TRAIN_STEP} B5 a step a "
+          f"rank, the same loss, grad norm and params on every rank; the "
+          f"rescaled step within TRAIN_B5_TOL of one process ({held}); "
+          f"m/v {tr0['mv_bytes']} bytes a rank (one process "
+          f"{tr0['mv_bytes_one_process']}); 19b 15e's requests in the "
+          f"'batch' layout == 15e's batcher bit for bit, half its slot "
+          f"state a rank; 19c deepseek-moe-16b ({DP_DEEPSEEK_LAYERS} "
+          f"layers) dp-local: every rank's group output == moe_apply on "
+          f"its tokens bit for bit, half the expert bytes a rank; "
+          f"launches and collectives exact; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def dp_summary(dp: dict, lib: str) -> dict:
+    """Kernel ``lib``'s launches on each rank of phase 19 and its rows at
+    the ranks' shapes."""
+    key = {"l2r_stacked_gemm": "b1", "l2r_streaming_gemm": "b2",
+           "flash_attention": "b5"}[lib]
+    out = {"per": f"phase 19: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+                  f"{MESH_SHAPE[1]} mesh over gloo on one card; launches per "
+                  f"rank: 19a over {DP_STEPS} train steps, 19b over the "
+                  f"batcher run, 19c over the prefill and "
+                  f"{DP_DECODE_STEPS} steps",
+           "card": dp["card"], "shapes": dp["rows"][key], "per_rank": []}
+    for r in dp["per_rank"]:
+        out["per_rank"].append({
+            "rank": r["rank"],
+            "train": sum(r["train"]["launches"])
+            if lib == "flash_attention" else 0,
+            "batcher": r["batcher"]["launches"][lib],
+            "moe": sum(c["launches"][lib] for c in r["moe"]["calls"])})
+    return out
+
+
 def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
                  weight=lambda r: r["count"], **extra) -> dict:
     """The JSON record of one kernel: times per run of its main path (the
@@ -3919,6 +4543,7 @@ def main() -> int:
     mix = phase_mixers(dev)
     train = phase_train(dev)
     mesh = phase_mesh(dev, prog, serve)
+    dp = phase_dp(dev, train, serve)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -3968,7 +4593,8 @@ def main() -> int:
                          serve["prof_decode"].get("B1_ms")},
                      mixers=mixer_summary(mix, "B1", "l2r_stacked_gemm"),
                      mixer_shapes=mix["b1_rows"],
-                     mesh=mesh_summary(mesh, "l2r_stacked_gemm")),
+                     mesh=mesh_summary(mesh, "l2r_stacked_gemm"),
+                     dp=dp_summary(dp, "l2r_stacked_gemm")),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -3990,7 +4616,8 @@ def main() -> int:
                          "decode_ms_per_token":
                          serve["run"]["decode_ms_per_token"],
                          "shapes": serve["rows"]},
-                     mesh=mesh_summary(mesh, "l2r_streaming_gemm")),
+                     mesh=mesh_summary(mesh, "l2r_streaming_gemm"),
+                     dp=dp_summary(dp, "l2r_streaming_gemm")),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
@@ -4035,7 +4662,8 @@ def main() -> int:
                          **lm["b5"]},
                      mixers=mixer_summary(mix, "B5", "flash_attention"),
                      mixer_shapes=mix["b5_rows"],
-                     train=train["train"], train_backward=bwd("B5")),
+                     train=train["train"], train_backward=bwd("B5"),
+                     dp=dp_summary(dp, "flash_attention")),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

@@ -473,6 +473,12 @@ def streaming_argmax(
     result, bit-identical to the single-device walk's.  ``wq`` may then
     be this rank's slice of a vocab-sharded cache (a PlaneOperands with a
     ``shard``, ``ws`` its scales).
+
+    Within a :func:`~repro_torch.sharding.ctx.row_shard` scope ``xq`` and
+    ``xs`` already hold this rank's rows of the global batch, split evenly
+    over the scope's row axes in rank order (the ``"batch"`` slot-state
+    layout); the walk then takes them as its row slice, and ``policy``
+    still covers the global rows.  The results are global all the same.
     """
     axes = sharded_walk_axes(_lhs_lead(xq), _n_total(wq), mesh)
     if axes is not None:
@@ -528,16 +534,19 @@ def sharded_walk_axes(lead: tuple[int, ...], n: int, mesh=None):
     over ``model``; an axis that does not divide its dim is dropped (that
     side is replicated), and when neither is usable (or the mesh is
     trivial) the caller takes the single-device walk.  Only 2-D tiles
-    (one lead dim) are sharded.
+    (one lead dim) are sharded.  Rows that are already this rank's slice
+    (``ctx.row_axes()``) keep the axes they are split over.
     """
     mesh = mesh if mesh is not None else ctx.get_mesh()
     if mesh is None or len(lead) != 1:
         return None
     m = lead[0]
-    dp = dp_axes(mesh)
-    dp_size = ctx.mesh_axis_size(mesh, dp)
-    if dp_size <= 1 or m % dp_size:
-        dp = ()
+    dp = ctx.row_axes()
+    if not dp:
+        dp = dp_axes(mesh)
+        dp_size = ctx.mesh_axis_size(mesh, dp)
+        if dp_size <= 1 or m % dp_size:
+            dp = ()
     model = "model" if "model" in mesh.axis_names else None
     if model is not None and (mesh.shape["model"] <= 1
                               or n % mesh.shape["model"]):
@@ -558,7 +567,8 @@ def sharded_walk_collectives(levels_run: int, model_sharded: bool,
     if rows_sharded and early_exit:
         reduces += levels_run
     return {"all_reduce": reduces,
-            "all_gather": int(model_sharded) + 2 * int(rows_sharded)}
+            "all_gather": int(model_sharded) + 2 * int(rows_sharded),
+            "all_to_all": 0}
 
 
 def _row_slice(xq, r0: int, rows: int):
@@ -603,12 +613,16 @@ def _streaming_argmax_sharded(xq, wq, xs, ws, n_bits, log2_radix, levels,
     stops at the same level, the slowest row's.  Then the tokens and exit
     levels are gathered over the data axes and the logits over both, so
     every rank returns the global ``(logits (M, N), tok (M,), exit_level
-    (M,))``.
+    (M,))``.  Within a ``ctx.row_shard`` scope the operands already hold
+    this rank's rows (M/dp of them) and are not sliced.
     """
     d = plane_count(n_bits, log2_radix)
     bounds = level_bounds(d, log2_radix, _contract_k(xq), levels)
     n_levels = len(bounds.exact)
     m = _lhs_lead(xq)[-1]
+    local_rows = bool(ctx.row_axes())
+    if local_rows:
+        m *= ctx.mesh_axis_size(mesh, dp)
     n_total = _n_total(wq)
     if policy is not None:
         if tuple(policy.mode.shape) != (m,):
@@ -617,7 +631,8 @@ def _streaming_argmax_sharded(xq, wq, xs, ws, n_bits, log2_radix, levels,
     if dp:
         m_l = m // ctx.mesh_axis_size(mesh, dp)
         r0 = mesh.index(dp) * m_l
-        xq, xs = _row_slice(xq, r0, m_l), xs[r0:r0 + m_l]
+        if not local_rows:
+            xq, xs = _row_slice(xq, r0, m_l), xs[r0:r0 + m_l]
         if policy is not None:
             policy = LevelPolicy(*(t[r0:r0 + m_l] for t in policy))
     shard = _shard(wq)

@@ -62,12 +62,13 @@ class Mesh:
         names = (axes,) if isinstance(axes, str) else tuple(axes)
         return tuple(a for a in self.axis_names if a in names)
 
-    def coords(self) -> dict[str, int]:
-        """This rank's index on each axis."""
-        if self.rank is None:
+    def coords(self, rank: int | None = None) -> dict[str, int]:
+        """This rank's index on each axis (or ``rank``'s: ranks lie on the
+        mesh in row-major order)."""
+        if rank is None and self.rank is None:
             raise ValueError(f"{self!r} is a mesh of shapes only: it has "
                              f"no rank")
-        out, r = {}, self.rank
+        out, r = {}, self.rank if rank is None else rank
         for name in reversed(self.axis_names):
             r, out[name] = divmod(r, self.shape[name])
         return {a: out[a] for a in self.axis_names}

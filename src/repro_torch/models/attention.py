@@ -336,15 +336,45 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
     return o.reshape(b, sq, h, dh).to(v.dtype)
 
 
+_DECODE_ROWS = 8  # the batch rows of every decode QK / PV product
+
+
+def _f32_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` in f32, contiguous, with its dim 0 zero-padded to ``n``
+    rows."""
+    if x.shape[0] == n:
+        return x.to(torch.float32).contiguous()
+    out = x.new_zeros((n, *x.shape[1:]), dtype=torch.float32)
+    out[:x.shape[0]] = x
+    return out
+
+
+def _fixed_rows(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` in f32 over blocks of ``_DECODE_ROWS``
+    batch rows (dim 0), the last block padded with zero rows.  A batched
+    product may split its sums differently as the batch count changes
+    (cuBLAS picks its kernel by it), so a row's decode result would depend
+    on the rows beside it; with every call of one shape it does not, and a
+    rank of the ``"batch"`` slot layout decodes its rows as one process
+    does.  A batch of ``_DECODE_ROWS`` rows is one call, as before."""
+    n = a.shape[0]
+    r = _DECODE_ROWS
+    padded = -(-n // r) * r
+    a, b = _f32_rows(a, padded), _f32_rows(b, padded)
+    out = [torch.einsum(eq, a[i:i + r], b[i:i + r])
+           for i in range(0, padded, r)]
+    out = out[0] if len(out) == 1 else torch.cat(out)
+    return out[:n] if padded != n else out
+
+
 def _softmax_pv(s, valid_b, v_cache, shape):
     """Masked softmax over the slots and the PV product of decode: p cast
     to v's dtype, f32 products (TF32 off) -> ``shape`` in v's dtype."""
     with no_tf32():
         s = torch.where(valid_b, s, _NEG)
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bkgqd",
-                         p.to(v_cache.dtype).to(torch.float32),
-                         v_cache.to(torch.float32))
+        o = _fixed_rows("bkgqs,bskd->bkgqd", p.to(v_cache.dtype),
+                        v_cache)
     return o.reshape(shape).to(v_cache.dtype)
 
 
@@ -413,8 +443,7 @@ def decode_attention(
 
     if l2r is None:
         with no_tf32():
-            s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                             k_cache.to(torch.float32)) * scale
+            s = _fixed_rows("bqkgd,bskd->bkgqs", qg, k_cache) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
         return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))

@@ -25,6 +25,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.l2r_gemm import l2r_dense
 from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
@@ -283,10 +284,28 @@ def quantize_tree(desc_tree, params, cfg: QuantConfig = QuantConfig(),
     return tree_map(f, desc_tree, params)
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim, each row summed in an order its width
+    alone fixes.  On the card PyTorch's reduction gives each row more
+    threads, and so another summation order, when a call holds fewer
+    than 16 rows: a row's norm would depend on the rows beside it, and a
+    rank decoding its 4 slots of a batch would round apart from one
+    process decoding all 8.  Summed as 32 partial sums (32 or more rows
+    of work, the widest launch; a width 32 does not divide is padded with
+    zeros) and then those 32, it does not.  On the CPU ``torch.mean``."""
+    d = x.shape[-1]
+    if not x.is_cuda:
+        return torch.mean(x, dim=-1, keepdim=True)
+    if d % 32:
+        x = F.pad(x, (0, -d % 32))
+    return x.reshape(*x.shape[:-1], 32, x.shape[-1] // 32).sum(-1) \
+        .sum(-1, keepdim=True) / d
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = _row_mean(torch.square(xf))
     out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
     return out.to(x.dtype)
 

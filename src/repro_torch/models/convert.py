@@ -11,7 +11,10 @@ axis) with :func:`lm_params_from_jax`.  ``.npz`` trees saved by the
 reference's checkpoint manager load the same way.  The optimizer's
 ``OptState`` and the error-feedback ``EFState`` cross with
 :func:`opt_state_from_jax` and :func:`ef_state_from_jax`, so both
-packages can train on from one state.
+packages can train on from one state; given a ZeRO-1 layout
+(optim/adamw.py:Zero1) they keep this rank's slices, and
+:func:`gather_opt_state` / :func:`gather_ef_state` make the whole state
+again from every rank's.
 """
 
 from __future__ import annotations
@@ -20,11 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.optim.adamw import OptState
 from repro_torch.optim.compression import EFState
 
 __all__ = ["params_from_jax", "lm_params_from_jax", "opt_state_from_jax",
-           "ef_state_from_jax"]
+           "ef_state_from_jax", "gather_opt_state", "gather_ef_state"]
 
 
 def params_from_jax(tree: dict, device: str | torch.device | None = None
@@ -60,16 +64,43 @@ def lm_params_from_jax(tree, device: str | torch.device | None = None):
     return walk(tree)
 
 
-def opt_state_from_jax(state, device: str | torch.device | None = None):
+def _local(tree, zero):
+    """This rank's slice of every leaf (copies), or ``tree`` itself."""
+    if zero is None:
+        return tree
+    return tree_unflatten(tree, [x.clone() for x in zero.local(tree)])
+
+
+def opt_state_from_jax(state, device: str | torch.device | None = None,
+                       zero=None):
     """A reference ``OptState`` (step, m, v) -> the port's
-    :class:`~repro_torch.optim.adamw.OptState` of tensors on ``device``."""
+    :class:`~repro_torch.optim.adamw.OptState` of tensors on ``device``;
+    with ``zero`` (optim/adamw.py:Zero1) m and v are this rank's
+    slices."""
     dev = resolve_device(device)
     return OptState(step=_tensor(state.step, dev),
-                    m=lm_params_from_jax(state.m, dev),
-                    v=lm_params_from_jax(state.v, dev))
+                    m=_local(lm_params_from_jax(state.m, dev), zero),
+                    v=_local(lm_params_from_jax(state.v, dev), zero))
 
 
-def ef_state_from_jax(state, device: str | torch.device | None = None):
+def ef_state_from_jax(state, device: str | torch.device | None = None,
+                      zero=None):
     """A reference ``EFState`` -> the port's
-    :class:`~repro_torch.optim.compression.EFState` on ``device``."""
-    return EFState(residual=lm_params_from_jax(state.residual, device))
+    :class:`~repro_torch.optim.compression.EFState` on ``device``; with
+    ``zero`` the residuals are this rank's slices."""
+    return EFState(residual=_local(
+        lm_params_from_jax(state.residual, device), zero))
+
+
+def gather_opt_state(state: OptState, zero) -> OptState:
+    """The whole :class:`OptState` from every rank's ZeRO-1 slices (every
+    rank of ``zero``'s mesh calls this)."""
+    return state._replace(**{k: tree_unflatten(
+        getattr(state, k), zero.gather(tree_leaves(getattr(state, k))))
+        for k in ("m", "v")})
+
+
+def gather_ef_state(state: EFState, zero) -> EFState:
+    """The whole :class:`EFState` from every rank's slices."""
+    return EFState(residual=tree_unflatten(
+        state.residual, zero.gather(tree_leaves(state.residual))))

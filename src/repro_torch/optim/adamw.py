@@ -6,8 +6,15 @@ params (m, v in f32) plus an int32 step counter; updates are functional
 the update is f32, as it is in JAX: the schedule, ``b1 ** step`` and
 the bias corrections.  Leaves are walked in ``jax.tree.leaves`` order
 (dict keys sorted, lists in order), so :func:`global_norm` stacks the
-per-leaf sums as the reference does.  There is no mesh: the ZeRO-1
-sharding of m and v is the multi-device slice's.
+per-leaf sums as the reference does.
+
+ZeRO-1 (:class:`Zero1`, the data-parallel train step): m and v hold this
+rank's slice of every leaf under ``sharding/axes.py:zero1_specs``; the
+update takes the whole (summed) gradients, clips them by their global
+norm as without a mesh, updates this rank's slice of each parameter and
+all-gathers the slices, so every rank holds the whole parameters.  The
+update is elementwise, so the gathered parameters and moments equal a
+whole-leaf update of the same gradients bit for bit.
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.axes import local_slice, slice_index, zero1_spec
+from repro_torch.sharding.collectives import gather_slices
 
-__all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
+__all__ = ["AdamWConfig", "OptState", "Zero1", "adamw_init", "adamw_update",
            "cosine_schedule", "global_norm", "clip_by_global_norm"]
 
 _F32 = torch.float32
@@ -45,12 +54,46 @@ class OptState(NamedTuple):
     v: Any
 
 
-def adamw_init(params) -> OptState:
-    """Zero moments in f32 on the params' device."""
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """ZeRO-1's layout over ``mesh``: one ``zero1_specs`` spec and whole
+    shape per leaf of the param tree, in ``tree_leaves`` order."""
+
+    mesh: Any
+    specs: tuple
+    shapes: tuple
+
+    @classmethod
+    def build(cls, desc_tree, mesh) -> "Zero1":
+        """From the Param descriptor tree (``lm_build`` / ``encdec_build``)."""
+        leaves = tree_leaves(desc_tree)
+        return cls(mesh, tuple(zero1_spec(p, mesh) for p in leaves),
+                   tuple(tuple(p.shape) for p in leaves))
+
+    def local(self, tree) -> list:
+        """This rank's slice of each whole leaf of ``tree`` (views)."""
+        return [local_slice(x, s, self.mesh)
+                for x, s in zip(tree_leaves(tree), self.specs)]
+
+    def gather(self, parts: list) -> list:
+        """The whole leaves from every rank's slices (one all-gather over
+        the mesh per dtype)."""
+        return gather_slices(parts, [slice_index(sh, sp, self.mesh) for
+                                     sh, sp in zip(self.shapes, self.specs)],
+                             list(self.shapes), self.mesh)
+
+
+def adamw_init(params, zero: Zero1 | None = None) -> OptState:
+    """Zero moments in f32 on the params' device; with ``zero`` this
+    rank's slice of each."""
     zeros = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)  # noqa: E731
     dev = tree_leaves(params)[0].device
-    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    m=tree_map(zeros, params), v=tree_map(zeros, params))
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if zero is not None:
+        return OptState(step=step, **{k: tree_unflatten(
+            params, [zeros(x) for x in zero.local(params)]) for k in "mv"})
+    return OptState(step=step, m=tree_map(zeros, params),
+                    v=tree_map(zeros, params))
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -75,16 +118,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def _clip(norm: torch.Tensor, max_norm: float):
     scale = torch.minimum(_f32(1.0, norm),
                           _f32(max_norm, norm) / torch.clamp(norm, min=1e-9))
-    return tree_map(lambda x: (x.to(_F32) * scale).to(x.dtype), tree), norm
+    return lambda x: (x.to(_F32) * scale).to(x.dtype)
 
 
-def adamw_update(cfg: AdamWConfig, grads, params, state: OptState):
-    """Returns (new_params, new_state, metrics)."""
-    if cfg.clip_norm is not None:
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    return tree_map(_clip(norm, max_norm), tree), norm
+
+
+def adamw_update(cfg: AdamWConfig, grads, params, state: OptState,
+                 zero: Zero1 | None = None):
+    """Returns (new_params, new_state, metrics).  With ``zero`` the
+    state holds this rank's slices, ``grads`` and ``params`` are whole
+    (the same on every rank), and so are the new params."""
+    if zero is not None:
+        gnorm = global_norm(grads)
+        clip = (_clip(gnorm, cfg.clip_norm) if cfg.clip_norm is not None
+                else lambda x: x)
+        grads = tree_unflatten(grads, [clip(g) for g in zero.local(grads)])
+        whole, params = params, tree_unflatten(params, zero.local(params))
+    elif cfg.clip_norm is not None:
         grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     else:
         gnorm = global_norm(grads)
@@ -110,5 +166,7 @@ def adamw_update(cfg: AdamWConfig, grads, params, state: OptState):
         tree_leaves(state.v))]
     new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in flat])
                            for i in range(3))
+    if zero is not None:
+        new_p = tree_unflatten(whole, zero.gather([o[0] for o in flat]))
     return new_p, OptState(step=step, m=new_m, v=new_v), {
         "grad_norm": gnorm, "lr": lr}

@@ -14,13 +14,17 @@ The reference donates the state to its jitted decode step; here the
 decode step updates the state in place, and ``donate_state=True``
 asserts that every state tensor keeps its storage across a step.
 
-With a mesh every rank holds the whole slot state and runs the same host
-schedule; only the progressive head walk is sharded (the reference's
-``state_sharding="replicated"``).
+With a mesh every rank runs the same host schedule.  In the reference's
+``state_sharding="replicated"`` every rank holds the whole slot state and
+only the progressive head walk is sharded; in ``"batch"`` each rank holds
+and decodes only its contiguous block of slots over the data axes
+(``sharding/axes.py:batch_rows``), stepping them in a ``ctx.row_shard``
+scope so that the head walk takes those rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -32,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
 from repro_torch.sharding import ctx
+from repro_torch.sharding.axes import batch_rows
 
 from .engine import (bucket_for, make_bucket_prefill_step, make_decode_step,
                      make_prefill_step, prefill_buckets,
@@ -255,12 +260,18 @@ class ContinuousBatcher:
 
         ``mesh`` (default: the installed mesh, sharding/ctx.py) makes the
         engine mesh-aware: every rank of the mesh builds this engine with
-        the same arguments and requests, holds the whole slot state
-        (``state_sharding="replicated"``) and steps the backbone on it,
-        and the progressive head streams as the consensus walk.  Tokens,
-        exit levels and stats equal the unmeshed engine's bit for bit.
-        The reference's ``"batch"`` and ``"specs"`` state layouts are not
-        ported (ROADMAP A13b).
+        the same arguments and requests and the progressive head streams
+        as the consensus walk.  With ``state_sharding="replicated"`` each
+        rank holds the whole slot state and steps the backbone on it; with
+        ``"batch"`` it holds only its block of ``n_slots / dp`` slots
+        (``sharding/axes.py:batch_rows``; the whole state where the data
+        axes do not divide ``n_slots``) and decodes those rows in a
+        ``ctx.row_shard`` scope.  Every rank prefills
+        every admitted request (a one-row prefill does not split), the
+        slot's owner splices it, and every rank keeps the same requests,
+        tokens and histograms.  Tokens, exit levels and stats equal the
+        unmeshed engine's bit for bit.  The reference's ``"specs"`` layout
+        (caches split over ``model``) is not ported (ROADMAP A13c).
 
         ``donate_state=True`` (default) asserts after every decode step
         that each state tensor kept its storage: the step wrote the
@@ -283,11 +294,12 @@ class ContinuousBatcher:
         if state_sharding not in ("replicated", "batch", "specs"):
             raise ValueError(f"state_sharding={state_sharding!r}: one of "
                              f"'replicated', 'batch', 'specs'")
-        if state_sharding != "replicated":
+        if state_sharding == "specs":
             raise NotImplementedError(
-                f"ContinuousBatcher(state_sharding={state_sharding!r}): the "
-                f"sharded slot-state layouts are ROADMAP A13b; the port "
-                f"serves a mesh with replicated state")
+                "ContinuousBatcher(state_sharding='specs'): the slot state "
+                "split over the model axis (kv heads, head_dim, SSM "
+                "channels) is ROADMAP A13c; the port serves a mesh with "
+                "'replicated' or 'batch' state")
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.cfg = cfg
@@ -297,8 +309,14 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.progressive = progressive
         self.donate_state = donate_state
-        self.state = init_lm_state(cfg, n_slots, max_len, cache_dtype,
+        # this rank's slots [r0, r0 + n_local) of the state (all of them
+        # unless the "batch" layout splits them)
+        self._rows, self._r0, self._n_local = batch_rows(
+            self.mesh if state_sharding == "batch" else None, n_slots)
+        self.state = init_lm_state(cfg, self._n_local, max_len, cache_dtype,
                                    device=self.device)
+        # every slot's next position, on the host of every rank
+        self._pos = np.zeros(n_slots, np.int64)
         # explicit per-leaf batch axes for slot splicing (derived from the
         # state structure, never from shape coincidences)
         self._axes = state_batch_axes(cfg, max_len, cache_dtype)
@@ -407,22 +425,23 @@ class ContinuousBatcher:
             else:
                 st1, logits = self._prefill_request(req)
                 first = torch.argmax(logits[0, -1]).to(torch.int32)
-            # copy the one-row state into the live batch state
-            _splice(self.state, st1, slot, self._axes)
+            # the slot's owner copies the one-row state into its rows
+            if self._r0 <= slot < self._r0 + self._n_local:
+                _splice(self.state, st1, slot - self._r0, self._axes)
+            self._pos[slot] = int(st1.pos[0])
             self.cur_tok[slot, 0] = first
             req.output.append(int(first))
             req.t_first_token = time.perf_counter()
             self.slot_req[slot] = req
 
     def _retire(self):
-        pos = self.state.pos.cpu()
         for slot, req in enumerate(self.slot_req):
             if req is None:
                 continue
             eos = req.eos_id is not None and req.output and \
                 req.output[-1] == req.eos_id
             full = len(req.output) >= req.max_new_tokens
-            of_cache = int(pos[slot]) >= self.max_len - 1
+            of_cache = self._pos[slot] >= self.max_len - 1
             if eos or full or of_cache:
                 req.done = True
                 req.t_complete = time.perf_counter()
@@ -448,14 +467,18 @@ class ContinuousBatcher:
         state = self.state if self.donate_state \
             else _map(torch.clone, self.state)
         before = _storage(state) if self.donate_state else None
-        if self.progressive:
-            self.state, nxt, _, lv = self._decode(
-                self.params, state, self.cur_tok, None, self.slot_policy)
-            lv = lv[:, 0].tolist()
-        else:
-            self.state, nxt, _ = self._decode(self.params, state,
-                                              self.cur_tok)
-            lv = None
+        tok = self.cur_tok[self._r0:self._r0 + self._n_local]
+        scope = ctx.row_shard(self.mesh, self._rows) if self._rows \
+            else contextlib.nullcontext()
+        with scope:
+            if self.progressive:
+                self.state, nxt, _, lv = self._decode(
+                    self.params, state, tok, None, self.slot_policy)
+                lv = lv[:, 0].tolist()
+            else:
+                self.state, nxt, _ = self._decode(self.params, state, tok)
+                lv = None
+        self._pos += 1  # the step advanced every slot
         if before is not None:
             assert _storage(self.state) == before, \
                 "the decode step copied the state instead of updating it"

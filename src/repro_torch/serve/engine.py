@@ -14,9 +14,12 @@ the caches and ``pos`` into the tensors it was given and returns them.
 Under a mesh (``mesh=``, else the installed one, sharding/ctx.py) every
 rank runs the same steps on the whole batch with the backbone replicated,
 and the progressive head streams as the consensus walk over the vocab
-shard ``prepare_params(mesh=)`` keeps (core/progressive.py).
-:func:`state_specs` gives the reference's cache layouts, which only the
-reference's sharded state modes use.
+shard ``prepare_params(mesh=)`` keeps (core/progressive.py).  Called
+within a ``ctx.row_shard`` scope (sharding/ctx.py; the rows
+``sharding/axes.py:batch_rows`` gives) a step takes this rank's rows of
+the global batch instead, and its state holds only those rows (the
+reference's ``"batch"`` layout); the head's outputs are global all the
+same.  :func:`state_specs` gives the reference's cache layouts.
 
 ``progressive=True`` streams the LM head most-significant level first
 (:func:`progressive_logits_from_hidden`): on the card the scan is one
@@ -44,6 +47,7 @@ from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
                                             lm_forward, logits_from_hidden)
 from repro_torch.sharding import ctx
 from repro_torch.sharding.axes import P, dp_axes
+from repro_torch.sharding.collectives import all_gather
 
 __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
@@ -228,9 +232,14 @@ def _check_progressive(cfg: ModelConfig, progressive: bool) -> None:
 def _head(cfg: ModelConfig, params, hidden, progressive: bool,
           early_exit: bool, policy: LevelPolicy | None, mesh):
     """The LM head on ``hidden`` (B, 1, d): ``logits`` one-shot, or
-    ``(logits, tok (B, 1) int32, exit_level (B, 1) int32)`` streamed."""
+    ``(logits, tok (B, 1) int32, exit_level (B, 1) int32)`` streamed;
+    global rows when ``hidden`` holds this rank's (``ctx.row_axes()``)."""
     if not progressive:
-        return logits_from_hidden(cfg, params, hidden)
+        logits = logits_from_hidden(cfg, params, hidden)
+        if ctx.row_axes():
+            logits = all_gather(logits, ctx.get_mesh().group(ctx.row_axes()),
+                                dim=0)
+        return logits
     logits, tok, lv = progressive_logits_from_hidden(
         cfg, params, hidden, early_exit=early_exit, mesh=mesh,
         policy=policy)
@@ -424,7 +433,10 @@ def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
     Under a mesh (``mesh=``, else the installed one) the head streams as
     the consensus walk (rows over the data axes, the vocabulary over
     ``model``, a ``prepare_params(mesh=)`` cache holding this rank's
-    slice), with the single-device results on every rank.
+    slice), with the single-device results on every rank.  Within a
+    ``ctx.row_shard`` scope the rows of ``hidden`` are this rank's of the
+    global batch (core/progressive.py:streaming_argmax); the results and
+    ``policy`` cover the global rows.
     """
     qcfg = cfg.l2r or QuantConfig()
     if "head_q" in params:  # the prepare_params load-time head cache
@@ -437,8 +449,10 @@ def progressive_logits_from_hidden(cfg: ModelConfig, params, hidden,
     lead = hidden.shape[:-1]
     x2 = hidden.reshape(-1, hidden.shape[-1])
     xq, xs = quantize(x2, qcfg, axis=0 if qcfg.per_channel else None)
+    n = ctx.mesh_axis_size(ctx.get_mesh(), ctx.row_axes())
+    lead = (lead[0] * n, *lead[1:])  # the global rows come back
     if policy is not None:
-        policy = policy.reshape((x2.shape[0],))
+        policy = policy.reshape((x2.shape[0] * n,))
     logits, tok, lv = streaming_argmax(
         xq, wq, xs, ws, qcfg.n_bits, qcfg.log2_radix, levels=cfg.l2r_levels,
         out_dtype=hidden.dtype, early_exit=early_exit, policy=policy,

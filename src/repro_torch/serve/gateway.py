@@ -32,11 +32,8 @@ removes three per-request and per-step costs:
 
 Output streams are bit-identical to `ContinuousBatcher` for the same
 request set: bucketed prefill is bit-exact, rows of a packed prefill are
-independent, and decode rows are independent.  (On the card, PyTorch's
-row reductions, rms_norm's mean among them, give each row more threads
-when a call holds fewer than 16 rows; a prompt shorter than 16 tokens
-can then round differently in the batcher's one-row prefill than in a
-packed one.)
+independent, and decode rows are independent (on the card too:
+models/common.py:_row_mean, models/attention.py:_fixed_rows).
 
 With a mesh (``mesh=``) every rank runs the same gateway on the same
 requests with the whole slot state, and the progressive head streams as

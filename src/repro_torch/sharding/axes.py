@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.sharding.ctx import mesh_axis_size
+from repro_torch.sharding.ctx import axes_tuple, mesh_axis_size
 
 __all__ = [
     "P",
@@ -26,7 +26,11 @@ __all__ = [
     "safe_spec",
     "param_specs",
     "zero1_specs",
+    "zero1_spec",
     "logical_rules",
+    "slice_index",
+    "local_slice",
+    "batch_rows",
 ]
 
 PARAM_RULES: dict[str, Any] = {
@@ -79,6 +83,22 @@ def batch_spec(mesh, batch_size: int) -> P:
     return P(None, None)
 
 
+def batch_rows(mesh, batch: int):
+    """``(axes, r0, n)``: this rank's rows ``[r0, r0 + n)`` of a
+    ``batch``-row global batch, split contiguously in rank order over
+    :func:`batch_spec`'s axes (those of size 1 dropped), or ``(None, 0,
+    batch)`` where the batch is not split (no mesh, a count the data axes
+    do not divide, or data axes of size 1)."""
+    if mesh is None:
+        return None, 0, batch
+    axes = tuple(a for a in axes_tuple(batch_spec(mesh, batch)[0])
+                 if mesh.shape[a] > 1)
+    if not axes:
+        return None, 0, batch
+    n = batch // mesh_axis_size(mesh, axes)
+    return axes, mesh.index(axes) * n, n
+
+
 def safe_spec(shape: tuple[int, ...], spec: tuple, mesh) -> P:
     """Replicate any sharded dim the mesh does not divide, and dedupe
     mesh axes (the leading dim that names an axis keeps it)."""
@@ -111,22 +131,50 @@ def param_specs(desc_tree, mesh):
     return tree_map(lambda p: _base_spec(p, rules, mesh), desc_tree)
 
 
+def zero1_spec(p, mesh) -> P:
+    """One Param's optimizer-state spec: its param spec plus "data" on
+    its largest still-replicated dim that divides (ZeRO-1)."""
+    spec = list(_base_spec(p, logical_rules(mesh), mesh))
+    dsize = mesh.shape["data"]
+    best, best_dim = None, 0
+    for i, (dim, s) in enumerate(zip(p.shape, spec)):
+        if s is None and dim % dsize == 0 and dim > best_dim:
+            best, best_dim = i, dim
+    if best is not None:
+        spec[best] = "data"
+    return P(*spec)
+
+
 def zero1_specs(desc_tree, mesh):
     """Optimizer-state specs: the param spec plus "data" on the largest
     still-replicated dim that divides (ZeRO-1)."""
     from repro_torch.models.common import tree_map
 
-    rules = logical_rules(mesh)
-    dsize = mesh.shape["data"]
+    return tree_map(lambda p: zero1_spec(p, mesh), desc_tree)
 
-    def f(p):
-        spec = list(_base_spec(p, rules, mesh))
-        best, best_dim = None, 0
-        for i, (dim, s) in enumerate(zip(p.shape, spec)):
-            if s is None and dim % dsize == 0 and dim > best_dim:
-                best, best_dim = i, dim
-        if best is not None:
-            spec[best] = "data"
-        return P(*spec)
 
-    return tree_map(f, desc_tree)
+def slice_index(shape: tuple[int, ...], spec: tuple, mesh):
+    """The function ``coords -> index`` (a tuple of slices) of the block
+    of a ``shape`` tensor that the rank at ``coords`` (axis name ->
+    index, launch/mesh.py:Mesh.coords) holds under ``spec``: each dim
+    split evenly over its axes, row-major over a tuple of them."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+
+    def index(coords: dict) -> tuple:
+        out = []
+        for dim, ax in zip(shape, spec):
+            names = (ax,) if isinstance(ax, str) else tuple(ax or ())
+            n, i = 1, 0
+            for a in names:
+                n, i = n * mesh.shape[a], i * mesh.shape[a] + coords[a]
+            size = dim // n
+            out.append(slice(i * size, (i + 1) * size))
+        return tuple(out)
+
+    return index
+
+
+def local_slice(x, spec: tuple, mesh):
+    """This rank's block of ``x`` under ``spec`` (:func:`slice_index`), a
+    view."""
+    return x[slice_index(tuple(x.shape), spec, mesh)(mesh.coords())]

@@ -1,5 +1,5 @@
-"""The collectives of the sharded walk: one helper per operation, each
-taking the process group.
+"""The collectives of the mesh: one helper per operation, each taking the
+process group.
 
 gloo, the backend that runs several ranks on one card or on the CPU,
 reduces host tensors: a CUDA tensor is copied to the host (a blocking
@@ -7,6 +7,15 @@ copy, which waits for the kernels that made it), reduced there and copied
 back, explicitly.  A backend that takes device tensors (NCCL) gets them
 as they are, with no synchronize.  Every call counts itself in
 :data:`COUNTS`.
+
+The data-parallel paths (ZeRO-1, the sharded train step, MoE's
+dispatch) also need collectives that autograd differentiates:
+:func:`sum_forward` (a sum whose gradient passes through unchanged),
+:func:`split_rows` / :func:`gather_rows` (a rank's slice of replicated
+rows and the gather back, each the other's adjoint) and
+:func:`all_to_all` (its own adjoint).  Several tensors travel as one
+flat bucket a dtype (:func:`all_reduce_many`, :func:`gather_slices`):
+each host-staged call costs milliseconds whatever its size.
 """
 
 from __future__ import annotations
@@ -14,9 +23,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["COUNTS", "reset", "all_reduce", "all_gather", "gather_columns"]
+__all__ = ["COUNTS", "reset", "all_reduce", "all_gather", "gather_columns",
+           "all_reduce_many", "all_to_all", "sum_forward", "split_rows",
+           "gather_rows", "gather_slices"]
 
-COUNTS = {"all_reduce": 0, "all_gather": 0}
+COUNTS = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
 _OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
         "sum": dist.ReduceOp.SUM}
@@ -60,3 +71,135 @@ def gather_columns(y: torch.Tensor, shard) -> torch.Tensor:
     if shard is None:
         return y
     return all_gather(y, shard.mesh.group(shard.axis), dim=-1)
+
+
+def _by_dtype(xs: list[torch.Tensor]) -> dict:
+    out: dict = {}
+    for i, x in enumerate(xs):
+        out.setdefault(x.dtype, []).append(i)
+    return out
+
+
+def all_reduce_many(xs: list[torch.Tensor], op: str, group
+                    ) -> list[torch.Tensor]:
+    """Each of ``xs`` reduced over ``group`` (:func:`all_reduce`), with
+    one call per dtype on a flat bucket of them all."""
+    out: list = [None] * len(xs)
+    for idx in _by_dtype(xs).values():
+        flat = all_reduce(torch.cat([xs[i].reshape(-1) for i in idx]), op,
+                          group)
+        for i, part in zip(idx, flat.split([xs[i].numel() for i in idx])):
+            out[i] = part.view(xs[i].shape)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    COUNTS["all_to_all"] += 1
+    staged = _host_staged(x, group)
+    y = x.contiguous().cpu() if staged else x.contiguous()
+    out = torch.empty_like(y)
+    dist.all_to_all_single(out, y, group=group)
+    return out.to(x.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (G, ...) with G the group's size -> ``out`` (G, ...) with
+    ``out[j]`` group rank j's ``x[i]`` (i this rank's group rank): the
+    exchange of per-destination blocks (``dist.all_to_all_single``).  Its
+    own adjoint, so the gradient travels back the same way."""
+    return _AllToAll.apply(x, group)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of ``x``; the gradient reaches ``x`` unchanged.
+    For a term every rank adds to its own loss (a global mean of
+    per-rank parts): each rank's gradient then covers its own part, and
+    the gradients' sum over the group is the whole term's."""
+    return _SumForward.apply(x, group)
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, n, dim):
+        ctx.group, ctx.dim = group, dim
+        size = x.shape[dim] // n
+        return x.narrow(dim, index * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.index, ctx.dim, ctx.size = index, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
+
+
+def split_rows(x: torch.Tensor, group, index: int, n: int,
+               dim: int = 0) -> torch.Tensor:
+    """Slice ``index`` of ``n`` equal slices of ``x`` along ``dim`` (``x``
+    the same on every rank of ``group``, ``index`` this rank's group
+    rank).  The gradient is gathered over the group, so every rank's
+    ``x`` receives the whole gradient of the slices' computations."""
+    return _SplitRows.apply(x, group, index, n, dim)
+
+
+def gather_rows(x: torch.Tensor, group, index: int,
+                dim: int = 0) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` (:func:`all_gather`);
+    the gradient of this rank's slice (``index``, its group rank) is its
+    part of the whole result's, for a computation every rank of the group
+    repeats on the whole result."""
+    return _GatherRows.apply(x, group, index, dim)
+
+
+def gather_slices(parts: list[torch.Tensor], slices: list, shapes: list,
+                  mesh) -> list[torch.Tensor]:
+    """Whole tensors from every rank's slices: ``parts[i]`` is this
+    rank's slice of a tensor of ``shapes[i]``, ``slices[i]`` the function
+    that gives a rank's index tuple (sharding/axes.py:slice_index, from
+    its coordinates).  One all-gather over the whole mesh per dtype; a
+    slice that several ranks hold (a dim not split over every axis) is
+    written once per holder, with the same values."""
+    group = mesh.group(mesh.axis_names)
+    out: list = [None] * len(parts)
+    for idx in _by_dtype(parts).values():
+        sizes = [parts[i].numel() for i in idx]
+        flat = all_gather(torch.cat([parts[i].reshape(-1) for i in idx]),
+                          group, dim=0).view(mesh.size, sum(sizes))
+        for i in idx:
+            out[i] = torch.empty(shapes[i], dtype=parts[i].dtype,
+                                 device=parts[i].device)
+        for rank in range(mesh.size):
+            coords = mesh.coords(rank)
+            for i, piece in zip(idx, flat[rank].split(sizes)):
+                out[i][slices[i](coords)] = piece.view(parts[i].shape)
+    return out

@@ -16,18 +16,26 @@ operand has.  (The reference's ``hints_disabled`` scope, which turns the
 hints off around a replicated backbone, has nothing to turn off here and
 is not ported.)  A mesh is anything with the reference mesh's ``shape``
 (axis name -> size) and ``axis_names`` (launch/mesh.py:Mesh).
+
+The data-parallel paths run each rank on its own rows of the global
+batch: :func:`row_shard` installs a mesh for a scope and records the
+axes the rows are split over (:func:`row_axes`), which models/moe.py
+reads to keep the global batch's routing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 _MESH = None
+_ROWS: tuple[str, ...] = ()
 
 __all__ = ["set_mesh", "get_mesh", "hint", "hint_dp", "hint_uneven",
-           "mesh_axis_size", "safe_axes", "constrain"]
+           "mesh_axis_size", "safe_axes", "constrain", "row_shard",
+           "row_axes", "axes_tuple"]
 
 
 def set_mesh(mesh) -> None:
@@ -37,6 +45,35 @@ def set_mesh(mesh) -> None:
 
 def get_mesh():
     return _MESH
+
+
+def axes_tuple(axes) -> tuple[str, ...]:
+    """A spec entry (a name, a tuple of names, or None) as a tuple."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@contextlib.contextmanager
+def row_shard(mesh, axes):
+    """Within the scope ``mesh`` is installed and the activations hold
+    this rank's rows of the global batch, split evenly over ``axes`` (a
+    spec entry; axes of size 1 are dropped, None for whole rows).  The
+    previous mesh and row axes come back on exit."""
+    global _MESH, _ROWS
+    saved = _MESH, _ROWS
+    _MESH = mesh
+    _ROWS = tuple(a for a in axes_tuple(axes) if mesh.shape[a] > 1)
+    try:
+        yield
+    finally:
+        _MESH, _ROWS = saved
+
+
+def row_axes() -> tuple[str, ...]:
+    """The axes this rank's rows are split over (:func:`row_shard`); ()
+    for whole rows."""
+    return _ROWS
 
 
 def mesh_axis_size(mesh, axis) -> int:

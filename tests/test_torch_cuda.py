@@ -1286,3 +1286,33 @@ def test_head_walk_on_two_ranks_of_one_card(dev, early_exit):
             assert torch.equal(g, r.cpu())
         assert launches["l2r_streaming_gemm"] == (0 if early_exit else 1)
         assert launches["l2r_stacked_gemm"] == (run if early_exit else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 100, 512, 576, 768, 1536, 2048, 2560,
+                               3584, 4096, 5120, 5376])
+def test_decode_rows_do_not_depend_on_the_batch(dev, d):
+    """rms_norm and decode attention give a row the same bits whatever
+    the number of rows beside it (the "batch" slot layout's ranks decode
+    their rows as one process does): the served widths (d_model, mamba2's
+    d_inner 1536), the smoke widths and one that 32 does not divide."""
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.common import rms_norm
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn((16, 1, d), generator=g, device=dev) * 3
+    gamma = torch.randn((d,), generator=g, device=dev)
+    whole = rms_norm(x, gamma)
+    for n in (1, 2, 4, 8):
+        assert torch.equal(rms_norm(x[:n].clone(), gamma), whole[:n])
+    b, L, h, kv, dh = 16, 2080, 9, 3, 64
+    q = torch.randn((b, 1, h, dh), generator=g, device=dev)
+    k = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    v = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(b, L)
+    qpos = torch.full((b,), L - 1, device=dev, dtype=torch.int32)
+    whole = decode_attention(q, k, v, pos.contiguous(), qpos)
+    for n in (1, 3, 4, 8, 9):
+        got = decode_attention(q[:n].clone(), k[:n].clone(), v[:n].clone(),
+                               pos[:n].contiguous(), qpos[:n].clone())
+        assert torch.equal(got, whole[:n])

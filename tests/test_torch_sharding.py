@@ -124,6 +124,36 @@ def test_state_specs_match_reference(arch):
             assert ref and got == ref, (arch, name, kv_shard)
 
 
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b",
+                                  "whisper-base", "qwen2-vl-7b"])
+def test_train_step_shardings_match_reference(arch, monkeypatch):
+    """The sharded step's (in, out) spec trees: the reference's with its
+    NamedSharding wrapper taken off (``named`` patched here)."""
+    from types import SimpleNamespace
+
+    from repro.train import step as jstep
+    from repro_torch.train.step import train_step_shardings
+
+    monkeypatch.setattr(jstep, "named", lambda mesh, tree: tree)
+    jdesc, tdesc = _descs(arch)
+    cfg = get_config(arch)
+    shapes = {"tokens": (8, 64), "labels": (8, 64)}
+    if cfg.family == "encdec":
+        shapes["frames"] = (8, 32, cfg.d_model)
+    if cfg.rope_mode == "mrope":
+        shapes["rope_positions"] = (3, 8, 64)
+    batch = {k: SimpleNamespace(shape=v) for k, v in shapes.items()}
+    for name in MESHES:
+        jm, tm = _meshes(name)
+        for ef in (False, True):
+            got = train_step_shardings(cfg, tm, tdesc, batch, ef)
+            ref = jstep.train_step_shardings(j_get_config(arch), jm, jdesc,
+                                             batch, ef)
+            assert len(got) == len(ref) == 2
+            for g, r in zip(got, ref):
+                assert _leaves(g) == _j_leaves(r), (arch, name, ef)
+
+
 def test_batch_and_safe_specs_match_reference():
     for name in MESHES:
         jm, tm = _meshes(name)
@@ -276,8 +306,15 @@ def test_unported_mesh_modes_raise_naming_their_slice():
     from repro_torch.serve.batching import ContinuousBatcher
 
     cfg = dataclasses.replace(get_smoke("smollm-135m"), l2r=QuantConfig())
-    for mode in ("batch", "specs"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            ContinuousBatcher(cfg, {}, state_sharding=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13c"):
+        ContinuousBatcher(cfg, {}, state_sharding="specs", device="cpu")
+    # "batch" constructs: rank 1 of a (data 2, model 1) mesh holds slots
+    # 2 and 3 of 4 (no collective runs before the first step)
+    eng = ContinuousBatcher(cfg, {}, n_slots=4, state_sharding="batch",
+                            device="cpu", progressive=True,
+                            mesh=Mesh({"data": 2, "model": 1}, rank=1))
+    assert (eng._r0, eng._n_local) == (2, 2)
+    assert tuple(eng.state.pos.shape) == (2,)
+    assert tuple(eng.cur_tok.shape) == (4, 1)
     with pytest.raises(ValueError, match="state_sharding"):
         ContinuousBatcher(cfg, {}, state_sharding="rows", device="cpu")

@@ -207,9 +207,18 @@ def test_ef_compression_still_converges(setup):
 
 
 def test_mesh_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(get_smoke("smollm-135m"), AdamWConfig(),
-                        mesh=object())
+    """``make_train_step(mesh=)`` checks its mesh: it needs a data axis
+    and ranks on a process group (the data-parallel step itself runs on
+    spawned ranks in test_torch_sharded_train.py)."""
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+
+    cfg = get_smoke("smollm-135m")
+    with pytest.raises(ValueError, match="'data' axis"):
+        make_train_step(cfg, AdamWConfig(), mesh=object())
+    with pytest.raises(ValueError, match="'data' axis"):
+        make_train_step(cfg, AdamWConfig(), mesh=Mesh({"model": 2}, rank=0))
+    with pytest.raises(ValueError, match="shapes only"):
+        make_train_step(cfg, AdamWConfig(), mesh=make_production_mesh())
 
 
 # ------------------------------------------------ C2: B5 and B4 gradients

@@ -73,3 +73,52 @@ def test_head_resize_matches_reference(size):
     ref = np.asarray(jax.image.resize(jnp.asarray(x), (2, 7, 7, 8), "linear"))
     got = _resize_7x7(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+# 224x224 (the paper's size), one layer at a time: the whole network at
+# 224 is the card's (chip_smoke.py phase 3), against the port's own plain
+# GEMM; here two of its conv layers meet the reference itself
+@pytest.mark.parametrize("layer,cin", [("conv1_1", 3), ("conv1_2", 64)])
+def test_conv_layer_at_224_matches_reference(layer, cin):
+    """One VGG-16 conv layer at 224x224, batch 1, He-normal weights of its
+    shape (3x3, ``cin`` -> 64): the integer accumulators of the fused L2R
+    conv bit for bit the reference's ``_l2r_conv2d_int`` (raw and
+    pre-stacked weights), and ``l2r_conv2d``'s dequantized output (the
+    input quantized inside the call) to rtol 1e-6 (the float multiplies,
+    as tests/test_torch_conv.py)."""
+    from repro.core import quant as jq
+    from repro.kernels.l2r_gemm import ops as jops
+    from repro_torch.core import quant as tq
+    from repro_torch.kernels.l2r_gemm import ops as tops
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rng = np.random.default_rng(cin)
+        x = rng.standard_normal((1, 224, 224, cin)).astype(np.float32)
+        if cin > 3:  # a ReLU'd activation map
+            x = np.maximum(x, 0)
+        wf = (rng.standard_normal((3, 3, cin, 64))
+              * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        xq = rng.integers(-128, 128, x.shape).astype(np.int8)
+        jw = jq.quantize_weights(jnp.asarray(wf), jq.QuantConfig(),
+                                 prestack=True, plane_axis=-2)
+        tw = tq.quantize_weights(torch.from_numpy(wf), tq.QuantConfig(),
+                                 prestack=True, plane_axis=-2,
+                                 plane_shifted=True)
+        for jrhs, trhs in ((jw.q, tw.q), (jw.planes, tw.planes)):
+            ref = np.asarray(jops._l2r_conv2d_int(
+                jnp.asarray(xq), jrhs, 8, 2, None, "jnp", (1, 1), (1, 1)))
+            got = tops._l2r_conv2d_int(torch.from_numpy(xq), trhs, 8, 2,
+                                       None, (1, 1), (1, 1))
+            assert ref.shape == (1, 224, 224, 64)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=layer)
+        ref = np.asarray(jops.l2r_conv2d(jnp.asarray(x), None, None,
+                                         jq.QuantConfig(), None, w_q=jw,
+                                         backend="jnp"))
+        got = tops.l2r_conv2d(torch.from_numpy(x), torch.from_numpy(wf),
+                              None, tq.QuantConfig(), None)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=0)
+    finally:
+        torch.set_num_threads(n)
