@@ -195,14 +195,18 @@ Phases (any failure exits non-zero; nothing is caught):
      B2 at a rank's head walk (M 4, N 24,576), B5 at batch 4 (19a's f32
      forward, 19c's bf16 prefill), against their plain versions, timed
      beside their bounds and torch._int_mm / SDPA.  19a SmolLM-135M as
-     17a (seed 170, f32, remat) trained 3 steps of ``make_train_step(
+     17a (seed 170, f32, remat) trained 2 steps of ``make_train_step(
      mesh=)`` on the pipeline's global batches 8 x 2048 (4 a data rank),
-     the optimizer state ZeRO-1: 60 B5 launches a step a rank, the loss,
-     grad norm and params identical on every rank (MAX / MIN all-reduce
-     of a checksum), each rank's m / v bytes its zero1_specs share; the
-     losses and grad norms beside 17a's (printed), and one step from the
-     width-rescaled weights within TRAIN_B5_TOL of the one-process step
-     (rank 0 runs both); step ms, the collectives' ms and peak memory.
+     the params split per param_specs over "model" (the attention
+     gathered: 2 does not divide the 3 kv heads) and the residual's
+     sequence too, the optimizer state ZeRO-1: 60 B5 launches a step a
+     rank, the loss, the grad norm and the leaves held whole identical on
+     every rank and the split leaves on every rank of a data group (MAX /
+     MIN all-reduce of a checksum),
+     each rank's m / v bytes its zero1_specs share; the losses and grad
+     norms beside 17a's (printed), and one step from the width-rescaled
+     weights within TRAIN_B5_TOL of the one-process step (rank 0 runs
+     both); step ms, the collectives' ms, peak memory and param bytes.
      19b 15e's requests through ``ContinuousBatcher(state_sharding=
      "batch")``, 8 slots, 4 a data rank: tokens, exit levels, prefill
      exit levels, stats and launches equal 15e's batcher, each rank's
@@ -214,17 +218,58 @@ Phases (any failure exits non-zero; nothing is caught):
      call, the same tokens on every rank, and the first MoE layer's
      group output equal bit for bit to ``moe_apply`` without a mesh on
      that group's tokens with the whole expert stacks.
+ 20. the tensor-parallel half of the mesh.  20d first, on the card
+     alone: B1 at the column and row products of SmolLM-135M split 3
+     ways and deepseek-moe-16b split 2 ways (bit for bit its plain
+     version; a row product's K-split partials summed through int64
+     equal to the whole K's), B2 and B1's level slabs at 20a's head walk
+     (M 8, N 16,384), B5 on a rank's heads (SmolLM 3 / 1 of 64 bf16 and
+     f32 at 8 x 2048, deepseek 8 / 8 of 128 at 4 x 2048) bit for bit
+     those heads of the whole call and within ATTN_TOL of its plain
+     version, decode attention on a rank's heads equal to them in the
+     whole batch; each timed beside its bound and torch._int_mm / SDPA.
+     Then three gloo ranks on a 1 x 3 (data x model) mesh sharing the
+     card: 20a phase 13's model prepared and cut by ``shard_params`` (3 of
+     9 q heads, 1 of 3 kv heads, 512 of 1536 ffn columns, 16,384 of the
+     vocabulary), 15e's requests through ``ContinuousBatcher(
+     state_sharding="specs")``: tokens, exit levels, prefill exit levels
+     and stats equal 15e's batcher bit for bit on every rank, a third of
+     its KV bytes, its backbone bytes its param_specs share, launches as
+     15e's, the collectives as ``split_collectives`` derives beside the
+     walks'; 20b 17a's model (f32, remat, seed 170) trained 1 step of
+     the split ``make_train_step(mesh=)`` at 8 x 2048 (the sequence stays
+     whole: 3 does not divide 2048): 60 B5 a step a rank, the loss, the
+     grad norm and the leaves held whole (the norms) the same on every
+     rank, one step from the width-rescaled
+     weights within TRAIN_B5_TOL of one process; step ms, the
+     collectives' share, peak memory.  Then four ranks on the 2 x 2 mesh:
+     20c deepseek-moe-16b as phase 16 (4 layers, prepared) cut by
+     ``shard_params`` (8 of 16 heads, 32 of 64 experts, layer 0's d_ff
+     5,472, half the vocabulary a model rank), its 8 x 2048 prefill (4
+     rows a rank) and 2 greedy steps with "specs"-layout state: phase
+     16's tokens and the prefill's last-position logits (a checksum) bit
+     for bit, launches and collectives as derived, expert and backbone
+     bytes a rank.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
 B4 and B5 with their 17d rows, B1 and B2 with phase 18's per rank, B1,
-B2 and B5 with phase 19's per rank and its 19d rows), the card again,
+B2 and B5 with phase 19's per rank and its 19d rows, and with phase 20's
+per rank and its 20d rows), the card again,
 and the result line.
 Each path's launch counts are reset to 0 just before it and read just
 after; launches made to compare a kernel with its plain version are not
 counted.
 
 Imports neither jax nor the JAX package; exits non-zero without CUDA.
+
+    python3 chip_smoke.py --decode-profile
+
+builds the kernels and prints only the device profiles of one decode step
+of 13a, 14a and 15a (set up as those phases set it up), one JSON line.
+The script takes its package from ``src/`` beside it, so a copy of it in
+another checkout profiles that checkout's code: an older commit and this
+one can be compared in one call on one card.
 """
 
 from __future__ import annotations
@@ -2709,6 +2754,8 @@ def mixer_serve(arch: str, cfg, params, batch: dict) -> dict:
                 f"{arch} prefill launches {n}, expected {b1p} of B1, {b5p} "
                 f"of B5 and no other")
         launched = dict(n)
+        # phase 20c holds the split model to these
+        logits_checksum = float(tree_checksum([logits.float()]).item())
         tok = torch.argmax(logits, -1).to(torch.int32)
         toks = [tok]
         t0 = time.perf_counter()
@@ -2745,7 +2792,8 @@ def mixer_serve(arch: str, cfg, params, batch: dict) -> dict:
             "launches_per_prefill": {"B1": b1p, "B5": b5p},
             "launches_per_decode_step": {"B1": b1s, "B5": b5s},
             "launches": launched, "prof_decode": prof_decode,
-            "prof_prefill": prof_prefill}
+            "prof_prefill": prof_prefill, "tokens": seqs.tolist(),
+            "prefill_logits_checksum": logits_checksum}
 
 
 def mixer_exact(arch: str, cfg, params, batch: dict, steps: int,
@@ -2777,32 +2825,6 @@ def mixer_exact(arch: str, cfg, params, batch: dict, steps: int,
             f"plain-GEMM run")
     return {"levels": levels, "prompt": batch["tokens"].shape[1],
             "steps": steps + 1, "bit_identical": True}
-
-
-def fan_in_scaled(cfg, params):
-    """The params with every stacked default-scale matrix rescaled to
-    std 1/sqrt(its contraction width).  ``materialize`` takes a stacked
-    weight's fan-in from its leading layers axis, as the reference's
-    recipe does (whisper-base's decoder weights get std 1/sqrt(6), not
-    1/sqrt(512)); its random full-width decoder then carries a residual
-    stream of |x| ~ 2000 that magnifies a last-bit difference about
-    1e5-fold (on the CPU, one row's train forward alone and in a batch of
-    two differ by 2.4e-2; rescaled, by 1.9e-6)."""
-    import math
-
-    from repro_torch.models.common import tree_map
-    from repro_torch.models.encdec import encdec_build
-    from repro_torch.models.transformer import lm_build
-
-    def scaled(p, w):
-        if p.init != "normal" or p.scale is not None \
-                or p.axes[0] != "layers" or len(p.shape) < 3:
-            return w
-        k = p.shape[2] if p.axes[1] == "experts" else p.shape[1]
-        return w * math.sqrt(p.shape[0] / k)
-
-    desc = (encdec_build if cfg.family == "encdec" else lm_build)(cfg)
-    return tree_map(scaled, desc, params)
 
 
 def decode_errs(c, params, toks: torch.Tensor, frames) -> list[float]:
@@ -2843,8 +2865,13 @@ def decode_vs_train(arch: str, cfg, params, batch: dict) -> dict:
     (``decode_errs``).  mamba2 and recurrentgemma are held on the served
     weights.  whisper is held on its weights with the stacked matrices at
     the scale of their width (``fan_in_scaled``); its reading on the
-    served weights is printed beside it and not held."""
+    served weights is printed beside it and not held (on the CPU such a
+    decoder, its residual stream |x| ~ 2000, magnifies a last-bit
+    difference about 1e5-fold: one row's train forward alone and in a
+    batch of two differ by 2.4e-2; rescaled, by 1.9e-6)."""
     import dataclasses
+
+    from repro_torch.models.common import fan_in_scaled
 
     c = dataclasses.replace(cfg, l2r=None, compute_dtype="float32")
     toks, frames = batch["tokens"], batch.get("frames")
@@ -3186,6 +3213,8 @@ def train_b5_vs_plain(tr: dict) -> dict:
     stack then magnifies any last-bit difference in its activations
     (B5's included) in every gradient element, as whisper's decoder does
     in 16c."""
+    from repro_torch.models.common import fan_in_scaled
+
     out = {"scaled": b5_vs_plain_step(tr, fan_in_scaled(tr["cfg"],
                                                         tr["params"])),
            "served": b5_vs_plain_step(tr, tr["params"]),
@@ -3519,8 +3548,9 @@ class WalkProbe:
     The walk's collectives (policy.all_reduce, progressive.all_gather)
     are timed by a :class:`CollectiveClock`."""
 
-    def __init__(self, module, mesh):
+    def __init__(self, module, mesh, rows_sharded: bool = True):
         self.module, self.mesh = module, mesh
+        self.rows_sharded = rows_sharded
         self.walks: list[dict] = []
         self.inputs: list = []
 
@@ -3550,7 +3580,7 @@ class WalkProbe:
         made = {k: collectives.COUNTS[k] - before[k] for k in before}
         early = kw.get("early_exit", False)
         run = int(out[2].max()) + 1 if early else N_LEVELS
-        want = sharded_walk_collectives(run, True, True, early)
+        want = sharded_walk_collectives(run, True, self.rows_sharded, early)
         require(made == want, f"a walk of {run} levels made collectives "
                               f"{made}, the code derives {want}")
         self.walks.append({"ms": ms, "levels": run, "collectives": made,
@@ -4016,111 +4046,13 @@ def zero1_share_bytes(zero) -> int:
 
 
 def dp_train(dev, mesh, ref17: dict) -> dict:
-    """19a on this rank: SmolLM-135M as phase 17 (seed 170, f32, remat,
-    xent chunks of 512, AdamW) trained DP_STEPS steps of the pipeline's
-    global batches 8 x 2048 on the 2 x 2 mesh, 4 x 2048 a data rank, the
-    optimizer state ZeRO-1; then one step from the width-rescaled weights
-    (rank 0 also runs it in one process) against which TRAIN_B5_TOL
-    holds."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, ShardedPipeline
-    from repro_torch.device import no_tf32
-    from repro_torch.models.common import materialize, tree_leaves
-    from repro_torch.models.transformer import lm_build
-    from repro_torch.optim import adamw
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
-    from repro_torch.train import step as ts
-
-    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
-    params0 = materialize(lm_build(cfg), torch.Generator(device=dev)
-                          .manual_seed(170), device=dev)
-    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
-    tcfg = ts.TrainConfig(remat=True, seq_shard=False, xent_chunk=TRAIN_XENT)
-    zero = ts.zero1_layout(cfg, mesh)
-    step = ts.make_train_step(cfg, ocfg, tcfg, mesh)
-    pipe = ShardedPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH))
-    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
-               for _ in range(DP_STEPS)]
-    params, opt = params0, adamw_init(params0, zero)
-    mv_bytes = sum(x.numel() * x.element_size()
-                   for x in tree_leaves((opt.m, opt.v)))
-    want_bytes = zero1_share_bytes(zero)
-    require(mv_bytes == want_bytes, f"19a: this rank's m and v hold "
-                                    f"{mv_bytes} bytes; zero1_specs give "
-                                    f"{want_bytes}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    run = {"losses": [], "grad_norms": [], "step_ms": [], "coll_ms": [],
-           "launches": []}
-    with CollectiveClock(ts, adamw) as clock:
-        for i, batch in enumerate(batches):
-            torch.cuda.synchronize()
-            reset_counts()
-            c0, t0 = clock.seconds, time.perf_counter()
-            params, opt, m = step(params, opt, batch)
-            torch.cuda.synchronize()
-            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            run["coll_ms"].append((clock.seconds - c0) * 1e3)
-            n = counts()
-            require(n == only(flash_attention=B5_PER_TRAIN_STEP),
-                    f"19a step {i}: launches {n}, expected "
-                    f"{B5_PER_TRAIN_STEP} of B5 and no other")
-            run["launches"].append(n["flash_attention"])
-            run["losses"].append(m["loss"].item())
-            run["grad_norms"].append(m["grad_norm"].item())
-            same_value_on_every_rank(mesh, torch.cat([
-                torch.stack([m["loss"], m["grad_norm"]]).double(),
-                tree_checksum(tree_leaves(params))]),
-                f"19a step {i}: the loss, grad norm or params")
-    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    run["mv_bytes"] = mv_bytes
-    run["mv_bytes_one_process"] = sum(8 * x.numel()
-                                      for x in tree_leaves(params0))
-    run["served_vs_17"] = {
-        "loss_rel": [abs(a - b) / abs(b) for a, b in
-                     zip(run["losses"], ref17["losses"])],
-        "grad_norm_rel": [abs(a - b) / abs(b) for a, b in
-                          zip(run["grad_norms"], ref17["grad_norms"])]}
-    del params, opt
-    torch.cuda.empty_cache()
-    # the held check: one step from the width-rescaled weights
-    scaled = fan_in_scaled(cfg, params0)
-    del params0
-    opt = adamw_init(scaled, zero)
-    loss, _, grads = ts.make_grad_fn(cfg, tcfg, mesh)(scaled, batches[0])
-    with no_tf32():
-        new_p, _, om = adamw_update(ocfg, grads, scaled, opt, zero)
-    held = None
-    if mesh.rank == 0:
-        one_loss, _, one_grads = ts.make_grad_fn(cfg, tcfg)(scaled,
-                                                           batches[0])
-        with no_tf32():
-            one_p, _, one_om = adamw_update(ocfg, one_grads, scaled,
-                                            adamw_init(scaled))
-        old = tree_leaves(scaled)
-        upd = [a - o for a, o in zip(tree_leaves(new_p), old)]
-        one_upd = [a - o for a, o in zip(tree_leaves(one_p), old)]
-        gn = one_om["grad_norm"].item()
-        held = {"loss_rel": abs(loss.item() - one_loss.item())
-                / abs(one_loss.item()),
-                "grad_norm_rel": abs(om["grad_norm"].item() - gn) / gn,
-                "grad_worst": tree_close(
-                    tree_leaves(grads), tree_leaves(one_grads),
-                    TRAIN_B5_TOL["grad"], TRAIN_B5_TOL["grad_abs"] * gn),
-                "update_worst": tree_close(upd, one_upd,
-                                           TRAIN_B5_TOL["update"])}
-        require(held["loss_rel"] <= TRAIN_B5_TOL["loss"]
-                and held["grad_norm_rel"] <= TRAIN_B5_TOL["grad_norm"]
-                and held["grad_worst"] <= 1 and held["update_worst"] <= 1,
-                f"19a: the mesh step and the one-process step differ on "
-                f"the rescaled weights: {held}")
-    run["scaled_vs_one_process"] = held
-    del scaled, grads, new_p
-    torch.cuda.empty_cache()
-    return run
+    """19a on this rank: SmolLM-135M as phase 17 trained DP_STEPS steps of
+    the pipeline's global batches 8 x 2048 on the 2 x 2 mesh, 4 x 2048 a
+    data rank, the params split per param_specs over "model" (the
+    attention gathered: 2 does not divide the 3 kv heads), the sequence
+    over "model" between blocks, the optimizer state ZeRO-1
+    (:func:`train_split_run`)."""
+    return train_split_run(dev, mesh, DP_STEPS, True, ref17, "19a")
 
 
 def dp_batcher(dev, mesh, ref15: dict) -> dict:
@@ -4385,7 +4317,8 @@ def phase_dp(dev, train: dict, serve: dict) -> dict:
                "train": {k: r["train"][k] for k in (
                    "step_ms", "coll_ms", "losses", "grad_norms",
                    "launches", "peak_gb", "mv_bytes",
-                   "mv_bytes_one_process", "served_vs_17",
+                   "mv_bytes_one_process", "param_bytes",
+                   "param_bytes_one_process", "seq_sharded", "served_vs_17",
                    "seconds_total")},
                "batcher": {k: r["batcher"][k] for k in (
                    "seconds", "collective_s", "collectives", "launches",
@@ -4397,11 +4330,13 @@ def phase_dp(dev, train: dict, serve: dict) -> dict:
     print("phase 19: " + json.dumps(out, default=str), flush=True)
     tr0 = ranks[0]["train"]
     print(f"phase 19: 19a SmolLM-135M {DP_STEPS} ZeRO-1 steps of 8 x "
-          f"{TRAIN_SEQ} (4 a data rank): {B5_PER_TRAIN_STEP} B5 a step a "
-          f"rank, the same loss, grad norm and params on every rank; the "
-          f"rescaled step within TRAIN_B5_TOL of one process ({held}); "
-          f"m/v {tr0['mv_bytes']} bytes a rank (one process "
-          f"{tr0['mv_bytes_one_process']}); 19b 15e's requests in the "
+          f"{TRAIN_SEQ} (4 a data rank), the params split over 'model' and "
+          f"the sequence too: {B5_PER_TRAIN_STEP} B5 a step a rank, the "
+          f"same loss and grad norm on every rank and params on each data "
+          f"group; the rescaled step within TRAIN_B5_TOL of one process "
+          f"({held}); m/v {tr0['mv_bytes']} bytes a rank (one process "
+          f"{tr0['mv_bytes_one_process']}), params {tr0['param_bytes']} "
+          f"(one process {tr0['param_bytes_one_process']}); 19b 15e's requests in the "
           f"'batch' layout == 15e's batcher bit for bit, half its slot "
           f"state a rank; 19c deepseek-moe-16b ({DP_DEEPSEEK_LAYERS} "
           f"layers) dp-local: every rank's group output == moe_apply on "
@@ -4409,6 +4344,708 @@ def phase_dp(dev, train: dict, serve: dict) -> dict:
           f"launches and collectives exact; {out['seconds']:.1f} s",
           flush=True)
     return out
+
+
+# ------------------------------------------------------------------ slice 14
+# the tensor-parallel half of the mesh: the attention families' backbone
+# split over "model" (sharding/axes.py:shard_params), the "specs" slot
+# layout and tensor-parallel training; the ranks share the one card over
+# gloo as in phases 18-19
+TP_SHAPE = (1, 3)  # (data, model): 3 divides SmolLM-135M's 3 kv heads,
+#                    9 q heads, d_ff 1536 and vocab 49,152
+TP_WORLD = TP_SHAPE[0] * TP_SHAPE[1]
+TP_STEPS = 1  # 20b's steps of the global batch 8 x 2048 (cut for time)
+TP_DECODE_STEPS = 2  # 20c's greedy steps after its prefill
+TP_DEADLINE_S = 900
+TP_DEEPSEEK_B1 = 6 + 3 * (4 + 1 + 2 * 32 + 2) + 1  # 20c a call: 32 experts
+TP_B1 = [  # (M, K, N, launches per rank per call, where, split ranks;
+    # split over K: the row-parallel products, their partials summed)
+    (8, 576, 192, 30, "20a wq decode (col)", 1),
+    (8, 576, 64, 60, "20a wk wv decode (col)", 1),
+    (8, 576, 2 * 512, 30, "20a mlp wi decode (col)", 1),
+    (8, 192, 576, 30, "20a attn wo decode (row)", 3),
+    (8, 512, 576, 30, "20a mlp wo decode (row)", 3),
+    (2048, 576, 192, 30, "20a wq prefill (col)", 1),
+    (2048, 576, 2 * 512, 30, "20a mlp wi prefill (col)", 1),
+    (2048, 192, 576, 30, "20a attn wo prefill (row)", 3),
+    (2048, 512, 576, 30, "20a mlp wo prefill (row)", 3),
+    (4 * 2048, 2048, 1024, 12, "20c wq wk wv prefill (col)", 1),
+    (4 * 2048, 1024, 2048, 4, "20c attn wo prefill (row)", 2),
+    (4 * 2048, 2048, 2 * 5472, 1, "20c layer-0 wi prefill (col)", 1),
+    (4 * 2048, 5472, 2048, 1, "20c layer-0 wo prefill (row)", 2),
+    (4 * 2048, 2048, 2 * 1408, 3, "20c shared wi prefill (col)", 1),
+    (4 * 2048, 1408, 2048, 3, "20c shared wo prefill (row)", 2),
+    (4, 2048, 1024, 12, "20c wq wk wv decode (col)", 1),
+    (4, 1024, 2048, 4, "20c attn wo decode (row)", 2),
+]
+TP_B5 = [  # (where, B, S, (H, Kv) whole, (H, Kv) a rank's, dh, dtype,
+    # launches per rank per call)
+    ("20a prefill", 8, 2048, (9, 3), (3, 1), 64, torch.bfloat16, 30),
+    ("20b train forward", 8, 2048, (9, 3), (3, 1), 64, torch.float32, 60),
+    ("20c prefill", 4, 2048, (16, 16), (8, 8), 128, torch.bfloat16, 4),
+]
+TP_DECODE = [  # (where, B, L, (H, Kv) whole, (H, Kv) a rank's, dh)
+    ("20a decode", 8, 2080, (9, 3), (3, 1), 64),
+    ("20c decode", 4, 2048 + 16 + 4, (16, 16), (8, 8), 128),
+]
+
+
+def b1_row_split_check(g, dev, m: int, k: int, n: int, ranks: int,
+                       where: str) -> None:
+    """The ranks' K-slices on kernel B1, their int32 partials summed in
+    int64 and narrowed (sharding/collectives.py:sum_int's arithmetic):
+    the whole product, at every level prefix."""
+    from repro_torch.core.l2r_gemm import wrap_int32
+    from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    a, b = operands(g, dev, m, k, n, 8)
+    kl = k // ranks
+    for lv in (None, 0, 3):
+        whole = kernel.l2r_gemm_stacked_planes(
+            stack_planes_lhs(a), stack_planes_rhs(b), levels=lv)
+        total = sum(kernel.l2r_gemm_stacked_planes(
+            stack_planes_lhs(a[:, j * kl:(j + 1) * kl].contiguous()),
+            stack_planes_rhs(b[j * kl:(j + 1) * kl].contiguous()),
+            levels=lv).to(torch.int64) for j in range(ranks))
+        require(torch.equal(wrap_int32(total), whole),
+                f"B1's K-split partials summed != the whole product at "
+                f"{where} (levels {lv})")
+    del a, b, whole, total
+
+
+def head_subset(x: torch.Tensor, heads: int, j: int) -> torch.Tensor:
+    return x[:, :, j * heads:(j + 1) * heads].contiguous()
+
+
+class ModelAxis:
+    """Rank ``j`` of a model axis of ``m`` for a ``ctx.model_shard`` scope
+    in one process (no process group): what a rank's decode attention
+    reads of the split."""
+
+    def __init__(self, m: int, j: int):
+        self.shape, self.j = {"model": m}, j
+
+    def group(self, axes):
+        return None
+
+    def index(self, axes):
+        return self.j
+
+
+def tp_kernel_rows(dev) -> dict:
+    """20d: kernels B1, B2 and B5 at the shapes phase 20 gives a rank, on
+    the card before the ranks start: B1 column and row products bit for
+    bit against its plain version (the row products' K-split partials
+    summed equal to the whole K's), B2 and B1's level slabs at 20a's head
+    slice, B5 on a rank's heads equal bit for bit to those heads of the
+    whole call (and within ATTN_TOL of its plain version), decode
+    attention on a rank's heads equal to them in the whole batch; each
+    timed beside its bound and torch._int_mm / SDPA."""
+    from repro_torch.core.quant import QuantConfig, quantize_weights
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.sharding import ctx
+
+    g = torch.Generator(device=dev).manual_seed(200)
+    b1 = []
+    for m, k, n, count, where, ranks in TP_B1:
+        b1.append(b1_shape_row(g, dev, m, k, n, count, where, "20d"))
+        if ranks > 1:
+            b1_row_split_check(g, dev, m, k * ranks, n, ranks, where)
+    # the head walk of 20a: a rank's 16,384 columns, its 8 slots' rows
+    w = torch.randn((LM_HEAD[0], LM_HEAD[1] // TP_SHAPE[1]), generator=g,
+                    device=dev)
+    cache = quantize_weights(w, QuantConfig(), prestack=True,
+                             window_pad=True, plane_shifted=True,
+                             k_major=True)
+    xq = torch.randint(-127, 128, (SERVE_SLOTS, LM_HEAD[0]), generator=g,
+                       device=dev, dtype=torch.int8)
+    b2 = shard_shape_check(xq, cache, "20a head walk")
+    print("phase 20d: " + json.dumps(b2), flush=True)
+    del w, cache, xq
+    b5 = []
+    for where, b, s, (h, kv), (hp, kvp), dh, dtype, count in TP_B5:
+        q, k_, v = attn_qkv(g, dev, b, s, s, h, kv, dh, dtype)
+        with no_tf32():
+            whole = fa.flash_attention(q, k_, v, causal=True)
+            for j in range(h // hp):
+                got = fa.flash_attention(head_subset(q, hp, j),
+                                         head_subset(k_, kvp, j),
+                                         head_subset(v, kvp, j), causal=True)
+                require(torch.equal(got, whole[:, :, j * hp:(j + 1) * hp]),
+                        f"B5 on rank {j}'s heads at {where} != those heads "
+                        f"of the whole call")
+            qs, ks, vs = (head_subset(t, c, 0)
+                          for t, c in ((q, hp), (k_, kvp), (v, kvp)))
+            got = fa.flash_attention(qs, ks, vs, causal=True)
+            ref = fa.flash_attention_kernel_plain(qs, ks, vs, True)
+        err, excess = attn_err(got, ref)
+        require(excess <= ATTN_TOL[dtype][1], f"B5 at {where}: max |d| "
+                f"{err} from plain, {excess} beyond the relative term")
+        del whole, got, ref
+        with no_tf32():
+            call = lambda: fa.flash_attention(  # noqa: E731
+                qs, ks, vs, causal=True)
+            _, lib_fn = sdpa(qs, ks, vs, True, None)
+            row = {"name": where, "count": count, "B": b, "S": s, "H": hp,
+                   "Kv": kvp, "H_whole": h, "Kv_whole": kv, "dh": dh,
+                   "dtype": str(dtype).split(".")[-1],
+                   "ms": time_ms(call, iters=5, warmup=1),
+                   "kernel_ms": stream_ms(call),
+                   "plain_ms": time_ms(lambda: fa.flash_attention_kernel_plain(
+                       qs, ks, vs, True), iters=3, warmup=1),
+                   "library_ms": time_ms(lib_fn, iters=5, warmup=1)}
+        pairs = visible_pairs(s, s, True, None)
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            b, hp, dh, pairs, dtype,
+            (2 * qs.numel() + 2 * ks.numel()) * qs.element_size())
+        row["max_abs_err"] = err
+        row["heads_equal_whole_call"] = True
+        b5.append(row)
+        print("phase 20d: " + json.dumps(row), flush=True)
+        del q, k_, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    decode = []
+    for where, b, L, (h, kv), (hp, kvp), dh in TP_DECODE:
+        q = torch.randn((b, 1, h, dh), generator=g, device=dev)
+        k_ = torch.randn((b, L, kv, dh), generator=g, device=dev)
+        v = torch.randn((b, L, kv, dh), generator=g, device=dev)
+        pos = torch.arange(L, device=dev, dtype=torch.int32).expand(
+            b, L).contiguous()
+        qpos = torch.full((b,), L - 3, device=dev, dtype=torch.int32)
+        whole = decode_attention(q, k_, v, pos, qpos)
+        parts = [(head_subset(q, hp, j), head_subset(k_, kvp, j),
+                  head_subset(v, kvp, j)) for j in range(h // hp)]
+        for j, (qj, kj, vj) in enumerate(parts):
+            with ctx.model_shard(ModelAxis(h // hp, j)):
+                got = decode_attention(qj, kj, vj, pos, qpos)
+            require(torch.equal(got, whole[:, :, j * hp:(j + 1) * hp]),
+                    f"decode attention on rank {j}'s heads at {where} != "
+                    f"those heads of the whole batch")
+        qj, kj, vj = parts[0]
+        with ctx.model_shard(ModelAxis(h // hp, 0)):
+            ms = time_ms(lambda: decode_attention(qj, kj, vj, pos, qpos))
+        row = {"name": where, "B": b, "L": L, "H": hp, "Kv": kvp, "dh": dh,
+               "heads_equal_whole_call": True, "ms": ms,
+               "ms_whole": time_ms(lambda: decode_attention(q, k_, v, pos,
+                                                            qpos))}
+        decode.append(row)
+        print("phase 20d: " + json.dumps(row), flush=True)
+        del q, k_, v, parts, whole
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": [b2], "b5": b5, "decode": decode}
+
+
+def spec_share_bytes(cfg, params, mesh) -> int:
+    """The bytes of a prepared backbone's ``param_specs`` slices (the head
+    cache ``head_q`` aside): a cache split on any dim keeps 1/m of its
+    codes and plane stack, and 1/m of its scales when split by output
+    channels (a row split keeps the whole columns' scales)."""
+    from repro_torch.core.quant import QuantizedWeights
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.sharding.axes import param_specs
+
+    m = mesh.shape["model"]
+    specs = param_specs(lm_build(cfg), mesh)
+    pairs = []
+
+    def walk(x, s):
+        if isinstance(s, dict):
+            for key in sorted(s):
+                walk(x[key], s[key])
+        elif isinstance(s, list):
+            for a, b in zip(x, s):
+                walk(a, b)
+        else:
+            pairs.append((x, s))
+
+    walk({k: params[k] for k in specs}, specs)
+    total = 0
+    for x, s in pairs:
+        split = any(a == "model" for a in s) and m > 1
+        f = m if split else 1
+        if isinstance(x, QuantizedWeights):
+            col = split and s[-1] == "model"
+            total += (x.q.numel() * x.q.element_size()
+                      + x.planes.stack.numel() * x.planes.stack.element_size()
+                      ) // f
+            total += x.scale.numel() * x.scale.element_size() // (
+                m if col else 1)
+        else:
+            total += x.numel() * x.element_size() // f
+    return total
+
+
+def backbone_bytes(params) -> int:
+    from repro_torch.serve.batching import _tensors
+
+    return sum(t.numel() * t.element_size() for t in _tensors(
+        {k: v for k, v in params.items() if k != "head_q"}))
+
+
+def kv_bytes(state) -> int:
+    from repro_torch.models.attention import KVCache
+
+    return sum(t.numel() * t.element_size()
+               for c in (*state.prefix, *(state.stack or []), *state.suffix)
+               if isinstance(c, KVCache) for t in (c.k, c.v))
+
+
+def tp_serve(dev, mesh, ref15) -> dict:
+    """20a on this rank: phase 13's model prepared (the head 16,384
+    columns a rank), cut by ``shard_params`` (3 of 9 q heads, 1 of 3 kv
+    heads, 512 of 1536 ffn columns), 15e's requests through
+    ``ContinuousBatcher(state_sharding="specs")``."""
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models.transformer import init_lm_state
+    from repro_torch.serve import ContinuousBatcher, engine
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.axes import shard_params
+
+    cfg, whole, _ = lm_model(dev, mesh=mesh)
+    out = {"backbone_bytes_whole": backbone_bytes(whole),
+           "backbone_bytes_want": spec_share_bytes(cfg, whole, mesh)}
+    params = shard_params(cfg, whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    out["backbone_bytes"] = backbone_bytes(params)
+    require(out["backbone_bytes"] == out["backbone_bytes_want"],
+            f"20a: this rank's backbone is {out['backbone_bytes']} bytes; "
+            f"its param_specs share {out['backbone_bytes_want']}")
+    with torch.no_grad():
+        eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, progressive=True,
+                                early_exit=True, device=dev, mesh=mesh,
+                                state_sharding="specs")
+        out["kv_bytes"] = kv_bytes(eng.state)
+        out["kv_bytes_whole"] = kv_bytes(init_lm_state(
+            cfg, SERVE_SLOTS, SERVE_MAX_LEN, torch.float32, device="meta"))
+        require(TP_SHAPE[1] * out["kv_bytes"] == out["kv_bytes_whole"],
+                f"20a: this rank's KV caches are {out['kv_bytes']} bytes; "
+                f"15e's {out['kv_bytes_whole']}")
+        reqs = serve_requests(cfg)
+        for r in reqs:
+            eng.submit(r)
+        reset_counts()
+        collectives.reset()
+        t0 = time.perf_counter()
+        with CollectiveClock(ops) as clock, \
+                WalkProbe(engine, mesh, rows_sharded=False) as probe:
+            eng.run()
+            torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+    out.update(reqs=served(reqs), stats=served_stats(eng),
+               launches=counts(), collective_s=clock.seconds,
+               walk_collective_s=sum(w["collective_ms"]
+                                     for w in probe.walks) / 1e3,
+               collectives=dict(collectives.COUNTS), walks=len(probe.walks))
+    forwards = out["stats"]["steps"] + out["stats"]["prefills"]
+    per = engine.split_collectives(cfg, params)
+    want = {k: forwards * per[k] + 2 * len(probe.walks) * (k == "all_reduce")
+            + sum(w["collectives"][k] for w in probe.walks) for k in per}
+    out["collectives_want"] = want
+    out["split_collectives_per_forward"] = per
+    require(out["collectives"] == want,
+            f"20a: collectives {out['collectives']}, the code derives "
+            f"{want} ({forwards} forwards of {per}, {len(probe.walks)} "
+            f"walks and their same-input checks)")
+    require(out["reqs"] == ref15["batcher_reqs"],
+            "20a: tokens or exit levels differ from 15e's batcher")
+    require(out["stats"] == ref15["batcher_stats"],
+            "20a: stats differ from 15e's batcher")
+    launched = {k: v for k, v in out["launches"].items() if v}
+    require(launched == ref15["batcher"]["launches"],
+            f"20a: launches {launched}, 15e's batcher "
+            f"{ref15['batcher']['launches']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def local_checksum_same(mesh, axes, leaves, what: str) -> None:
+    """Require the checksum of ``leaves`` equal on every rank of the group
+    over ``axes`` (a MAX and a MIN all-reduce)."""
+    from repro_torch.sharding.collectives import all_reduce
+
+    c = tree_checksum(leaves)
+    group = mesh.group(axes)
+    require(torch.equal(all_reduce(c, "max", group),
+                        all_reduce(c, "min", group)),
+            f"{what} differs between the ranks over {axes}")
+
+
+def train_split_run(dev, mesh, steps: int, seq_shard: bool,
+                    ref17: dict, tag: str) -> dict:
+    """``steps`` steps of ``make_train_step(mesh=)`` on SmolLM-135M as
+    17a (seed 170, f32, remat, xent chunks of 512, AdamW) with the params
+    split per param_specs and ZeRO-1 state: 60 B5 a step a rank, the loss,
+    grad norm and the leaves held whole the same on every rank, the split
+    leaves the same on the ranks that hold the same slices (the data
+    group), each rank's m / v bytes its zero1_specs share; then one step from the width-rescaled
+    weights within TRAIN_B5_TOL of the one-process step (rank 0 runs
+    both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedPipeline
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.common import (fan_in_scaled, materialize,
+                                           tree_leaves)
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.sharding.axes import gather_params, shard_params
+    from repro_torch.train import step as ts
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), compute_dtype="float32")
+    params0 = materialize(lm_build(cfg), torch.Generator(device=dev)
+                          .manual_seed(170), device=dev)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    tcfg = ts.TrainConfig(remat=True, seq_shard=seq_shard,
+                          xent_chunk=TRAIN_XENT)
+    zero = ts.zero1_layout(cfg, mesh)
+    step = ts.make_train_step(cfg, ocfg, tcfg, mesh)
+    pipe = ShardedPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+               for _ in range(steps)]
+    params = shard_params(cfg, params0, mesh)
+    whole_shapes = [tuple(x.shape) for x in tree_leaves(params0)]
+    run = {"param_bytes": sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params)),
+           "param_bytes_one_process": sum(x.numel() * x.element_size()
+                                          for x in tree_leaves(params0)),
+           "seq_sharded": ts._resid_shard_fn(mesh, tcfg, TRAIN_BATCH,
+                                             TRAIN_SEQ)[1]}
+    opt = adamw_init(params, zero)
+    mv_bytes = sum(x.numel() * x.element_size()
+                   for x in tree_leaves((opt.m, opt.v)))
+    want_bytes = zero1_share_bytes(zero)
+    require(mv_bytes == want_bytes, f"{tag}: this rank's m and v hold "
+                                    f"{mv_bytes} bytes; zero1_specs give "
+                                    f"{want_bytes}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run.update(losses=[], grad_norms=[], step_ms=[], coll_ms=[], launches=[])
+    with CollectiveClock(ts, adamw, ops, transformer) as clock:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            reset_counts()
+            c0, t0 = clock.seconds, time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["coll_ms"].append((clock.seconds - c0) * 1e3)
+            n = counts()
+            require(n == only(flash_attention=B5_PER_TRAIN_STEP),
+                    f"{tag} step {i}: launches {n}, expected "
+                    f"{B5_PER_TRAIN_STEP} of B5 and no other")
+            run["launches"].append(n["flash_attention"])
+            run["losses"].append(m["loss"].item())
+            run["grad_norms"].append(m["grad_norm"].item())
+            same_value_on_every_rank(mesh, torch.stack(
+                [m["loss"], m["grad_norm"]]).double(),
+                f"{tag} step {i}: the loss or grad norm")
+            # the leaves every rank holds whole (the norms) are the same
+            # on every rank; a split leaf on every rank holding its slice
+            leaves = tree_leaves(params)
+            local_checksum_same(mesh, ("data", "model"), [
+                x for x, d in zip(leaves, whole_shapes)
+                if tuple(x.shape) == d], f"{tag} step {i}: the whole params")
+            if mesh.shape["data"] > 1:
+                local_checksum_same(mesh, "data", leaves,
+                                    f"{tag} step {i}: a rank's params")
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    run["mv_bytes"] = mv_bytes
+    run["mv_bytes_one_process"] = sum(8 * x.numel()
+                                      for x in tree_leaves(params0))
+    run["served_vs_17"] = {
+        "loss_rel": [abs(a - b) / abs(b) for a, b in
+                     zip(run["losses"], ref17["losses"])],
+        "grad_norm_rel": [abs(a - b) / abs(b) for a, b in
+                          zip(run["grad_norms"], ref17["grad_norms"])]}
+    del params, opt
+    torch.cuda.empty_cache()
+    # the held check: one step from the width-rescaled weights
+    scaled = fan_in_scaled(cfg, params0)
+    del params0
+    split = shard_params(cfg, scaled, mesh)
+    loss, _, grads = ts.make_grad_fn(cfg, tcfg, mesh)(split, batches[0])
+    with no_tf32():
+        new_p, _, om = adamw_update(ocfg, grads, split,
+                                    adamw_init(split, zero), zero)
+    grads = gather_params(cfg, grads, mesh)
+    new_p = gather_params(cfg, new_p, mesh)
+    held = None
+    if mesh.rank == 0:
+        one_loss, _, one_grads = ts.make_grad_fn(cfg, tcfg)(scaled,
+                                                           batches[0])
+        with no_tf32():
+            one_p, _, one_om = adamw_update(ocfg, one_grads, scaled,
+                                            adamw_init(scaled))
+        old = tree_leaves(scaled)
+        upd = [a - o for a, o in zip(tree_leaves(new_p), old)]
+        one_upd = [a - o for a, o in zip(tree_leaves(one_p), old)]
+        gn = one_om["grad_norm"].item()
+        held = {"loss_rel": abs(loss.item() - one_loss.item())
+                / abs(one_loss.item()),
+                "grad_norm_rel": abs(om["grad_norm"].item() - gn) / gn,
+                "grad_worst": tree_close(
+                    tree_leaves(grads), tree_leaves(one_grads),
+                    TRAIN_B5_TOL["grad"], TRAIN_B5_TOL["grad_abs"] * gn),
+                "update_worst": tree_close(upd, one_upd,
+                                           TRAIN_B5_TOL["update"])}
+        require(held["loss_rel"] <= TRAIN_B5_TOL["loss"]
+                and held["grad_norm_rel"] <= TRAIN_B5_TOL["grad_norm"]
+                and held["grad_worst"] <= 1 and held["update_worst"] <= 1,
+                f"{tag}: the split step and the one-process step differ on "
+                f"the rescaled weights: {held}")
+    run["scaled_vs_one_process"] = held
+    del scaled, split, grads, new_p
+    torch.cuda.empty_cache()
+    return run
+
+
+def tp_rank(ref15: dict, ref17: dict) -> dict:
+    """One rank of phase 20's 1 x 3 mesh (run by spawn_local): 20a, 20b."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(*TP_SHAPE)
+    out = {"rank": dist.get_rank(), "coords": mesh.coords(),
+           "backend": dist.get_backend()}
+    for key, fn in (("serve", lambda: tp_serve(dev, mesh, ref15)),
+                    ("train", lambda: train_split_run(
+                        dev, mesh, TP_STEPS, True, ref17, "20b"))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds_total"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe(dev, mesh, ref16: dict) -> dict:
+    """20c on this rank of the 2 x 2 mesh: deepseek-moe-16b as phase 16 (4
+    layers, prepared, seed 160) cut by ``shard_params`` (8 of 16 heads, 32
+    of 64 experts, layer 0's d_ff 5,472, half the vocabulary), its rows
+    of phase 16's 8 x 2048 prompt (over "data") prefilled and stepped
+    TP_DECODE_STEPS times greedily with "specs"-layout state."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models.common import materialize
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve import engine
+    from repro_torch.sharding import collectives, ctx
+    from repro_torch.sharding.axes import batch_rows, shard_params
+
+    spec = MIXERS["deepseek-moe-16b"]
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              l2r=QuantConfig(), n_layers=spec["layers"])
+    params = materialize(lm_build(cfg), torch.Generator(device=dev)
+                         .manual_seed(160), device=dev)
+    params = engine.prepare_params(cfg, params, mesh=mesh)
+    ffn = params["stack"][0]["ffn"]
+    out = {"expert_bytes_whole": sum(ffn[k].numel() * ffn[k].element_size()
+                                     for k in ("wi", "wo")),
+           "backbone_bytes_whole": backbone_bytes(params),
+           "backbone_bytes_want": spec_share_bytes(cfg, params, mesh)}
+    params = shard_params(cfg, params, mesh)
+    torch.cuda.empty_cache()
+    ffn = params["stack"][0]["ffn"]
+    out["expert_bytes"] = sum(ffn[k].numel() * ffn[k].element_size()
+                              for k in ("wi", "wo"))
+    out["backbone_bytes"] = backbone_bytes(params)
+    require(2 * out["expert_bytes"] == out["expert_bytes_whole"]
+            and out["backbone_bytes"] == out["backbone_bytes_want"],
+            f"20c: this rank holds {out['expert_bytes']} expert bytes (the "
+            f"whole stacks {out['expert_bytes_whole']}) and "
+            f"{out['backbone_bytes']} backbone bytes (its param_specs "
+            f"share {out['backbone_bytes_want']})")
+    tokens = mixer_batch(cfg, dev, spec["prompt"], 162)["tokens"]
+    axes, r0, n_rows = batch_rows(mesh, MIX_BATCH)
+    prefill = engine.make_prefill_step(cfg, spec["prompt"] + MIX_STEPS + 4,
+                                       torch.float32, mesh=mesh)
+    decode = engine.make_decode_step(cfg, mesh=mesh)
+    moe_layers = spec["layers"] - 1
+    split = engine.split_collectives(cfg, params)
+    # beyond the split: a MoE layer's slot offsets (a gather) and aux
+    # means (a sum) over the rows' split, the head's columns and rows
+    per_call = {"all_reduce": split["all_reduce"] + moe_layers,
+                "all_gather": split["all_gather"] + moe_layers + 2,
+                "all_to_all": 0}
+    out.update(calls=[], per_call_collectives=per_call)
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks = []
+    with torch.no_grad(), CollectiveClock(engine, ops) as clock:
+        state = tok = None
+        for i in range(1 + TP_DECODE_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset()
+            c0, t0 = clock.seconds, time.perf_counter()
+            with ctx.row_shard(mesh, axes):
+                if i == 0:
+                    state, logits = prefill(
+                        params, {"tokens": tokens[r0:r0 + n_rows]})
+                else:
+                    state, tok, logits = decode(params, state,
+                                                tok[r0:r0 + n_rows])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                out["prefill_logits_checksum"] = float(tree_checksum(
+                    [logits.float()]).item())
+                out["kv_heads"] = int(state.stack[0].k.shape[-2])
+            toks.append(tok)
+            n = counts()
+            want = only(l2r_stacked_gemm=TP_DEEPSEEK_B1,
+                        flash_attention=spec["prefill"][1] if i == 0 else 0)
+            require(n == want, f"20c call {i}: launches {n}, expected {want}")
+            made = dict(collectives.COUNTS)
+            require(made == per_call, f"20c call {i}: collectives {made}, "
+                                      f"expected {per_call}")
+            out["calls"].append({"ms": ms, "launches": n, "collectives": made,
+                                 "collective_ms": (clock.seconds - c0) * 1e3})
+    seqs = torch.cat(toks, 1).tolist()
+    out["tokens"] = seqs
+    require(out["kv_heads"] == cfg.n_kv // mesh.shape["model"],
+            f"20c: the KV caches hold {out['kv_heads']} heads")
+    require(seqs == [r[:1 + TP_DECODE_STEPS] for r in ref16["tokens"]],
+            "20c: tokens differ from phase 16's one-process run")
+    require(out["prefill_logits_checksum"] == ref16["prefill_logits_checksum"],
+            "20c: the prefill's last-position logits differ from phase 16's")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe_rank(ref16: dict) -> dict:
+    """One rank of 20c's 2 x 2 mesh (run by spawn_local)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(*MESH_SHAPE)
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank(), "coords": mesh.coords(),
+           "backend": dist.get_backend(), "moe": tp_moe(dev, mesh, ref16)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tp(dev, train: dict, serve: dict, mix: dict) -> dict:
+    """Phase 20: 20d the kernels at the ranks' shapes (first, on the card
+    alone), then three gloo ranks on a 1 x 3 mesh sharing the card (20a
+    the "specs" batcher against 15e's, 20b the split train step against
+    one process), then four on the 2 x 2 mesh (20c deepseek-moe-16b split
+    against phase 16)."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn_local
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    t0 = time.perf_counter()
+    rows = tp_kernel_rows(dev)
+    ref15 = {k: serve["engines"][k] for k in (
+        "batcher", "batcher_reqs", "batcher_stats")}
+    ref17 = {k: train["run"][k] for k in ("losses", "grad_norms")}
+    ds = mix["runs"]["deepseek-moe-16b"]
+    ref16 = {"tokens": ds["tokens"],
+             "prefill_logits_checksum": ds["prefill_logits_checksum"]}
+    print(f"phase 20: {TP_WORLD} ranks on a {TP_SHAPE[0]} x {TP_SHAPE[1]} "
+          f"and {MESH_WORLD} on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} (data x "
+          f"model) mesh over gloo, all on the one card ({smi}): processes "
+          f"sharing one card, not a multi-GPU figure", flush=True)
+    t1 = time.perf_counter()
+    ranks = spawn_local(TP_WORLD, tp_rank, ref15, ref17,
+                        deadline_s=TP_DEADLINE_S)
+    t2 = time.perf_counter()
+    moe = spawn_local(MESH_WORLD, tp_moe_rank, ref16,
+                      deadline_s=TP_DEADLINE_S)
+    t3 = time.perf_counter()
+    for r in ranks + moe:
+        require(r["backend"] == "gloo", f"rank {r['rank']}: backend "
+                                        f"{r['backend']}")
+    held = ranks[0]["train"]["scaled_vs_one_process"]
+    out = {"card": smi, "backend": "gloo", "seconds": t3 - t0,
+           "ranks_s": {"20a_20b": t2 - t1, "20c": t3 - t2},
+           "mesh": {"20a_20b": {"data": TP_SHAPE[0], "model": TP_SHAPE[1]},
+                    "20c": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]}},
+           "rows": rows, "train_scaled_vs_one_process": held,
+           "per_rank": [{
+               "rank": r["rank"], "coords": r["coords"],
+               "serve": {k: r["serve"][k] for k in (
+                   "seconds", "collective_s", "walk_collective_s",
+                   "collectives", "split_collectives_per_forward", "walks",
+                   "launches", "kv_bytes", "kv_bytes_whole",
+                   "backbone_bytes", "backbone_bytes_whole",
+                   "seconds_total")},
+               "train": {k: r["train"][k] for k in (
+                   "step_ms", "coll_ms", "losses", "grad_norms", "launches",
+                   "peak_gb", "mv_bytes", "mv_bytes_one_process",
+                   "param_bytes", "param_bytes_one_process", "seq_sharded",
+                   "served_vs_17", "seconds_total")}} for r in ranks],
+           "moe_per_rank": [{
+               "rank": r["rank"], "coords": r["coords"],
+               "seconds": r["seconds"], **{k: r["moe"][k] for k in (
+                   "calls", "per_call_collectives", "expert_bytes",
+                   "expert_bytes_whole", "backbone_bytes",
+                   "backbone_bytes_whole", "kv_heads", "peak_gb")}}
+               for r in moe]}
+    print("phase 20: " + json.dumps(out, default=str), flush=True)
+    tr0 = ranks[0]["train"]
+    print(f"phase 20: 20a SmolLM-135M on {TP_SHAPE[0]} x {TP_SHAPE[1]}: "
+          f"15e's requests in the 'specs' layout == 15e's batcher bit for "
+          f"bit on every rank, a third of its KV bytes and of its backbone "
+          f"a rank, launches and collectives as derived; 20b "
+          f"{TP_STEPS} split step(s) of 8 x {TRAIN_SEQ} (the sequence whole: "
+          f"{TP_SHAPE[1]} does not divide {TRAIN_SEQ}), {B5_PER_TRAIN_STEP} "
+          f"B5 a step a rank, the rescaled step within TRAIN_B5_TOL of one "
+          f"process ({held}), params {tr0['param_bytes']} bytes a rank "
+          f"(one process {tr0['param_bytes_one_process']}); 20c "
+          f"deepseek-moe-16b ({MIXERS['deepseek-moe-16b']['layers']} "
+          f"layers) on {MESH_SHAPE[0]} x {MESH_SHAPE[1]}, heads, experts, "
+          f"d_ff and vocabulary split: phase 16's tokens and prefill logits "
+          f"bit for bit; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def tp_summary(tp: dict, lib: str) -> dict:
+    """Kernel ``lib``'s launches on each rank of phase 20 and its rows at
+    the ranks' shapes."""
+    key = {"l2r_stacked_gemm": "b1", "l2r_streaming_gemm": "b2",
+           "flash_attention": "b5"}[lib]
+    return {"per": f"phase 20: {TP_WORLD} ranks on a {TP_SHAPE[0]} x "
+                   f"{TP_SHAPE[1]} mesh (20a over the batcher run, 20b over "
+                   f"{TP_STEPS} train step(s)) and {MESH_WORLD} on a "
+                   f"{MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh (20c over the "
+                   f"prefill and {TP_DECODE_STEPS} steps), over gloo on one "
+                   f"card; launches per rank",
+            "card": tp["card"], "shapes": tp["rows"][key],
+            "per_rank": [{"rank": r["rank"],
+                          "serve": r["serve"]["launches"][lib],
+                          "train": sum(r["train"]["launches"])
+                          if lib == "flash_attention" else 0}
+                         for r in tp["per_rank"]],
+            "moe_per_rank": [{"rank": r["rank"], "moe": sum(
+                c["launches"][lib] for c in r["calls"])}
+                for r in tp["moe_per_rank"]]}
 
 
 def dp_summary(dp: dict, lib: str) -> dict:
@@ -4496,6 +5133,36 @@ def ptxas_kernel(line: str) -> str | None:
     return f"{name}<{args}>" if args else name
 
 
+def decode_profiles(dev) -> dict:
+    """The device profile of one decode step of 13a (SmolLM-135M l2r),
+    14a (with attn_l2r) and 15a (the progressive scan), each on a fresh
+    prefill of its phase's prompts, profiled as its phase does."""
+    import dataclasses
+
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg, params, _ = lm_model(dev)
+    out = {}
+    for name, seed, c, progressive in (
+            ("13a", 130, cfg, False),
+            ("14a", 140, dataclasses.replace(cfg, attn_l2r=QuantConfig()),
+             False),
+            ("15a", 130, cfg, True)):
+        batch = {"tokens": lm_prompt(dev, LM_BATCH, LM_PROMPT, c.vocab,
+                                     seed)}
+        with torch.no_grad():
+            res = make_prefill_step(c, LM_PROMPT + LM_STEPS, torch.float32,
+                                    progressive=progressive)(params, batch)
+            state, tok = res[0], res[2] if progressive else \
+                torch.argmax(res[1], -1).to(torch.int32)
+            decode = make_decode_step(c, progressive=progressive)
+            out[name] = profile_forward(lambda: decode(params, state, tok))
+            del state, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4505,6 +5172,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = card()
+    if sys.argv[1:] == ["--decode-profile"]:
+        _build.build_all()
+        print("decode profiles: " + json.dumps(
+            {"card": smi, "src": str(ROOT / "src"),
+             **decode_profiles(dev)}), flush=True)
+        return 0
     print(f"phase 1: card: {smi}", flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -4544,6 +5217,7 @@ def main() -> int:
     train = phase_train(dev)
     mesh = phase_mesh(dev, prog, serve)
     dp = phase_dp(dev, train, serve)
+    tp = phase_tp(dev, train, serve, mix)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -4594,7 +5268,8 @@ def main() -> int:
                      mixers=mixer_summary(mix, "B1", "l2r_stacked_gemm"),
                      mixer_shapes=mix["b1_rows"],
                      mesh=mesh_summary(mesh, "l2r_stacked_gemm"),
-                     dp=dp_summary(dp, "l2r_stacked_gemm")),
+                     dp=dp_summary(dp, "l2r_stacked_gemm"),
+                     tp=tp_summary(tp, "l2r_stacked_gemm")),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -4617,7 +5292,8 @@ def main() -> int:
                          serve["run"]["decode_ms_per_token"],
                          "shapes": serve["rows"]},
                      mesh=mesh_summary(mesh, "l2r_streaming_gemm"),
-                     dp=dp_summary(dp, "l2r_streaming_gemm")),
+                     dp=dp_summary(dp, "l2r_streaming_gemm"),
+                     tp=tp_summary(tp, "l2r_streaming_gemm")),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
@@ -4663,7 +5339,8 @@ def main() -> int:
                      mixers=mixer_summary(mix, "B5", "flash_attention"),
                      mixer_shapes=mix["b5_rows"],
                      train=train["train"], train_backward=bwd("B5"),
-                     dp=dp_summary(dp, "flash_attention")),
+                     dp=dp_summary(dp, "flash_attention"),
+                     tp=tp_summary(tp, "flash_attention")),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

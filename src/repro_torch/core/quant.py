@@ -12,7 +12,10 @@ The formulas and their order are the reference's, so the same float input
 gives the same integers (``torch.round`` and ``jnp.round`` both round half
 to even).  A weight cache built under a mesh (``quantize_weights(...,
 shard=, mesh=)``) holds only this rank's slice of the output channels and
-records where it lies (:class:`ColumnShard`).
+records where it lies (:class:`ColumnShard`).  A tensor-parallel
+backbone (sharding/axes.py:shard_params) also cuts caches by their
+contraction rows (:func:`shard_weights`, :class:`RowShard`): the rank's
+K-slice of ``q`` and of the plane stack, with the whole column's scales.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ __all__ = [
     "QuantizedWeights",
     "PlaneOperands",
     "ColumnShard",
+    "RowShard",
+    "shard_weights",
     "quantize",
     "quantize_weights",
     "dequantize",
@@ -244,6 +249,19 @@ class ColumnShard(NamedTuple):
     offset: int
 
 
+class RowShard(NamedTuple):
+    """Where a row-split weight cache's contraction rows lie: this rank
+    holds rows ``[offset, offset + k_local)`` of ``k_total`` of every
+    output channel, split over the mesh axis ``axis``; its scales are the
+    whole columns' (a row-parallel product sums the ranks' integer
+    partials before it dequantizes)."""
+
+    mesh: Any
+    axis: Any
+    k_total: int
+    offset: int
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneOperands:
     """A digit-plane stack as a first-class operand.
@@ -387,13 +405,14 @@ class QuantizedWeights:
     cout) conv); ``scale`` broadcasts against the output channels;
     ``planes`` optionally caches the reversed RHS plane stack.  ``shard``
     is set when all three hold one rank's slice of the output channels
-    (:class:`ColumnShard`).
+    (:class:`ColumnShard`), or of the contraction rows (:class:`RowShard`,
+    with the whole columns' scales).
     """
 
     q: torch.Tensor
     scale: torch.Tensor
     planes: PlaneOperands | None = None
-    shard: ColumnShard | None = None
+    shard: ColumnShard | RowShard | None = None
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -494,3 +513,57 @@ def _column_slice(q: torch.Tensor, scale: torch.Tensor, shard: tuple, mesh):
         else scale
     return (q[..., off:off + n_l].contiguous(), sc,
             ColumnShard(mesh, ax, n, off))
+
+
+def _k_major_copy(st: torch.Tensor, axis: int) -> torch.Tensor:
+    """A compact copy of ``st`` with its dim ``axis`` innermost in memory
+    (a cut K-major stack keeps its layout and frees the whole one)."""
+    return st.movedim(axis, -1).contiguous().movedim(-1, axis)
+
+
+def shard_weights(w: QuantizedWeights, spec: tuple, mesh,
+                  k_dim: int) -> QuantizedWeights:
+    """This rank's slice of the weight cache ``w`` under the partition
+    spec ``spec`` over ``q``'s dims (copies), ``k_dim`` its contraction
+    dim.  One dim may be split: the output channels (the last dim: the
+    slice of ``q``, ``scale`` and the plane stack's columns, a
+    :class:`ColumnShard`, exactly as ``quantize_weights(shard=)`` cuts a
+    head) or the contraction rows (``k_dim``: the K-slice of ``q`` and of
+    every plane block of the stack, the whole columns' ``scale``, a
+    :class:`RowShard`).  A spec the mesh does not divide leaves ``w``
+    whole."""
+    axes = safe_axes(mesh, tuple(w.q.shape), tuple(spec))
+    split = [i for i, a in enumerate(axes)
+             if a is not None and mesh_axis_size(mesh, a) > 1]
+    if not split:
+        return w
+    if len(split) > 1 or split[0] not in (w.q.ndim - 1, k_dim % w.q.ndim):
+        raise ValueError(f"shard_weights: spec {tuple(spec)!r} splits dims "
+                         f"{split} of a {tuple(w.q.shape)} cache; only its "
+                         f"output channels or its contraction rows split")
+    dim = split[0]
+    ax = axes[dim]
+    n = w.q.shape[dim]
+    n_l = n // mesh_axis_size(mesh, ax)
+    off = mesh.index(ax) * n_l
+    p = w.planes
+    if dim == w.q.ndim - 1:
+        sc = w.scale.narrow(-1, off, n_l).contiguous() \
+            if w.scale.shape[-1] == n else w.scale
+        rec = ColumnShard(mesh, ax, n, off)
+        if p is not None:
+            p = dataclasses.replace(p, shard=rec, stack=_k_major_copy(
+                p.stack.narrow(-1, off, n_l), p.axis % p.stack.ndim))
+        return QuantizedWeights(w.q.narrow(-1, off, n_l).contiguous(), sc,
+                                p, rec)
+    rec = RowShard(mesh, ax, n, off)
+    if p is not None:
+        ax_p = p.axis % p.stack.ndim
+        shp = p.stack.shape
+        blocks = p.stack.reshape(*shp[:ax_p], p.d + p.pad_planes, p.k,
+                                 *shp[ax_p + 1:])
+        cut = blocks.narrow(ax_p + 1, off, n_l).reshape(
+            *shp[:ax_p], (p.d + p.pad_planes) * n_l, *shp[ax_p + 1:])
+        p = dataclasses.replace(p, k=n_l, stack=_k_major_copy(cut, ax_p))
+    return QuantizedWeights(w.q.narrow(dim, off, n_l).contiguous(), w.scale,
+                            p, rec)

@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.analysis.overflow import check_or_raise
@@ -47,9 +48,11 @@ from repro_torch.core.progressive import (LevelWalk, ProgressiveResult,
                                           l2r_matmul_int_streaming,
                                           level_bounds, progressive_matmul)
 from repro_torch.core.quant import (PlaneOperands, QuantConfig,
-                                    QuantizedWeights, quantize,
+                                    QuantizedWeights, _amax,
+                                    _symmetric_quant, quantize,
                                     quantize_weights, stack_planes_lhs,
                                     stack_planes_rhs)
+from repro_torch.sharding.collectives import all_reduce, sum_int
 
 from . import kernel
 
@@ -303,6 +306,16 @@ def l2r_attn_scores(
     return acc
 
 
+def _row_split_quant(xf: torch.Tensor, keep: int | None, cfg: QuantConfig,
+                     group) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quantize`` of a tensor whose contraction dim is split over
+    ``group``: the amax (per ``keep`` dim, or per tensor) is the whole
+    tensor's, an exact MAX all-reduce of the ranks' amaxes."""
+    amax = _amax(xf, {keep % xf.ndim}) if keep is not None \
+        else xf.abs().amax()
+    return _symmetric_quant(xf, all_reduce(amax, "max", group), cfg)
+
+
 def l2r_matmul_f(
     x: torch.Tensor,
     w: torch.Tensor | None,
@@ -310,19 +323,40 @@ def l2r_matmul_f(
     levels: int | None = None,
     w_q: QuantizedWeights | tuple[torch.Tensor, torch.Tensor] | None = None,
     schedule: str = "stacked",
+    group=None,
 ) -> torch.Tensor:
     """Float -> quantize (per row) -> MSDF GEMM -> dequantized float.
 
     ``w_q`` (built once at load) skips the weight quantization; when it
     carries a matching pre-stacked RHS plane stack, the GEMM consumes
     the stack directly.
+
+    ``group`` makes it the row-parallel product of a process group whose
+    ranks each hold a K-slice of ``x`` (its last dim) and of the weight's
+    rows: each activation row's scale comes from the whole row (a MAX
+    all-reduce of the slices' amaxes; a float weight's per-out-channel
+    scale likewise from the whole column, a cache's scale is the whole
+    column's already), the GEMM runs on the rank's K-slice, and the
+    ranks' int32 partials are summed exactly (collectives.sum_int, wrapping
+    as one accumulator) before the dequantization: the one-rank product
+    bit for bit, at every ``levels`` (each level prefix is additive over
+    K).  The int32 certificate is the whole K's.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     # per-row (per-token) activation scales commute with the K-contraction
-    xq, xs = quantize(x2, cfg, axis=0 if cfg.per_channel else None)
+    keep = 0 if cfg.per_channel else None
+    if group is not None:
+        check_or_raise(cfg.n_bits, cfg.log2_radix,
+                       x2.shape[-1] * dist.get_world_size(group),
+                       levels=levels, where="l2r_matmul_f (row-parallel)")
+        xq, xs = _row_split_quant(x2.to(torch.float32), keep, cfg, group)
+    else:
+        xq, xs = quantize(x2, cfg, axis=keep)
     w_in = None
-    if w_q is None:
+    if w_q is None and group is not None:
+        wq, ws = _row_split_quant(w.to(torch.float32), -1, cfg, group)
+    elif w_q is None:
         wq, ws = quantize(w, cfg, axis=-1)  # per-out-channel: (1, N)
     elif isinstance(w_q, QuantizedWeights):
         wq, ws = w_q.q, w_q.scale
@@ -335,6 +369,8 @@ def l2r_matmul_f(
         wq, ws = w_q
     out = l2r_gemm(xq, wq if w_in is None else w_in, cfg.n_bits,
                    cfg.log2_radix, levels, schedule=schedule)
+    if group is not None:
+        out = sum_int(out, group)
     out = out.to(torch.float32) * xs * ws.reshape(1, -1)
     return out.to(x.dtype).reshape(*lead, wq.shape[-1])
 

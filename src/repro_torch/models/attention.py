@@ -41,6 +41,8 @@ from repro_torch.device import no_tf32, resolve_device
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import _MAX_DH
+from repro_torch.sharding import ctx
+from repro_torch.sharding.collectives import all_reduce
 
 __all__ = [
     "apply_rope",
@@ -339,32 +341,50 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
 _DECODE_ROWS = 8  # the batch rows of every decode QK / PV product
 
 
-def _f32_rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x`` in f32, contiguous, with its dim 0 zero-padded to ``n``
-    rows."""
-    if x.shape[0] == n:
-        return x.to(torch.float32).contiguous()
-    out = x.new_zeros((n, *x.shape[1:]), dtype=torch.float32)
-    out[:x.shape[0]] = x
+def _f32_pairs(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (batch rows, kv heads, ...) as ``n`` f32 (row, head) pairs,
+    contiguous, in row-major order; the pairs past ``x``'s are zeros."""
+    pairs = x.shape[0] * x.shape[1]
+    if pairs == n and x.dtype == torch.float32 and x.is_contiguous():
+        return x.reshape(n, *x.shape[2:])
+    out = x.new_empty((n, *x.shape[2:]), dtype=torch.float32)
+    out[:pairs].view(x.shape).copy_(x)
+    out[pairs:].zero_()
     return out
 
 
-def _fixed_rows(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(eq, a, b)`` in f32 over blocks of ``_DECODE_ROWS``
-    batch rows (dim 0), the last block padded with zero rows.  A batched
+def _decode_block(kv_heads: int) -> int:
+    """The (batch row, kv head) pairs of one decode product:
+    ``_DECODE_ROWS`` rows of the model's kv heads, the whole model's in
+    a ``ctx.model_shard`` scope (a rank holding a part of them pads its
+    pairs to the same block)."""
+    split = ctx.model_split()
+    return _DECODE_ROWS * kv_heads * (split.size if split is not None
+                                      else 1)
+
+
+def _fixed_pairs(a: torch.Tensor, b: torch.Tensor, b_t: bool
+                 ) -> torch.Tensor:
+    """``a @ b`` (``b`` transposed when ``b_t``) for every (batch row, kv
+    head) pair in f32: ``a`` (B, Kv, m, k), ``b`` (B, Kv, k, n) or
+    (B, Kv, n, k) -> (B, Kv, m, n), the pairs in blocks of
+    :func:`_decode_block`, the last padded with zero pairs.  A batched
     product may split its sums differently as the batch count changes
-    (cuBLAS picks its kernel by it), so a row's decode result would depend
-    on the rows beside it; with every call of one shape it does not, and a
-    rank of the ``"batch"`` slot layout decodes its rows as one process
-    does.  A batch of ``_DECODE_ROWS`` rows is one call, as before."""
-    n = a.shape[0]
-    r = _DECODE_ROWS
-    padded = -(-n // r) * r
-    a, b = _f32_rows(a, padded), _f32_rows(b, padded)
-    out = [torch.einsum(eq, a[i:i + r], b[i:i + r])
-           for i in range(0, padded, r)]
-    out = out[0] if len(out) == 1 else torch.cat(out)
-    return out[:n] if padded != n else out
+    (cuBLAS picks its kernel by it), so a pair's result would depend on
+    the rows and heads beside it; with every call of one shape it does
+    not, and a rank of the ``"batch"`` slot layout (its rows) or of the
+    ``"specs"`` one (its kv heads) decodes as one process does.  One
+    process decoding ``_DECODE_ROWS`` rows makes one call a product."""
+    rows, heads = a.shape[:2]
+    pairs, r = rows * heads, _decode_block(heads)
+    padded = -(-pairs // r) * r
+    a, b = _f32_pairs(a, padded), _f32_pairs(b, padded)
+    if b_t:
+        b = b.transpose(1, 2)
+    out = a.new_empty((padded, a.shape[1], b.shape[2]))
+    for i in range(0, padded, r):
+        torch.bmm(a[i:i + r], b[i:i + r], out=out[i:i + r])
+    return out[:pairs].view(rows, heads, *out.shape[1:])
 
 
 def _softmax_pv(s, valid_b, v_cache, shape):
@@ -373,8 +393,9 @@ def _softmax_pv(s, valid_b, v_cache, shape):
     with no_tf32():
         s = torch.where(valid_b, s, _NEG)
         p = torch.softmax(s, dim=-1)
-        o = _fixed_rows("bkgqs,bskd->bkgqd", p.to(v_cache.dtype),
-                        v_cache)
+        b, kv, g, q, n = p.shape
+        o = _fixed_pairs(p.to(v_cache.dtype).reshape(b, kv, g * q, n),
+                         v_cache.permute(0, 2, 1, 3), False)
     return o.reshape(shape).to(v_cache.dtype)
 
 
@@ -420,6 +441,9 @@ def decode_attention(
     card).  Rows that never decide consume the whole stream, so the
     output is then exactly the full-depth result; decided rows return
     softmax over the exit-level prefix.  Incompatible with ``softcap``.
+    Where a rank holds some of the call's rows or heads (a
+    ``ctx.row_shard`` or ``ctx.model_shard`` scope) the walk stops when
+    every rank's rows have decided, as one process's would.
 
     ``policy`` (core/policy.py:LevelPolicy, one row per batch entry)
     runs the walk with per-row precision classes: ``bounded(tol)`` rows
@@ -443,7 +467,9 @@ def decode_attention(
 
     if l2r is None:
         with no_tf32():
-            s = _fixed_rows("bqkgd,bskd->bkgqs", qg, k_cache) * scale
+            s = _fixed_pairs(qg.permute(0, 2, 3, 1, 4).reshape(
+                b, kv_heads, g, dh), k_cache.permute(0, 2, 1, 3), True)
+            s = s.reshape(b, kv_heads, g, 1, -1) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
         return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))
@@ -491,6 +517,7 @@ def decode_attention(
         rows_shape=(b, kv_heads, g), n_levels=n_levels,
         exit_tol=exit_tol, policy=policy,
         score_shape=(b, kv_heads, g, 1, k_cache.shape[1]))
+    done_fn = _global_done(done_fn)
     acc, carry, levels_run = attn_scores_streaming_while(
         qq, k_op, fold, init, done_fn, l2r.n_bits, l2r.log2_radix, levels)
     if policy is None:
@@ -506,6 +533,25 @@ def decode_attention(
         _EXIT_TAP.append({"levels_run": int(levels_run),
                           "exit_levels": lv.cpu().numpy()})
     return _softmax_pv(dequant(s_int), valid_b, v_cache, (b, 1, h, dh))
+
+
+def _global_done(done_fn):
+    """``done_fn`` of the walk over every rank's part of the call: where a
+    ``ctx.row_shard`` or ``ctx.model_shard`` scope gives this rank some of
+    the rows or heads, the walk stops when every rank's have decided (a
+    MIN all-reduce of the flag over those axes), at the level one process
+    stops at, so bounded rows see the same prefix."""
+    mesh, split = ctx.get_mesh(), ctx.model_split()
+    axes = ctx.row_axes() + (("model",) if split is not None else ())
+    if not axes:
+        return done_fn
+    group = mesh.group(axes)
+
+    def done(carry):
+        flag = done_fn(carry).to(torch.int32).reshape(1)
+        return all_reduce(flag, "min", group)[0] > 0
+
+    return done
 
 
 # ------------------------------------------------------------- KV caches

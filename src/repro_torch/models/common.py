@@ -32,7 +32,10 @@ from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.l2r_gemm.ops import l2r_gemm, l2r_matmul_f
+from repro_torch.sharding import ctx
 from repro_torch.sharding.axes import P
+from repro_torch.sharding.collectives import (reduce_scatter, split_rows,
+                                              sum_forward)
 
 __all__ = [
     "Param",
@@ -49,6 +52,7 @@ __all__ = [
     "rms_norm",
     "layer_norm",
     "count_params",
+    "fan_in_scaled",
 ]
 
 
@@ -139,6 +143,28 @@ def partition_specs(tree, rules: dict):
                                   else None for a in p.axes)), tree)
 
 
+def fan_in_scaled(cfg, params):
+    """The params with every stacked default-scale matrix rescaled to
+    std 1/sqrt(its contraction width).  :func:`materialize` takes a
+    stacked weight's fan-in from its leading layers axis, as the
+    reference's recipe does (whisper-base's decoder weights get std
+    1/sqrt(6), not 1/sqrt(512)); such a random stack is chaotic: a last-
+    bit difference anywhere (another summation order) grows through the
+    layers, so a kernel's or a split's effect is read on these weights."""
+    from repro_torch.models.encdec import encdec_build
+    from repro_torch.models.transformer import lm_build
+
+    def scaled(p, w):
+        if p.init != "normal" or p.scale is not None \
+                or p.axes[0] != "layers" or len(p.shape) < 3:
+            return w
+        k = p.shape[2] if p.axes[1] == "experts" else p.shape[1]
+        return w * math.sqrt(p.shape[0] / k)
+
+    desc = (encdec_build if cfg.family == "encdec" else lm_build)(cfg)
+    return tree_map(scaled, desc, params)
+
+
 def count_params(tree) -> int:
     total = 0
 
@@ -150,11 +176,25 @@ def count_params(tree) -> int:
     return total
 
 
+def _row_reduce(out: torch.Tensor, split, exact: bool) -> torch.Tensor:
+    """A row-parallel product's result: the ranks' sum (already taken
+    when ``exact``, the integer partials summed before dequantization),
+    cut to this rank's part of the sequence (dim 1) under sequence
+    parallelism; autograd sees a sum whose gradient passes through
+    (:func:`sum_forward`), or its reduce-scatter."""
+    if split.seq:
+        if exact:
+            return split_rows(out, split.group, split.index, split.size, 1)
+        return reduce_scatter(out, split.group, split.index, split.size, 1)
+    return out if exact else sum_forward(out, split.group)
+
+
 def dense(
     x: torch.Tensor,
     w,
     l2r: QuantConfig | None = None,
     l2r_levels: int | None = None,
+    row_parallel: bool = False,
 ) -> torch.Tensor:
     """x @ w with optional L2R digit-plane arithmetic (the paper's unit).
 
@@ -175,8 +215,19 @@ def dense(
     arithmetic whatever ``l2r`` says, per-row activation scales, the
     integer product on the same GEMM at full depth, then ``* xs * scale``
     in the reference's order.
+
+    ``row_parallel`` marks ``w`` as a row-parallel weight of the
+    tensor-parallel backbone: in a ``ctx.model_shard`` scope
+    (sharding/ctx.py) ``x``'s last dim and ``w``'s rows are this rank's
+    K-slice, and the result is the sum of the ranks' partial products:
+    the integer partials summed exactly before the dequantization on the
+    quantized paths (``l2r_matmul_f(group=)``: the one-rank bits), the
+    float products summed (reassociated) otherwise; under sequence
+    parallelism the rank keeps its part of the sequence.  A
+    column-parallel weight (its output channels this rank's) needs
+    nothing here: every rank holds the whole ``x``.
     """
-    if isinstance(w, dict) and "q" in w:
+    if isinstance(w, dict) and "q" in w:  # never split (shard_params)
         wq, scale = w["q"], w["scale"]
         trail = wq.shape[1:]
         wq = wq.reshape(wq.shape[0], -1)
@@ -186,6 +237,8 @@ def dense(
         out = out.to(torch.float32) * xs \
             * scale.reshape(()).to(torch.float32)
         return out.to(x.dtype).reshape(*lead, *trail)
+    split = ctx.model_split() if row_parallel else None
+    group = split.group if split is not None else None
     if isinstance(w, QuantizedWeights):
         trail = w.q.shape[1:]
         wq = w.q.reshape(w.q.shape[0], -1)
@@ -200,14 +253,18 @@ def dense(
                 axis=-2)
         out = l2r_matmul_f(x, None, l2r or QuantConfig(),
                            l2r_levels if l2r is not None else None,
-                           w_q=QuantizedWeights(wq, ws, planes))
-        return out.reshape(*x.shape[:-1], *trail)
+                           w_q=QuantizedWeights(wq, ws, planes), group=group)
+        out = out.reshape(*x.shape[:-1], *trail)
+        return out if split is None else _row_reduce(out, split, True)
     if w.ndim > 2:
-        out = dense(x, w.reshape(w.shape[0], -1), l2r, l2r_levels)
-        return out.reshape(*x.shape[:-1], *w.shape[1:])
+        out = dense(x, w.reshape(w.shape[0], -1), l2r, l2r_levels,
+                    row_parallel)
+        return out.reshape(*out.shape[:-1], *w.shape[1:])
     if l2r is not None:
-        return l2r_matmul_f(x, w, l2r, l2r_levels)
-    return l2r_dense(x, w, None)
+        out = l2r_matmul_f(x, w, l2r, l2r_levels, group=group)
+        return out if split is None else _row_reduce(out, split, True)
+    out = l2r_dense(x, w, None)
+    return out if split is None else _row_reduce(out, split, False)
 
 
 def _quantizable(p: Param) -> bool:

@@ -14,7 +14,9 @@ reference's checkpoint manager load the same way.  The optimizer's
 packages can train on from one state; given a ZeRO-1 layout
 (optim/adamw.py:Zero1) they keep this rank's slices, and
 :func:`gather_opt_state` / :func:`gather_ef_state` make the whole state
-again from every rank's.
+again from every rank's.  A rank's ``param_specs`` slices of a crossed
+tree, and the whole tree again, are sharding/axes.py's ``shard_params``
+and ``gather_params``.
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ def lm_params_from_jax(tree, device: str | torch.device | None = None):
 
 
 def _local(tree, zero):
-    """This rank's slice of every leaf (copies), or ``tree`` itself."""
+    """This rank's ZeRO-1 slice of every whole leaf (copies), or ``tree``
+    itself."""
     if zero is None:
         return tree
-    return tree_unflatten(tree, [x.clone() for x in zero.local(tree)])
+    return tree_unflatten(tree, [x.clone() for x in zero.from_whole(tree)])
 
 
 def opt_state_from_jax(state, device: str | torch.device | None = None,
@@ -96,11 +99,12 @@ def gather_opt_state(state: OptState, zero) -> OptState:
     """The whole :class:`OptState` from every rank's ZeRO-1 slices (every
     rank of ``zero``'s mesh calls this)."""
     return state._replace(**{k: tree_unflatten(
-        getattr(state, k), zero.gather(tree_leaves(getattr(state, k))))
+        getattr(state, k), zero.gather_whole(tree_leaves(getattr(state, k))))
         for k in ("m", "v")})
 
 
 def gather_ef_state(state: EFState, zero) -> EFState:
     """The whole :class:`EFState` from every rank's slices."""
     return EFState(residual=tree_unflatten(
-        state.residual, zero.gather(tree_leaves(state.residual))))
+        state.residual, zero.gather_whole(tree_leaves(state.residual))))
+

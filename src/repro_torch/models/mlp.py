@@ -1,12 +1,21 @@
 """Feed-forward blocks: SwiGLU / GeGLU / GELU, with L2R-quantized matmuls
 when the config enables the paper's technique.  The port of
 ``repro/models/mlp.py``; GELU is the tanh form, ``jax.nn.gelu``'s
-default."""
+default.
+
+In a ``ctx.model_shard`` scope (sharding/ctx.py) the block is
+Megatron's: ``wi`` column-parallel (its ``ffn`` columns this rank's; the
+(d, 2, d_ff) layout keeps each gate/up pair on one rank), the activation
+on the rank's columns, ``wo`` row-parallel (models/common.py:dense).
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import ctx
+from repro_torch.sharding.collectives import copy_in
 
 from .common import Param, dense
 from .config import ModelConfig
@@ -39,5 +48,9 @@ def mlp_act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(cfg: ModelConfig, params: dict, x: torch.Tensor
               ) -> torch.Tensor:
+    split = ctx.model_split()
+    if split is not None:
+        x = copy_in(x, split.group)
     h = dense(x, params["wi"], cfg.l2r, cfg.l2r_levels)  # (..., [2,] d_ff)
-    return dense(mlp_act(cfg, h), params["wo"], cfg.l2r, cfg.l2r_levels)
+    return dense(mlp_act(cfg, h), params["wo"], cfg.l2r, cfg.l2r_levels,
+                 row_parallel=True)

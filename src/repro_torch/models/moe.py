@@ -27,6 +27,15 @@ aux loss from global means.  With ``cfg.moe_dp_local``
 (:func:`moe_apply_dp_local`) each rank routes one group of the flat
 global tokens on its own, exchanging expert buffers with its model
 group.
+
+With the backbone split over ``model`` (a ``ctx.model_shard`` scope,
+params from sharding/axes.py:shard_params) the routed experts lie on the
+model axis: routing and capacity stay replicated within the model
+group, each model rank runs its E/m experts on its slice of the (E, C,
+d) buffer, and the outputs are all-gathered over the model group and
+combined in index order as without a mesh (a sum of partial outputs
+would reassociate the combine).  The shared experts are models/mlp.py's
+tensor-parallel MLP.
 """
 
 from __future__ import annotations
@@ -135,6 +144,23 @@ def _dp_groups(t: int) -> int:
     return n if n > 1 and t % n == 0 else 1
 
 
+def _split_experts(cfg: ModelConfig, params: dict, buf: torch.Tensor
+                   ) -> torch.Tensor:
+    """The experts' (E, C, d) outputs on ``buf``: in a ``ctx.model_shard``
+    scope whose params hold this rank's E/m experts, each model rank
+    runs them on its slice of ``buf`` and the outputs are gathered over
+    the model group (the gradient of the slice gathered, of the gather
+    kept to the slice: every rank of the group holds the whole ``buf``
+    and takes the whole output on)."""
+    wi, wo = params["wi"], params["wo"]
+    split = ctx.model_split()
+    if split is None or wi.shape[0] == cfg.n_experts:
+        return _expert_ffn(cfg, wi, wo, buf)
+    mine = split_rows(buf, split.group, split.index, split.size)
+    return gather_rows(_expert_ffn(cfg, wi, wo, mine), split.group,
+                       split.index)
+
+
 def _dispatch(cfg: ModelConfig, xt, probs_etc, cap: int):
     """(E, C, d) expert buffers of the kept assignments, and the combine
     that takes the experts' (E, C, d) outputs back to (T, d) f32: each
@@ -203,7 +229,7 @@ def moe_apply(cfg: ModelConfig, params: dict, x: torch.Tensor):
     routed = moe_route(cfg, logits, cap, offset_fn)
     probs, _, expert_idx, _, keep = routed
     buf, combine = _dispatch(cfg, xt, routed, cap)
-    yb = _expert_ffn(cfg, params["wi"], params["wo"], buf)  # (E, C, d)
+    yb = _split_experts(cfg, params, buf)  # (E, C, d)
     out = _shared(cfg, params, xt, combine(yb).to(x.dtype))
 
     flat_e = expert_idx.reshape(-1)
@@ -246,7 +272,10 @@ def moe_apply_dp_local(cfg: ModelConfig, params: dict, x: torch.Tensor):
     buffers it receives, one group at a time, and sends the outputs back.
     The group outputs are gathered over the axes that split the rows, so
     every rank returns its whole rows.  The aux loss takes the router's
-    mean probs and kept counts summed over the whole mesh.
+    mean probs and kept counts summed over the whole mesh.  With the
+    backbone split over ``model`` (``ctx.model_split()``) the shared
+    experts, tensor-parallel, run on the gathered rows instead of each
+    group's.
     """
     mesh, rows = ctx.get_mesh(), ctx.row_axes()
     split = tuple(a for a in mesh.axis_names if a not in rows)
@@ -275,9 +304,17 @@ def moe_apply_dp_local(cfg: ModelConfig, params: dict, x: torch.Tensor):
         yb = all_to_all(yb, mgroup).reshape(e, cap, d)
     else:
         yb = _expert_ffn(cfg, params["wi"], params["wo"], buf)
-    out = _shared(cfg, params, xt, combine(yb).to(x.dtype))
-    if n_split > 1:
-        out = gather_rows(out, sgroup, sidx)
+    out = combine(yb).to(x.dtype)
+    if ctx.model_split() is not None:
+        # the shared experts are tensor-parallel: they run on the rows
+        # every rank of the model group holds, after the gather
+        if n_split > 1:
+            out = gather_rows(out, sgroup, sidx)
+        out = _shared(cfg, params, x.reshape(b * s, d), out)
+    else:
+        out = _shared(cfg, params, xt, out)
+        if n_split > 1:
+            out = gather_rows(out, sgroup, sidx)
 
     kept = torch.bincount(expert_idx.reshape(-1)[keep], minlength=e) \
         .to(torch.float32)

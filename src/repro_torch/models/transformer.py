@@ -16,6 +16,21 @@ Three modes:
   train   — full sequence, no cache;
   prefill — full sequence, writes caches;
   decode  — one token against caches.
+
+Tensor parallelism (the reference's ``param_specs`` over ``model``,
+written by hand as Megatron's): in a ``ctx.model_shard`` scope
+(sharding/ctx.py) the params are this rank's slices
+(sharding/axes.py:shard_params).  Attention runs on the rank's heads
+where the model axis divides the kv heads (its kv heads and their q
+heads, contiguous columns of wq, wk, wv; its KV caches hold only them),
+``wo`` row-parallel; where it does not, training gathers q, k and v over
+the model group and every rank runs the whole attention (serving such a
+split is ROADMAP A13d).  The MLP is models/mlp.py's, MoE
+models/moe.py's; the embedding lookup takes each token's row from the
+rank that holds it.  With ``seq`` the residual stream between blocks
+holds this rank's part of the sequence: norms run on it, it is gathered
+before a block's column-parallel products and reduce-scattered after
+its row-parallel ones.
 """
 
 from __future__ import annotations
@@ -28,7 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import QuantizedWeights
 from repro_torch.device import resolve_device
-from repro_torch.sharding.collectives import gather_columns
+from repro_torch.sharding import ctx
+from repro_torch.sharding.collectives import (all_gather, copy_in,
+                                              gather_columns, gather_rows,
+                                              split_rows)
 
 from .attention import (KVCache, apply_rope, chunked_attention,
                         decode_attention, init_kv_cache, update_kv_cache)
@@ -51,7 +69,24 @@ __all__ = [
     "init_lm_state",
     "layer_slice",
     "LMState",
+    "local_kv_heads",
 ]
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads a rank's attention runs on and its KV caches hold:
+    ``cfg.n_kv``, or in a ``ctx.model_shard`` scope ``n_kv / m`` (the
+    model axis must divide them; the head_dim layout of a split that does
+    not is ROADMAP A13d)."""
+    split = ctx.model_split()
+    if split is None:
+        return cfg.n_kv
+    if cfg.n_kv % split.size:
+        raise NotImplementedError(
+            f"the model axis ({split.size}) does not divide the "
+            f"{cfg.n_kv} kv heads: serving such a split (the cache's "
+            f"head_dim layout) is ROADMAP A13d")
+    return cfg.n_kv // split.size
 
 
 # --------------------------------------------------------------- attention
@@ -89,6 +124,9 @@ def attn_apply(
     ``attn_exit_tol``)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    split = ctx.model_split()
+    if split is not None:
+        x = copy_in(x, split.group)
 
     q = dense(x, p["wq"], cfg.l2r, cfg.l2r_levels)
     k = dense(x, p["wk"], cfg.l2r, cfg.l2r_levels)
@@ -97,6 +135,18 @@ def attn_apply(
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    gathered = split is not None and kv % split.size != 0
+    if gathered:
+        # the rank's columns cut heads: every rank runs the whole
+        # attention on the gathered q, k, v and keeps its columns of the
+        # output for the row-parallel wo (training only: a cache of such
+        # a split is the head_dim layout, which local_kv_heads refuses)
+        if mode != "train":
+            local_kv_heads(cfg)
+        q, k, v = (gather_rows(t, split.group, split.index, dim=-1)
+                   for t in (q, k, v))
+    elif split is not None:  # this rank's kv heads and their q heads
+        h, kv = h // split.size, kv // split.size
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, kv, dh)
     v = v.reshape(b, s, kv, dh)
@@ -126,8 +176,11 @@ def attn_apply(
             score_dtype=getattr(torch, cfg.attn_score_dtype),
             head_shard=cfg.attn_head_shard,
             l2r=cfg.attn_l2r, levels=cfg.attn_levels)
-    return dense(out.reshape(b, s, h * dh), p["wo"], cfg.l2r,
-                 cfg.l2r_levels), cache
+    out = out.reshape(b, s, h * dh)
+    if gathered:
+        out = split_rows(out, split.group, split.index, split.size, dim=-1)
+    return dense(out, p["wo"], cfg.l2r, cfg.l2r_levels,
+                 row_parallel=True), cache
 
 
 # ------------------------------------------------------------ layer dispatch
@@ -167,12 +220,13 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """A KV cache in ``dtype`` for attention; an f32 state dict for
     ``ssd`` and ``rec`` whatever ``dtype`` says, as in the reference."""
     if kind == "global":
-        return init_kv_cache(batch, max_len, cfg.n_kv, cfg.head_dim, dtype,
-                             quant=cfg.attn_l2r, device=device)
-    if kind == "local":
-        return init_kv_cache(batch, min(cfg.window, max_len), cfg.n_kv,
+        return init_kv_cache(batch, max_len, local_kv_heads(cfg),
                              cfg.head_dim, dtype, quant=cfg.attn_l2r,
                              device=device)
+    if kind == "local":
+        return init_kv_cache(batch, min(cfg.window, max_len),
+                             local_kv_heads(cfg), cfg.head_dim, dtype,
+                             quant=cfg.attn_l2r, device=device)
     if kind == "ssd":
         return init_ssm_state(cfg, batch, device=device)
     if kind == "rec":
@@ -197,7 +251,11 @@ def layer_apply(
     mixer's new tensors are copied into ``cache``'s."""
     mixer_kind, ffn_kind = kinds
     norm = layer_norm_fn(cfg)
+    split = ctx.model_split()
+    seq = split is not None and split.seq
     h = norm(x, params["mixer_norm"])
+    if seq:  # the whole sequence into the column-parallel products
+        h = gather_rows(h, split.group, split.index, dim=1)
     if mixer_kind in ("global", "local"):
         mixed, cache = attn_apply(
             cfg, params["mixer"], h, mode=mode,
@@ -222,7 +280,15 @@ def layer_apply(
     aux = 0.0
     if ffn_kind != "none":
         h = norm(x, params["ffn_norm"])
-        if ffn_kind == "moe":
+        if seq:
+            h = gather_rows(h, split.group, split.index, dim=1)
+        if ffn_kind == "moe" and seq:
+            # routing sees the whole sequence, replicated over the model
+            # group; the rank keeps its part of the output
+            with ctx.model_shard(split.mesh):
+                out, aux = moe_apply(cfg, params["ffn"], h)
+            out = split_rows(out, split.group, split.index, split.size, 1)
+        elif ffn_kind == "moe":
             out, aux = moe_apply(cfg, params["ffn"], h)
         else:
             out = mlp_apply(cfg, params["ffn"], h)
@@ -271,7 +337,8 @@ def layer_slice(tree, i: int):
         planes = tree.planes
         if planes is not None:
             planes = dataclasses.replace(planes, stack=planes.stack[i])
-        return QuantizedWeights(tree.q[i], tree.scale[i], planes)
+        return dataclasses.replace(tree, q=tree.q[i], scale=tree.scale[i],
+                                   planes=planes)
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -340,7 +407,7 @@ def lm_forward(
     compute_dtype = getattr(torch, cfg.compute_dtype)
     if embeds is None:
         # gather, then cast: the reference's cast-then-gather, elementwise
-        x = params["embed"][tokens.long()].to(compute_dtype)
+        x = _embed(cfg, params["embed"], tokens).to(compute_dtype)
     else:
         x = embeds.to(compute_dtype)
     if cfg.scale_embeddings:
@@ -355,6 +422,10 @@ def lm_forward(
         rope_positions = positions
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    split = ctx.model_split()
+    seq = split is not None and split.seq
+    if seq:  # the residual stream holds this rank's part of the sequence
+        x = split_rows(x, split.group, split.index, split.size, 1)
 
     def run_layer(x, lp, kinds, cache):
         return layer_apply(cfg, lp, kinds, x, mode=mode,
@@ -377,9 +448,17 @@ def lm_forward(
             aux_acc = aux_acc + aux
         return x, aux_acc
 
+    scope = ctx.snapshot()
+
+    def block_in_scope(x, aux_acc, blk):
+        # the backward recomputes the block after the caller's scopes
+        # (the rows', the model split) have exited: it re-enters them
+        with ctx.restored(scope):
+            return block(x, aux_acc, blk)
+
     for blk in range(repeats):  # the reference's scan over the stack
         if remat:
-            x, aux_total = checkpoint(block, x, aux_total, blk,
+            x, aux_total = checkpoint(block_in_scope, x, aux_total, blk,
                                       use_reentrant=False)
         else:
             x, aux_total = block(x, aux_total, blk)
@@ -392,12 +471,34 @@ def lm_forward(
         aux_total += aux
 
     x = layer_norm_fn(cfg)(x, params["final_norm"])
+    if seq:
+        x = gather_rows(x, split.group, split.index, dim=1)
 
     new_state = None
     if state is not None:
         new_state = LMState(prefix=new_prefix, stack=state.stack,
                             suffix=new_suffix, pos=state.pos + s)
     return x, new_state, aux_total
+
+
+def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """The rows of ``tokens`` in the embedding ``table``; a vocab-split
+    table (this rank's ``V / m`` rows in a ``ctx.model_shard`` scope)
+    looks up the tokens it holds, the ranks' lookups are gathered and
+    each token takes its owner's row (a select: a float sum with the
+    other ranks' zeros would turn -0.0 into +0.0)."""
+    t = tokens.long()
+    split = ctx.model_split()
+    if split is None or table.shape[0] == cfg.vocab:
+        return table[t]
+    v_l = table.shape[0]
+    off = split.index * v_l
+    own = (t >= off) & (t < off + v_l)
+    mine = table[torch.where(own, t - off, torch.zeros_like(t))]
+    rows = gather_rows(mine[None], split.group, split.index, dim=0)
+    owner = (t // v_l)[None, ..., None].expand(1, *t.shape, table.shape[1])
+    return torch.gather(rows, 0, owner)[0]
 
 
 def logits_from_hidden(cfg: ModelConfig, params: dict, hidden: torch.Tensor
@@ -412,4 +513,8 @@ def logits_from_hidden(cfg: ModelConfig, params: dict, hidden: torch.Tensor
         return gather_columns(dense(hidden, head_q, cfg.l2r, cfg.l2r_levels),
                               head_q.shard)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return dense(hidden, w.to(hidden.dtype), cfg.l2r, cfg.l2r_levels)
+    logits = dense(hidden, w.to(hidden.dtype), cfg.l2r, cfg.l2r_levels)
+    split = ctx.model_split()
+    if split is not None and w.shape[-1] != cfg.vocab:  # vocab-split
+        logits = all_gather(logits, split.group, dim=-1)
+    return logits

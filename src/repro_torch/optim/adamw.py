@@ -10,11 +10,16 @@ per-leaf sums as the reference does.
 
 ZeRO-1 (:class:`Zero1`, the data-parallel train step): m and v hold this
 rank's slice of every leaf under ``sharding/axes.py:zero1_specs``; the
-update takes the whole (summed) gradients, clips them by their global
-norm as without a mesh, updates this rank's slice of each parameter and
-all-gathers the slices, so every rank holds the whole parameters.  The
-update is elementwise, so the gathered parameters and moments equal a
-whole-leaf update of the same gradients bit for bit.
+update takes the (summed) gradients of the params as the ranks hold them,
+clips them by their global norm as without a mesh, updates this rank's
+slice of each parameter and all-gathers the slices back to the held
+params.  With the backbone replicated every rank holds the whole params
+and the gather runs over the whole mesh; with it split over ``model``
+(the attention families, ``shard_params``) a rank holds its
+``param_specs`` slice, its ZeRO-1 slice is that slice's part over
+"data", and the gather runs over the data group.  The update is
+elementwise, so the gathered parameters and moments equal a whole-leaf
+update of the same gradients (and grad norm) bit for bit.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
-from repro_torch.sharding.axes import local_slice, slice_index, zero1_spec
-from repro_torch.sharding.collectives import gather_slices
+from repro_torch.sharding.axes import (local_slice, param_specs,
+                                       slice_index, zero1_spec)
+from repro_torch.sharding.collectives import all_reduce, gather_slices
 
 __all__ = ["AdamWConfig", "OptState", "Zero1", "adamw_init", "adamw_update",
            "cosine_schedule", "global_norm", "clip_by_global_norm"]
@@ -57,30 +63,85 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Zero1:
     """ZeRO-1's layout over ``mesh``: one ``zero1_specs`` spec and whole
-    shape per leaf of the param tree, in ``tree_leaves`` order."""
+    shape per leaf of the param tree, in ``tree_leaves`` order, and the
+    spec the params are held under (``held``: ``param_specs`` for a
+    backbone split over ``model``, None for whole params)."""
 
     mesh: Any
     specs: tuple
     shapes: tuple
+    held: tuple | None = None
 
     @classmethod
-    def build(cls, desc_tree, mesh) -> "Zero1":
-        """From the Param descriptor tree (``lm_build`` / ``encdec_build``)."""
+    def build(cls, desc_tree, mesh, split: bool = False) -> "Zero1":
+        """From the Param descriptor tree (``lm_build`` / ``encdec_build``);
+        ``split``: the params are held per ``param_specs``."""
         leaves = tree_leaves(desc_tree)
+        held = tuple(param_specs(p, mesh) for p in leaves) if split \
+            else None
         return cls(mesh, tuple(zero1_spec(p, mesh) for p in leaves),
-                   tuple(tuple(p.shape) for p in leaves))
+                   tuple(tuple(p.shape) for p in leaves), held)
+
+    def _sub(self, i: int) -> tuple:
+        """Leaf ``i``'s ZeRO-1 spec within its held slice: the dims the
+        held spec leaves whole keep their ZeRO-1 axis."""
+        if self.held is None:
+            return self.specs[i]
+        return tuple(z if h is None else None for z, h in
+                     zip(self.specs[i], tuple(self.held[i])
+                         + (None,) * len(self.shapes[i])))
+
+    def _held_shape(self, i: int) -> tuple:
+        if self.held is None:
+            return self.shapes[i]
+        idx = slice_index(self.shapes[i], self.held[i], self.mesh)(
+            self.mesh.coords())
+        return tuple(s.stop - s.start for s in idx)
 
     def local(self, tree) -> list:
-        """This rank's slice of each whole leaf of ``tree`` (views)."""
+        """This rank's slice of each leaf of ``tree`` held as the params
+        are (views)."""
+        return [local_slice(x, self._sub(i), self.mesh)
+                for i, x in enumerate(tree_leaves(tree))]
+
+    def gather(self, parts: list) -> list:
+        """The held leaves from the ranks' slices (one all-gather per
+        dtype over the whole mesh, or over the data group when the params
+        are split over ``model``)."""
+        shapes = [self._held_shape(i) for i in range(len(parts))]
+        return gather_slices(parts, [slice_index(sh, self._sub(i), self.mesh)
+                                     for i, sh in enumerate(shapes)],
+                             shapes, self.mesh,
+                             None if self.held is None else ("data",))
+
+    def from_whole(self, tree) -> list:
+        """This rank's ZeRO-1 slice of each whole leaf of ``tree``
+        (views): models/convert.py's crossing of a whole state."""
         return [local_slice(x, s, self.mesh)
                 for x, s in zip(tree_leaves(tree), self.specs)]
 
-    def gather(self, parts: list) -> list:
-        """The whole leaves from every rank's slices (one all-gather over
-        the mesh per dtype)."""
+    def gather_whole(self, parts: list) -> list:
+        """The whole leaves from every rank's ZeRO-1 slices (one
+        all-gather over the mesh per dtype)."""
         return gather_slices(parts, [slice_index(sh, sp, self.mesh) for
                                      sh, sp in zip(self.shapes, self.specs)],
                              list(self.shapes), self.mesh)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The global norm of gradients held as the params are, each
+        element counted once: a leaf split over ``model`` adds its
+        ranks' sums of squares (one all-reduce over the model group)."""
+        sums = [torch.sum(torch.square(x.to(_F32)))
+                for x in tree_leaves(grads)]
+        split = [i for i in range(len(sums)) if self.held is not None
+                 and "model" in self.held[i]
+                 and self.mesh.shape.get("model", 1) > 1]
+        if split:
+            tot = all_reduce(torch.stack([sums[i] for i in split]), "sum",
+                             self.mesh.group("model"))
+            for i, t in zip(split, tot):
+                sums[i] = t
+        return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def adamw_init(params, zero: Zero1 | None = None) -> OptState:
@@ -132,10 +193,11 @@ def clip_by_global_norm(tree, max_norm: float):
 def adamw_update(cfg: AdamWConfig, grads, params, state: OptState,
                  zero: Zero1 | None = None):
     """Returns (new_params, new_state, metrics).  With ``zero`` the
-    state holds this rank's slices, ``grads`` and ``params`` are whole
-    (the same on every rank), and so are the new params."""
+    state holds this rank's slices, ``grads`` and ``params`` are held as
+    ``zero`` says (whole, or the rank's ``param_specs`` slices; the same
+    on every rank that holds them), and so are the new params."""
     if zero is not None:
-        gnorm = global_norm(grads)
+        gnorm = zero.global_norm(grads)
         clip = (_clip(gnorm, cfg.clip_norm) if cfg.clip_norm is not None
                 else lambda x: x)
         grads = tree_unflatten(grads, [clip(g) for g in zero.local(grads)])

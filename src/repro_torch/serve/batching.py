@@ -19,7 +19,10 @@ With a mesh every rank runs the same host schedule.  In the reference's
 only the progressive head walk is sharded; in ``"batch"`` each rank holds
 and decodes only its contiguous block of slots over the data axes
 (``sharding/axes.py:batch_rows``), stepping them in a ``ctx.row_shard``
-scope so that the head walk takes those rows.
+scope so that the head walk takes those rows; in ``"specs"`` (the
+attention families, params from ``sharding/axes.py:shard_params``) the
+backbone is split over ``model`` and each rank holds its kv heads of its
+slots (:func:`~repro_torch.serve.engine.state_specs`).
 """
 
 from __future__ import annotations
@@ -36,14 +39,16 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import batch_rows
+from repro_torch.sharding.axes import (TP_FAMILIES, P, batch_rows,
+                                       local_slice, params_split)
 
 from .engine import (bucket_for, make_bucket_prefill_step, make_decode_step,
-                     make_prefill_step, prefill_buckets,
+                     make_prefill_step, prefill_buckets, state_specs,
                      supports_bucketed_prefill)
 
 __all__ = ["Request", "ContinuousBatcher", "infer_batch_axes",
-           "state_batch_axes", "latency_percentiles", "progressive_stats"]
+           "state_batch_axes", "latency_percentiles", "progressive_stats",
+           "check_state_sharding", "init_sharded_state"]
 
 
 def latency_percentiles(ttft: list, tpot: list) -> dict:
@@ -147,13 +152,14 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def _tensors(tree) -> list[torch.Tensor]:
+def _tensors(tree, leaf=torch.Tensor) -> list[torch.Tensor]:
     """Every tensor of a tree (params with their weight records and plane
-    stacks, or a state), in a fixed order."""
+    stacks, or a state), in a fixed order; ``leaf``: the leaf type (P for
+    a spec tree of the same structure)."""
     out: list[torch.Tensor] = []
 
     def walk(t):
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, leaf):
             out.append(t)
         elif isinstance(t, dict):
             for v in t.values():
@@ -202,6 +208,57 @@ def state_batch_axes(cfg: ModelConfig, max_len: int,
     return infer_batch_axes(
         init_lm_state(cfg, 1, max_len, cache_dtype, device="meta"),
         init_lm_state(cfg, 2, max_len, cache_dtype, device="meta"))
+
+
+def check_state_sharding(cfg: ModelConfig, params, mesh,
+                         state_sharding: str) -> None:
+    """Refuse a slot layout the params or the mesh cannot serve:
+    ``"specs"`` needs an attention family whose kv heads the model axis
+    divides (the head_dim layout, and the SSD / RG-LRU / whisper state
+    over ``model``, are ROADMAP A13d) and params split by
+    ``sharding/axes.py:shard_params``; ``"replicated"`` and ``"batch"``
+    need whole params."""
+    split = params_split(cfg, params) if cfg.family != "encdec" else False
+    if state_sharding != "specs":
+        if split:
+            raise ValueError(
+                f"state_sharding={state_sharding!r} serves whole params; "
+                f"params split by shard_params serve with 'specs'")
+        return
+    if mesh is None:
+        raise ValueError("state_sharding='specs' needs a mesh")
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"state_sharding='specs' for the {cfg.family!r} family (its "
+            f"SSD, RG-LRU or whisper state over the model axis) is ROADMAP "
+            f"A13d")
+    m = mesh.shape.get("model", 1)
+    if cfg.n_kv % m:
+        raise NotImplementedError(
+            f"state_sharding='specs' with a model axis of {m} that does "
+            f"not divide the {cfg.n_kv} kv heads (the cache split on "
+            f"head_dim) is ROADMAP A13d")
+    if m > 1 and not split:
+        raise ValueError("state_sharding='specs' serves the params split "
+                         "over the model axis: pass "
+                         "sharding/axes.py:shard_params(cfg, params, mesh)")
+
+
+def init_sharded_state(cfg: ModelConfig, mesh, batch: int, rows: int,
+                       max_len: int, cache_dtype: torch.dtype, device):
+    """The ``"specs"`` slot state of ``rows`` of ``batch`` slots: each
+    leaf this rank's block under :func:`state_specs` (``kv_shard=
+    "heads"``), allocated at that size (checked against the spec)."""
+    with ctx.model_shard(mesh):
+        state = init_lm_state(cfg, rows, max_len, cache_dtype,
+                              device=device)
+    whole = init_lm_state(cfg, batch, max_len, cache_dtype, device="meta")
+    specs = _tensors(state_specs(cfg, mesh, batch, max_len), P)
+    for got, leaf, spec in zip(_tensors(state), _tensors(whole), specs,
+                               strict=True):
+        want = tuple(local_slice(leaf, spec, mesh).shape)
+        assert tuple(got.shape) == want, (tuple(got.shape), want, spec)
+    return state
 
 
 def _pad_value(b: torch.Tensor):
@@ -266,12 +323,17 @@ class ContinuousBatcher:
         ``"batch"`` it holds only its block of ``n_slots / dp`` slots
         (``sharding/axes.py:batch_rows``; the whole state where the data
         axes do not divide ``n_slots``) and decodes those rows in a
-        ``ctx.row_shard`` scope.  Every rank prefills
+        ``ctx.row_shard`` scope.  ``"specs"`` (the reference's
+        ``state_specs`` layout) serves an attention family's params
+        split over ``model`` (``sharding/axes.py:shard_params``, after
+        ``prepare_params``): the rows as in ``"batch"``, and of them only
+        this rank's kv heads, the backbone tensor-parallel
+        (:func:`check_state_sharding` says what it refuses, naming
+        ROADMAP A13d).  Every rank prefills
         every admitted request (a one-row prefill does not split), the
         slot's owner splices it, and every rank keeps the same requests,
         tokens and histograms.  Tokens, exit levels and stats equal the
-        unmeshed engine's bit for bit.  The reference's ``"specs"`` layout
-        (caches split over ``model``) is not ported (ROADMAP A13c).
+        unmeshed engine's bit for bit.
 
         ``donate_state=True`` (default) asserts after every decode step
         that each state tensor kept its storage: the step wrote the
@@ -294,17 +356,12 @@ class ContinuousBatcher:
         if state_sharding not in ("replicated", "batch", "specs"):
             raise ValueError(f"state_sharding={state_sharding!r}: one of "
                              f"'replicated', 'batch', 'specs'")
-        if state_sharding == "specs":
-            raise NotImplementedError(
-                "ContinuousBatcher(state_sharding='specs'): the slot state "
-                "split over the model axis (kv heads, head_dim, SSM "
-                "channels) is ROADMAP A13c; the port serves a mesh with "
-                "'replicated' or 'batch' state")
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.cfg = cfg
         self.params = params
         self.mesh = mesh if mesh is not None else ctx.get_mesh()
+        check_state_sharding(cfg, params, self.mesh, state_sharding)
         self.n_slots = n_slots
         self.max_len = max_len
         self.progressive = progressive
@@ -312,9 +369,14 @@ class ContinuousBatcher:
         # this rank's slots [r0, r0 + n_local) of the state (all of them
         # unless the "batch" layout splits them)
         self._rows, self._r0, self._n_local = batch_rows(
-            self.mesh if state_sharding == "batch" else None, n_slots)
-        self.state = init_lm_state(cfg, self._n_local, max_len, cache_dtype,
-                                   device=self.device)
+            self.mesh if state_sharding != "replicated" else None, n_slots)
+        if state_sharding == "specs":
+            self.state = init_sharded_state(cfg, self.mesh, n_slots,
+                                            self._n_local, max_len,
+                                            cache_dtype, self.device)
+        else:
+            self.state = init_lm_state(cfg, self._n_local, max_len,
+                                       cache_dtype, device=self.device)
         # every slot's next position, on the host of every rank
         self._pos = np.zeros(n_slots, np.int64)
         # explicit per-leaf batch axes for slot splicing (derived from the

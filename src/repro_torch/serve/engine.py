@@ -14,7 +14,12 @@ the caches and ``pos`` into the tensors it was given and returns them.
 Under a mesh (``mesh=``, else the installed one, sharding/ctx.py) every
 rank runs the same steps on the whole batch with the backbone replicated,
 and the progressive head streams as the consensus walk over the vocab
-shard ``prepare_params(mesh=)`` keeps (core/progressive.py).  Called
+shard ``prepare_params(mesh=)`` keeps (core/progressive.py).  Given the
+attention families' params split over ``model``
+(sharding/axes.py:shard_params, after ``prepare_params``) the steps run
+the tensor-parallel backbone in a ``ctx.model_shard`` scope, and the
+state they allocate holds the rank's kv heads (the reference's
+``"specs"`` layout, :func:`state_specs` with ``kv_shard="heads"``).  Called
 within a ``ctx.row_shard`` scope (sharding/ctx.py; the rows
 ``sharding/axes.py:batch_rows`` gives) a step takes this rank's rows of
 the global batch instead, and its state holds only those rows (the
@@ -29,6 +34,7 @@ one launch of kernel B1 per level walked.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -46,13 +52,14 @@ from repro_torch.models.encdec import (EncDecState, encdec_forward,
 from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
                                             lm_forward, logits_from_hidden)
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import P, dp_axes
+from repro_torch.sharding.axes import P, TP_FAMILIES, dp_axes, params_split
 from repro_torch.sharding.collectives import all_gather
 
 __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
            "supports_bucketed_prefill", "progressive_logits_from_hidden",
-           "state_specs", "greedy_generate"]
+           "state_specs", "greedy_generate", "split_scope",
+           "split_collectives"]
 
 
 # ------------------------------------------------------- weight preparation
@@ -90,7 +97,8 @@ def prepare_params(cfg: ModelConfig, params, desc=None, mesh=None):
     head cache over the ``model`` axis by vocabulary: this rank keeps its
     contiguous K-major slice of the int8 head, its scales and its plane
     stack (core/quant.py:quantize_weights ``shard=``), the layout the
-    consensus head walk reads.  The backbone's records stay whole.
+    consensus head walk reads.  The backbone's records stay whole here;
+    sharding/axes.py:shard_params cuts them for a split backbone.
     """
     if cfg.l2r is None:
         return params
@@ -203,6 +211,39 @@ def state_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
 
 
 # ------------------------------------------------------------ step factories
+def split_scope(cfg: ModelConfig, params, mesh=None):
+    """The scope a step runs ``params`` in: ``ctx.model_shard`` over
+    ``mesh`` (else the installed one) when they are an attention family's
+    :func:`~repro_torch.sharding.axes.shard_params` slices, else none."""
+    mesh = mesh if mesh is not None else ctx.get_mesh()
+    if (mesh is not None and mesh.shape.get("model", 1) > 1
+            and cfg.family in TP_FAMILIES and params_split(cfg, params)):
+        return ctx.model_shard(mesh)
+    return contextlib.nullcontext()
+
+
+def split_collectives(cfg: ModelConfig, params) -> dict[str, int]:
+    """The collectives one forward (a prefill or a decode step) of the
+    split backbone makes beyond the head's walk and the rows' split, on
+    ``params`` from sharding/axes.py:shard_params: every row-parallel
+    product (attention's ``wo``, the MLPs' and shared experts' ``wo``)
+    two all-reduces with ``cfg.l2r`` (the row's amax and the integer
+    partials, models/common.py:dense) and one without, an all-gather for
+    a vocab-split embedding and one a MoE layer (its experts split)."""
+    per_product = 2 if cfg.l2r is not None else 1
+    reduce = gather = 0
+    for mixer, ffn in cfg.layer_kinds():
+        reduce += per_product  # attention's wo
+        if ffn == "mlp":
+            reduce += per_product
+        elif ffn == "moe":
+            reduce += per_product if cfg.n_shared_experts else 0
+            gather += 1
+    if params["embed"].shape[0] != cfg.vocab:
+        gather += 1
+    return {"all_reduce": reduce, "all_gather": gather, "all_to_all": 0}
+
+
 def _check_step_flags(progressive: bool, early_exit: bool,
                       policy: LevelPolicy | None = None) -> None:
     """Reject contradictory step-factory flag combinations: ``early_exit``
@@ -268,13 +309,19 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     ``policy`` (the factory default, overridable per call as the
     trailing argument) gives each batch row its precision class.
     ``mesh`` overrides the installed mesh for the head's walk; the
-    backbone runs whole on every rank.
+    backbone runs whole on every rank, or split when ``params`` are
+    :func:`~repro_torch.sharding.axes.shard_params` slices
+    (:func:`split_scope`).
     """
     _check_step_flags(progressive, early_exit, policy)
     _check_progressive(cfg, progressive)
     default_policy = policy
 
     def prefill(params, batch, policy=None):
+        with split_scope(cfg, params, mesh):
+            return run(params, batch, policy)
+
+    def run(params, batch, policy):
         if cfg.family == "encdec":
             tokens = batch["tokens"]
             state = init_encdec_state(cfg, tokens.shape[0], max_len,
@@ -387,6 +434,10 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_len: int,
     local = any(k == "local" for k, _ in cfg.layer_kinds())
 
     def prefill(params, tokens, true_len, policy=None):
+        with split_scope(cfg, params, mesh):
+            return run(params, tokens, true_len, policy)
+
+    def run(params, tokens, true_len, policy):
         bsz, lb = tokens.shape
         if local:
             assert lb <= cfg.window, (
@@ -477,13 +528,17 @@ def make_decode_step(cfg: ModelConfig, progressive: bool = False,
     row has decided (the logits are then the exit-level prefix).
     ``policy`` (the factory default, overridable per call as the trailing
     argument) streams the head under per-slot precision classes.
-    ``mesh`` works as in :func:`make_prefill_step`.
+    ``mesh`` and split params work as in :func:`make_prefill_step`.
     """
     _check_step_flags(progressive, early_exit, policy)
     _check_progressive(cfg, progressive)
     default_policy = policy
 
     def decode(params, state, tokens, rope_positions=None, policy=None):
+        with split_scope(cfg, params, mesh):
+            return run(params, state, tokens, rope_positions, policy)
+
+    def run(params, state, tokens, rope_positions, policy):
         if cfg.family == "encdec":
             hidden, new, _ = encdec_forward(cfg, params, tokens=tokens,
                                             mode="decode", state=state)

@@ -33,7 +33,7 @@ removes three per-request and per-step costs:
 Output streams are bit-identical to `ContinuousBatcher` for the same
 request set: bucketed prefill is bit-exact, rows of a packed prefill are
 independent, and decode rows are independent (on the card too:
-models/common.py:_row_mean, models/attention.py:_fixed_rows).
+models/common.py:_row_mean, models/attention.py:_fixed_pairs).
 
 With a mesh (``mesh=``) every rank runs the same gateway on the same
 requests with the whole slot state, and the progressive head streams as
@@ -45,6 +45,7 @@ rank's own clock, is refused.
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -57,8 +58,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
 from repro_torch.sharding import ctx
+from repro_torch.sharding.axes import dp_axes
 
 from .batching import (Request, _check_params_device, _row, _splice,
+                       check_state_sharding, init_sharded_state,
                        _storage, latency_percentiles, progressive_stats,
                        state_batch_axes)
 from .engine import (bucket_for, make_bucket_prefill_step, make_decode_step,
@@ -155,7 +158,12 @@ class ServingGateway:
     ``mesh`` (default: the installed mesh, sharding/ctx.py) serves with
     replicated state and the sharded head walk, as the batcher's
     ``mesh=``; tokens, exit levels and the stats' counts and histograms
-    equal the unmeshed gateway's bit for bit.
+    equal the unmeshed gateway's bit for bit.  ``state_sharding="specs"``
+    serves params split over the model axis
+    (``sharding/axes.py:shard_params``), each rank holding its kv heads of
+    every slot, as the batcher's ``"specs"`` (which also refuses); the
+    gateway's slots are not split over the data axes, so it refuses a
+    mesh whose data axes have more than one rank there.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int = 8,
@@ -165,7 +173,8 @@ class ServingGateway:
                  aot_warmup: bool = True, async_emit: bool = True,
                  emit_queue_depth: int = 8,
                  default_class: PrecisionClass | None = None,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 state_sharding: str = "replicated"):
         assert supports_bucketed_prefill(cfg), \
             "gateway serving needs bucketed prefill: attention families only"
         self.device = resolve_device(device)
@@ -173,6 +182,15 @@ class ServingGateway:
         self.cfg = cfg
         self.params = params
         self.mesh = mesh if mesh is not None else ctx.get_mesh()
+        if state_sharding not in ("replicated", "specs"):
+            raise ValueError(f"state_sharding={state_sharding!r}: the "
+                             f"gateway serves 'replicated' or 'specs'")
+        check_state_sharding(cfg, params, self.mesh, state_sharding)
+        if state_sharding == "specs" and ctx.mesh_axis_size(
+                self.mesh, dp_axes(self.mesh)) > 1:
+            raise ValueError("ServingGateway(state_sharding='specs'): its "
+                             "slots are not split over the data axes; use a "
+                             "mesh whose data axes have one rank")
         self.n_slots = n_slots
         self.max_len = max_len
         self.cache_dtype = cache_dtype
@@ -182,8 +200,15 @@ class ServingGateway:
         assert self.buckets[-1] == max_len, \
             "the largest bucket must be the cache bound"
 
-        self.state = init_lm_state(cfg, n_slots, max_len, cache_dtype,
-                                   device=self.device)
+        if state_sharding == "specs":
+            self._new_state = functools.partial(
+                init_sharded_state, cfg, self.mesh, n_slots, n_slots,
+                max_len, cache_dtype, self.device)
+        else:
+            self._new_state = functools.partial(
+                init_lm_state, cfg, n_slots, max_len, cache_dtype,
+                device=self.device)
+        self.state = self._new_state()
         self._axes = state_batch_axes(cfg, max_len, cache_dtype)
         self.cur_tok = torch.zeros((n_slots, 1), dtype=torch.int32,
                                    device=self.device)
@@ -269,8 +294,7 @@ class ServingGateway:
                 self._sync()
                 self.warmup_s[lb] = time.perf_counter() - t0
             if "decode" not in self.warmup_s:
-                scratch = init_lm_state(self.cfg, self.n_slots, self.max_len,
-                                        self.cache_dtype, device=dev)
+                scratch = self._new_state()
                 self._sync()
                 t0 = time.perf_counter()
                 args = (None, self.slot_policy) if self.progressive else ()

@@ -10,6 +10,12 @@ data=16, model=16).  Parameter logical axes: ``vocab``, ``qkv``, ``ffn``
 and ``experts`` -> "model"; ``embed`` and ``layers`` replicated.  The
 optimizer state additionally shards its largest replicated divisible
 dim over "data" (ZeRO-1).
+
+:func:`shard_params` keeps this rank's slice of every leaf of a param
+tree per :func:`param_specs` (the reference's ``jax.device_put(params,
+named(mesh, param_specs(desc, mesh)))``): the tensor-parallel backbone
+of the attention families (``dense``, ``moe``, ``vlm``), run in a
+``ctx.model_shard`` scope; :func:`gather_params` is its inverse.
 """
 
 from __future__ import annotations
@@ -31,7 +37,15 @@ __all__ = [
     "slice_index",
     "local_slice",
     "batch_rows",
+    "TP_FAMILIES",
+    "shard_params",
+    "gather_params",
+    "params_split",
 ]
+
+#: the families whose backbone splits over "model"; the ssm, hybrid and
+#: encdec mixers keep it replicated (ROADMAP A13d)
+TP_FAMILIES = ("dense", "moe", "vlm")
 
 PARAM_RULES: dict[str, Any] = {
     "vocab": "model",
@@ -178,3 +192,132 @@ def local_slice(x, spec: tuple, mesh):
     """This rank's block of ``x`` under ``spec`` (:func:`slice_index`), a
     view."""
     return x[slice_index(tuple(x.shape), spec, mesh)(mesh.coords())]
+
+
+def _desc(cfg, desc):
+    if desc is not None:
+        return desc
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import encdec_build
+
+        return encdec_build(cfg)
+    from repro_torch.models.transformer import lm_build
+
+    return lm_build(cfg)
+
+
+def _check_tp(cfg, desc, specs, mesh) -> None:
+    """The split the tensor-parallel forward runs: the attention families
+    only, every ``qkv`` / ``ffn`` dim split over "model" (the experts'
+    stacks by expert); a model axis that does not divide one is ROADMAP
+    A13d (the vocabulary may stay whole)."""
+    from repro_torch.models.common import tree_leaves
+
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"shard_params: the {cfg.family!r} family's backbone over the "
+            f"model axis (SSD, RG-LRU and whisper mixers) is ROADMAP A13d; "
+            f"its params stay whole")
+    for p, spec in zip(tree_leaves(desc), _spec_leaves(specs)):
+        want = "experts" if "experts" in p.axes else \
+            next((a for a in p.axes if a in ("qkv", "ffn")), None)
+        if want is None:
+            continue
+        dim = p.axes.index(want)
+        if spec[dim] != "model":
+            raise NotImplementedError(
+                f"shard_params: the model axis ({mesh.shape['model']}) does "
+                f"not divide the {want!r} dim of a {p.shape} leaf; such a "
+                f"split is ROADMAP A13d")
+
+
+def _spec_leaves(specs) -> list:
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    return [x for t in specs for x in _spec_leaves(t)]
+
+
+def _walk(params, specs, desc, fn):
+    """``fn(leaf, spec, desc_param)`` over the leaves of ``params`` that
+    the spec tree covers (a ``{"q", "scale"}`` record is one leaf); keys
+    it does not cover (a ``prepare_params`` head cache) stay as they
+    are."""
+    if isinstance(specs, P):
+        return fn(params, specs, desc)
+    if isinstance(params, dict):
+        return {k: _walk(v, specs[k], desc[k], fn) if k in specs else v
+                for k, v in params.items()}
+    return type(params)(_walk(v, sp, d, fn)
+                        for v, sp, d in zip(params, specs, desc))
+
+
+def shard_params(cfg, params, mesh, desc=None):
+    """This rank's slice of every leaf of ``params`` per
+    :func:`param_specs` over ``mesh`` (copies: the whole tree can be
+    freed).  Takes a raw tree (float leaves) or a prepared one
+    (serve/engine.py:prepare_params: a :class:`QuantizedWeights` is cut
+    by core/quant.py:shard_weights, by output channels or by contraction
+    rows, the head cache ``head_q`` kept as prepare_params split it).
+    The attention families only; the result runs in a
+    ``ctx.model_shard`` scope.  models/moe.py:shard_experts is the
+    special case that cuts the expert stacks alone."""
+    from repro_torch.core.quant import QuantizedWeights, shard_weights
+
+    desc = _desc(cfg, desc)
+    specs = param_specs(desc, mesh)
+    _check_tp(cfg, desc, specs, mesh)
+
+    def cut(x, spec, p):
+        if not any(a is not None for a in spec):
+            return x
+        if isinstance(x, QuantizedWeights):
+            return shard_weights(x, spec, mesh,
+                                 1 if p.axes[0] == "layers" else 0)
+        if isinstance(x, dict):
+            raise NotImplementedError(
+                "shard_params: the int8 {'q', 'scale'} records "
+                "(models/common.py:quantize_params) serve whole; split a "
+                "raw or a prepare_params tree")
+        return local_slice(x, spec, mesh).clone()
+
+    return _walk(params, specs, desc, cut)
+
+
+def gather_params(cfg, params, mesh, desc=None):
+    """The whole float params from every rank's :func:`shard_params`
+    slices (every rank calls it; one all-gather over the model group per
+    dtype): the inverse of :func:`shard_params` on a raw tree."""
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.sharding.collectives import gather_slices
+
+    desc = _desc(cfg, desc)
+    specs = _spec_leaves(param_specs(desc, mesh))
+    shapes = [tuple(p.shape) for p in tree_leaves(desc)]
+    whole = gather_slices(tree_leaves(params),
+                          [slice_index(sh, sp, mesh)
+                           for sh, sp in zip(shapes, specs)],
+                          shapes, mesh, axes=("model",))
+    return tree_unflatten(params, whole)
+
+
+def params_split(cfg, params) -> bool:
+    """Do ``params`` hold a rank's backbone slices (:func:`shard_params`)
+    rather than whole leaves?  Read from the leaves' shapes against the
+    descriptor tree; the expert stacks do not count (a whole backbone
+    with a rank's experts, models/moe.py:shard_experts, is the
+    dp-local MoE's layout)."""
+    from repro_torch.models.common import Param
+
+    def split(x, d) -> bool:  # a leaf ``params`` lacks counts as whole
+        if isinstance(d, Param):
+            if "experts" in d.axes:
+                return False
+            x = x["q"] if isinstance(x, dict) else x  # an int8 record
+            return tuple(x.shape) != tuple(d.shape)
+        if isinstance(d, dict):
+            return any(split(x[k], d[k]) for k in d if k in x)
+        return any(split(a, b) for a, b in zip(x, d))
+
+    return split(params, _desc(cfg, None))

@@ -16,16 +16,29 @@ rows and the gather back, each the other's adjoint) and
 :func:`all_to_all` (its own adjoint).  Several tensors travel as one
 flat bucket a dtype (:func:`all_reduce_many`, :func:`gather_slices`):
 each host-staged call costs milliseconds whatever its size.
+
+The tensor-parallel paths (Megatron-style, by hand: eager torch has no
+partitioner) add :func:`copy_in` (the identity, whose gradient is summed
+over the group: the input of a column-parallel region),
+:func:`reduce_scatter` (the sum's slice along a dim, for sequence
+parallelism) and :func:`sum_int` (the exact sum of int32 partial
+products, wrapping mod 2^32 as one accumulator does).  Every rank issues
+each of them in the same order.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.l2r_gemm import wrap_int32
+
 __all__ = ["COUNTS", "reset", "all_reduce", "all_gather", "gather_columns",
            "all_reduce_many", "all_to_all", "sum_forward", "split_rows",
-           "gather_rows", "gather_slices"]
+           "gather_rows", "gather_slices", "copy_in", "reduce_scatter",
+           "sum_int"]
 
 COUNTS = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
@@ -182,24 +195,79 @@ def gather_rows(x: torch.Tensor, group, index: int,
 
 
 def gather_slices(parts: list[torch.Tensor], slices: list, shapes: list,
-                  mesh) -> list[torch.Tensor]:
-    """Whole tensors from every rank's slices: ``parts[i]`` is this
-    rank's slice of a tensor of ``shapes[i]``, ``slices[i]`` the function
-    that gives a rank's index tuple (sharding/axes.py:slice_index, from
-    its coordinates).  One all-gather over the whole mesh per dtype; a
-    slice that several ranks hold (a dim not split over every axis) is
-    written once per holder, with the same values."""
-    group = mesh.group(mesh.axis_names)
+                  mesh, axes=None) -> list[torch.Tensor]:
+    """Whole tensors from the slices of the ranks of the group over
+    ``axes`` (default: the whole mesh): ``parts[i]`` is this rank's slice
+    of a tensor of ``shapes[i]``, ``slices[i]`` the function that gives a
+    rank's index tuple (sharding/axes.py:slice_index, from its
+    coordinates).  One all-gather over the group per dtype; a slice that
+    several ranks hold (a dim not split over every axis) is written once
+    per holder, with the same values."""
+    names = mesh.axis_names if axes is None else \
+        tuple(a for a in mesh.axis_names if a in axes)
+    group = mesh.group(names)
+    n = math.prod(mesh.shape[a] for a in names)
+    mine = mesh.coords()
     out: list = [None] * len(parts)
     for idx in _by_dtype(parts).values():
         sizes = [parts[i].numel() for i in idx]
         flat = all_gather(torch.cat([parts[i].reshape(-1) for i in idx]),
-                          group, dim=0).view(mesh.size, sum(sizes))
+                          group, dim=0).view(n, sum(sizes))
         for i in idx:
             out[i] = torch.empty(shapes[i], dtype=parts[i].dtype,
                                  device=parts[i].device)
-        for rank in range(mesh.size):
-            coords = mesh.coords(rank)
-            for i, piece in zip(idx, flat[rank].split(sizes)):
+        for gr in range(n):  # group rank gr: row-major over ``names``
+            coords, r = dict(mine), gr
+            for a in reversed(names):
+                r, coords[a] = divmod(r, mesh.shape[a])
+            for i, piece in zip(idx, flat[gr].split(sizes)):
                 out[i][slices[i](coords)] = piece.view(parts[i].shape)
     return out
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself (the same on every rank of ``group``), whose gradient
+    is summed over the group: the input of a column-parallel region, where
+    each rank's product reaches only its own columns' part of ``x``'s
+    gradient."""
+    return _CopyIn.apply(x, group)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, n, dim):
+        ctx.group, ctx.dim = group, dim
+        size = x.shape[dim] // n
+        return all_reduce(x, "sum", group).narrow(dim, index * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
+def reduce_scatter(x: torch.Tensor, group, index: int, n: int,
+                   dim: int) -> torch.Tensor:
+    """Slice ``index`` of ``n`` equal slices along ``dim`` of the group's
+    sum of ``x`` (the partial sums of a row-parallel product under
+    sequence parallelism); the gradient is gathered over the group.  gloo
+    has no reduce-scatter: this is an all-reduce followed by a narrow."""
+    return _ReduceScatter.apply(x, group, index, n, dim)
+
+
+def sum_int(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of the int32 ``x`` as an int32 accumulator holds
+    it: summed in int64 and narrowed mod 2^32 on purpose (a K-split
+    integer product then equals the one-rank product, wrap included;
+    gloo's own int32 arithmetic is not relied on)."""
+    return wrap_int32(all_reduce(x.to(torch.int64), "sum", group))

@@ -21,21 +21,32 @@ The data-parallel paths run each rank on its own rows of the global
 batch: :func:`row_shard` installs a mesh for a scope and records the
 axes the rows are split over (:func:`row_axes`), which models/moe.py
 reads to keep the global batch's routing.
+
+The tensor-parallel paths run each rank on its slice of the backbone's
+params (sharding/axes.py:shard_params, per ``param_specs``):
+:func:`model_shard` installs a mesh for a scope and says that the
+params hold this rank's part of the ``model`` axis, and, with ``seq``,
+that the residual stream between blocks holds this rank's part of the
+sequence; :func:`model_split` reads it (models/common.py:dense, the
+attention, MLP and MoE layers, ``lm_forward`` and the cross-entropy).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from typing import Any, NamedTuple
 
 import torch
 
 _MESH = None
 _ROWS: tuple[str, ...] = ()
+_MODEL = None  # the ModelSplit of a model_shard scope
 
 __all__ = ["set_mesh", "get_mesh", "hint", "hint_dp", "hint_uneven",
            "mesh_axis_size", "safe_axes", "constrain", "row_shard",
-           "row_axes", "axes_tuple"]
+           "row_axes", "axes_tuple", "ModelSplit", "model_shard",
+           "model_split", "snapshot", "restored"]
 
 
 def set_mesh(mesh) -> None:
@@ -74,6 +85,65 @@ def row_axes() -> tuple[str, ...]:
     """The axes this rank's rows are split over (:func:`row_shard`); ()
     for whole rows."""
     return _ROWS
+
+
+class ModelSplit(NamedTuple):
+    """The backbone's split over the ``model`` axis in a
+    :func:`model_shard` scope: this rank is ``index`` of ``size`` in
+    ``group`` (the model axis's process group); ``seq`` says that the
+    residual stream between blocks holds this rank's part of the
+    sequence (Megatron's sequence parallelism)."""
+
+    mesh: Any
+    group: Any
+    size: int
+    index: int
+    seq: bool
+
+
+@contextlib.contextmanager
+def model_shard(mesh, seq: bool = False):
+    """Within the scope ``mesh`` is installed and the backbone's params
+    are this rank's slices over its ``model`` axis (sharding/axes.py:
+    shard_params); with ``seq`` the residual stream between blocks is
+    split over ``model`` by sequence.  A model axis of size 1 (or none)
+    splits nothing.  The previous mesh and split come back on exit."""
+    global _MESH, _MODEL
+    saved = _MESH, _MODEL
+    _MESH = mesh
+    m = mesh.shape.get("model", 1)
+    _MODEL = ModelSplit(mesh, mesh.group("model"), m, mesh.index("model"),
+                        seq) if m > 1 else None
+    try:
+        yield
+    finally:
+        _MESH, _MODEL = saved
+
+
+def model_split() -> ModelSplit | None:
+    """The backbone's split over ``model`` (:func:`model_shard`); None
+    for whole params."""
+    return _MODEL
+
+
+def snapshot() -> tuple:
+    """The installed mesh, row axes and model split, for :func:`restored`
+    (a checkpointed block recomputes in the backward, after its scopes
+    have exited)."""
+    return _MESH, _ROWS, _MODEL
+
+
+@contextlib.contextmanager
+def restored(snap: tuple):
+    """Within the scope the state of :func:`snapshot` is installed; the
+    previous comes back on exit."""
+    global _MESH, _ROWS, _MODEL
+    saved = _MESH, _ROWS, _MODEL
+    _MESH, _ROWS, _MODEL = snap
+    try:
+        yield
+    finally:
+        _MESH, _ROWS, _MODEL = saved
 
 
 def mesh_axis_size(mesh, axis) -> int:

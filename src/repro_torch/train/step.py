@@ -18,18 +18,24 @@ Kernel B5 (B4 with ``attn_l2r``) runs every attention forward it fits on
 the card, and the attention backward is the plain loop's gradient
 (models/attention.py); everything else is plain torch.
 
-**Data parallel** (``mesh=``).  Every rank calls the step with the same
-params, state and global batch and gets the same results.  A rank
-computes the loss on its rows of the batch (``batch_spec``) with the
-global token count as the divisor, the gradients are summed over the
-data group (the leaves of a ``moe_dp_local`` layer, which each rank
-computes for its own token group, over the whole mesh) as one flat
-bucket a dtype, and the optimizer state is ZeRO-1 (optim/adamw.py:Zero1,
-the EF residual too).  Ranks of one model group compute the same rows,
-so the backbone and its gradients are replicated over ``model``: a
-deviation from the reference, whose ``param_specs`` split the params
-over ``model`` (ROADMAP A13c, with the sequence sharding that
-``_resid_shard_fn`` only checks here).
+**On a mesh** (``mesh=``).  Every rank calls the step with the same
+arguments and gets the global results.  A rank computes the loss on its
+rows of the batch (``batch_spec``) with the global token count as the
+divisor, and the optimizer state is ZeRO-1 (optim/adamw.py:Zero1, the EF
+residual too).  For the attention families (``dense``, ``moe``,
+``vlm``) the params are held per ``param_specs``
+(sharding/axes.py:shard_params) and the backbone is tensor-parallel
+over ``model`` (a ``ctx.model_shard`` scope: models/transformer.py),
+with the sequence of the residual stream split over ``model`` between
+blocks where it divides
+(``_resid_shard_fn``), and the cross-entropy vocab-parallel over a
+split head.  The gradients are summed over the data group, one flat
+bucket a dtype and group; a leaf replicated over ``model`` is also
+summed over the model group where each model rank computed part of its
+gradient: the norms under sequence parallelism, the router and the
+expert stacks of a ``moe_dp_local`` layer (each rank routes its own
+token group).  The ``ssm``, ``hybrid`` and ``encdec`` families keep the
+backbone whole on every rank (ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -50,9 +56,11 @@ from repro_torch.optim.adamw import (AdamWConfig, OptState, Zero1,
                                      adamw_update)
 from repro_torch.optim.compression import EFState, ef_compress_grads
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import (P, batch_rows, batch_spec,
-                                       param_specs, zero1_specs)
-from repro_torch.sharding.collectives import all_reduce, all_reduce_many
+from repro_torch.sharding.axes import (P, TP_FAMILIES, batch_rows,
+                                       batch_spec, param_specs, params_split,
+                                       zero1_specs)
+from repro_torch.sharding.collectives import (all_reduce, all_reduce_many,
+                                              copy_in, sum_forward)
 
 __all__ = ["TrainConfig", "make_loss_fn", "make_train_step", "chunked_xent",
            "value_and_grad", "make_grad_fn", "train_step_shardings",
@@ -62,7 +70,7 @@ __all__ = ["TrainConfig", "make_loss_fn", "make_train_step", "chunked_xent",
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     remat: bool = True
-    seq_shard: bool = True  # checked under a mesh; sharding is A13c
+    seq_shard: bool = True  # the residual's sequence over "model" (mesh)
     xent_chunk: int = 512
     microbatch: int = 1  # gradient-accumulation splits of the global batch
     ef_compression: bool = False  # int8 error-feedback gradient compression
@@ -82,9 +90,40 @@ def _xent_chunk(h, w_out, labels, z_loss: float):
     return loss, correct
 
 
+def _xent_chunk_split(h, w_out, labels, z_loss: float, group, index: int,
+                      vocab: int):
+    """:func:`_xent_chunk` over a vocab-split head: ``w_out`` this rank's
+    ``V / m`` columns.  The row max is a MAX all-reduce; the sum of the
+    exps and the gold logit (from its owner, zeros elsewhere) one summed
+    pair (their gradient passes through: every rank takes the same loss
+    on); argmax is (the max, the lowest index reaching it), a MIN
+    all-reduce of the indices; ``h``'s gradient is summed over the model
+    group (each rank's columns reach their part of it)."""
+    h = copy_in(h, group)
+    logits = torch.einsum("bcd,dv->bcv", h.to(torch.float32),
+                          w_out.to(torch.float32))
+    v_l = logits.shape[-1]
+    off = index * v_l
+    lmax, lidx = logits.detach().max(-1)
+    gmax = all_reduce(lmax, "max", group)
+    lab = labels.long()
+    own = (lab >= off) & (lab < off + v_l)
+    gold = torch.gather(logits, -1, torch.where(own, lab - off, 0)[..., None]
+                        )[..., 0] * own
+    sums = sum_forward(torch.stack([
+        torch.exp(logits - gmax[..., None]).sum(-1), gold]), group)
+    lse = gmax + torch.log(sums[0])
+    loss = (lse - sums[1]).sum()
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse).sum()
+    idx = torch.where(lmax == gmax, lidx + off, torch.full_like(lidx, vocab))
+    arg = all_reduce(idx, "min", group)
+    return loss, (arg == lab).sum(dtype=torch.int32)
+
+
 def chunked_xent(hidden: torch.Tensor, w_out: torch.Tensor,
                  labels: torch.Tensor, chunk: int = 512, z_loss: float = 0.0,
-                 n_tokens: int | None = None):
+                 n_tokens: int | None = None, vocab: int | None = None):
     """Mean token cross-entropy without materializing full logits.
 
     hidden: (B, S, d); w_out: (d, V); labels: (B, S) int32.  Chunks of
@@ -92,15 +131,23 @@ def chunked_xent(hidden: torch.Tensor, w_out: torch.Tensor,
     (``torch.utils.checkpoint``), so peak memory ~ (B, chunk, V).
     Returns (mean loss, accuracy), f32 scalars: sums over these tokens
     divided by ``n_tokens`` (default B * S; a data rank passes the
-    global count).
+    global count).  In a ``ctx.model_shard`` scope a ``w_out`` of fewer
+    than ``vocab`` columns is this rank's vocabulary slice and the
+    cross-entropy is vocab-parallel (:func:`_xent_chunk_split`).
     """
+    split = ctx.model_split()
+    if split is not None and vocab is not None and w_out.shape[-1] < vocab:
+        fn = lambda h, w, lab, z: _xent_chunk_split(  # noqa: E731
+            h, w, lab, z, split.group, split.index, vocab)
+    else:
+        fn = _xent_chunk
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     correct = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        loss, corr = checkpoint(_xent_chunk, hidden[:, c0:c0 + chunk], w_out,
+        loss, corr = checkpoint(fn, hidden[:, c0:c0 + chunk], w_out,
                                 labels[:, c0:c0 + chunk], z_loss,
                                 use_reentrant=False)
         total = total + loss
@@ -114,15 +161,20 @@ def _batch_size(batch: dict) -> int:
         .shape[0]
 
 
-def _resid_shard_fn(mesh, tcfg: TrainConfig, batch_size: int):
+def _resid_shard_fn(mesh, tcfg: TrainConfig, batch_size: int,
+                    seq_len: int):
     """The reference's residual-stream constraint (sequence over
-    "model", batch per ``batch_spec``): here it checks the operand's rank
-    against that spec and returns it (sharding/ctx.py:constrain); the
-    sequence sharding itself is ROADMAP A13c."""
+    "model", batch per ``batch_spec``): ``(check, seq)``, ``check`` the
+    rank check of that spec (sharding/ctx.py:constrain) and ``seq``
+    whether the sequence splits over "model" between blocks: where the
+    model axis divides it (safe_axes's rule: else the sequence stays
+    whole, as the reference's constraint then replicates it)."""
     if mesh is None or not tcfg.seq_shard or "model" not in mesh.axis_names:
-        return lambda x: x
+        return (lambda x: x), False
     bspec = batch_spec(mesh, batch_size)[0]
-    return lambda x: ctx.constrain(x, mesh, bspec, "model", None)
+    seq = ctx.safe_axes(mesh, (batch_size, seq_len), (bspec, "model"))[1]
+    return (lambda x: ctx.constrain(x, mesh, bspec, "model", None)), \
+        seq is not None and mesh.shape["model"] > 1
 
 
 def _rows(mesh, batch: dict):
@@ -136,22 +188,33 @@ def _rows(mesh, batch: dict):
                   for k, v in batch.items()}
 
 
+def _tp(cfg: ModelConfig, mesh) -> bool:
+    """Is ``cfg``'s backbone split over ``mesh``'s model axis?"""
+    return (mesh is not None and cfg.family in TP_FAMILIES
+            and mesh.shape.get("model", 1) > 1)
+
+
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """loss_fn(params, batch) -> (loss, metrics). Handles all families.
 
     With ``mesh`` the loss is this rank's part (its rows' cross-entropy
     over the global token count, plus the global aux loss): the sum of
     its gradients over the data group is the global gradient.  The
-    metrics are global (summed over the data group)."""
+    metrics are global (summed over the data group).  The attention
+    families' params are this rank's ``param_specs`` slices, run in a
+    ``ctx.model_shard`` scope (with ``seq`` per ``_resid_shard_fn``)."""
 
     def loss_fn(params, batch):
         bsz = _batch_size(batch)
-        resid = _resid_shard_fn(mesh, tcfg, bsz)
+        resid, seq = _resid_shard_fn(mesh, tcfg, bsz,
+                                     batch["labels"].shape[1])
         n_tokens = bsz * batch["labels"].shape[1]
-        rows, scope = None, contextlib.nullcontext()
+        rows, scope = None, contextlib.ExitStack()
         if mesh is not None:
             rows, batch = _rows(mesh, batch)
-            scope = ctx.row_shard(mesh, rows)
+            scope.enter_context(ctx.row_shard(mesh, rows))
+            if _tp(cfg, mesh):
+                scope.enter_context(ctx.model_shard(mesh, seq))
         with scope:
             if cfg.family == "encdec":
                 hidden, _, aux = encdec_forward(
@@ -166,8 +229,9 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
                     mode="train", remat=tcfg.remat)
                 w_out = params["embed"].T if cfg.tie_embeddings \
                     else params["head"]
-        xent, acc = chunked_xent(resid(hidden), w_out, batch["labels"],
-                                 tcfg.xent_chunk, tcfg.z_loss, n_tokens)
+            xent, acc = chunked_xent(resid(hidden), w_out, batch["labels"],
+                                     tcfg.xent_chunk, tcfg.z_loss, n_tokens,
+                                     cfg.vocab)
         loss = xent + aux
         metrics = {"loss": xent, "aux": aux, "accuracy": acc}
         if rows is not None:
@@ -192,32 +256,47 @@ def value_and_grad(loss_fn, params, batch):
             tree_unflatten(params, grads))
 
 
-def _moe_leaves(tree, inside: bool = False):
-    """A tree like ``tree`` whose leaves say whether they belong to a MoE
-    layer (a dict holding a ``router``)."""
+def _leaf_flags(tree, pred, inside: bool = False):
+    """A tree like ``tree`` whose leaves say whether they lie under a dict
+    key for which ``pred(key, value)`` holds."""
     if isinstance(tree, dict):
-        inside = inside or "router" in tree
-        return {k: _moe_leaves(v, inside) for k, v in tree.items()}
+        return {k: _leaf_flags(v, pred, inside or pred(k, v))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_moe_leaves(v, inside) for v in tree)
+        return type(tree)(_leaf_flags(v, pred, inside) for v in tree)
     return inside
 
 
-def _reduce_grads(cfg: ModelConfig, mesh, grads: list, params, batch: dict):
-    """The gradients (leaves) summed over the ranks that split the work:
-    the data group that splits the rows; the whole mesh for the leaves of
-    a ``moe_dp_local`` layer routed in per-rank groups (each rank then
-    holds its own group's part); one flat bucket a dtype per group."""
-    rows = _rows(mesh, batch)[0]
+def _reduce_grads(cfg: ModelConfig, mesh, grads: list, params, batch: dict,
+                  seq: bool):
+    """The gradients (leaves, held as the params are) summed over the
+    ranks that computed parts of them, one flat bucket a dtype and group:
+    the data group that splits the rows, and the model group too for a
+    leaf the model ranks hold alike but computed apart: the norms under
+    sequence parallelism (each rank normed its part of the sequence) and
+    the leaves of a ``moe_dp_local`` layer held whole (each rank routed
+    its own token group; an expert stack split over ``model`` is each
+    rank's own)."""
+    rows = _rows(mesh, batch)[0] or ()
     tokens = batch["tokens"] if "tokens" in batch else batch["embeds"]
     dp_local = cfg.moe_dp_local and cfg.n_experts and mesh.size > 1 \
         and (tokens.shape[0] * tokens.shape[1]) % mesh.size == 0
-    moe = tree_leaves(_moe_leaves(params)) if dp_local \
-        else [False] * len(grads)
+    moe = tree_leaves(_leaf_flags(params, lambda k, v: isinstance(v, dict)
+                                  and "router" in v))
+    norm = tree_leaves(_leaf_flags(params, lambda k, v: k.endswith("norm")))
+    desc = tree_leaves(encdec_build(cfg) if cfg.family == "encdec"
+                       else lm_build(cfg))
+    groups: dict = {}
+    for i, (g, d) in enumerate(zip(grads, desc)):
+        whole = tuple(g.shape) == tuple(d.shape)
+        axes = set(rows)
+        if whole and ((seq and norm[i]) or (dp_local and moe[i])):
+            axes.add("model")
+        groups.setdefault(tuple(a for a in mesh.axis_names if a in axes),
+                          []).append(i)
     out = list(grads)
-    for flag, axes in ((False, rows), (True, mesh.axis_names)):
-        idx = [i for i, m in enumerate(moe) if m == flag]
-        if idx and axes is not None:
+    for axes, idx in groups.items():
+        if axes:
             for i, g in zip(idx, all_reduce_many([grads[i] for i in idx],
                                                  "sum", mesh.group(axes))):
                 out[i] = g
@@ -230,6 +309,10 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
     accumulated in f32 and averaged; with ``mesh`` summed over the
     ranks, whole and the same on every rank)."""
     loss_fn = make_loss_fn(cfg, tcfg, mesh)
+
+    def seq(batch) -> bool:
+        return _tp(cfg, mesh) and _resid_shard_fn(
+            mesh, tcfg, _batch_size(batch), batch["labels"].shape[1])[1]
 
     def one(params, batch):
         loss, metrics, grads = value_and_grad(loss_fn, params, batch)
@@ -254,7 +337,8 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
                              for a, b in zip(grads, g)]
                     loss = loss + mloss
                 if mesh is not None:
-                    grads = _reduce_grads(cfg, mesh, grads, params, mb)
+                    grads = _reduce_grads(cfg, mesh, grads, params, mb,
+                                          seq(mb))
                 grads = [g / n for g in grads]
                 loss = loss / n
                 zero = torch.zeros((), dtype=torch.float32,
@@ -263,7 +347,8 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
             else:
                 loss, metrics, grads = one(params, batch)
                 if mesh is not None:
-                    grads = _reduce_grads(cfg, mesh, grads, params, batch)
+                    grads = _reduce_grads(cfg, mesh, grads, params, batch,
+                                          seq(batch))
         return loss, metrics, tree_unflatten(params, grads)
 
     return grad_fn
@@ -282,9 +367,10 @@ def _check_mesh(mesh) -> None:
 def zero1_layout(cfg: ModelConfig, mesh) -> Zero1:
     """The ZeRO-1 layout of ``cfg``'s params over ``mesh``: what
     ``adamw_init(params, zero)`` and ``ef_init(params, zero)`` take for a
-    mesh step."""
+    mesh step (the params held per ``param_specs`` for the attention
+    families, whole for the others)."""
     return Zero1.build(encdec_build(cfg) if cfg.family == "encdec"
-                       else lm_build(cfg), mesh)
+                       else lm_build(cfg), mesh, split=_tp(cfg, mesh))
 
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
@@ -295,10 +381,12 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     Microbatching: the global batch is split on the leading axis and
     grads are accumulated in f32 from zeros, in microbatch order, before
     one optimizer step.  With ``mesh`` (a mesh on a process group, every
-    rank calling with the same arguments) the step is data parallel: the
+    rank calling with the same arguments) the step runs on the mesh: the
     optimizer state and the EF residual are ZeRO-1 slices
-    (:func:`zero1_layout`; ``adamw_init(params, zero)``), the params whole
-    on every rank.
+    (:func:`zero1_layout`; ``adamw_init(params, zero)``); the attention
+    families' params are this rank's ``param_specs`` slices
+    (sharding/axes.py:shard_params) in and out, the others' whole on every
+    rank.
     """
     zero = None
     if mesh is not None:
@@ -307,6 +395,11 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     grad_fn = make_grad_fn(cfg, tcfg, mesh)
 
     def train_step(params, opt_state, batch, ef_state=None):
+        if mesh is not None and _tp(cfg, mesh) != params_split(cfg, params):
+            raise ValueError(
+                "make_train_step(mesh=): the attention families train the "
+                "params split per param_specs (sharding/axes.py:"
+                "shard_params), the other families whole")
         _, metrics, grads = grad_fn(params, batch)
         with no_tf32():
             if tcfg.ef_compression:

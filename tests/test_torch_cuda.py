@@ -1316,3 +1316,94 @@ def test_decode_rows_do_not_depend_on_the_batch(dev, d):
         got = decode_attention(q[:n].clone(), k[:n].clone(), v[:n].clone(),
                                pos[:n].contiguous(), qpos[:n].clone())
         assert torch.equal(got, whole[:n])
+
+
+# the head counts of the tensor-parallel runs (chip_smoke.py phase 20):
+# (q heads, kv heads, dh) whole and a rank's
+TP_HEADS = [((9, 3, 64), (3, 1, 64)),     # SmolLM-135M at model 3
+            ((16, 16, 128), (8, 8, 128))]  # deepseek-moe-16b at model 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whole,part", TP_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b5_per_head_bits_do_not_depend_on_the_heads_beside(dev, whole,
+                                                             part, dtype):
+    """Kernel B5 gives a rank's heads (its kv heads and their q heads)
+    the bits the whole call gives them: one block per (batch x head, q
+    tile), whatever the heads beside."""
+    (h, kv, dh), (hp, kvp, _) = whole, part
+    g = torch.Generator(device=dev).manual_seed(31)
+    b, s = 2, 320
+    q = torch.randn((b, s, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, dh), generator=g, device=dev).to(dtype)
+    full = fa.flash_attention(q, k, v, causal=True)
+    for j in range(h // hp):
+        got = fa.flash_attention(q[:, :, j * hp:(j + 1) * hp].contiguous(),
+                                 k[:, :, j * kvp:(j + 1) * kvp].contiguous(),
+                                 v[:, :, j * kvp:(j + 1) * kvp].contiguous(),
+                                 causal=True)
+        assert torch.equal(got, full[:, :, j * hp:(j + 1) * hp]), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whole,part", TP_HEADS)
+@pytest.mark.parametrize("b", [4, 8])
+def test_decode_heads_do_not_depend_on_the_heads_beside(dev, whole, part, b):
+    """Decode attention (its two products on fixed blocks of (row, kv
+    head) pairs, models/attention.py:_fixed_pairs) gives a rank's heads,
+    in a ``ctx.model_shard`` scope, the bits one process gives them."""
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.sharding import ctx
+
+    class ModelAxis:  # rank j of a model axis of m (no process group)
+        def __init__(self, m, j):
+            self.shape, self.j = {"model": m}, j
+
+        def group(self, axes):
+            return None
+
+        def index(self, axes):
+            return self.j
+
+    (h, kv, dh), (hp, kvp, _) = whole, part
+    g = torch.Generator(device=dev).manual_seed(37)
+    L = 2080
+    q = torch.randn((b, 1, h, dh), generator=g, device=dev)
+    k = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    v = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(b, L) \
+        .contiguous()
+    qpos = torch.full((b,), L - 5, device=dev, dtype=torch.int32)
+    full = decode_attention(q, k, v, pos, qpos)
+    for j in range(h // hp):
+        with ctx.model_shard(ModelAxis(h // hp, j)):
+            got = decode_attention(
+                q[:, :, j * hp:(j + 1) * hp].contiguous(),
+                k[:, :, j * kvp:(j + 1) * kvp].contiguous(),
+                v[:, :, j * kvp:(j + 1) * kvp].contiguous(), pos, qpos)
+        assert torch.equal(got, full[:, :, j * hp:(j + 1) * hp]), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,ranks", [(8, 576, 576, 3), (40, 1536, 576, 3),
+                                         (16, 2048, 1024, 2)])
+def test_k_split_b1_partials_sum_to_the_whole_product(dev, m, k, n, ranks):
+    """Kernel B1 on each rank's K-slice (the row-parallel products of
+    phase 20), the int32 partials summed in int64 and narrowed
+    (sharding/collectives.py:sum_int's arithmetic): the whole product at
+    every ``levels``."""
+    from repro_torch.core.l2r_gemm import wrap_int32
+
+    a, bw = _ints(dev, m, k, n, 8, seed=41)
+    kl = k // ranks
+    for lv in _levels(8, 2):
+        whole = kernel.l2r_gemm_stacked_planes(
+            stack_planes_lhs(a), stack_planes_rhs(bw), levels=lv)
+        parts = [kernel.l2r_gemm_stacked_planes(
+            stack_planes_lhs(a[:, j * kl:(j + 1) * kl].contiguous()),
+            stack_planes_rhs(bw[j * kl:(j + 1) * kl].contiguous()),
+            levels=lv) for j in range(ranks)]
+        total = sum(p.to(torch.int64) for p in parts)
+        assert torch.equal(wrap_int32(total), whole), lv

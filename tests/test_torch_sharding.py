@@ -306,8 +306,15 @@ def test_unported_mesh_modes_raise_naming_their_slice():
     from repro_torch.serve.batching import ContinuousBatcher
 
     cfg = dataclasses.replace(get_smoke("smollm-135m"), l2r=QuantConfig())
-    with pytest.raises(NotImplementedError, match="A13c"):
-        ContinuousBatcher(cfg, {}, state_sharding="specs", device="cpu")
+    # "specs" (ported in A13c) refuses what A13d ports: the smoke model's
+    # one kv head over a model axis of 2 (the head_dim layout), an SSM
+    with pytest.raises(NotImplementedError, match="A13d"):
+        ContinuousBatcher(cfg, {}, state_sharding="specs", device="cpu",
+                          mesh=Mesh({"data": 1, "model": 2}, rank=0))
+    with pytest.raises(NotImplementedError, match="A13d"):
+        ContinuousBatcher(get_smoke("mamba2-130m"), {}, device="cpu",
+                          state_sharding="specs",
+                          mesh=Mesh({"data": 1, "model": 2}, rank=0))
     # "batch" constructs: rank 1 of a (data 2, model 1) mesh holds slots
     # 2 and 3 of 4 (no collective runs before the first step)
     eng = ContinuousBatcher(cfg, {}, n_slots=4, state_sharding="batch",
