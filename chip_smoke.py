@@ -266,7 +266,12 @@ Imports neither jax nor the JAX package; exits non-zero without CUDA.
     python3 chip_smoke.py --decode-profile
 
 builds the kernels and prints only the device profiles of one decode step
-of 13a, 14a and 15a (set up as those phases set it up), one JSON line.
+of 13a, 14a and 15a (set up as those phases set it up), one JSON line;
+
+    python3 chip_smoke.py --mixer-profile ARCH
+
+those of one prefill and one decode step of phase 16's ARCH (mamba2-130m,
+recurrentgemma-2b, deepseek-moe-16b or whisper-base) in one process.
 The script takes its package from ``src/`` beside it, so a copy of it in
 another checkout profiles that checkout's code: an older commit and this
 one can be compared in one call on one card.
@@ -3548,9 +3553,11 @@ class WalkProbe:
     The walk's collectives (policy.all_reduce, progressive.all_gather)
     are timed by a :class:`CollectiveClock`."""
 
-    def __init__(self, module, mesh, rows_sharded: bool = True):
+    def __init__(self, module, mesh, rows_sharded: bool | None = True,
+                 same_inputs: bool = True):
         self.module, self.mesh = module, mesh
         self.rows_sharded = rows_sharded
+        self.same_inputs = same_inputs  # every rank walks the same rows
         self.walks: list[dict] = []
         self.inputs: list = []
 
@@ -3568,7 +3575,7 @@ class WalkProbe:
 
     def _walk(self, xq, wq, xs, ws, *args, **kw):
         from repro_torch.core.progressive import sharded_walk_collectives
-        from repro_torch.sharding import collectives
+        from repro_torch.sharding import collectives, ctx
 
         torch.cuda.synchronize()
         before = dict(collectives.COUNTS)
@@ -3580,14 +3587,17 @@ class WalkProbe:
         made = {k: collectives.COUNTS[k] - before[k] for k in before}
         early = kw.get("early_exit", False)
         run = int(out[2].max()) + 1 if early else N_LEVELS
-        want = sharded_walk_collectives(run, True, self.rows_sharded, early)
+        rows = bool(ctx.row_axes()) if self.rows_sharded is None \
+            else self.rows_sharded  # None: as the walk's caller split them
+        want = sharded_walk_collectives(run, True, rows, early)
         require(made == want, f"a walk of {run} levels made collectives "
                               f"{made}, the code derives {want}")
         self.walks.append({"ms": ms, "levels": run, "collectives": made,
                            "collective_ms":
                            (self.clock.seconds - coll_s) * 1e3})
         self.inputs.append((xq, xs))
-        same_on_every_rank(self.mesh, xq, xs)
+        if self.same_inputs:
+            same_on_every_rank(self.mesh, xq, xs)
         return out
 
 
@@ -4418,21 +4428,6 @@ def head_subset(x: torch.Tensor, heads: int, j: int) -> torch.Tensor:
     return x[:, :, j * heads:(j + 1) * heads].contiguous()
 
 
-class ModelAxis:
-    """Rank ``j`` of a model axis of ``m`` for a ``ctx.model_shard`` scope
-    in one process (no process group): what a rank's decode attention
-    reads of the split."""
-
-    def __init__(self, m: int, j: int):
-        self.shape, self.j = {"model": m}, j
-
-    def group(self, axes):
-        return None
-
-    def index(self, axes):
-        return self.j
-
-
 def tp_kernel_rows(dev) -> dict:
     """20d: kernels B1, B2 and B5 at the shapes phase 20 gives a rank, on
     the card before the ranks start: B1 column and row products bit for
@@ -4446,7 +4441,6 @@ def tp_kernel_rows(dev) -> dict:
     from repro_torch.device import no_tf32
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import decode_attention
-    from repro_torch.sharding import ctx
 
     g = torch.Generator(device=dev).manual_seed(200)
     b1 = []
@@ -4519,14 +4513,13 @@ def tp_kernel_rows(dev) -> dict:
         parts = [(head_subset(q, hp, j), head_subset(k_, kvp, j),
                   head_subset(v, kvp, j)) for j in range(h // hp)]
         for j, (qj, kj, vj) in enumerate(parts):
-            with ctx.model_shard(ModelAxis(h // hp, j)):
-                got = decode_attention(qj, kj, vj, pos, qpos)
+            got = decode_attention(qj, kj, vj, pos, qpos, kv_whole=kv)
             require(torch.equal(got, whole[:, :, j * hp:(j + 1) * hp]),
                     f"decode attention on rank {j}'s heads at {where} != "
                     f"those heads of the whole batch")
         qj, kj, vj = parts[0]
-        with ctx.model_shard(ModelAxis(h // hp, 0)):
-            ms = time_ms(lambda: decode_attention(qj, kj, vj, pos, qpos))
+        ms = time_ms(lambda: decode_attention(qj, kj, vj, pos, qpos,
+                                              kv_whole=kv))
         row = {"name": where, "B": b, "L": L, "H": hp, "Kv": kvp, "dh": dh,
                "heads_equal_whole_call": True, "ms": ms,
                "ms_whole": time_ms(lambda: decode_attention(q, k_, v, pos,
@@ -5048,6 +5041,687 @@ def tp_summary(tp: dict, lib: str) -> dict:
                 for r in tp["moe_per_rank"]]}
 
 
+# ------------------------------------------------------------------ slice 15
+# the rest of the tensor-parallel mesh: the SSD, RG-LRU and whisper mixers
+# split over "model" and the head_dim KV-cache layout, on the 2 x 2 mesh
+# of four gloo ranks sharing the one card (phases 18-20)
+TPM_ARCHS = ("mamba2-130m", "recurrentgemma-2b", "whisper-base")
+TPM_STEPS = 8  # 21a-21c: greedy steps after phase 16's prompts (16: 32)
+TPM_REQUESTS, TPM_MAX_NEW = 8, 4  # 21d: 15e's first 8 requests, <= 4 new
+TPM_TRAIN_STEPS, TPM_TRAIN_SEQ = 2, 128  # 21e: whisper-base, 8 rows
+TPM_DEADLINE_S = 900
+TPM_M = MESH_SHAPE[1]
+TPM_B1 = [  # (M, K, N, launches per rank per call, where, split ranks;
+    # split over K: the row-parallel products, their partials summed)
+    (4 * 2048, 768, 768 + 768 + 256 + 12, 24,
+     "21a in_proj prefill (col, head-aligned)", 1),
+    (4 * 2048, 768, 768, 24, "21a out_proj prefill (row)", TPM_M),
+    (4, 768, 768 + 768 + 256 + 12, 24, "21a in_proj decode (col)", 1),
+    (4 * 2048, 2560, 1280, 18 * 2 + 8, "21b gate rec_proj wq prefill (col)",
+     1),
+    (4 * 2048, 1280, 2560, 18 + 8, "21b out_proj wo prefill (row)", TPM_M),
+    (4 * 2048, 2560, 2 * 3840, 26, "21b mlp wi prefill (col)", 1),
+    (4 * 2048, 3840, 2560, 26, "21b mlp wo prefill (row)", TPM_M),
+    (4 * 1500, 512, 256, 6 * 3, "21c encoder q k v (col)", 1),
+    (4 * 1500, 1024, 512, 6, "21c encoder mlp wo (row)", TPM_M),
+    (4, 576, 288, 30, "21d wq decode (col)", 1),
+    (4, 576, 96, 60, "21d wk wv decode (col)", 1),
+    (4, 288, 576, 30, "21d wo decode (row)", TPM_M),
+    (4, 576, 2 * 768, 30, "21d mlp wi decode (col)", 1),
+    (4, 768, 576, 30, "21d mlp wo decode (row)", TPM_M),
+]
+TPM_B5 = [  # (where, B, Sq, Skv, causal, launches per rank per call):
+    # whisper-base's 8 heads of 64, 4 a rank, bf16
+    ("21c encoder", 4, 1500, 1500, False, 6),
+    ("21c prefill self", 4, 128, 128, True, 6),
+    ("21c prefill cross", 4, 128, 1500, False, 6),
+    ("21c decode cross", 4, 1, 1500, False, 6),
+]
+TPM_DECODE = [  # (where, B, L, H, Kv, dh): the head_dim layout at model 2
+    ("21d SmolLM-135M", 4, 2080, 9, 3, 64),
+    ("21b recurrentgemma-2b local", 4, 2048, 10, 1, 256),
+]
+
+
+def tpm_kernel_rows(dev) -> dict:
+    """21f: at the shapes phase 21 gives a rank, on the card before the
+    ranks start: B1 column and row products bit for bit against its plain
+    version (the row products' K-split partials summed equal the whole
+    K's); B5 on a rank's heads of whisper-base equal to those heads of
+    the whole call (and within ATTN_TOL of its plain version); the SSD's
+    chunk products and decode readout on a rank's heads (and rows) equal
+    to the whole call's; the split gated norm's mean equal to the whole
+    row's; decode attention on the head_dim layout's value slices equal
+    to the whole heads' (with and without attn_l2r).  B1 and B5 timed
+    beside their bounds and torch._int_mm / SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import ssm
+    from repro_torch.models.attention import (decode_attention,
+                                              init_kv_cache,
+                                              update_kv_cache)
+    from repro_torch.models.common import (_row_mean, row_mean_of_parts,
+                                           row_mean_parts)
+
+    g = torch.Generator(device=dev).manual_seed(210)
+    b1 = []
+    for m, k, n, count, where, ranks in TPM_B1:
+        b1.append(b1_shape_row(g, dev, m, k, n, count, where, "21f"))
+        if ranks > 1:
+            b1_row_split_check(g, dev, m, k * ranks, n, ranks, where)
+    b5 = []
+    for where, b, sq, skv, causal, count in TPM_B5:
+        q, k_, v = attn_qkv(g, dev, b, sq, skv, 8, 8, 64, torch.bfloat16)
+        hp = 8 // TPM_M
+        with no_tf32():
+            whole = fa.flash_attention(q, k_, v, causal=causal)
+            for j in range(TPM_M):
+                got = fa.flash_attention(head_subset(q, hp, j),
+                                         head_subset(k_, hp, j),
+                                         head_subset(v, hp, j), causal=causal)
+                require(torch.equal(got, whole[:, :, j * hp:(j + 1) * hp]),
+                        f"B5 on rank {j}'s heads at {where} != those heads "
+                        f"of the whole call")
+            qs, ks, vs = (head_subset(t, hp, 0) for t in (q, k_, v))
+            got = fa.flash_attention(qs, ks, vs, causal=causal)
+            ref = fa.flash_attention_kernel_plain(qs, ks, vs, causal)
+            err, excess = attn_err(got, ref)
+            require(excess <= ATTN_TOL[torch.bfloat16][1],
+                    f"B5 at {where}: max |d| {err} from plain, {excess} "
+                    f"beyond the relative term")
+            call = lambda: fa.flash_attention(  # noqa: E731
+                qs, ks, vs, causal=causal)
+            _, lib_fn = sdpa(qs, ks, vs, causal, None)
+            row = {"name": where, "count": count, "B": b, "Sq": sq,
+                   "Skv": skv, "H": hp, "H_whole": 8, "dh": 64,
+                   "dtype": "bfloat16", "ms": time_ms(call, iters=5,
+                                                      warmup=1),
+                   "kernel_ms": stream_ms(call),
+                   "plain_ms": time_ms(lambda: fa.flash_attention_kernel_plain(
+                       qs, ks, vs, causal), iters=3, warmup=1),
+                   "library_ms": time_ms(lib_fn, iters=5, warmup=1)}
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            b, hp, 64, visible_pairs(sq, skv, causal, None), torch.bfloat16,
+            (2 * qs.numel() + 2 * ks.numel()) * qs.element_size())
+        row["max_abs_err"] = err
+        row["heads_equal_whole_call"] = True
+        b5.append(row)
+        print("phase 21f: " + json.dumps(row), flush=True)
+        del q, k_, v, qs, ks, vs, whole, got, ref
+        torch.cuda.empty_cache()
+    # the SSD's products: mamba2-130m's 24 heads, a rank's 12 of its 4 of
+    # 8 rows; a one-row 256-token prefill; the decode readout
+    checks = {}
+    for bsz, s, rows in ((8, 2048, 4), (1, 256, 1)):
+        h, p, n = 24, 64, 128
+        x = torch.randn((bsz, s, h, p), generator=g, device=dev)
+        dt = F.softplus(torch.randn((bsz, s, h), generator=g, device=dev))
+        a = -dt * 0.5
+        bb = torch.randn((bsz, s, n), generator=g, device=dev)
+        cc = torch.randn((bsz, s, n), generator=g, device=dev)
+        y, st = ssm.ssd_chunked(x, dt, a, bb, cc, 256, h)
+        hl = h // TPM_M
+        for r0 in range(0, bsz, rows):
+            r = slice(r0, r0 + rows)
+            for j in range(TPM_M):
+                hs = slice(j * hl, (j + 1) * hl)
+                yj, sj = ssm.ssd_chunked(
+                    x[r, :, hs].contiguous(), dt[r, :, hs].contiguous(),
+                    a[r, :, hs].contiguous(), bb[r], cc[r], 256, h, j * hl)
+                require(torch.equal(yj, y[r, :, hs])
+                        and torch.equal(sj, st[r, hs]),
+                        f"the SSD products of rows {r0}+{rows}, heads {j} "
+                        f"of {bsz} x {s} != the whole call's")
+        checks[f"ssd_chunk_{bsz}x{s}_rows{rows}"] = True
+        del x, dt, a, bb, cc, y, st
+    st_in = torch.randn((8, 24, 128, 64), generator=g, device=dev)
+    c1 = torch.randn((8, 128), generator=g, device=dev)
+    read = ssm.ssd_readout(c1, st_in, 24)
+    for r0 in (0, 4):
+        for j in range(TPM_M):
+            hs = slice(j * 12, (j + 1) * 12)
+            require(torch.equal(ssm.ssd_readout(
+                c1[r0:r0 + 4], st_in[r0:r0 + 4, hs].contiguous(), 24),
+                read[r0:r0 + 4, hs]), "the SSD decode readout of a rank "
+                "!= the whole call's")
+    checks["ssd_readout_4of8_rows"] = True
+    # the split gated norm: mamba2's d_inner 1536 over the model axis
+    for rows in (4 * 2048, 4):
+        x = torch.randn((rows, 1, 1536), generator=g, device=dev) ** 2
+        dl = 1536 // TPM_M
+        parts = torch.cat([row_mean_parts(x[..., j * dl:(j + 1) * dl]
+                                          .contiguous(), TPM_M)
+                           for j in range(TPM_M)], -1)
+        require(torch.equal(row_mean_of_parts(parts, 1536), _row_mean(x)),
+                f"the split gated norm's mean of {rows} rows != the whole")
+        checks[f"gated_norm_{rows}_rows"] = True
+    # decode attention on the head_dim layout's value slices
+    decode = []
+    for where, b, L, h, kv, dh in TPM_DECODE:
+        for quant in (None, QuantConfig()):
+            q = torch.randn((b, 1, h, dh), generator=g, device=dev)
+            k_ = torch.randn((b, L, kv, dh), generator=g, device=dev)
+            v = torch.randn((b, L, kv, dh), generator=g, device=dev)
+            pos = torch.arange(L, device=dev, dtype=torch.int32).expand(
+                b, L).contiguous()
+            cache = update_kv_cache(init_kv_cache(
+                b, L, kv, dh, torch.float32, quant=quant, device=dev),
+                k_, v, pos, quant=quant)
+            qpos = torch.full((b,), L - 3, device=dev, dtype=torch.int32)
+            kw = dict(l2r=quant, k_planes=cache.k_planes,
+                      k_scale=cache.k_scale, kv_whole=kv)
+            whole = decode_attention(q, cache.k, cache.v, cache.positions,
+                                     qpos, **kw)
+            vd = dh // TPM_M
+            parts = [cache.v[..., j * vd:(j + 1) * vd].contiguous()
+                     for j in range(TPM_M)]
+            for j, vj in enumerate(parts):
+                got = decode_attention(q, cache.k, vj, cache.positions, qpos,
+                                       v_cols=(j * vd, dh), **kw)
+                require(torch.equal(got, whole[..., j * vd:(j + 1) * vd]),
+                        f"decode attention on value slice {j} at {where} "
+                        f"(attn_l2r {quant is not None}) != the whole heads'")
+            row = {"name": where, "attn_l2r": quant is not None, "B": b,
+                   "L": L, "H": h, "Kv": kv, "dh": dh, "dh_rank": vd,
+                   "slices_equal_whole_heads": True,
+                   "ms": time_ms(lambda: decode_attention(
+                       q, cache.k, parts[0], cache.positions, qpos,
+                       v_cols=(0, dh), **kw)),
+                   "ms_whole": time_ms(lambda: decode_attention(
+                       q, cache.k, cache.v, cache.positions, qpos, **kw))}
+            decode.append(row)
+            print("phase 21f: " + json.dumps(row), flush=True)
+            del q, k_, v, cache, whole, parts
+    torch.cuda.empty_cache()
+    print("phase 21f: " + json.dumps(checks), flush=True)
+    return {"b1": b1, "b5": b5, "decode": decode, "checks": checks}
+
+
+def tpm_params(dev, cfg, mesh, seed: int):
+    """``materialize``'s draw of ``cfg``'s params from a card generator
+    seeded ``seed``, a leaf at a time (the whole tree's draws in order),
+    each leaf cut to this rank's block at once (sharding/axes.py:
+    held_layouts): phase 16's params without the whole tree on the card.
+    Returns (params, this rank's bytes, the whole tree's bytes)."""
+    from repro_torch.models.common import (materialize, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.sharding.axes import _desc, cut_leaf, held_layouts
+
+    desc = _desc(cfg, None)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves, whole = [], 0
+    for p, lay in zip(tree_leaves(desc), held_layouts(cfg, mesh, desc)):
+        x = materialize(p, g, device=dev)
+        whole += x.numel() * x.element_size()
+        leaves.append(cut_leaf(x, lay, mesh))
+        del x
+    mine = sum(x.numel() * x.element_size() for x in leaves)
+    return tree_unflatten(desc, leaves), mine, whole
+
+
+def tpm_state_bytes(state) -> int:
+    from repro_torch.serve.batching import _tensors
+
+    return sum(t.numel() * t.element_size() for t in _tensors(state))
+
+
+def tpm_mixer(dev, mesh, arch: str, ref16: dict) -> dict:
+    """21a-21c on this rank: ``arch`` at full width with phase 16's params
+    (seed 160, raw: these families serve raw params) cut to this rank's
+    blocks, its rows of phase 16's prompts prefilled and stepped
+    TPM_STEPS times greedily: tokens and the prefill's logits bit for bit
+    phase 16's, launches per call phase 16's, collectives a call
+    split_collectives' plus the head's and the rows' gathers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models.encdec import init_encdec_state
+    from repro_torch.models.transformer import init_lm_state
+    from repro_torch.serve import engine
+    from repro_torch.sharding import collectives, ctx
+    from repro_torch.sharding.axes import batch_rows, whole_leaves
+
+    spec = MIXERS[arch]
+    cfg = dataclasses.replace(get_config(arch), l2r=QuantConfig())
+    t0 = time.perf_counter()
+    params, mine, whole = tpm_params(dev, cfg, mesh, 160)
+    out = {"param_bytes": mine, "param_bytes_one_process": whole,
+           "build_s": time.perf_counter() - t0,
+           "whole_leaves": whole_leaves(cfg, mesh)}
+    torch.cuda.empty_cache()
+    batch = mixer_batch(cfg, dev, spec["prompt"], 162)
+    axes, r0, n_rows = batch_rows(mesh, MIX_BATCH)
+    max_len = spec["prompt"] + MIX_STEPS + 4
+    prefill = engine.make_prefill_step(cfg, max_len, torch.float32,
+                                       mesh=mesh)
+    decode = engine.make_decode_step(cfg, mesh=mesh)
+    (b1p, b5p), (b1s, b5s) = spec["prefill"], spec["step"]
+    extra = int(cfg.vocab % TPM_M == 0) + int(MESH_SHAPE[0] > 1)
+    out.update(calls=[])
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks = []
+    with torch.no_grad(), CollectiveClock(engine, ops) as clock:
+        state = tok = None
+        for i in range(1 + TPM_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            collectives.reset()
+            c0, t1 = clock.seconds, time.perf_counter()
+            with ctx.row_shard(mesh, axes):
+                if i == 0:
+                    state, logits = prefill(
+                        params, {k: v[r0:r0 + n_rows]
+                                 for k, v in batch.items()})
+                else:
+                    state, tok, logits = decode(params, state,
+                                                tok[r0:r0 + n_rows])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            if i == 0:
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                out["prefill_logits_checksum"] = float(tree_checksum(
+                    [logits.float()]).item())
+            toks.append(tok)
+            n = counts()
+            want = only(l2r_stacked_gemm=b1p if i == 0 else b1s,
+                        flash_attention=b5p if i == 0 else b5s)
+            require(n == want, f"21 {arch} call {i}: launches {n}, "
+                               f"expected {want}")
+            per = dict(engine.split_collectives(
+                cfg, params, "prefill" if i == 0 else "decode"))
+            per["all_gather"] += extra
+            made = dict(collectives.COUNTS)
+            require(made == per, f"21 {arch} call {i}: collectives {made}, "
+                                 f"derived {per}")
+            out["calls"].append({"ms": ms, "launches": n,
+                                 "collectives": made,
+                                 "collective_ms": (clock.seconds - c0) * 1e3})
+    seqs = torch.cat(toks, 1).tolist()
+    out["tokens"] = seqs
+    require(seqs == [r[:1 + TPM_STEPS] for r in ref16["tokens"]],
+            f"21 {arch}: tokens differ from phase 16's one-process run")
+    require(out["prefill_logits_checksum"] == ref16[
+        "prefill_logits_checksum"],
+        f"21 {arch}: the prefill's last-position logits differ from phase "
+        f"16's")
+    init = init_encdec_state if cfg.family == "encdec" else init_lm_state
+    out["state_bytes"] = tpm_state_bytes(state)
+    out["state_bytes_one_process"] = tpm_state_bytes(init(
+        cfg, MIX_BATCH, max_len, torch.float32, device="meta"))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpm_smollm(dev, mesh, ref: dict) -> dict:
+    """21d on this rank: phase 13's SmolLM-135M prepared (the head split
+    by vocabulary) and cut by ``shard_params`` (model 2 does not divide 3
+    kv heads: q, k, v gathered, the head_dim cache layout), the cut of
+    15e's requests through ``ContinuousBatcher(state_sharding="specs")``
+    against the one-process batcher on the same requests."""
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models.transformer import init_lm_state
+    from repro_torch.serve import ContinuousBatcher, engine
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.axes import shard_params
+
+    cfg, whole, _ = lm_model(dev, mesh=mesh)
+    out = {"backbone_bytes_whole": backbone_bytes(whole)}
+    params = shard_params(cfg, whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    out["backbone_bytes"] = backbone_bytes(params)
+    with torch.no_grad():
+        eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, progressive=True,
+                                early_exit=True, device=dev, mesh=mesh,
+                                state_sharding="specs")
+        out["kv_bytes"] = kv_bytes(eng.state)
+        out["kv_bytes_whole"] = kv_bytes(init_lm_state(
+            cfg, SERVE_SLOTS, SERVE_MAX_LEN, torch.float32, device="meta"))
+        out["kv_heads"] = int(eng.state.stack[0].k.shape[-2])
+        out["v_head_dim"] = int(eng.state.stack[0].v.shape[-1])
+        reqs = serve_requests(cfg, TPM_MAX_NEW)[:TPM_REQUESTS]
+        for r in reqs:
+            eng.submit(r)
+        reset_counts()
+        collectives.reset()
+        t0 = time.perf_counter()
+        # a data rank walks its own slots' rows: no same-input check
+        with CollectiveClock(ops) as clock, WalkProbe(
+                engine, mesh, rows_sharded=None, same_inputs=False) as probe:
+            eng.run()
+            torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+    out.update(reqs=served(reqs), stats=served_stats(eng),
+               launches=counts(), collective_s=clock.seconds,
+               collectives=dict(collectives.COUNTS), walks=len(probe.walks))
+    st = out["stats"]
+    per = {m: engine.split_collectives(cfg, params, m)
+           for m in ("prefill", "decode")}
+    want = {k: st["prefills"] * per["prefill"][k]
+            + st["steps"] * per["decode"][k]
+            + sum(w["collectives"][k] for w in probe.walks) for k in per[
+                "decode"]}
+    out["collectives_want"] = want
+    out["split_collectives_per_forward"] = per
+    require(out["collectives"] == want,
+            f"21d: collectives {out['collectives']}, the code derives {want} "
+            f"({st['prefills']} prefills, {st['steps']} steps of {per}, "
+            f"{len(probe.walks)} walks)")
+    require(out["reqs"] == ref["reqs"],
+            "21d: tokens or exit levels differ from the one-process batcher")
+    require(out["stats"] == ref["stats"],
+            "21d: stats differ from the one-process batcher")
+    launched = {k: v for k, v in out["launches"].items() if v}
+    require(launched == ref["launches"],
+            f"21d: launches {launched}, one process {ref['launches']}")
+    require(out["kv_heads"] == cfg.n_kv
+            and out["v_head_dim"] == cfg.head_dim // TPM_M,
+            "21d: the caches are not in the head_dim layout")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpm_smollm_reference(dev) -> dict:
+    """21d's one-process run: the batcher on the same requests."""
+    from repro_torch.serve import ContinuousBatcher
+
+    cfg, params, _ = lm_model(dev)
+    with torch.no_grad():
+        eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, progressive=True,
+                                early_exit=True, device=dev)
+        reqs = serve_requests(cfg, TPM_MAX_NEW)[:TPM_REQUESTS]
+        for r in reqs:
+            eng.submit(r)
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out = {"reqs": served(reqs), "stats": served_stats(eng),
+           "launches": {k: v for k, v in counts().items() if v},
+           "seconds": seconds}
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpm_train(dev, mesh) -> dict:
+    """21e on this rank: whisper-base in f32 (seed 210, the stacked
+    weights rescaled to their width: models/common.py:fan_in_scaled) split
+    over the 2 x 2 mesh (heads over "model", the decoder's sequence
+    split between blocks, rows over "data", ZeRO-1), TPM_TRAIN_STEPS
+    steps on 8 rows of 128 tokens and 1500 frames; rank 0 then runs the
+    same steps in one process: every step's loss and grad norm, and the
+    first step's gradients and update (gathered; the update of a leaf
+    whose gradient is zero to rounding in both runs aside), within
+    TRAIN_B5_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels.l2r_gemm import ops
+    from repro_torch.models.common import (fan_in_scaled, materialize,
+                                           tree_leaves)
+    from repro_torch.models.encdec import encdec_build
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sharding.axes import _paths, gather_params, shard_params
+    from repro_torch.train import step as ts
+
+    cfg = dataclasses.replace(get_config("whisper-base"),
+                              compute_dtype="float32")
+    scaled = fan_in_scaled(cfg, materialize(
+        encdec_build(cfg), torch.Generator(device=dev).manual_seed(210),
+        device=dev))
+    g = torch.Generator(device=dev).manual_seed(211)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (8, TPM_TRAIN_SEQ),
+                                        generator=g, device=dev,
+                                        dtype=torch.int32),
+                "labels": torch.randint(0, cfg.vocab, (8, TPM_TRAIN_SEQ),
+                                        generator=g, device=dev,
+                                        dtype=torch.int32),
+                "frames": torch.randn((8, cfg.encoder_seq, cfg.d_model),
+                                      generator=g, device=dev)}
+               for _ in range(TPM_TRAIN_STEPS)]
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    tcfg = ts.TrainConfig(remat=True, seq_shard=True,
+                          xent_chunk=TPM_TRAIN_SEQ)
+    zero = ts.zero1_layout(cfg, mesh)
+    step = ts.make_train_step(cfg, ocfg, tcfg, mesh)
+    params = shard_params(cfg, scaled, mesh)
+    run = {"param_bytes": sum(x.numel() * x.element_size()
+                              for x in tree_leaves(params)),
+           "param_bytes_one_process": sum(x.numel() * x.element_size()
+                                          for x in tree_leaves(scaled)),
+           "seq_sharded": ts._resid_shard_fn(mesh, tcfg, 8,
+                                             TPM_TRAIN_SEQ)[1],
+           "losses": [], "grad_norms": [], "step_ms": [], "coll_ms": [],
+           "launches": []}
+    opt = adamw_init(params, zero)
+    run["mv_bytes"] = sum(x.numel() * x.element_size()
+                          for x in tree_leaves((opt.m, opt.v)))
+    _, _, grads0 = ts.make_grad_fn(cfg, tcfg, mesh)(params, batches[0])
+    grads0 = gather_params(cfg, grads0, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CollectiveClock(ts, adamw, ops) as clock:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            reset_counts()
+            c0, t0 = clock.seconds, time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["coll_ms"].append((clock.seconds - c0) * 1e3)
+            n = counts()
+            require(n["flash_attention"] > 0 and n == only(
+                flash_attention=n["flash_attention"]),
+                f"21e step {i}: launches {n}: B5 and no other expected")
+            run["launches"].append(n["flash_attention"])
+            run["losses"].append(m["loss"].item())
+            run["grad_norms"].append(m["grad_norm"].item())
+            same_value_on_every_rank(mesh, torch.stack(
+                [m["loss"], m["grad_norm"]]).double(),
+                f"21e step {i}: the loss or grad norm")
+            if i == 0:
+                first = gather_params(cfg, params, mesh)
+    run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    held = None
+    if mesh.rank == 0:
+        one = {"losses": [], "grad_norms": [], "launches": []}
+        _, _, one_g = ts.make_grad_fn(cfg, tcfg)(scaled, batches[0])
+        gn0 = None
+        p1, o1 = scaled, adamw_init(scaled)
+        one_step = ts.make_train_step(cfg, ocfg, tcfg)
+        for i, batch in enumerate(batches):
+            reset_counts()
+            p1, o1, m1 = one_step(p1, o1, batch)
+            one["launches"].append(counts()["flash_attention"])
+            one["losses"].append(m1["loss"].item())
+            one["grad_norms"].append(m1["grad_norm"].item())
+            gn0 = one["grad_norms"][0]
+            if i == 0:
+                # a leaf whose gradient is zero to rounding in both runs
+                # (within the gradient check's atol: whisper's key biases,
+                # which softmax does not see) gets +-lr from Adam's first
+                # step whatever its noise's sign: its update is not
+                # compared, every other leaf's is
+                lim = TRAIN_B5_TOL["grad_abs"] * gn0
+                zero = [max(a.norm().item(), b.norm().item()) <= lim
+                        for a, b in zip(tree_leaves(grads0),
+                                        tree_leaves(one_g))]
+                paths = [path for path, _ in _paths(encdec_build(cfg))]
+                per_leaf = [(tree_close([a - o], [b - o],
+                                        TRAIN_B5_TOL["update"]), path)
+                            for a, b, o, z, path in zip(
+                                tree_leaves(first), tree_leaves(p1),
+                                tree_leaves(scaled), zero, paths) if not z]
+                update_worst, update_worst_leaf = max(per_leaf)
+                zero_grad = [path for path, z in zip(paths, zero) if z]
+        held = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(
+                    run["losses"], one["losses"])),
+                "grad_norm_rel": max(abs(a - b) / abs(b) for a, b in zip(
+                    run["grad_norms"], one["grad_norms"])),
+                "grad_worst": tree_close(
+                    tree_leaves(grads0), tree_leaves(one_g),
+                    TRAIN_B5_TOL["grad"], TRAIN_B5_TOL["grad_abs"] * gn0),
+                "update_worst": update_worst,
+                "update_worst_leaf": update_worst_leaf,
+                "zero_grad_leaves": zero_grad,
+                "launches_one_process": one["launches"]}
+        require(held["loss_rel"] <= TRAIN_B5_TOL["loss"]
+                and held["grad_norm_rel"] <= TRAIN_B5_TOL["grad_norm"]
+                and held["grad_worst"] <= 1 and held["update_worst"] <= 1
+                and one["launches"] == run["launches"],
+                f"21e: the split steps and the one-process steps differ on "
+                f"the rescaled weights: {held}, launches {run['launches']}")
+        del p1, o1, one_g
+    run["scaled_vs_one_process"] = held
+    del scaled, grads0, first
+    torch.cuda.empty_cache()
+    return run
+
+
+def tpm_rank(refs: dict) -> dict:
+    """One rank of phase 21's 2 x 2 mesh (run by spawn_local): 21a-21e."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(*MESH_SHAPE)
+    out = {"rank": dist.get_rank(), "coords": mesh.coords(),
+           "backend": dist.get_backend()}
+    jobs = [(arch, lambda a=arch: tpm_mixer(dev, mesh, a, refs[a]))
+            for arch in TPM_ARCHS if arch in refs]
+    jobs += [("smollm", lambda: tpm_smollm(dev, mesh, refs["smollm"])),
+             ("train", lambda: tpm_train(dev, mesh))]
+    for key, fn in jobs:
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["seconds_total"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_mixers(dev, mix: dict) -> dict:
+    """Phase 21: 21f the kernels and products at the ranks' shapes (first,
+    on the card alone), 21d's one-process batcher, then four gloo ranks
+    on the 2 x 2 mesh sharing the card: 21a-21c mamba2-130m,
+    recurrentgemma-2b and whisper-base split against phase 16, 21d
+    SmolLM-135M in the head_dim layout against the one-process batcher,
+    21e whisper-base training split against one process."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn_local
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    t0 = time.perf_counter()
+    rows = tpm_kernel_rows(dev)
+    archs = [a for a in TPM_ARCHS if a in mix["runs"]]
+    refs = {arch: {k: mix["runs"][arch][k] for k in (
+        "tokens", "prefill_logits_checksum")} for arch in archs}
+    refs["smollm"] = tpm_smollm_reference(dev)
+    print(f"phase 21: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+          f"{MESH_SHAPE[1]} (data x model) mesh over gloo, all on the one "
+          f"card ({smi}): processes sharing one card, not a multi-GPU "
+          f"figure; 21d's one-process batcher "
+          f"{refs['smollm']['seconds']:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    ranks = spawn_local(MESH_WORLD, tpm_rank, refs,
+                        deadline_s=TPM_DEADLINE_S)
+    t2 = time.perf_counter()
+    for r in ranks:
+        require(r["backend"] == "gloo", f"rank {r['rank']}: backend "
+                                        f"{r['backend']}")
+    keep = {arch: ("param_bytes", "param_bytes_one_process", "build_s",
+                   "whole_leaves", "calls", "state_bytes",
+                   "state_bytes_one_process", "peak_gb", "seconds_total")
+            for arch in archs}
+    keep["smollm"] = ("seconds", "collective_s", "collectives",
+                      "collectives_want", "split_collectives_per_forward",
+                      "walks", "launches", "kv_bytes", "kv_bytes_whole",
+                      "kv_heads", "v_head_dim", "backbone_bytes",
+                      "backbone_bytes_whole", "seconds_total")
+    keep["train"] = ("param_bytes", "param_bytes_one_process", "mv_bytes",
+                     "seq_sharded", "losses", "grad_norms", "step_ms",
+                     "coll_ms", "launches", "peak_gb",
+                     "scaled_vs_one_process", "seconds_total")
+    out = {"card": smi, "backend": "gloo", "seconds": t2 - t0,
+           "ranks_s": t2 - t1,
+           "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+           "rows": rows, "smollm_one_process": refs["smollm"],
+           "per_rank": [{"rank": r["rank"], "coords": r["coords"],
+                         **{k: {f: r[k][f] for f in fields}
+                            for k, fields in keep.items()}}
+                        for r in ranks]}
+    print("phase 21: " + json.dumps(out, default=str), flush=True)
+    r0 = ranks[0]
+    for arch in archs:
+        a = r0[arch]
+        pre, steps = a["calls"][0], a["calls"][1:]
+        print(f"phase 21: {arch} on {MESH_SHAPE[0]} x {MESH_SHAPE[1]}: "
+              f"tokens of the {MIXERS[arch]['prompt']}-token prefill and "
+              f"{TPM_STEPS} steps and the prefill's logits == phase 16's "
+              f"bit for bit on every rank; params {a['param_bytes']} of "
+              f"{a['param_bytes_one_process']} bytes a rank, states "
+              f"{a['state_bytes']} of {a['state_bytes_one_process']}; "
+              f"prefill {pre['ms']:.1f} ms ({pre['collective_ms']:.1f} in "
+              f"{sum(pre['collectives'].values())} collectives), a step "
+              f"{np.mean([c['ms'] for c in steps]):.1f} ms "
+              f"({np.mean([c['collective_ms'] for c in steps]):.1f} in "
+              f"collectives); kept whole on every rank: "
+              f"{a['whole_leaves'] or 'nothing'}", flush=True)
+    d, t = r0["smollm"], r0["train"]
+    print(f"phase 21: 21d SmolLM-135M, {TPM_REQUESTS} of 15e's requests "
+          f"(<= {TPM_MAX_NEW} new tokens) in the 'specs' layout with the "
+          f"head_dim cache ({d['kv_heads']} kv heads, {d['v_head_dim']} of "
+          f"64 value dims a rank) == the one-process batcher bit for bit on "
+          f"every rank; KV {d['kv_bytes']} of {d['kv_bytes_whole']} bytes, "
+          f"backbone {d['backbone_bytes']} of {d['backbone_bytes_whole']}; "
+          f"{d['seconds']:.1f} s ({d['collective_s']:.1f} s in "
+          f"collectives); 21e whisper-base {TPM_TRAIN_STEPS} split steps "
+          f"(sequence split {t['seq_sharded']}) within TRAIN_B5_TOL of one "
+          f"process on rescaled weights ({t['scaled_vs_one_process']}), "
+          f"{t['launches']} B5 a step a rank; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def tpm_summary(tpm: dict, lib: str) -> dict:
+    """Kernel ``lib``'s launches on each rank of phase 21 and its rows at
+    the ranks' shapes."""
+    key = {"l2r_stacked_gemm": "b1", "flash_attention": "b5"}.get(lib)
+    return {"per": f"phase 21: {MESH_WORLD} ranks on a {MESH_SHAPE[0]} x "
+                   f"{MESH_SHAPE[1]} mesh over gloo on one card: 21a-21c "
+                   f"over the prefill and {TPM_STEPS} steps, 21d over the "
+                   f"batcher run, 21e over {TPM_TRAIN_STEPS} train steps; "
+                   f"launches per rank",
+            "card": tpm["card"],
+            "shapes": tpm["rows"][key] if key else [],
+            "per_rank": [{"rank": r["rank"], **{
+                arch: sum(c["launches"][lib] for c in r[arch]["calls"])
+                for arch in TPM_ARCHS if arch in r},
+                "smollm": r["smollm"]["launches"][lib],
+                "train": sum(r["train"]["launches"])
+                if lib == "flash_attention" else 0}
+                for r in tpm["per_rank"]]}
+
+
 def dp_summary(dp: dict, lib: str) -> dict:
     """Kernel ``lib``'s launches on each rank of phase 19 and its rows at
     the ranks' shapes."""
@@ -5163,6 +5837,29 @@ def decode_profiles(dev) -> dict:
     return out
 
 
+def mixer_profile(dev, arch: str) -> dict:
+    """The device profiles of phase 16's ``arch`` in one process: its
+    prefill of seed 162's prompts and one decode step after it, set up as
+    phase 16 sets them up."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg, params = mixer_model(dev, arch)
+    prompt = MIXERS[arch]["prompt"]
+    batch = mixer_batch(cfg, dev, prompt, 162)
+    prefill = make_prefill_step(cfg, prompt + 8, torch.float32)
+    decode = make_decode_step(cfg)
+    keep = ("device_ms", "B1_ms", "B5_ms", "other_ms", "idle_share",
+            "device_events")
+    with torch.no_grad():
+        state, logits = prefill(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        state, tok, _ = decode(params, state, tok)
+        prof_d = profile_forward(lambda: decode(params, state, tok))
+        prof_p = profile_forward(lambda: prefill(params, batch))
+    return {"arch": arch, "decode": {k: prof_d.get(k) for k in keep},
+            "prefill": {k: prof_p.get(k) for k in keep}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5177,6 +5874,12 @@ def main() -> int:
         print("decode profiles: " + json.dumps(
             {"card": smi, "src": str(ROOT / "src"),
              **decode_profiles(dev)}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--mixer-profile"] and len(sys.argv) == 3:
+        _build.build_all()
+        print("mixer profile: " + json.dumps(
+            {"card": smi, "src": str(ROOT / "src"),
+             **mixer_profile(dev, sys.argv[2])}), flush=True)
         return 0
     print(f"phase 1: card: {smi}", flush=True)
     t0 = time.perf_counter()
@@ -5218,6 +5921,7 @@ def main() -> int:
     mesh = phase_mesh(dev, prog, serve)
     dp = phase_dp(dev, train, serve)
     tp = phase_tp(dev, train, serve, mix)
+    tpm = phase_tp_mixers(dev, mix)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -5269,7 +5973,8 @@ def main() -> int:
                      mixer_shapes=mix["b1_rows"],
                      mesh=mesh_summary(mesh, "l2r_stacked_gemm"),
                      dp=dp_summary(dp, "l2r_stacked_gemm"),
-                     tp=tp_summary(tp, "l2r_stacked_gemm")),
+                     tp=tp_summary(tp, "l2r_stacked_gemm"),
+                     tp_mixers=tpm_summary(tpm, "l2r_stacked_gemm")),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -5293,7 +5998,8 @@ def main() -> int:
                          "shapes": serve["rows"]},
                      mesh=mesh_summary(mesh, "l2r_streaming_gemm"),
                      dp=dp_summary(dp, "l2r_streaming_gemm"),
-                     tp=tp_summary(tp, "l2r_streaming_gemm")),
+                     tp=tp_summary(tp, "l2r_streaming_gemm"),
+                     tp_mixers=tpm_summary(tpm, "l2r_streaming_gemm")),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
@@ -5340,7 +6046,8 @@ def main() -> int:
                      mixer_shapes=mix["b5_rows"],
                      train=train["train"], train_backward=bwd("B5"),
                      dp=dp_summary(dp, "flash_attention"),
-                     tp=tp_summary(tp, "flash_attention")),
+                     tp=tp_summary(tp, "flash_attention"),
+                     tp_mixers=tpm_summary(tpm, "flash_attention")),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "

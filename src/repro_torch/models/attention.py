@@ -341,29 +341,37 @@ def _chunked_plain(q, k, v, causal, window, scale, softcap, q_chunk,
 _DECODE_ROWS = 8  # the batch rows of every decode QK / PV product
 
 
-def _f32_pairs(x: torch.Tensor, n: int) -> torch.Tensor:
+def _f32_pairs(x: torch.Tensor, n: int, cols: tuple | None = None
+               ) -> torch.Tensor:
     """``x`` (batch rows, kv heads, ...) as ``n`` f32 (row, head) pairs,
-    contiguous, in row-major order; the pairs past ``x``'s are zeros."""
+    contiguous, in row-major order; the pairs past ``x``'s are zeros.
+    ``cols`` = (offset, width): ``x``'s last dim is that slice of a
+    ``width``-wide one, written into zeros at its columns."""
     pairs = x.shape[0] * x.shape[1]
-    if pairs == n and x.dtype == torch.float32 and x.is_contiguous():
-        return x.reshape(n, *x.shape[2:])
-    out = x.new_empty((n, *x.shape[2:]), dtype=torch.float32)
-    out[:pairs].view(x.shape).copy_(x)
-    out[pairs:].zero_()
+    if cols is None:
+        if pairs == n and x.dtype == torch.float32 and x.is_contiguous():
+            return x.reshape(n, *x.shape[2:])
+        out = x.new_empty((n, *x.shape[2:]), dtype=torch.float32)
+        out[:pairs].view(x.shape).copy_(x)
+        out[pairs:].zero_()
+        return out
+    lo, width = cols
+    out = x.new_zeros((n, *x.shape[2:-1], width), dtype=torch.float32)
+    out[:pairs, ..., lo:lo + x.shape[-1]].copy_(
+        x.reshape(pairs, *x.shape[2:]))
     return out
 
 
-def _decode_block(kv_heads: int) -> int:
+def _decode_block(kv_heads: int, kv_whole: int | None = None) -> int:
     """The (batch row, kv head) pairs of one decode product:
-    ``_DECODE_ROWS`` rows of the model's kv heads, the whole model's in
-    a ``ctx.model_shard`` scope (a rank holding a part of them pads its
-    pairs to the same block)."""
-    split = ctx.model_split()
-    return _DECODE_ROWS * kv_heads * (split.size if split is not None
-                                      else 1)
+    ``_DECODE_ROWS`` rows of the whole model's kv heads, ``kv_whole``
+    (a rank holding a part of them pads its pairs to the same block),
+    else the call's own."""
+    return _DECODE_ROWS * (kv_whole or kv_heads)
 
 
-def _fixed_pairs(a: torch.Tensor, b: torch.Tensor, b_t: bool
+def _fixed_pairs(a: torch.Tensor, b: torch.Tensor, b_t: bool,
+                 kv_whole: int | None = None, cols: tuple | None = None
                  ) -> torch.Tensor:
     """``a @ b`` (``b`` transposed when ``b_t``) for every (batch row, kv
     head) pair in f32: ``a`` (B, Kv, m, k), ``b`` (B, Kv, k, n) or
@@ -374,20 +382,27 @@ def _fixed_pairs(a: torch.Tensor, b: torch.Tensor, b_t: bool
     the rows and heads beside it; with every call of one shape it does
     not, and a rank of the ``"batch"`` slot layout (its rows) or of the
     ``"specs"`` one (its kv heads) decodes as one process does.  One
-    process decoding ``_DECODE_ROWS`` rows makes one call a product."""
+    process decoding ``_DECODE_ROWS`` rows makes one call a product.
+    ``cols`` = (offset, width): ``b`` (not transposed) holds that slice of
+    its columns; the product runs on them written into zeros at their
+    place, every call the whole width's shape as in one process, and
+    returns those columns (the head_dim layout's values: a product of
+    fewer columns may sum in another order on the CPU)."""
     rows, heads = a.shape[:2]
-    pairs, r = rows * heads, _decode_block(heads)
+    pairs, r = rows * heads, _decode_block(heads, kv_whole)
     padded = -(-pairs // r) * r
-    a, b = _f32_pairs(a, padded), _f32_pairs(b, padded)
+    width = b.shape[-1]
+    a, b = _f32_pairs(a, padded), _f32_pairs(b, padded, cols)
     if b_t:
         b = b.transpose(1, 2)
     out = a.new_empty((padded, a.shape[1], b.shape[2]))
     for i in range(0, padded, r):
         torch.bmm(a[i:i + r], b[i:i + r], out=out[i:i + r])
-    return out[:pairs].view(rows, heads, *out.shape[1:])
+    out = out[:pairs].view(rows, heads, *out.shape[1:])
+    return out if cols is None else out[..., cols[0]:cols[0] + width]
 
 
-def _softmax_pv(s, valid_b, v_cache, shape):
+def _softmax_pv(s, valid_b, v_cache, shape, kv_whole=None, v_cols=None):
     """Masked softmax over the slots and the PV product of decode: p cast
     to v's dtype, f32 products (TF32 off) -> ``shape`` in v's dtype."""
     with no_tf32():
@@ -395,7 +410,8 @@ def _softmax_pv(s, valid_b, v_cache, shape):
         p = torch.softmax(s, dim=-1)
         b, kv, g, q, n = p.shape
         o = _fixed_pairs(p.to(v_cache.dtype).reshape(b, kv, g * q, n),
-                         v_cache.permute(0, 2, 1, 3), False)
+                         v_cache.permute(0, 2, 1, 3), False, kv_whole,
+                         v_cols)
     return o.reshape(shape).to(v_cache.dtype)
 
 
@@ -416,12 +432,21 @@ def decode_attention(
     k_planes: torch.Tensor | PlaneOperands | None = None,
     k_scale: torch.Tensor | None = None,
     policy: LevelPolicy | None = None,
+    kv_whole: int | None = None,
+    v_cols: tuple | None = None,
 ) -> torch.Tensor:
     """Single-token attention against a (possibly ring) cache, in plain
     torch on any device (true f32 products, TF32 off).
 
     q: (B, 1, H, dh); caches: (B, L, Kv, dh); kv_positions: (B, L) int32
-    absolute positions (-1 = empty slot); q_position: (B,) int32.
+    absolute positions (-1 = empty slot); q_position: (B,) int32.  The
+    value cache may hold a slice of each head's dh (the head_dim layout of
+    a split, models/transformer.py): the result is then that slice of
+    each head's output, (B, 1, H, its width).  ``kv_whole``: the whole
+    model's kv heads, which size the products' fixed blocks (default: the
+    cache's; a caller holding a rank's heads passes the whole count);
+    ``v_cols`` = (offset, dh): the value slice's place in each head's
+    dh (PV then runs at the whole width, :func:`_fixed_pairs`).
 
     ``l2r`` routes QK^T through the digit-serial score walk with an exact
     softmax and float PV; ``levels`` truncates the MSDF stream.
@@ -459,6 +484,7 @@ def decode_attention(
     kv_heads = k_cache.shape[2]
     g = h // kv_heads
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out_shape = (b, 1, h, v_cache.shape[-1])
     qg = q.reshape(b, 1, kv_heads, g, dh)
     valid = (kv_positions >= 0) & (kv_positions <= q_position[:, None])
     if window is not None:
@@ -468,11 +494,12 @@ def decode_attention(
     if l2r is None:
         with no_tf32():
             s = _fixed_pairs(qg.permute(0, 2, 3, 1, 4).reshape(
-                b, kv_heads, g, dh), k_cache.permute(0, 2, 1, 3), True)
+                b, kv_heads, g, dh), k_cache.permute(0, 2, 1, 3), True,
+                kv_whole)
             s = s.reshape(b, kv_heads, g, 1, -1) * scale
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
-        return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))
+        return _softmax_pv(s, valid_b, v_cache, out_shape, kv_whole, v_cols)
 
     # ---- digit-serial QK^T -------------------------------------------
     qq, qs = quantize_per_vector(qg, l2r)
@@ -499,7 +526,7 @@ def decode_attention(
                                         l2r.log2_radix, levels))
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
-        return _softmax_pv(s, valid_b, v_cache, (b, 1, h, dh))
+        return _softmax_pv(s, valid_b, v_cache, out_shape, kv_whole, v_cols)
 
     # ---- margin-bounded progressive walk -----------------------------
     if softcap is not None:
@@ -532,7 +559,8 @@ def decode_attention(
     if _EXIT_TAP is not None:
         _EXIT_TAP.append({"levels_run": int(levels_run),
                           "exit_levels": lv.cpu().numpy()})
-    return _softmax_pv(dequant(s_int), valid_b, v_cache, (b, 1, h, dh))
+    return _softmax_pv(dequant(s_int), valid_b, v_cache, out_shape,
+                       kv_whole, v_cols)
 
 
 def _global_done(done_fn):
@@ -579,7 +607,10 @@ class KVCache(NamedTuple):
 def init_kv_cache(batch: int, length: int, kv_heads: int, head_dim: int,
                   dtype: torch.dtype = torch.bfloat16,
                   quant: QuantConfig | None = None,
-                  device: str | torch.device | None = None) -> KVCache:
+                  device: str | torch.device | None = None,
+                  v_head_dim: int | None = None) -> KVCache:
+    """A zero cache; ``v_head_dim``: the value cache's head width where it
+    differs from the keys' (a rank's slice, the head_dim layout)."""
     device = resolve_device(device)
     k_planes = k_scale = None
     if quant is not None:
@@ -595,8 +626,8 @@ def init_kv_cache(batch: int, length: int, kv_heads: int, head_dim: int,
     return KVCache(
         k=torch.zeros((batch, length, kv_heads, head_dim), dtype=dtype,
                       device=device),
-        v=torch.zeros((batch, length, kv_heads, head_dim), dtype=dtype,
-                      device=device),
+        v=torch.zeros((batch, length, kv_heads, v_head_dim or head_dim),
+                      dtype=dtype, device=device),
         positions=torch.full((batch, length), -1, dtype=torch.int32,
                              device=device),
         k_planes=k_planes,

@@ -34,7 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.l2r_gemm.ops import l2r_gemm, l2r_matmul_f
 from repro_torch.sharding import ctx
 from repro_torch.sharding.axes import P
-from repro_torch.sharding.collectives import (reduce_scatter, split_rows,
+from repro_torch.sharding.collectives import (gather_channels,
+                                              reduce_scatter, split_rows,
                                               sum_forward)
 
 __all__ = [
@@ -53,18 +54,33 @@ __all__ = [
     "layer_norm",
     "count_params",
     "fan_in_scaled",
+    "split_row_mean",
+    "row_mean_parts",
+    "row_mean_of_parts",
+    "fixed_bmm",
+    "leading",
+    "out_width",
+    "residual_dense",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """Declarative parameter: shape, logical axes, init recipe."""
+    """Declarative parameter: shape, logical axes, init recipe.
+
+    ``held``: where a rank of a model axis of ``m`` holds the leaf
+    otherwise than ``param_specs``' block (sharding/axes.py:held_layouts),
+    ``held(m)`` gives ``(columns, shared)``: ``columns(j)`` the positions
+    along the last dim that rank ``j`` holds and ``shared`` the ``(lo,
+    hi)`` of them every rank holds alike; or None: whole on every rank.
+    The mixer that reads the leaf defines it."""
 
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
     init: str = "normal"  # normal | zeros | ones | embed
     scale: float | None = None  # stddev override; default fan-in
     dtype: torch.dtype = torch.float32
+    held: Callable | None = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -359,20 +375,123 @@ def _row_mean(x: torch.Tensor) -> torch.Tensor:
         .sum(-1, keepdim=True) / d
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
-             ) -> torch.Tensor:
+def split_row_mean(x: torch.Tensor, split) -> torch.Tensor:
+    """:func:`_row_mean` of rows split over the model axis: ``x`` holds
+    this rank's contiguous ``d / m`` columns of each ``d``-wide row
+    (``split``: sharding/ctx.py:ModelSplit).  On the card, where ``m``
+    divides 32 and 32 divides ``d``, the rank sums its 32 / m of
+    :func:`_row_mean`'s 32 partial sums (whole groups of d / 32 columns)
+    and the ranks' partials are all-gathered in rank order and summed as
+    :func:`_row_mean` sums them: the same groups summed in the same
+    order (a reduction of at most 32 terms an output orders them by its
+    width alone), so the one-process bits.  Otherwise, and on the CPU,
+    where :func:`_row_mean` is ``torch.mean`` and does not decompose, the
+    rows are all-gathered whole and :func:`_row_mean` taken on them.
+    The gathered values' gradient is summed over the ranks
+    (sharding/collectives.py:gather_channels)."""
+    d = x.shape[-1] * split.size
+    if x.is_cuda and 32 % split.size == 0 and d % 32 == 0:
+        parts = gather_channels(row_mean_parts(x, split.size), split.group,
+                                split.index)
+        return row_mean_of_parts(parts, d)
+    return _row_mean(gather_channels(x, split.group, split.index))
+
+
+def row_mean_parts(x: torch.Tensor, m: int) -> torch.Tensor:
+    """A rank's ``32 / m`` of :func:`_row_mean`'s 32 partial sums, ``x``
+    its ``d / m`` columns of each row (card path of
+    :func:`split_row_mean`)."""
+    d = x.shape[-1] * m
+    return x.reshape(*x.shape[:-1], 32 // m, d // 32).sum(-1)
+
+
+def row_mean_of_parts(parts: torch.Tensor, d: int) -> torch.Tensor:
+    """The mean of ``d``-wide rows from their 32 partial sums in order, as
+    :func:`_row_mean` sums them."""
+    return parts.sum(-1, keepdim=True) / d
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             split=None) -> torch.Tensor:
+    """RMSNorm with gain ``1 + gamma``; ``split`` (a ModelSplit): ``x``'s
+    rows are split over the model axis, ``gamma`` this rank's part, the
+    mean the whole row's (:func:`split_row_mean`)."""
     xf = x.to(torch.float32)
-    var = _row_mean(torch.square(xf))
+    sq = torch.square(xf)
+    var = _row_mean(sq) if split is None else split_row_mean(sq, split)
     out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(torch.float32))
     return out.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    out = (xf - mu) * torch.rsqrt(var + eps) * gamma.to(torch.float32) \
-        + beta.to(torch.float32)
+    """LayerNorm over the last dim in f32, one ``F.layer_norm`` call: it
+    takes each row's moments on the row alone (one thread block a row on
+    the card, in an order the width fixes), so a row's bits do not depend
+    on the rows beside it, where a reduction over the whole call may sum
+    a row otherwise when the call holds few rows (a rank decoding its
+    slots of a batch; :func:`_row_mean`)."""
+    d = x.shape[-1]
+    out = F.layer_norm(x.to(torch.float32), (d,), gamma.to(torch.float32),
+                       beta.to(torch.float32), eps)
     return out.to(x.dtype)
 
+
+
+def fixed_bmm(a: torch.Tensor, b: torch.Tensor, block: int) -> torch.Tensor:
+    """``torch.bmm(a, b)`` of ``a`` (E, M, K) and ``b`` (E, K, N), made
+    contiguous, in calls of ``block`` entries, the last padded with zero
+    entries.  A batched product may split its sums differently as its
+    batch count changes (cuBLAS picks its kernel by it), so an entry's
+    result would depend on how many entries share its call; with every
+    call of one shape it does not, and a rank holding some of the rows or
+    heads computes them as one process does.  Differentiable."""
+    a, b = a.contiguous(), b.contiguous()
+    e = a.shape[0]
+    outs = []
+    for i in range(0, e, block):
+        j = min(i + block, e)
+        ai, bi = a[i:j], b[i:j]
+        if j - i < block:
+            ai = torch.cat([ai, ai.new_zeros((block - (j - i),
+                                              *a.shape[1:]))])
+            bi = torch.cat([bi, bi.new_zeros((block - (j - i),
+                                              *b.shape[1:]))])
+        outs.append(torch.bmm(ai, bi)[:j - i])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def leading(w) -> int:
+    """The contraction width (leading dim) of a dense weight: a tensor, a
+    :class:`QuantizedWeights` record or an int8 ``{"q", "scale"}`` one."""
+    return _codes(w).shape[0]
+
+
+def out_width(w) -> int:
+    """The output width (last dim) of a layer's dense weight, as
+    :func:`leading`."""
+    return _codes(w).shape[-1]
+
+
+def _codes(w):
+    if isinstance(w, QuantizedWeights):
+        return w.q
+    return w["q"] if isinstance(w, dict) else w
+
+
+def residual_dense(x: torch.Tensor, w, l2r: QuantConfig | None,
+                   l2r_levels: int | None, k_whole: int) -> torch.Tensor:
+    """A block's last product, whose result joins the residual stream.  In
+    a ``ctx.model_shard`` scope a weight holding fewer than ``k_whole``
+    rows is this rank's row-parallel slice (:func:`dense` with
+    ``row_parallel``); a whole one (a model axis that does not divide its
+    rows: the block ran whole on every rank) gives the whole result, of
+    which the rank keeps its part of the sequence under sequence
+    parallelism (the gradient of the other parts gathered back)."""
+    split = ctx.model_split()
+    if split is not None and leading(w) != k_whole:
+        return dense(x, w, l2r, l2r_levels, row_parallel=True)
+    out = dense(x, w, l2r, l2r_levels)
+    if split is not None and split.seq:
+        return split_rows(out, split.group, split.index, split.size, 1)
+    return out

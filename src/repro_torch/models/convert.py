@@ -14,9 +14,9 @@ reference's checkpoint manager load the same way.  The optimizer's
 packages can train on from one state; given a ZeRO-1 layout
 (optim/adamw.py:Zero1) they keep this rank's slices, and
 :func:`gather_opt_state` / :func:`gather_ef_state` make the whole state
-again from every rank's.  A rank's ``param_specs`` slices of a crossed
-tree, and the whole tree again, are sharding/axes.py's ``shard_params``
-and ``gather_params``.
+again from every rank's.  A rank's slices of a crossed tree
+(sharding/axes.py:held_layouts), and the whole tree again, are
+sharding/axes.py's ``shard_params`` and ``gather_params``.
 """
 
 from __future__ import annotations

@@ -17,6 +17,16 @@ the decode step's self-attention is :func:`decode_attention`, plain
 torch.  The stacked layers run as a Python loop over their leading
 ``layers`` axis (``layer_slice`` views, as ``lm_forward``), and the
 state's caches are written in place.
+
+Tensor parallelism (a ``ctx.model_shard`` scope, sharding/ctx.py): the
+encoder's and decoder's attention layers, the cross-attention and the
+GELU MLPs split as ``lm_forward``'s (models/transformer.py:attn_qkv,
+attn_out; models/mlp.py): a rank's heads where the model axis divides
+the kv heads, its self and cross caches holding them; the vocabulary
+(51,865 for whisper-base) and the position tables stay whole.  With
+``seq`` the decoder's residual stream holds this rank's part of the
+sequence between blocks (the reference's ``resid_shard``); the encoder's
+is whole.
 """
 
 from __future__ import annotations
@@ -28,13 +38,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import ctx
+from repro_torch.sharding.collectives import gather_rows, split_rows
 
 from .attention import (KVCache, chunked_attention, decode_attention,
                         init_kv_cache, update_kv_cache)
-from .common import Param, dense, layer_norm, tree_map
+from .common import Param, layer_norm, tree_map
 from .config import ModelConfig
 from .mlp import mlp_apply, mlp_build
-from .transformer import attn_build, layer_slice
+from .transformer import (_embed, attn_build, attn_out, attn_qkv,
+                          cache_values, kv_layout, layer_slice, value_cols,
+                          whole_values)
 
 __all__ = ["encdec_build", "encdec_forward", "init_encdec_state",
            "EncDecState", "encode", "MAX_DEC_POSITIONS"]
@@ -69,7 +83,7 @@ def _dec_layer_build(cfg: ModelConfig) -> dict:
 def _stack(n: int, tree):
     def s(p: Param) -> Param:
         return Param((n, *p.shape), ("layers", *p.axes), init=p.init,
-                     scale=p.scale, dtype=p.dtype)
+                     scale=p.scale, dtype=p.dtype, held=p.held)
     return tree_map(s, tree)
 
 
@@ -87,15 +101,6 @@ def encdec_build(cfg: ModelConfig) -> dict:
     }
 
 
-def _proj(cfg: ModelConfig, p: dict, x: torch.Tensor, name: str,
-          heads: int) -> torch.Tensor:
-    """``dense(x, p["w" + name])`` plus its bias, as (B, S, heads, dh)."""
-    y = dense(x, p["w" + name], cfg.l2r, cfg.l2r_levels)
-    if "b" + name in p:
-        y = y + p["b" + name].to(y.dtype)
-    return y.reshape(x.shape[0], x.shape[1], heads, cfg.head_dim)
-
-
 def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor, xkv: torch.Tensor, *,
          causal: bool, mode: str = "train", cache: KVCache | None = None,
          positions: torch.Tensor | None = None):
@@ -103,20 +108,28 @@ def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor, xkv: torch.Tensor, *,
     self-attention.  Returns (out, cache), the cache written in place in
     prefill and decode."""
     b, sq, _ = xq.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = _proj(cfg, p, xq, "q", h)
-    k = _proj(cfg, p, xkv, "k", kv)
-    v = _proj(cfg, p, xkv, "v", kv)
+    (q, k, v), heads = attn_qkv(cfg, p, xq, xkv)
     if mode == "decode":
-        cache = update_kv_cache(cache, k, v, positions)
-        out = decode_attention(q, cache.k, cache.v, cache.positions,
-                               positions[:, 0], scale=cfg.attn_scale)
+        cache = update_kv_cache(cache, k, cache_values(cfg, v), positions)
+        out = whole_values(cfg, decode_attention(
+            q, cache.k, cache.v, cache.positions, positions[:, 0],
+            scale=cfg.attn_scale, kv_whole=cfg.n_kv,
+            v_cols=value_cols(cfg)))
     else:
         if mode == "prefill":
-            cache = update_kv_cache(cache, k, v, positions)
+            cache = update_kv_cache(cache, k, cache_values(cfg, v),
+                                    positions)
         out = chunked_attention(q, k, v, causal=causal, scale=cfg.attn_scale)
-    return dense(out.reshape(b, sq, h * dh), p["wo"], cfg.l2r,
-                 cfg.l2r_levels), cache
+    return attn_out(cfg, p, out.reshape(b, sq, -1), heads), cache
+
+
+def _seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """A norm's output into a block: the whole sequence under sequence
+    parallelism (``x`` this rank's part), else ``x``."""
+    split = ctx.model_split()
+    if split is not None and split.seq:
+        return gather_rows(x, split.group, split.index, dim=1)
+    return x
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
@@ -124,6 +137,10 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     """frames: (B, encoder_seq, d) precomputed embeddings (front-end
     stub) -> the encoder output (B, encoder_seq, d) in the compute
     dtype."""
+    split = ctx.model_split()
+    if split is not None and split.seq:  # the encoder's stream is whole
+        with ctx.model_shard(split.mesh):
+            return encode(cfg, params, frames)
     x = frames.to(getattr(torch, cfg.compute_dtype))
     x = x + params["enc_pos"][None, :x.shape[1]].to(x.dtype)
     for i in range(cfg.encoder_layers):
@@ -150,9 +167,13 @@ def init_encdec_state(cfg: ModelConfig, batch: int, max_len: int,
                       ) -> EncDecState:
     device = resolve_device(device)
     n = cfg.n_layers
-    c = init_kv_cache(batch, max_len, cfg.n_kv, cfg.head_dim, dtype,
-                      device=device)
-    cross = (n, batch, cfg.encoder_seq, cfg.n_kv, cfg.head_dim)
+    kv, kd, vd = kv_layout(cfg)
+    c = init_kv_cache(batch, max_len, kv, kd, dtype, device=device,
+                      v_head_dim=vd)
+    # the cross caches: a rank's kv heads where the model axis divides
+    # them, else whole (the cross-attention runs on whole heads)
+    cross = (n, batch, cfg.encoder_seq, kv if vd == kd else cfg.n_kv,
+             cfg.head_dim)
     return EncDecState(
         self_cache=KVCache(*(None if f is None else
                              f.expand(n, *f.shape).contiguous() for f in c)),
@@ -195,39 +216,51 @@ def encdec_forward(
         else steps.expand(b, s)
 
     # gather, then cast: the reference's cast-then-gather, elementwise
-    x = params["embed"][tokens.long()].to(compute_dtype)
+    x = _embed(cfg, params["embed"], tokens).to(compute_dtype)
     x = x + params["dec_pos"][positions.long()].to(compute_dtype)
-
-    h, kv = cfg.n_heads, cfg.n_kv
+    split = ctx.model_split()
+    if split is not None and split.seq:  # this rank's part of the sequence
+        x = split_rows(x, split.group, split.index, split.size, 1)
 
     def block(x, i):
         lp = layer_slice(params["dec_stack"], i)
         self_c = layer_slice(state.self_cache, i) if state is not None \
             else None
-        xs = _ln(cfg, x, lp["self_norm"])
+        xs = _seq_whole(_ln(cfg, x, lp["self_norm"]))
         out, _ = _mha(cfg, lp["self"], xs, xs, causal=True, mode=mode,
                       cache=self_c, positions=positions)
         x = x + out
         # cross-attention
-        q = _proj(cfg, lp["cross"], _ln(cfg, x, lp["cross_norm"]), "q", h)
+        xq = _seq_whole(_ln(cfg, x, lp["cross_norm"]))
         if mode == "decode":
+            (q,), heads = attn_qkv(cfg, lp["cross"], xq, xq, "q")
             k_enc, v_enc = state.cross_k[i], state.cross_v[i]
         else:
-            k_enc = _proj(cfg, lp["cross"], enc_out, "k", kv)
-            v_enc = _proj(cfg, lp["cross"], enc_out, "v", kv)
+            (q, k_enc, v_enc), heads = attn_qkv(cfg, lp["cross"], xq,
+                                                enc_out)
             if state is not None:
                 state.cross_k[i].copy_(k_enc)
                 state.cross_v[i].copy_(v_enc)
         attn = chunked_attention(q, k_enc.to(x.dtype), v_enc.to(x.dtype),
                                  causal=False, scale=cfg.attn_scale)
-        x = x + dense(attn.reshape(b, s, h * cfg.head_dim),
-                      lp["cross"]["wo"], cfg.l2r, cfg.l2r_levels)
-        return x + mlp_apply(cfg, lp["ffn"], _ln(cfg, x, lp["ffn_norm"]))
+        x = x + attn_out(cfg, lp["cross"], attn.reshape(b, s, -1), heads)
+        return x + mlp_apply(cfg, lp["ffn"],
+                             _seq_whole(_ln(cfg, x, lp["ffn_norm"])))
+
+    scope = ctx.snapshot()
+
+    def block_in_scope(x, i):
+        # the backward recomputes the block after the caller's scopes have
+        # exited: it re-enters them
+        with ctx.restored(scope):
+            return block(x, i)
 
     for i in range(cfg.n_layers):
-        x = checkpoint(block, x, i, use_reentrant=False) if remat \
+        x = checkpoint(block_in_scope, x, i, use_reentrant=False) if remat \
             else block(x, i)
     x = _ln(cfg, x, params["dec_norm"])
+    if split is not None and split.seq:
+        x = gather_rows(x, split.group, split.index, dim=1)
 
     new_state = None
     if state is not None:

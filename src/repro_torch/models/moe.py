@@ -191,7 +191,9 @@ def _dispatch(cfg: ModelConfig, xt, probs_etc, cap: int):
 def _shared(cfg: ModelConfig, params: dict, xt, out):
     if cfg.n_shared_experts:
         out = out + mlp_apply(cfg, {"wi": params["shared_wi"],
-                                    "wo": params["shared_wo"]}, xt)
+                                    "wo": params["shared_wo"]}, xt,
+                              (cfg.moe_d_ff or cfg.d_ff)
+                              * cfg.n_shared_experts)
     return out
 
 

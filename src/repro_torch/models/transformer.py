@@ -23,14 +23,22 @@ written by hand as Megatron's): in a ``ctx.model_shard`` scope
 (sharding/axes.py:shard_params).  Attention runs on the rank's heads
 where the model axis divides the kv heads (its kv heads and their q
 heads, contiguous columns of wq, wk, wv; its KV caches hold only them),
-``wo`` row-parallel; where it does not, training gathers q, k and v over
-the model group and every rank runs the whole attention (serving such a
-split is ROADMAP A13d).  The MLP is models/mlp.py's, MoE
-models/moe.py's; the embedding lookup takes each token's row from the
-rank that holds it.  With ``seq`` the residual stream between blocks
-holds this rank's part of the sequence: norms run on it, it is gathered
-before a block's column-parallel products and reduce-scattered after
-its row-parallel ones.
+``wo`` row-parallel.  Where it does not, the rank's columns of q, k and
+v are gathered over the model group (a projection the layout keeps whole
+gives them whole), every rank runs the whole attention (B5 / B4 on whole
+heads, as one process) and keeps its rows' part of the output for
+``wo``; its KV caches then take the head_dim layout where the axis
+divides head_dim (:func:`kv_layout`: every kv head, the whole keys and
+the plane-stacked keys, its ``dh / m`` of the values; decode's PV runs
+on that slice and the slices are gathered), else stay whole.  The SSD and
+RG-LRU mixers split as models/ssm.py and models/rglru.py say, the MLP is
+models/mlp.py's, MoE models/moe.py's; a block whose weights the layout
+keeps whole runs whole (models/common.py:residual_dense); the embedding
+lookup takes each token's row from the rank that holds it.  With
+``seq`` the residual stream between blocks holds this rank's part of
+the sequence: norms run on it, it is gathered before a block's
+column-parallel products and reduce-scattered after its row-parallel
+ones.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from repro_torch.sharding.collectives import (all_gather, copy_in,
 
 from .attention import (KVCache, apply_rope, chunked_attention,
                         decode_attention, init_kv_cache, update_kv_cache)
-from .common import Param, dense, layer_norm, rms_norm, tree_map
+from .common import (Param, dense, layer_norm, leading, out_width,
+                     residual_dense, rms_norm, tree_map)
 from .config import ModelConfig
 from .mlp import mlp_apply, mlp_build
 from .moe import moe_apply, moe_build
@@ -70,23 +79,111 @@ __all__ = [
     "layer_slice",
     "LMState",
     "local_kv_heads",
+    "kv_layout",
+    "attn_qkv",
 ]
 
 
-def local_kv_heads(cfg: ModelConfig) -> int:
-    """The kv heads a rank's attention runs on and its KV caches hold:
-    ``cfg.n_kv``, or in a ``ctx.model_shard`` scope ``n_kv / m`` (the
-    model axis must divide them; the head_dim layout of a split that does
-    not is ROADMAP A13d)."""
+def kv_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(kv heads, the keys' head width, the values' head width) of a
+    rank's KV caches.  Whole; in a ``ctx.model_shard`` scope its ``n_kv /
+    m`` kv heads where the model axis divides them; else the head_dim
+    layout where it divides head_dim: every kv head, the keys whole (a
+    float QK^T summed over slices of dh would reassociate) and the
+    values' ``dh / m`` (PV's sum runs over the keys, not dh); else
+    whole."""
+    kv, dh = cfg.n_kv, cfg.head_dim
     split = ctx.model_split()
     if split is None:
-        return cfg.n_kv
-    if cfg.n_kv % split.size:
-        raise NotImplementedError(
-            f"the model axis ({split.size}) does not divide the "
-            f"{cfg.n_kv} kv heads: serving such a split (the cache's "
-            f"head_dim layout) is ROADMAP A13d")
-    return cfg.n_kv // split.size
+        return kv, dh, dh
+    if kv % split.size == 0:
+        return kv // split.size, dh, dh
+    if dh % split.size == 0:
+        return kv, dh, dh // split.size
+    return kv, dh, dh
+
+
+def local_kv_heads(cfg: ModelConfig) -> int:
+    """The kv heads a rank's attention runs on and its KV caches hold
+    (:func:`kv_layout`)."""
+    return kv_layout(cfg)[0]
+
+
+def attn_qkv(cfg: ModelConfig, p: dict, xq: torch.Tensor,
+             xkv: torch.Tensor, names: str = "qkv", rope_positions=None):
+    """The projections ``names`` of an attention layer as (B, S, heads,
+    dh) tensors, and whether the layer runs on this rank's heads.  In a
+    ``ctx.model_shard`` scope: where the model axis divides the kv heads,
+    this rank's heads (its q heads those of its kv heads); else each
+    projection whole, gathered over the model group where its weight is
+    this rank's columns (whose gradient then takes the rank's part back,
+    summed over the ranks through ``copy_in``: a whole weight's input is
+    not, every rank computing its whole gradient)."""
+    split = ctx.model_split()
+    heads = split is None or cfg.n_kv % split.size == 0
+    n = {"q": cfg.n_heads, "k": cfg.n_kv, "v": cfg.n_kv}
+    dh = cfg.head_dim
+    x_in = {}
+    out = []
+    for name in names:
+        w = p["w" + name]
+        x = xq if name == "q" else xkv
+        cut = split is not None and out_width(w) != n[name] * dh
+        if cut:
+            if id(x) not in x_in:
+                x_in[id(x)] = copy_in(x, split.group)
+            x = x_in[id(x)]
+        y = dense(x, w, cfg.l2r, cfg.l2r_levels)
+        if "b" + name in p:
+            y = y + p["b" + name].to(y.dtype)
+        if cut and not heads:
+            y = gather_rows(y, split.group, split.index, dim=-1)
+        out.append(y.reshape(x.shape[0], x.shape[1], -1, dh))
+    if rope_positions is not None:
+        out = [apply_rope(t, rope_positions, cfg.rope_theta, cfg.rope_mode,
+                          cfg.mrope_sections) if name in "qk" else t
+               for name, t in zip(names, out)]
+    return out, heads
+
+
+def attn_out(cfg: ModelConfig, p: dict, out: torch.Tensor, heads: bool
+             ) -> torch.Tensor:
+    """``wo`` of the attention output (B, S, H_local * dh): row-parallel on
+    this rank's heads; a whole output (the rank ran every head) gives the
+    rank's rows' part to a split ``wo``, or goes whole to a whole one."""
+    split = ctx.model_split()
+    k_whole = cfg.n_heads * cfg.head_dim
+    if not heads and leading(p["wo"]) != k_whole:
+        out = split_rows(out, split.group, split.index, split.size, dim=-1)
+    return residual_dense(out, p["wo"], cfg.l2r, cfg.l2r_levels, k_whole)
+
+
+def cache_values(cfg: ModelConfig, v: torch.Tensor) -> torch.Tensor:
+    """The part of whole values ``v`` (..., dh) a rank's cache holds in
+    the head_dim layout (:func:`kv_layout`), else ``v``."""
+    vd = kv_layout(cfg)[2]
+    if vd == v.shape[-1]:
+        return v
+    i = ctx.model_split().index
+    return v[..., i * vd:(i + 1) * vd]
+
+
+def value_cols(cfg: ModelConfig) -> tuple | None:
+    """(offset, dh) of a rank's value slice in the head_dim layout, else
+    None (models/attention.py:decode_attention's ``v_cols``)."""
+    vd = kv_layout(cfg)[2]
+    if vd == cfg.head_dim:
+        return None
+    return ctx.model_split().index * vd, cfg.head_dim
+
+
+def whole_values(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    """Decode attention's output on the head_dim layout's value slices
+    (B, 1, H, dh / m), all-gathered into whole heads; else ``out``."""
+    if out.shape[-1] == cfg.head_dim:
+        return out
+    split = ctx.model_split()
+    return gather_rows(out, split.group, split.index, dim=-1)
 
 
 # --------------------------------------------------------------- attention
@@ -123,64 +220,30 @@ def attn_apply(
     cache's planes (``attn_levels``, ``attn_early_exit``,
     ``attn_exit_tol``)."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    split = ctx.model_split()
-    if split is not None:
-        x = copy_in(x, split.group)
-
-    q = dense(x, p["wq"], cfg.l2r, cfg.l2r_levels)
-    k = dense(x, p["wk"], cfg.l2r, cfg.l2r_levels)
-    v = dense(x, p["wv"], cfg.l2r, cfg.l2r_levels)
-    if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    gathered = split is not None and kv % split.size != 0
-    if gathered:
-        # the rank's columns cut heads: every rank runs the whole
-        # attention on the gathered q, k, v and keeps its columns of the
-        # output for the row-parallel wo (training only: a cache of such
-        # a split is the head_dim layout, which local_kv_heads refuses)
-        if mode != "train":
-            local_kv_heads(cfg)
-        q, k, v = (gather_rows(t, split.group, split.index, dim=-1)
-                   for t in (q, k, v))
-    elif split is not None:  # this rank's kv heads and their q heads
-        h, kv = h // split.size, kv // split.size
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
-
-    q = apply_rope(q, rope_positions, cfg.rope_theta, cfg.rope_mode,
-                   cfg.mrope_sections)
-    k = apply_rope(k, rope_positions, cfg.rope_theta, cfg.rope_mode,
-                   cfg.mrope_sections)
-
+    (q, k, v), heads = attn_qkv(cfg, p, x, x, rope_positions=rope_positions)
     if mode == "decode":
-        cache = update_kv_cache(cache, k, v, positions, quant=cfg.attn_l2r)
-        out = decode_attention(
+        cache = update_kv_cache(cache, k, cache_values(cfg, v), positions,
+                                quant=cfg.attn_l2r)
+        out = whole_values(cfg, decode_attention(
             q, cache.k, cache.v, cache.positions, positions[:, 0],
             window=window, scale=cfg.attn_scale, softcap=cfg.logit_softcap,
             l2r=cfg.attn_l2r, levels=cfg.attn_levels,
             early_exit=cfg.attn_early_exit, exit_tol=cfg.attn_exit_tol,
-            k_planes=cache.k_planes, k_scale=cache.k_scale)
+            k_planes=cache.k_planes, k_scale=cache.k_scale,
+            kv_whole=cfg.n_kv, v_cols=value_cols(cfg)))
     else:
         if mode == "prefill":
             # a plane-stacked cache fills here too: the decode steps after
             # this prefill read a ready operand
-            cache = update_kv_cache(cache, k, v, positions,
-                                    quant=cfg.attn_l2r)
+            cache = update_kv_cache(cache, k, cache_values(cfg, v),
+                                    positions, quant=cfg.attn_l2r)
         out = chunked_attention(
             q, k, v, causal=True, window=window, scale=cfg.attn_scale,
             softcap=cfg.logit_softcap,
             score_dtype=getattr(torch, cfg.attn_score_dtype),
             head_shard=cfg.attn_head_shard,
             l2r=cfg.attn_l2r, levels=cfg.attn_levels)
-    out = out.reshape(b, s, h * dh)
-    if gathered:
-        out = split_rows(out, split.group, split.index, split.size, dim=-1)
-    return dense(out, p["wo"], cfg.l2r, cfg.l2r_levels,
-                 row_parallel=True), cache
+    return attn_out(cfg, p, out.reshape(b, s, -1), heads), cache
 
 
 # ------------------------------------------------------------ layer dispatch
@@ -219,14 +282,12 @@ def _mixer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                  dtype: torch.dtype, device) -> KVCache | dict:
     """A KV cache in ``dtype`` for attention; an f32 state dict for
     ``ssd`` and ``rec`` whatever ``dtype`` says, as in the reference."""
-    if kind == "global":
-        return init_kv_cache(batch, max_len, local_kv_heads(cfg),
-                             cfg.head_dim, dtype, quant=cfg.attn_l2r,
-                             device=device)
-    if kind == "local":
-        return init_kv_cache(batch, min(cfg.window, max_len),
-                             local_kv_heads(cfg), cfg.head_dim, dtype,
-                             quant=cfg.attn_l2r, device=device)
+    if kind in ("global", "local"):
+        kv, kd, vd = kv_layout(cfg)
+        length = max_len if kind == "global" else min(cfg.window, max_len)
+        return init_kv_cache(batch, length, kv, kd, dtype,
+                             quant=cfg.attn_l2r, device=device,
+                             v_head_dim=vd)
     if kind == "ssd":
         return init_ssm_state(cfg, batch, device=device)
     if kind == "rec":
@@ -291,7 +352,9 @@ def layer_apply(
         elif ffn_kind == "moe":
             out, aux = moe_apply(cfg, params["ffn"], h)
         else:
-            out = mlp_apply(cfg, params["ffn"], h)
+            out = mlp_apply(cfg, params["ffn"], h,
+                            cfg.dense_d_ff if cfg.n_experts
+                            and cfg.dense_d_ff else cfg.d_ff)
         x = x + out
     return x, cache, aux
 
@@ -319,7 +382,8 @@ def lm_build(cfg: ModelConfig) -> dict:
         # every leaf gets a leading "layers" axis of size `repeats`
         def stack_param(p: Param) -> Param:
             return Param((repeats, *p.shape), ("layers", *p.axes),
-                         init=p.init, scale=p.scale, dtype=p.dtype)
+                         init=p.init, scale=p.scale, dtype=p.dtype,
+                         held=p.held)
         params["stack"] = tree_map(stack_param,
                                    [layer_build(cfg, kk) for kk in unit])
     params["suffix"] = [layer_build(cfg, kk) for kk in suffix]

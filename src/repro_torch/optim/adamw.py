@@ -15,9 +15,9 @@ clips them by their global norm as without a mesh, updates this rank's
 slice of each parameter and all-gathers the slices back to the held
 params.  With the backbone replicated every rank holds the whole params
 and the gather runs over the whole mesh; with it split over ``model``
-(the attention families, ``shard_params``) a rank holds its
-``param_specs`` slice, its ZeRO-1 slice is that slice's part over
-"data", and the gather runs over the data group.  The update is
+(``shard_params``) a rank holds its slice (sharding/axes.py:held_layouts),
+its ZeRO-1 slice is that slice's part over "data", and the gather runs
+over the data group.  The update is
 elementwise, so the gathered parameters and moments equal a whole-leaf
 update of the same gradients (and grad norm) bit for bit.
 """
@@ -31,7 +31,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
-from repro_torch.sharding.axes import (local_slice, param_specs,
+from repro_torch.sharding.axes import (cut_leaf, held_layouts, local_slice,
                                        slice_index, zero1_spec)
 from repro_torch.sharding.collectives import all_reduce, gather_slices
 
@@ -64,8 +64,9 @@ class OptState(NamedTuple):
 class Zero1:
     """ZeRO-1's layout over ``mesh``: one ``zero1_specs`` spec and whole
     shape per leaf of the param tree, in ``tree_leaves`` order, and the
-    spec the params are held under (``held``: ``param_specs`` for a
-    backbone split over ``model``, None for whole params)."""
+    layout the params are held under (``held``: sharding/axes.py:
+    held_layouts for a backbone split over ``model``, None for whole
+    params)."""
 
     mesh: Any
     specs: tuple
@@ -73,30 +74,37 @@ class Zero1:
     held: tuple | None = None
 
     @classmethod
-    def build(cls, desc_tree, mesh, split: bool = False) -> "Zero1":
-        """From the Param descriptor tree (``lm_build`` / ``encdec_build``);
-        ``split``: the params are held per ``param_specs``."""
-        leaves = tree_leaves(desc_tree)
-        held = tuple(param_specs(p, mesh) for p in leaves) if split \
-            else None
+    def build(cls, cfg, mesh, split: bool = False) -> "Zero1":
+        """For ``cfg``'s param tree (``lm_build`` / ``encdec_build``);
+        ``split``: the params are held as ``held_layouts`` says."""
+        from repro_torch.sharding.axes import _desc
+
+        leaves = tree_leaves(_desc(cfg, None))
+        held = tuple(held_layouts(cfg, mesh)) if split else None
         return cls(mesh, tuple(zero1_spec(p, mesh) for p in leaves),
                    tuple(tuple(p.shape) for p in leaves), held)
 
     def _sub(self, i: int) -> tuple:
         """Leaf ``i``'s ZeRO-1 spec within its held slice: the dims the
-        held spec leaves whole keep their ZeRO-1 axis."""
+        held layout leaves whole keep their data axes (a "model" the
+        layout does not split is dropped: the rank holds those dims
+        whole)."""
         if self.held is None:
             return self.specs[i]
-        return tuple(z if h is None else None for z, h in
-                     zip(self.specs[i], tuple(self.held[i])
-                         + (None,) * len(self.shapes[i])))
+        held = tuple(self.held[i].spec) + (None,) * len(self.shapes[i])
+        return tuple(None if h is not None or z is None else
+                     (tuple(a for a in ((z,) if isinstance(z, str) else z)
+                            if a != "model") or None)
+                     for z, h in zip(self.specs[i], held))
 
     def _held_shape(self, i: int) -> tuple:
         if self.held is None:
             return self.shapes[i]
-        idx = slice_index(self.shapes[i], self.held[i], self.mesh)(
-            self.mesh.coords())
-        return tuple(s.stop - s.start for s in idx)
+        idx = self.held[i].index(self.mesh.coords())
+        return tuple(len(s) if isinstance(s, torch.Tensor)
+                     else len(range(*s.indices(n)))
+                     for s, n in zip(idx + (slice(None),) * len(
+                         self.shapes[i]), self.shapes[i]))
 
     def local(self, tree) -> list:
         """This rank's slice of each leaf of ``tree`` held as the params
@@ -115,27 +123,44 @@ class Zero1:
                              None if self.held is None else ("data",))
 
     def from_whole(self, tree) -> list:
-        """This rank's ZeRO-1 slice of each whole leaf of ``tree``
-        (views): models/convert.py's crossing of a whole state."""
-        return [local_slice(x, s, self.mesh)
-                for x, s in zip(tree_leaves(tree), self.specs)]
+        """This rank's ZeRO-1 slice of each whole leaf of ``tree``:
+        models/convert.py's crossing of a whole state."""
+        leaves = tree_leaves(tree)
+        if self.held is not None:
+            leaves = [cut_leaf(x, lay, self.mesh)
+                      for x, lay in zip(leaves, self.held)]
+        return [local_slice(x, self._sub(i), self.mesh)
+                for i, x in enumerate(leaves)]
 
     def gather_whole(self, parts: list) -> list:
-        """The whole leaves from every rank's ZeRO-1 slices (one
-        all-gather over the mesh per dtype)."""
-        return gather_slices(parts, [slice_index(sh, sp, self.mesh) for
-                                     sh, sp in zip(self.shapes, self.specs)],
-                             list(self.shapes), self.mesh)
+        """The whole leaves from every rank's ZeRO-1 slices (all-gathers
+        over the mesh, or over the data group and then the model group
+        when the params are split, one per dtype)."""
+        if self.held is None:
+            return gather_slices(
+                parts, [slice_index(sh, sp, self.mesh) for
+                        sh, sp in zip(self.shapes, self.specs)],
+                list(self.shapes), self.mesh)
+        return gather_slices(self.gather(parts),
+                             [lay.index for lay in self.held],
+                             list(self.shapes), self.mesh, ("model",))
 
     def global_norm(self, grads) -> torch.Tensor:
         """The global norm of gradients held as the params are, each
         element counted once: a leaf split over ``model`` adds its
         ranks' sums of squares (one all-reduce over the model group)."""
-        sums = [torch.sum(torch.square(x.to(_F32)))
-                for x in tree_leaves(grads)]
-        split = [i for i in range(len(sums)) if self.held is not None
-                 and "model" in self.held[i]
+        split = [i for i in range(len(self.shapes)) if self.held is not None
+                 and "model" in self.held[i].spec
                  and self.mesh.shape.get("model", 1) > 1]
+        sums = []
+        for i, x in enumerate(tree_leaves(grads)):
+            sq = torch.square(x.to(_F32))
+            shared = self.held[i].shared if i in split else None
+            if shared is not None and self.mesh.index("model"):
+                # columns every model rank holds alike: rank 0 counts them
+                sq = torch.cat([sq[..., :shared[0]], sq[..., shared[1]:]],
+                               -1)
+            sums.append(torch.sum(sq))
         if split:
             tot = all_reduce(torch.stack([sums[i] for i in split]), "sum",
                              self.mesh.group("model"))
@@ -194,7 +219,7 @@ def adamw_update(cfg: AdamWConfig, grads, params, state: OptState,
                  zero: Zero1 | None = None):
     """Returns (new_params, new_state, metrics).  With ``zero`` the
     state holds this rank's slices, ``grads`` and ``params`` are held as
-    ``zero`` says (whole, or the rank's ``param_specs`` slices; the same
+    ``zero`` says (whole, or the rank's ``shard_params`` slices; the same
     on every rank that holds them), and so are the new params."""
     if zero is not None:
         gnorm = zero.global_norm(grads)

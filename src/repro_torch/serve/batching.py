@@ -19,10 +19,12 @@ With a mesh every rank runs the same host schedule.  In the reference's
 only the progressive head walk is sharded; in ``"batch"`` each rank holds
 and decodes only its contiguous block of slots over the data axes
 (``sharding/axes.py:batch_rows``), stepping them in a ``ctx.row_shard``
-scope so that the head walk takes those rows; in ``"specs"`` (the
-attention families, params from ``sharding/axes.py:shard_params``) the
-backbone is split over ``model`` and each rank holds its kv heads of its
-slots (:func:`~repro_torch.serve.engine.state_specs`).
+scope so that the head walk takes those rows; in ``"specs"`` (params
+from ``sharding/axes.py:shard_params``) the backbone is split over
+``model`` and each rank holds its part of its slots' state: its kv heads,
+or in the head_dim layout its values' slice of every head, its SSD
+heads, its RG-LRU channels
+(:func:`~repro_torch.serve.engine.local_state`).
 """
 
 from __future__ import annotations
@@ -39,11 +41,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_lm_state
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import (TP_FAMILIES, P, batch_rows,
-                                       local_slice, params_split)
+from repro_torch.sharding.axes import (batch_rows, params_split,
+                                       splits_anything)
 
 from .engine import (bucket_for, make_bucket_prefill_step, make_decode_step,
-                     make_prefill_step, prefill_buckets, state_specs,
+                     make_prefill_step, prefill_buckets,
                      supports_bucketed_prefill)
 
 __all__ = ["Request", "ContinuousBatcher", "infer_batch_axes",
@@ -213,12 +215,11 @@ def state_batch_axes(cfg: ModelConfig, max_len: int,
 def check_state_sharding(cfg: ModelConfig, params, mesh,
                          state_sharding: str) -> None:
     """Refuse a slot layout the params or the mesh cannot serve:
-    ``"specs"`` needs an attention family whose kv heads the model axis
-    divides (the head_dim layout, and the SSD / RG-LRU / whisper state
-    over ``model``, are ROADMAP A13d) and params split by
+    ``"specs"`` needs a mesh and, where the layout splits anything over
+    its model axis (sharding/axes.py:splits_anything), params split by
     ``sharding/axes.py:shard_params``; ``"replicated"`` and ``"batch"``
     need whole params."""
-    split = params_split(cfg, params) if cfg.family != "encdec" else False
+    split = params_split(cfg, params)
     if state_sharding != "specs":
         if split:
             raise ValueError(
@@ -227,18 +228,7 @@ def check_state_sharding(cfg: ModelConfig, params, mesh,
         return
     if mesh is None:
         raise ValueError("state_sharding='specs' needs a mesh")
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"state_sharding='specs' for the {cfg.family!r} family (its "
-            f"SSD, RG-LRU or whisper state over the model axis) is ROADMAP "
-            f"A13d")
-    m = mesh.shape.get("model", 1)
-    if cfg.n_kv % m:
-        raise NotImplementedError(
-            f"state_sharding='specs' with a model axis of {m} that does "
-            f"not divide the {cfg.n_kv} kv heads (the cache split on "
-            f"head_dim) is ROADMAP A13d")
-    if m > 1 and not split:
+    if not split and splits_anything(cfg, mesh):
         raise ValueError("state_sharding='specs' serves the params split "
                          "over the model axis: pass "
                          "sharding/axes.py:shard_params(cfg, params, mesh)")
@@ -247,17 +237,19 @@ def check_state_sharding(cfg: ModelConfig, params, mesh,
 def init_sharded_state(cfg: ModelConfig, mesh, batch: int, rows: int,
                        max_len: int, cache_dtype: torch.dtype, device):
     """The ``"specs"`` slot state of ``rows`` of ``batch`` slots: each
-    leaf this rank's block under :func:`state_specs` (``kv_shard=
-    "heads"``), allocated at that size (checked against the spec)."""
+    leaf this rank's part (:func:`~repro_torch.serve.engine.
+    local_state`), allocated at that size (checked against it)."""
+    from .engine import local_state
+
     with ctx.model_shard(mesh):
         state = init_lm_state(cfg, rows, max_len, cache_dtype,
                               device=device)
     whole = init_lm_state(cfg, batch, max_len, cache_dtype, device="meta")
-    specs = _tensors(state_specs(cfg, mesh, batch, max_len), P)
-    for got, leaf, spec in zip(_tensors(state), _tensors(whole), specs,
-                               strict=True):
-        want = tuple(local_slice(leaf, spec, mesh).shape)
-        assert tuple(got.shape) == want, (tuple(got.shape), want, spec)
+    for got, want in zip(_tensors(state),
+                         _tensors(local_state(cfg, mesh, whole)),
+                         strict=True):
+        assert got.shape == want.shape, (tuple(got.shape),
+                                         tuple(want.shape))
     return state
 
 
@@ -324,16 +316,16 @@ class ContinuousBatcher:
         (``sharding/axes.py:batch_rows``; the whole state where the data
         axes do not divide ``n_slots``) and decodes those rows in a
         ``ctx.row_shard`` scope.  ``"specs"`` (the reference's
-        ``state_specs`` layout) serves an attention family's params
-        split over ``model`` (``sharding/axes.py:shard_params``, after
-        ``prepare_params``): the rows as in ``"batch"``, and of them only
-        this rank's kv heads, the backbone tensor-parallel
-        (:func:`check_state_sharding` says what it refuses, naming
-        ROADMAP A13d).  Every rank prefills
-        every admitted request (a one-row prefill does not split), the
-        slot's owner splices it, and every rank keeps the same requests,
-        tokens and histograms.  Tokens, exit levels and stats equal the
-        unmeshed engine's bit for bit.
+        ``state_specs`` layout) serves params split over ``model``
+        (``sharding/axes.py:shard_params``, after ``prepare_params``):
+        the rows as in ``"batch"``, and of them only this rank's part
+        (its kv heads, or its slice of each head's values, its SSD heads,
+        its RG-LRU channels), the backbone tensor-parallel
+        (:func:`check_state_sharding` says what it refuses).  Every rank
+        prefills every admitted request (a one-row prefill does not
+        split), the slot's owner splices it, and every rank keeps the same
+        requests, tokens and histograms.  Tokens, exit levels and stats
+        equal the unmeshed engine's bit for bit.
 
         ``donate_state=True`` (default) asserts after every decode step
         that each state tensor kept its storage: the step wrote the

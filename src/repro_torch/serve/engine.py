@@ -14,12 +14,13 @@ the caches and ``pos`` into the tensors it was given and returns them.
 Under a mesh (``mesh=``, else the installed one, sharding/ctx.py) every
 rank runs the same steps on the whole batch with the backbone replicated,
 and the progressive head streams as the consensus walk over the vocab
-shard ``prepare_params(mesh=)`` keeps (core/progressive.py).  Given the
-attention families' params split over ``model``
-(sharding/axes.py:shard_params, after ``prepare_params``) the steps run
+shard ``prepare_params(mesh=)`` keeps (core/progressive.py).  Given
+params split over ``model`` (sharding/axes.py:shard_params, after
+``prepare_params`` where the family serves prepared params) the steps run
 the tensor-parallel backbone in a ``ctx.model_shard`` scope, and the
-state they allocate holds the rank's kv heads (the reference's
-``"specs"`` layout, :func:`state_specs` with ``kv_shard="heads"``).  Called
+state they allocate is the rank's part (the reference's ``"specs"``
+layout, :func:`state_specs` with ``kv_shard="heads"``, but where
+:func:`local_state` says).  Called
 within a ``ctx.row_shard`` scope (sharding/ctx.py; the rows
 ``sharding/axes.py:batch_rows`` gives) a step takes this rank's rows of
 the global batch instead, and its state holds only those rows (the
@@ -49,17 +50,19 @@ from repro_torch.models.common import quantize_tree
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import (EncDecState, encdec_forward,
                                        init_encdec_state)
-from repro_torch.models.transformer import (LMState, init_lm_state, lm_build,
+from repro_torch.models.common import leading, out_width
+from repro_torch.models.transformer import (LMState, init_lm_state,
+                                            layer_slice, lm_build,
                                             lm_forward, logits_from_hidden)
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import P, TP_FAMILIES, dp_axes, params_split
+from repro_torch.sharding.axes import P, dp_axes, params_split
 from repro_torch.sharding.collectives import all_gather
 
 __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
            "supports_bucketed_prefill", "progressive_logits_from_hidden",
            "state_specs", "greedy_generate", "split_scope",
-           "split_collectives"]
+           "split_collectives", "local_state"]
 
 
 # ------------------------------------------------------- weight preparation
@@ -210,35 +213,193 @@ def state_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
     )
 
 
+def local_state(cfg: ModelConfig, mesh, state):
+    """This rank's part of a whole serving state (``init_lm_state`` /
+    ``init_encdec_state``'s tree, one process's) as the ``"specs"`` layout
+    holds it: its rows (sharding/axes.py:batch_rows) and, over "model",
+    :func:`state_specs`' blocks but where the split mixers hold their
+    state otherwise: in the head_dim layout the float keys stay whole
+    (models/transformer.py:kv_layout), a Mamba-2 conv state is held as
+    its conv weights are (models/ssm.py:held_columns),
+    and an encoder-decoder's cross caches are whole where the model axis
+    does not divide the kv heads.  Views; the tests and phase 21 hold a
+    rank's state to it."""
+    from repro_torch.models.rglru import rglru_channels
+    from repro_torch.models.ssm import held_columns, ssm_heads
+    from repro_torch.models.transformer import kv_layout
+    from repro_torch.sharding.axes import batch_rows
+
+    _, r0, n = batch_rows(mesh, state.pos.shape[0])
+    rows = slice(r0, r0 + n)
+    with ctx.model_shard(mesh):
+        kv, kd, vd = kv_layout(cfg)
+        split = ctx.model_split()
+        j = split.index if split is not None else 0
+
+        def kv_cache(c: KVCache, lead: int) -> KVCache:
+            pre = (slice(None),) * lead + (rows,)
+            heads = slice(j * kv, (j + 1) * kv) if kv < cfg.n_kv \
+                else slice(None)
+            val = slice(j * vd, (j + 1) * vd) if vd < kd else slice(None)
+            return KVCache(
+                k=c.k[pre + (slice(None), heads)],
+                v=c.v[pre + (slice(None), heads, val)],
+                positions=c.positions[pre],
+                k_planes=None if c.k_planes is None
+                else c.k_planes[pre + (slice(None), heads)],
+                k_scale=None if c.k_scale is None
+                else c.k_scale[pre + (slice(None), heads)])
+
+        def mixer(c, kind: str, lead: int):
+            pre = (slice(None),) * lead + (rows,)
+            if kind in ("global", "local"):
+                return kv_cache(c, lead)
+            if kind == "ssd":
+                h0, h1 = ssm_heads(cfg)
+                conv = c["conv"][pre]
+                held = split and held_columns(cfg, "conv", split.size)
+                if held:
+                    conv = conv[..., held[0](j).to(conv.device)]
+                return {"ssd": c["ssd"][pre + (slice(h0, h1),)],
+                        "conv": conv}
+            c0, c1 = rglru_channels(cfg)
+            return {"h": c["h"][pre + (slice(c0, c1),)],
+                    "conv": c["conv"][pre + (slice(None), slice(c0, c1))]}
+
+        if cfg.family == "encdec":
+            cross = slice(j * kv, (j + 1) * kv) if kv < cfg.n_kv \
+                and vd == kd else slice(None)
+            return EncDecState(
+                self_cache=kv_cache(state.self_cache, 1),
+                cross_k=state.cross_k[:, rows, :, cross],
+                cross_v=state.cross_v[:, rows, :, cross],
+                pos=state.pos[rows])
+        prefix, repeats, unit, suffix = cfg.block_grouping()
+        return LMState(
+            prefix=[mixer(c, kk[0], 0) for c, kk in zip(state.prefix,
+                                                         prefix)],
+            stack=[mixer(c, kk[0], 1) for c, kk in zip(state.stack, unit)]
+            if repeats else None,
+            suffix=[mixer(c, kk[0], 0) for c, kk in zip(state.suffix,
+                                                         suffix)],
+            pos=state.pos[rows])
+
+
 # ------------------------------------------------------------ step factories
 def split_scope(cfg: ModelConfig, params, mesh=None):
     """The scope a step runs ``params`` in: ``ctx.model_shard`` over
-    ``mesh`` (else the installed one) when they are an attention family's
+    ``mesh`` (else the installed one) when they are
     :func:`~repro_torch.sharding.axes.shard_params` slices, else none."""
     mesh = mesh if mesh is not None else ctx.get_mesh()
     if (mesh is not None and mesh.shape.get("model", 1) > 1
-            and cfg.family in TP_FAMILIES and params_split(cfg, params)):
+            and params_split(cfg, params)):
         return ctx.model_shard(mesh)
     return contextlib.nullcontext()
 
 
-def split_collectives(cfg: ModelConfig, params) -> dict[str, int]:
-    """The collectives one forward (a prefill or a decode step) of the
-    split backbone makes beyond the head's walk and the rows' split, on
-    ``params`` from sharding/axes.py:shard_params: every row-parallel
-    product (attention's ``wo``, the MLPs' and shared experts' ``wo``)
-    two all-reduces with ``cfg.l2r`` (the row's amax and the integer
-    partials, models/common.py:dense) and one without, an all-gather for
-    a vocab-split embedding and one a MoE layer (its experts split)."""
-    per_product = 2 if cfg.l2r is not None else 1
+def _row_product(cfg: ModelConfig, w) -> int:
+    """All-reduces of a row-parallel product (models/common.py:dense):
+    with ``cfg.l2r`` the row's amax, a raw weight's column amax and the
+    integer partials; without, the float sum."""
+    if cfg.l2r is None:
+        return 1
+    return 2 if isinstance(w, QuantizedWeights) else 3
+
+
+def _attn_collectives(cfg: ModelConfig, p: dict, mode: str,
+                      names: str = "qkv") -> tuple[int, int]:
+    """(all-reduces, all-gathers) of a split attention layer
+    (models/transformer.py:attn_qkv, attn_out): on a rank's heads its
+    ``wo``; else one all-gather a split projection of ``names``, one for
+    decode's value slices in the head_dim layout, and ``wo``'s where its
+    rows are split."""
+    whole = cfg.n_heads * cfg.head_dim
+    if out_width(p["wq"]) == whole:
+        return 0, 0
+    m = whole // out_width(p["wq"])
+    per = _row_product(cfg, p["wo"])
+    if cfg.n_kv % m == 0:
+        return per, 0
+    widths = {"q": whole, "k": cfg.n_kv * cfg.head_dim,
+              "v": cfg.n_kv * cfg.head_dim}
+    gather = sum(out_width(p["w" + n]) != widths[n] for n in names)
+    if mode == "decode" and cfg.head_dim % m == 0 and "k" in names:
+        gather += 1
+    return (per if leading(p["wo"]) != whole else 0), gather
+
+
+def _ffn_collectives(cfg: ModelConfig, p: dict, kind: str
+                     ) -> tuple[int, int]:
+    if kind == "moe":
+        reduce = gather = 0
+        if "shared_wo" in p and leading(p["shared_wo"]) != \
+                (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts:
+            reduce = _row_product(cfg, p["shared_wo"])
+        if p["wo"].shape[0] != cfg.n_experts:
+            gather = 1
+        return reduce, gather
+    d_ff = cfg.dense_d_ff if cfg.n_experts and cfg.dense_d_ff else cfg.d_ff
+    return (_row_product(cfg, p["wo"]) if leading(p["wo"]) != d_ff
+            else 0), 0
+
+
+def _mixer_collectives(cfg: ModelConfig, p: dict, kind: str, mode: str
+                       ) -> tuple[int, int]:
+    if kind in ("global", "local"):
+        return _attn_collectives(cfg, p, mode)
+    width = cfg.ssm_expand * cfg.d_model if kind == "ssd" \
+        else cfg.lru_width or cfg.d_model
+    if leading(p["out_proj"]) == width:  # the mixer runs whole
+        return 0, 0
+    # out_proj row-parallel, and one all-gather: the gated norm's
+    # partials (ssd) or the gates' input channels (rec)
+    return _row_product(cfg, p["out_proj"]), 1
+
+
+def split_collectives(cfg: ModelConfig, params, mode: str = "prefill"
+                      ) -> dict[str, int]:
+    """The collectives one forward (a prefill, or with ``mode="decode"``
+    a decode step) of the split backbone makes beyond the head and its
+    walk, the rows' split and the digit-serial decode walk's done flags,
+    on ``params`` from sharding/axes.py:shard_params, read from the
+    leaves' shapes: every row-parallel product (attention's ``wo``, the
+    MLPs', the SSD's and RG-LRU's ``out_proj``) two all-reduces with
+    ``cfg.l2r`` on a prepared weight (the row's amax and the integer
+    partials, models/common.py:dense), three on a raw one (its columns'
+    amax) and one without; an all-gather for a vocab-split embedding, one
+    a MoE layer (its experts split), one a split SSD (the gated norm's
+    partials) or RG-LRU (the gates' channels), and, where attention runs
+    on whole heads, one a split projection (and a decode step's value
+    slices in the head_dim layout).  A block that runs whole adds none;
+    the encoder runs at the prefill only."""
     reduce = gather = 0
-    for mixer, ffn in cfg.layer_kinds():
-        reduce += per_product  # attention's wo
-        if ffn == "mlp":
-            reduce += per_product
-        elif ffn == "moe":
-            reduce += per_product if cfg.n_shared_experts else 0
-            gather += 1
+
+    def add(rg):
+        nonlocal reduce, gather
+        reduce, gather = reduce + rg[0], gather + rg[1]
+
+    if cfg.family == "encdec":
+        if mode != "decode":
+            for i in range(cfg.encoder_layers):
+                lp = layer_slice(params["enc_stack"], i)
+                add(_attn_collectives(cfg, lp["attn"], mode))
+                add(_ffn_collectives(cfg, lp["ffn"], "mlp"))
+        for i in range(cfg.n_layers):
+            lp = layer_slice(params["dec_stack"], i)
+            add(_attn_collectives(cfg, lp["self"], mode))
+            add(_attn_collectives(cfg, lp["cross"], mode,
+                                  "q" if mode == "decode" else "qkv"))
+            add(_ffn_collectives(cfg, lp["ffn"], "mlp"))
+    else:
+        prefix, repeats, unit, suffix = cfg.block_grouping()
+        layers = [(params["prefix"][i], kk) for i, kk in enumerate(prefix)]
+        layers += [(layer_slice(params["stack"][u], 0), kk)
+                   for u, kk in enumerate(unit) for _ in range(repeats)]
+        layers += [(params["suffix"][i], kk) for i, kk in enumerate(suffix)]
+        for lp, (mixer, ffn) in layers:
+            add(_mixer_collectives(cfg, lp["mixer"], mixer, mode))
+            if ffn != "none":
+                add(_ffn_collectives(cfg, lp["ffn"], ffn))
     if params["embed"].shape[0] != cfg.vocab:
         gather += 1
     return {"all_reduce": reduce, "all_gather": gather, "all_to_all": 0}

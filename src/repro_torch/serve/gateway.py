@@ -160,8 +160,8 @@ class ServingGateway:
     ``mesh=``; tokens, exit levels and the stats' counts and histograms
     equal the unmeshed gateway's bit for bit.  ``state_sharding="specs"``
     serves params split over the model axis
-    (``sharding/axes.py:shard_params``), each rank holding its kv heads of
-    every slot, as the batcher's ``"specs"`` (which also refuses); the
+    (``sharding/axes.py:shard_params``), each rank holding its part of
+    every slot's state, as the batcher's ``"specs"`` (which also refuses); the
     gateway's slots are not split over the data axes, so it refuses a
     mesh whose data axes have more than one rank there.
     """

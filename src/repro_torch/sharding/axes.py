@@ -12,16 +12,42 @@ optimizer state additionally shards its largest replicated divisible
 dim over "data" (ZeRO-1).
 
 :func:`shard_params` keeps this rank's slice of every leaf of a param
-tree per :func:`param_specs` (the reference's ``jax.device_put(params,
-named(mesh, param_specs(desc, mesh)))``): the tensor-parallel backbone
-of the attention families (``dense``, ``moe``, ``vlm``), run in a
-``ctx.model_shard`` scope; :func:`gather_params` is its inverse.
+tree (the reference's ``jax.device_put(params, named(mesh,
+param_specs(desc, mesh)))``): the tensor-parallel backbone of every
+family, run in a ``ctx.model_shard`` scope; :func:`gather_params` is its
+inverse.  A rank holds each leaf as :func:`held_layouts` says, which is
+``param_specs``'s contiguous block but where the leaf's descriptor says
+otherwise (models/common.py:Param ``held``, set by the mixer that reads
+it), for two kinds of leaf whose mixer would otherwise need collectives
+the reference's partitioner inserts:
+
+* Mamba-2's ``in_proj`` (d, 2 d_inner + 2N + H) and its conv (conv_w,
+  conv_b over d_inner + 2N) are head-aligned
+  (models/ssm.py:held_columns): a rank holds its heads' z, x and dt
+  columns and B's and C's whole (one group, used by every head), where
+  ``param_specs`` would cut contiguous blocks across the z / xBC boundary
+  (mamba2-130m at model 2: 1,804 of 3,352 columns a rank, not 1,676).
+  A column subset of an L2R product is bit for bit (per-row activation
+  scales, per-column weight scales);
+* RG-LRU's ``w_a`` and ``w_x`` (float gate products) stay whole on every
+  rank where ``param_specs`` splits their rows: a sum over the ranks
+  would reassociate (models/rglru.py:gates_whole; 2 x 26.2 MB of f32 a
+  rec layer of recurrentgemma-2b on every rank).
+
+Where the model axis does not divide a leaf's dim ``param_specs`` keeps
+it whole (``safe_spec``), and so do the mixers' head-aligned leaves where
+it does not divide the heads; a block whose weights are whole runs whole
+on every rank and its consumer takes the rank's slice
+(models/common.py:residual_dense).  :func:`whole_leaves` lists them.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
+import torch
+
+from repro_torch.sharding.collectives import on_device
 from repro_torch.sharding.ctx import axes_tuple, mesh_axis_size
 
 __all__ = [
@@ -37,15 +63,15 @@ __all__ = [
     "slice_index",
     "local_slice",
     "batch_rows",
-    "TP_FAMILIES",
+    "Layout",
+    "held_layouts",
+    "whole_leaves",
+    "cut_leaf",
     "shard_params",
     "gather_params",
     "params_split",
+    "splits_anything",
 ]
-
-#: the families whose backbone splits over "model"; the ssm, hybrid and
-#: encdec mixers keep it replicated (ROADMAP A13d)
-TP_FAMILIES = ("dense", "moe", "vlm")
 
 PARAM_RULES: dict[str, Any] = {
     "vocab": "model",
@@ -206,31 +232,6 @@ def _desc(cfg, desc):
     return lm_build(cfg)
 
 
-def _check_tp(cfg, desc, specs, mesh) -> None:
-    """The split the tensor-parallel forward runs: the attention families
-    only, every ``qkv`` / ``ffn`` dim split over "model" (the experts'
-    stacks by expert); a model axis that does not divide one is ROADMAP
-    A13d (the vocabulary may stay whole)."""
-    from repro_torch.models.common import tree_leaves
-
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"shard_params: the {cfg.family!r} family's backbone over the "
-            f"model axis (SSD, RG-LRU and whisper mixers) is ROADMAP A13d; "
-            f"its params stay whole")
-    for p, spec in zip(tree_leaves(desc), _spec_leaves(specs)):
-        want = "experts" if "experts" in p.axes else \
-            next((a for a in p.axes if a in ("qkv", "ffn")), None)
-        if want is None:
-            continue
-        dim = p.axes.index(want)
-        if spec[dim] != "model":
-            raise NotImplementedError(
-                f"shard_params: the model axis ({mesh.shape['model']}) does "
-                f"not divide the {want!r} dim of a {p.shape} leaf; such a "
-                f"split is ROADMAP A13d")
-
-
 def _spec_leaves(specs) -> list:
     if isinstance(specs, P):
         return [specs]
@@ -253,26 +254,112 @@ def _walk(params, specs, desc, fn):
                         for v, sp, d in zip(params, specs, desc))
 
 
+class Layout(NamedTuple):
+    """How a rank holds one leaf over "model": ``spec`` names "model" on
+    the split dim (the dims ZeRO-1 may not cut again), ``index(coords) ->
+    index tuple`` gives the block of the rank at ``coords`` (slices, or a
+    LongTensor of positions along the last dim), ``shared`` the positions
+    ``(lo, hi)`` of the rank's block along its last dim that every model
+    rank holds alike (counted once in a global norm), or None."""
+
+    spec: P
+    index: Callable
+    shared: tuple | None = None
+
+
+def _paths(tree, path: str = "") -> list:
+    """``(path, leaf)`` of every Param leaf, in ``tree_leaves`` order."""
+    from repro_torch.models.common import Param
+
+    if isinstance(tree, Param):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths(tree[k], f"{path}.{k}" if path else k)]
+    return [x for i, t in enumerate(tree)
+            for x in _paths(t, f"{path}[{i}]")]
+
+
+def _leaf_layout(p, spec: P, mesh) -> Layout:
+    """A leaf's :class:`Layout`: ``param_specs``' block, or what its
+    descriptor's ``held`` says (models/common.py:Param)."""
+    if p.held is None:
+        return Layout(spec, slice_index(p.shape, spec, mesh))
+    nd = len(p.shape)
+    held = p.held(mesh.shape.get("model", 1))
+    if held is None:
+        return Layout(P(*([None] * nd)), slice_index(p.shape, (), mesh))
+    columns, shared = held
+    return Layout(P(*spec),
+                  lambda c: (slice(None),) * (nd - 1) + (columns(c["model"]),),
+                  shared)
+
+
+def held_layouts(cfg, mesh, desc=None) -> list[Layout]:
+    """One :class:`Layout` a leaf of ``cfg``'s param tree, in
+    ``tree_leaves`` order (the module docstring says where it is not
+    ``param_specs``'s block)."""
+    desc = _desc(cfg, desc)
+    specs = _spec_leaves(param_specs(desc, mesh))
+    return [_leaf_layout(p, spec, mesh)
+            for (_, p), spec in zip(_paths(desc), specs)]
+
+
+def whole_leaves(cfg, mesh, desc=None) -> list[str]:
+    """The leaves whose logical axes map to "model" that a rank holds
+    whole all the same (the model axis does not divide them, or they are
+    the RG-LRU's gate weights): where a block runs whole on every rank."""
+    desc = _desc(cfg, desc)
+    out = []
+    for (path, p), lay in zip(_paths(desc),
+                                    held_layouts(cfg, mesh, desc)):
+        if any(PARAM_RULES.get(a) == "model" for a in p.axes if a) \
+                and "model" not in lay.spec:
+            out.append(path)
+    return out
+
+
+def cut_leaf(x, layout: Layout, mesh):
+    """This rank's block of a whole leaf ``x`` under ``layout`` (a copy
+    where it cuts, ``x`` itself where it does not)."""
+    if not any(a is not None for a in layout.spec):
+        return x
+    idx = on_device(layout.index(mesh.coords()), x.device)
+    return x[idx].clone()
+
+
+def splits_anything(cfg, mesh, desc=None) -> bool:
+    """Does ``cfg``'s layout over ``mesh`` split any leaf over "model"?"""
+    return mesh is not None and mesh.shape.get("model", 1) > 1 and any(
+        "model" in lay.spec for lay in held_layouts(cfg, mesh, desc))
+
+
 def shard_params(cfg, params, mesh, desc=None):
     """This rank's slice of every leaf of ``params`` per
-    :func:`param_specs` over ``mesh`` (copies: the whole tree can be
+    :func:`held_layouts` over ``mesh`` (copies: the whole tree can be
     freed).  Takes a raw tree (float leaves) or a prepared one
     (serve/engine.py:prepare_params: a :class:`QuantizedWeights` is cut
     by core/quant.py:shard_weights, by output channels or by contraction
     rows, the head cache ``head_q`` kept as prepare_params split it).
-    The attention families only; the result runs in a
-    ``ctx.model_shard`` scope.  models/moe.py:shard_experts is the
-    special case that cuts the expert stacks alone."""
+    Every family; the result runs in a ``ctx.model_shard`` scope.
+    models/moe.py:shard_experts is the special case that cuts the expert
+    stacks alone."""
     from repro_torch.core.quant import QuantizedWeights, shard_weights
 
     desc = _desc(cfg, desc)
     specs = param_specs(desc, mesh)
-    _check_tp(cfg, desc, specs, mesh)
+    layouts = iter(held_layouts(cfg, mesh, desc))
 
     def cut(x, spec, p):
-        if not any(a is not None for a in spec):
+        lay = next(layouts)
+        if not any(a is not None for a in lay.spec):
             return x
         if isinstance(x, QuantizedWeights):
+            if lay.shared is not None:
+                raise ValueError(
+                    "shard_params: a prepared record of a head-aligned "
+                    "Mamba-2 leaf (prepare_params makes the ssm family's "
+                    "forward fail in both packages); split the raw tree")
             return shard_weights(x, spec, mesh,
                                  1 if p.axes[0] == "layers" else 0)
         if isinstance(x, dict):
@@ -280,7 +367,7 @@ def shard_params(cfg, params, mesh, desc=None):
                 "shard_params: the int8 {'q', 'scale'} records "
                 "(models/common.py:quantize_params) serve whole; split a "
                 "raw or a prepare_params tree")
-        return local_slice(x, spec, mesh).clone()
+        return cut_leaf(x, lay, mesh)
 
     return _walk(params, specs, desc, cut)
 
@@ -293,11 +380,10 @@ def gather_params(cfg, params, mesh, desc=None):
     from repro_torch.sharding.collectives import gather_slices
 
     desc = _desc(cfg, desc)
-    specs = _spec_leaves(param_specs(desc, mesh))
     shapes = [tuple(p.shape) for p in tree_leaves(desc)]
     whole = gather_slices(tree_leaves(params),
-                          [slice_index(sh, sp, mesh)
-                           for sh, sp in zip(shapes, specs)],
+                          [lay.index for lay in held_layouts(cfg, mesh,
+                                                             desc)],
                           shapes, mesh, axes=("model",))
     return tree_unflatten(params, whole)
 

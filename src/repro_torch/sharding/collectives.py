@@ -22,8 +22,12 @@ partitioner) add :func:`copy_in` (the identity, whose gradient is summed
 over the group: the input of a column-parallel region),
 :func:`reduce_scatter` (the sum's slice along a dim, for sequence
 parallelism) and :func:`sum_int` (the exact sum of int32 partial
-products, wrapping mod 2^32 as one accumulator does).  Every rank issues
-each of them in the same order.
+products, wrapping mod 2^32 as one accumulator does).  The mixers whose
+rank reads more than its own channels add :func:`gather_channels` (its
+channels of a whole tensor that every rank then uses: the gradient summed
+and cut back) and :func:`copy_in_columns` (:func:`copy_in` on a range of
+a weight's columns that every rank holds alike).  Every rank issues each
+of them in the same order.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from repro_torch.core.l2r_gemm import wrap_int32
 __all__ = ["COUNTS", "reset", "all_reduce", "all_gather", "gather_columns",
            "all_reduce_many", "all_to_all", "sum_forward", "split_rows",
            "gather_rows", "gather_slices", "copy_in", "reduce_scatter",
-           "sum_int"]
+           "sum_int", "gather_channels", "copy_in_columns"]
 
 COUNTS = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
@@ -221,8 +225,16 @@ def gather_slices(parts: list[torch.Tensor], slices: list, shapes: list,
             for a in reversed(names):
                 r, coords[a] = divmod(r, mesh.shape[a])
             for i, piece in zip(idx, flat[gr].split(sizes)):
-                out[i][slices[i](coords)] = piece.view(parts[i].shape)
+                out[i][on_device(slices[i](coords), out[i].device)] = \
+                    piece.view(parts[i].shape)
     return out
+
+
+def on_device(index: tuple, device) -> tuple:
+    """An index tuple (slices, or a LongTensor of positions along a dim)
+    with its tensors on ``device``."""
+    return tuple(i.to(device) if isinstance(i, torch.Tensor) else i
+                 for i in index)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -271,3 +283,49 @@ def sum_int(x: torch.Tensor, group) -> torch.Tensor:
     integer product then equals the one-rank product, wrap included;
     gloo's own int32 arithmetic is not relied on)."""
     return wrap_int32(all_reduce(x.to(torch.int64), "sum", group))
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.group, ctx.index, ctx.dim, ctx.size = group, index, dim, \
+            x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group).narrow(
+            ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
+
+
+def gather_channels(x: torch.Tensor, group, index: int,
+                    dim: int = -1) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` (:func:`all_gather`),
+    where each rank then computes only its own part of what follows from
+    the whole (the RG-LRU gates' outputs, a norm's rows): the gradient is
+    summed over the group and this rank's slice (``index``) kept, the
+    adjoint of :func:`reduce_scatter`."""
+    return _GatherChannels.apply(x, group, index, dim % x.ndim)
+
+
+class _CopyInColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group, lo, hi):
+        ctx.group, ctx.lo, ctx.hi = group, lo, hi
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        g[..., ctx.lo:ctx.hi] = all_reduce(g[..., ctx.lo:ctx.hi], "sum",
+                                           ctx.group)
+        return g, None, None, None
+
+
+def copy_in_columns(w: torch.Tensor, group, lo: int, hi: int
+                    ) -> torch.Tensor:
+    """``w`` itself, whose gradient's columns ``[lo, hi)`` (last dim) are
+    summed over the group: the columns of a rank's weight slice that every
+    rank holds alike and uses for its own part (Mamba-2's B and C
+    projections beside a rank's heads)."""
+    return _CopyInColumns.apply(w, group, lo, hi)

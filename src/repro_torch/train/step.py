@@ -22,20 +22,23 @@ the card, and the attention backward is the plain loop's gradient
 arguments and gets the global results.  A rank computes the loss on its
 rows of the batch (``batch_spec``) with the global token count as the
 divisor, and the optimizer state is ZeRO-1 (optim/adamw.py:Zero1, the EF
-residual too).  For the attention families (``dense``, ``moe``,
-``vlm``) the params are held per ``param_specs``
-(sharding/axes.py:shard_params) and the backbone is tensor-parallel
-over ``model`` (a ``ctx.model_shard`` scope: models/transformer.py),
-with the sequence of the residual stream split over ``model`` between
-blocks where it divides
-(``_resid_shard_fn``), and the cross-entropy vocab-parallel over a
-split head.  The gradients are summed over the data group, one flat
-bucket a dtype and group; a leaf replicated over ``model`` is also
-summed over the model group where each model rank computed part of its
-gradient: the norms under sequence parallelism, the router and the
+residual too).  The params are held as sharding/axes.py:held_layouts
+says (``param_specs`` but for Mamba-2's head-aligned projection and the
+RG-LRU's whole gate weights; sharding/axes.py:shard_params) and the
+backbone is tensor-parallel over ``model`` (a ``ctx.model_shard``
+scope: models/transformer.py, models/encdec.py), with the sequence of
+the (decoder's) residual stream split over ``model`` between blocks
+where it divides (``_resid_shard_fn``), and the cross-entropy
+vocab-parallel over a split head.  The gradients are summed over the
+data group, one flat bucket a dtype and group; a leaf replicated over
+``model`` is also summed over the model group where each model rank
+computed part of its gradient: the norms under sequence parallelism (the
+decoder's, not the encoder's, whose stream is whole), the router and the
 expert stacks of a ``moe_dp_local`` layer (each rank routes its own
-token group).  The ``ssm``, ``hybrid`` and ``encdec`` families keep the
-backbone whole on every rank (ROADMAP A13d).
+token group). The leaves a split mixer holds whole and uses for its own
+part (Mamba-2's B and C columns and per-head vectors, the RG-LRU's gate
+weights) have their gradient summed over the model group in the backward
+itself (sharding/collectives.py:copy_in, copy_in_columns).
 """
 
 from __future__ import annotations
@@ -56,9 +59,9 @@ from repro_torch.optim.adamw import (AdamWConfig, OptState, Zero1,
                                      adamw_update)
 from repro_torch.optim.compression import EFState, ef_compress_grads
 from repro_torch.sharding import ctx
-from repro_torch.sharding.axes import (P, TP_FAMILIES, batch_rows,
-                                       batch_spec, param_specs, params_split,
-                                       zero1_specs)
+from repro_torch.sharding.axes import (P, batch_rows, batch_spec,
+                                       param_specs, params_split,
+                                       splits_anything, zero1_specs)
 from repro_torch.sharding.collectives import (all_reduce, all_reduce_many,
                                               copy_in, sum_forward)
 
@@ -190,8 +193,7 @@ def _rows(mesh, batch: dict):
 
 def _tp(cfg: ModelConfig, mesh) -> bool:
     """Is ``cfg``'s backbone split over ``mesh``'s model axis?"""
-    return (mesh is not None and cfg.family in TP_FAMILIES
-            and mesh.shape.get("model", 1) > 1)
+    return splits_anything(cfg, mesh)
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
@@ -284,13 +286,16 @@ def _reduce_grads(cfg: ModelConfig, mesh, grads: list, params, batch: dict,
     moe = tree_leaves(_leaf_flags(params, lambda k, v: isinstance(v, dict)
                                   and "router" in v))
     norm = tree_leaves(_leaf_flags(params, lambda k, v: k.endswith("norm")))
+    encoder = tree_leaves(_leaf_flags(params, lambda k, v: k.startswith(
+        "enc_")))  # the encoder's stream is whole on every model rank
     desc = tree_leaves(encdec_build(cfg) if cfg.family == "encdec"
                        else lm_build(cfg))
     groups: dict = {}
     for i, (g, d) in enumerate(zip(grads, desc)):
         whole = tuple(g.shape) == tuple(d.shape)
         axes = set(rows)
-        if whole and ((seq and norm[i]) or (dp_local and moe[i])):
+        if whole and ((seq and norm[i] and not encoder[i])
+                      or (dp_local and moe[i])):
             axes.add("model")
         groups.setdefault(tuple(a for a in mesh.axis_names if a in axes),
                           []).append(i)
@@ -367,10 +372,9 @@ def _check_mesh(mesh) -> None:
 def zero1_layout(cfg: ModelConfig, mesh) -> Zero1:
     """The ZeRO-1 layout of ``cfg``'s params over ``mesh``: what
     ``adamw_init(params, zero)`` and ``ef_init(params, zero)`` take for a
-    mesh step (the params held per ``param_specs`` for the attention
-    families, whole for the others)."""
-    return Zero1.build(encdec_build(cfg) if cfg.family == "encdec"
-                       else lm_build(cfg), mesh, split=_tp(cfg, mesh))
+    mesh step (the params held as sharding/axes.py:held_layouts says where
+    the layout splits anything, else whole)."""
+    return Zero1.build(cfg, mesh, split=_tp(cfg, mesh))
 
 
 def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
@@ -383,10 +387,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     one optimizer step.  With ``mesh`` (a mesh on a process group, every
     rank calling with the same arguments) the step runs on the mesh: the
     optimizer state and the EF residual are ZeRO-1 slices
-    (:func:`zero1_layout`; ``adamw_init(params, zero)``); the attention
-    families' params are this rank's ``param_specs`` slices
-    (sharding/axes.py:shard_params) in and out, the others' whole on every
-    rank.
+    (:func:`zero1_layout`; ``adamw_init(params, zero)``); the params are
+    this rank's slices (sharding/axes.py:shard_params) in and out where
+    the layout splits anything over the model axis, else whole.
     """
     zero = None
     if mesh is not None:
@@ -397,9 +400,9 @@ def make_train_step(cfg: ModelConfig, ocfg: AdamWConfig,
     def train_step(params, opt_state, batch, ef_state=None):
         if mesh is not None and _tp(cfg, mesh) != params_split(cfg, params):
             raise ValueError(
-                "make_train_step(mesh=): the attention families train the "
-                "params split per param_specs (sharding/axes.py:"
-                "shard_params), the other families whole")
+                "make_train_step(mesh=): the params train split as "
+                "sharding/axes.py:shard_params cuts them where the layout "
+                "splits anything over the model axis, else whole")
         _, metrics, grads = grad_fn(params, batch)
         with no_tf32():
             if tcfg.ef_compression:

@@ -1292,19 +1292,24 @@ def test_head_walk_on_two_ranks_of_one_card(dev, early_exit):
 @pytest.mark.parametrize("d", [64, 96, 100, 512, 576, 768, 1536, 2048, 2560,
                                3584, 4096, 5120, 5376])
 def test_decode_rows_do_not_depend_on_the_batch(dev, d):
-    """rms_norm and decode attention give a row the same bits whatever
-    the number of rows beside it (the "batch" slot layout's ranks decode
-    their rows as one process does): the served widths (d_model, mamba2's
-    d_inner 1536), the smoke widths and one that 32 does not divide."""
+    """rms_norm, layer_norm and decode attention give a row the same bits
+    whatever the number of rows beside it (the "batch" slot layout's ranks
+    decode their rows as one process does): the served widths (d_model,
+    mamba2's d_inner 1536), the smoke widths and one that 32 does not
+    divide."""
     from repro_torch.models.attention import decode_attention
-    from repro_torch.models.common import rms_norm
+    from repro_torch.models.common import layer_norm, rms_norm
 
     g = torch.Generator(device=dev).manual_seed(23)
     x = torch.randn((16, 1, d), generator=g, device=dev) * 3
     gamma = torch.randn((d,), generator=g, device=dev)
+    beta = torch.randn((d,), generator=g, device=dev)
     whole = rms_norm(x, gamma)
+    whole_ln = layer_norm(x, gamma, beta)  # whisper's
     for n in (1, 2, 4, 8):
         assert torch.equal(rms_norm(x[:n].clone(), gamma), whole[:n])
+        assert torch.equal(layer_norm(x[:n].clone(), gamma, beta),
+                           whole_ln[:n])
     b, L, h, kv, dh = 16, 2080, 9, 3, 64
     q = torch.randn((b, 1, h, dh), generator=g, device=dev)
     k = torch.randn((b, L, kv, dh), generator=g, device=dev)
@@ -1353,19 +1358,8 @@ def test_b5_per_head_bits_do_not_depend_on_the_heads_beside(dev, whole,
 def test_decode_heads_do_not_depend_on_the_heads_beside(dev, whole, part, b):
     """Decode attention (its two products on fixed blocks of (row, kv
     head) pairs, models/attention.py:_fixed_pairs) gives a rank's heads,
-    in a ``ctx.model_shard`` scope, the bits one process gives them."""
+    told the whole model's kv heads, the bits one process gives them."""
     from repro_torch.models.attention import decode_attention
-    from repro_torch.sharding import ctx
-
-    class ModelAxis:  # rank j of a model axis of m (no process group)
-        def __init__(self, m, j):
-            self.shape, self.j = {"model": m}, j
-
-        def group(self, axes):
-            return None
-
-        def index(self, axes):
-            return self.j
 
     (h, kv, dh), (hp, kvp, _) = whole, part
     g = torch.Generator(device=dev).manual_seed(37)
@@ -1378,11 +1372,11 @@ def test_decode_heads_do_not_depend_on_the_heads_beside(dev, whole, part, b):
     qpos = torch.full((b,), L - 5, device=dev, dtype=torch.int32)
     full = decode_attention(q, k, v, pos, qpos)
     for j in range(h // hp):
-        with ctx.model_shard(ModelAxis(h // hp, j)):
-            got = decode_attention(
-                q[:, :, j * hp:(j + 1) * hp].contiguous(),
-                k[:, :, j * kvp:(j + 1) * kvp].contiguous(),
-                v[:, :, j * kvp:(j + 1) * kvp].contiguous(), pos, qpos)
+        got = decode_attention(
+            q[:, :, j * hp:(j + 1) * hp].contiguous(),
+            k[:, :, j * kvp:(j + 1) * kvp].contiguous(),
+            v[:, :, j * kvp:(j + 1) * kvp].contiguous(), pos, qpos,
+            kv_whole=kv)
         assert torch.equal(got, full[:, :, j * hp:(j + 1) * hp]), j
 
 
@@ -1407,3 +1401,131 @@ def test_k_split_b1_partials_sum_to_the_whole_product(dev, m, k, n, ranks):
             levels=lv) for j in range(ranks)]
         total = sum(p.to(torch.int64) for p in parts)
         assert torch.equal(wrap_int32(total), whole), lv
+
+
+# ------------------------------------------------ the rest of the tp mesh
+# (whole heads, a rank's heads) of the SSD products: mamba2-130m's 24
+# heads over a model axis of 2 and 4
+SSD_HEADS = [(24, 12), (24, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whole,part", SSD_HEADS)
+@pytest.mark.parametrize("b,s,rows", [(8, 2048, 4), (1, 256, 1),
+                                      (8, 256, 8)])
+def test_ssd_head_block_products_give_a_rank_the_whole_calls_bits(
+        dev, whole, part, b, s, rows):
+    """The SSD's chunk products and decode readout on fixed calls of 8
+    rows of the whole model's heads (models/ssm.py, common.py:fixed_bmm):
+    a rank's heads of its rows (the data split) equal those of the whole
+    call bit for bit.  The plain einsums did not at a one-row 256-token
+    prefill and at the 8-row decode readout on this card."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    p, n, q = 64, 128, 256
+    x = torch.randn((b, s, whole, p), generator=g, device=dev)
+    dt = F.softplus(torch.randn((b, s, whole), generator=g, device=dev))
+    a = -dt * 0.5
+    bb = torch.randn((b, s, n), generator=g, device=dev)
+    cc = torch.randn((b, s, n), generator=g, device=dev)
+    y, st = ssm.ssd_chunked(x, dt, a, bb, cc, q, whole)
+    st_in = torch.randn((b, whole, n, p), generator=g, device=dev)
+    c1 = torch.randn((b, n), generator=g, device=dev)
+    read = ssm.ssd_readout(c1, st_in, whole)
+    for r0 in range(0, b, rows):
+        r = slice(r0, r0 + rows)
+        for j in range(whole // part):
+            h = slice(j * part, (j + 1) * part)
+            yj, sj = ssm.ssd_chunked(
+                x[r, :, h].contiguous(), dt[r, :, h].contiguous(),
+                a[r, :, h].contiguous(), bb[r], cc[r], q, whole, j * part)
+            assert torch.equal(yj, y[r, :, h]), (r0, j)
+            assert torch.equal(sj, st[r, h]), (r0, j)
+            assert torch.equal(ssm.ssd_readout(c1[r], st_in[r, h].contiguous(),
+                                               whole), read[r, h]), (r0, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("rows", [1, 4, 8, 2048, 16384])
+@pytest.mark.parametrize("d", [128, 1536, 2560])
+def test_split_gated_norm_is_the_whole_norm(dev, m, rows, d):
+    """The split gated RMSNorm's mean (models/common.py:split_row_mean on
+    the card): each rank's 32 / m partial sums, gathered in rank order
+    and summed, equal :func:`_row_mean` of the whole rows bit for bit."""
+    from repro_torch.models.common import (_row_mean, row_mean_of_parts,
+                                           row_mean_parts)
+
+    g = torch.Generator(device=dev).manual_seed(53)
+    x = torch.randn((rows, 1, d), generator=g, device=dev) ** 2
+    dl = d // m
+    parts = torch.cat([row_mean_parts(x[..., j * dl:(j + 1) * dl]
+                                      .contiguous(), m)
+                       for j in range(m)], -1)
+    assert torch.equal(row_mean_of_parts(parts, d), _row_mean(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2r", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("h,kv,dh,L", [(9, 3, 64, 2080), (10, 1, 256, 2048),
+                                       (3, 1, 32, 17)])
+def test_head_dim_decode_is_the_whole_heads_slice(dev, l2r, m, h, kv, dh, L):
+    """Decode attention in the head_dim layout (every kv head, the whole
+    keys, a rank's dh / m of the values; PV at the whole width,
+    models/attention.py:_fixed_pairs ``cols``) gives each rank's slice of
+    every head the bits of the whole heads' call."""
+    from repro_torch.core.quant import QuantConfig as QC
+    from repro_torch.models.attention import (decode_attention,
+                                              init_kv_cache,
+                                              update_kv_cache)
+
+    g = torch.Generator(device=dev).manual_seed(59)
+    b = 8
+    quant = QC() if l2r else None
+    q = torch.randn((b, 1, h, dh), generator=g, device=dev)
+    k = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    v = torch.randn((b, L, kv, dh), generator=g, device=dev)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(b, L)
+    cache = init_kv_cache(b, L, kv, dh, torch.float32, quant=quant,
+                          device=dev)
+    cache = update_kv_cache(cache, k, v, pos.contiguous(), quant=quant)
+    qpos = torch.full((b,), L - 5, device=dev, dtype=torch.int32)
+    kw = dict(l2r=quant, k_planes=cache.k_planes, k_scale=cache.k_scale,
+              kv_whole=kv)
+    full = decode_attention(q, cache.k, cache.v, cache.positions, qpos, **kw)
+    vd = dh // m
+    for j in range(m):
+        got = decode_attention(q, cache.k,
+                               cache.v[..., j * vd:(j + 1) * vd].contiguous(),
+                               cache.positions, qpos, v_cols=(j * vd, dh),
+                               **kw)
+        assert torch.equal(got, full[..., j * vd:(j + 1) * vd]), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,causal", [(1500, 1500, False),
+                                           (128, 128, True),
+                                           (128, 1500, False),
+                                           (1, 1500, False)])
+def test_b5_on_whisper_rank_heads(dev, m, dtype, sq, skv, causal):
+    """Kernel B5 on a rank's heads of whisper-base (8 heads of 64: the
+    encoder, the causal self-attention, the cross-attention at prefill
+    and at decode) equals those heads of the whole call bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    q = torch.randn((4, sq, 8, 64), generator=g, device=dev).to(dtype)
+    k = torch.randn((4, skv, 8, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn((4, skv, 8, 64), generator=g, device=dev).to(dtype)
+    full = fa.flash_attention(q, k, v, causal=causal)
+    hl = 8 // m
+    for j in range(m):
+        h = slice(j * hl, (j + 1) * hl)
+        got = fa.flash_attention(q[:, :, h].contiguous(),
+                                 k[:, :, h].contiguous(),
+                                 v[:, :, h].contiguous(), causal=causal)
+        assert torch.equal(got, full[:, :, h]), j

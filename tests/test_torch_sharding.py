@@ -306,12 +306,13 @@ def test_unported_mesh_modes_raise_naming_their_slice():
     from repro_torch.serve.batching import ContinuousBatcher
 
     cfg = dataclasses.replace(get_smoke("smollm-135m"), l2r=QuantConfig())
-    # "specs" (ported in A13c) refuses what A13d ports: the smoke model's
-    # one kv head over a model axis of 2 (the head_dim layout), an SSM
-    with pytest.raises(NotImplementedError, match="A13d"):
+    # "specs" serves every family (the smoke model's one kv
+    # head over a model axis of 2 takes the head_dim layout, an SSM its
+    # heads), and refuses whole params where the layout splits them
+    with pytest.raises(ValueError, match="shard_params"):
         ContinuousBatcher(cfg, {}, state_sharding="specs", device="cpu",
                           mesh=Mesh({"data": 1, "model": 2}, rank=0))
-    with pytest.raises(NotImplementedError, match="A13d"):
+    with pytest.raises(ValueError, match="shard_params"):
         ContinuousBatcher(get_smoke("mamba2-130m"), {}, device="cpu",
                           state_sharding="specs",
                           mesh=Mesh({"data": 1, "model": 2}, rank=0))

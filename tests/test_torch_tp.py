@@ -20,8 +20,10 @@ by hand (ROADMAP A13c), and these are the pieces it rests on:
   reference's ``param_specs`` names (its optimizer state the slice its
   ``zero1_specs`` names), and a prepared tree's caches the slices of the
   whole caches;
-* the ``"specs"`` slot layout refuses, naming A13d, an SSM config and kv
-  heads the model axis does not divide.
+* ``shard_params`` and the ``"specs"`` slot layout take an SSM config
+  (its head-aligned ``in_proj``) and kv heads the model axis does not
+  divide (the head_dim cache layout), and "specs" refuses whole params
+  where the layout splits them.
 
 The multi-rank runs are tests/test_torch_tp_serve.py (serving) and
 tests/test_torch_sharded_train.py (training).
@@ -272,26 +274,35 @@ def test_params_split_reads_the_backbone_not_the_experts():
 
 
 def test_specs_refuses_what_a13d_ports():
+    """What the slot layout once refused is accepted: an SSM's params
+    split (head-aligned in_proj and conv), the smoke SmolLM's one kv head
+    over a model axis of 2 in the head_dim layout; "specs" still refuses
+    whole params where the layout splits them."""
+    from repro_torch.models.common import materialize
+    from repro_torch.models.transformer import init_lm_state
     from repro_torch.serve.batching import check_state_sharding
-    from repro_torch.serve.engine import make_prefill_step
-    from repro_torch.sharding.axes import shard_params
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.axes import params_split, shard_params
 
     mesh = Mesh({"data": 1, "model": 2}, rank=0)
-    with pytest.raises(NotImplementedError, match="A13d"):
-        check_state_sharding(get_smoke("mamba2-130m"), {}, mesh, "specs")
-    with pytest.raises(NotImplementedError, match="A13d"):
-        shard_params(get_smoke("mamba2-130m"), {}, mesh)
-    # the smoke SmolLM's one kv head over a model axis of 2
+    ssm = get_smoke("mamba2-130m")
+    with pytest.raises(ValueError, match="shard_params"):
+        check_state_sharding(ssm, {}, mesh, "specs")
+    p = shard_params(ssm, materialize(lm_build(ssm), torch.Generator()
+                                      .manual_seed(0), device="cpu"), mesh)
+    # z, x of 4 of 8 heads (64 + 64), B and C (2 x 16), dt of 4 heads
+    assert tuple(p["stack"][0]["mixer"]["in_proj"].shape) == (4, 64, 164)
+    assert params_split(ssm, p)
+    check_state_sharding(ssm, p, mesh, "specs")
     cfg = get_smoke("smollm-135m")
-    with pytest.raises(NotImplementedError, match="A13d"):
-        check_state_sharding(cfg, {}, mesh, "specs")
-    # its prefill's state would need the head_dim layout
-    from repro_torch.models.common import materialize
-
     params = shard_params(cfg, materialize(
         lm_build(cfg), torch.Generator().manual_seed(0), device="cpu"), mesh)
+    check_state_sharding(cfg, params, mesh, "specs")
     ranked = Mesh({"data": 1, "model": 2}, rank=0,
                   groups={("model",): None})  # no collective runs
-    with pytest.raises(NotImplementedError, match="A13d"):
-        make_prefill_step(cfg, 16, mesh=ranked)(params, {
-            "tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with ctx.model_shard(ranked):
+        st = init_lm_state(cfg, 2, 16, torch.float32, device="cpu")
+    c = st.stack[0]
+    # every kv head, the whole keys, half of each head's values
+    assert c.k.shape[-2:] == (cfg.n_kv, cfg.head_dim)
+    assert c.v.shape[-2:] == (cfg.n_kv, cfg.head_dim // 2)
