@@ -250,6 +250,22 @@ Phases (any failure exits non-zero; nothing is caught):
      16's tokens and the prefill's last-position logits (a checksum) bit
      for bit, launches and collectives as derived, expert and backbone
      bytes a rank.
+ 22. the exactness, compiled and collective audits (analysis/lint.py's
+     passes, in this process; nothing caught): 22a every registered entry
+     but the split ones under the taint walk, the ``cuda`` entries on the
+     card with B1 (stacked) and B2 (streaming) each one kernel node and
+     the result equal to the CPU run bit for bit, and the ``pairs``
+     schedule on the card as one B3 node (the reference registers pairs
+     on ``jnp`` only), launches exact; 22b every certificate and
+     ``audit_registry``'s 20 rows sound; 22c 15e's gateway (every bucket
+     and the decode step warmed, no prefill past the buckets) and the
+     batchers of 15e, 19b and 20a, whose second step is the in-place
+     state audit; 22d the collectives recorded inside the ranks of phases
+     18, 20 and 21: every full-width consensus walk against the port's
+     contract, 20a's and 21d's whole runs and 20c's and 21a-c's calls
+     against the counts the code derives (no undeclared gather, no float
+     SUM but 20c's router means), and the registered split entries on
+     phase 18's 2 x 2 mesh at the registry's shapes.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
@@ -272,6 +288,11 @@ of 13a, 14a and 15a (set up as those phases set it up), one JSON line;
 
 those of one prefill and one decode step of phase 16's ARCH (mamba2-130m,
 recurrentgemma-2b, deepseek-moe-16b or whisper-base) in one process.
+
+    python3 chip_smoke.py --hot-path
+
+13a's decode step profiled (device ms, device events) and 15e's batcher
+tokens/s (a warm run, then three timed), no audit active.
 The script takes its package from ``src/`` beside it, so a copy of it in
 another checkout profiles that checkout's code: an older commit and this
 one can be compared in one call on one card.
@@ -2341,7 +2362,7 @@ def batcher_vs_gateway(cfg, params, dev) -> dict:
         t0 = time.perf_counter()
         for r in breqs:
             eng.submit(r)
-        eng.run()
+        out["audit22_batcher"] = run_audited(eng, "15e batcher")
         torch.cuda.synchronize()
         b_s = time.perf_counter() - t0
         st = eng.stats(latency=True)
@@ -2372,6 +2393,11 @@ def batcher_vs_gateway(cfg, params, dev) -> dict:
         g_s = time.perf_counter() - t0
         n = counts()
         gw.close()
+        from repro_torch.analysis.compiled import audit_gateway
+
+        out["audit22_gateway"] = audit_gateway(gw, "15e gateway")
+        require(out["audit22_gateway"]["ok"],
+                f"22c 15e gateway: {out['audit22_gateway']['violations']}")
         gst = gw.stats()
         out["gateway_reqs"] = served(greqs)
         out["gateway_stats"] = served_stats(gw)
@@ -3543,6 +3569,50 @@ class CollectiveClock:
             setattr(m, n, f)
 
 
+def audit_run(records: list, want: dict, mesh, what: str,
+              allow_float_psum: bool) -> dict:
+    """22d: the collectives one split run recorded
+    (sharding/collectives.py:recording), audited against its contract
+    (analysis/sharding.py:audit_records): each kind as many times as the
+    code derives (``want``), no data mover beyond those, no float SUM
+    unless ``allow_float_psum`` (a float model or float router sums; the
+    L2R serving runs sum only integers), within the budget.  Raises on a
+    violation."""
+    from repro_torch.analysis.sharding import ShardingContract, audit_records
+
+    contract = ShardingContract(mesh_axes=tuple(mesh.shape.items()),
+                                kinds=tuple(sorted(want.items())),
+                                allow_float_psum=allow_float_psum)
+    rep = audit_records(records, contract, what, with_cost=False)
+    require(rep.ok, f"22d {what}: " + "; ".join(
+        f"{v.primitive}: {v.reason}" for v in rep.violations))
+    return {"entry": what, "records": len(records),
+            "census": rep.collectives["census"],
+            "float_sums": sum(r.op == "all_reduce" and r.reduce_op == "sum"
+                              and "float" in r.dtype for r in records),
+            "allow_float_psum": allow_float_psum}
+
+
+def run_audited(eng, what: str) -> dict:
+    """``eng.run()`` of a ContinuousBatcher, its second step taken by the
+    22c audit (analysis/compiled.py:audit_batcher runs exactly that one
+    step and checks that the slot state kept its storage; then the
+    prefill shapes against the buckets).  Raises on a violation."""
+    from repro_torch.analysis.compiled import audit_batcher
+
+    rep = None
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        if rep is None and eng.steps == 1 \
+                and any(r is not None for r in eng.slot_req):
+            rep = audit_batcher(eng, entry=what)
+        else:
+            eng.step()
+    require(rep is not None, f"22c {what}: the run ended before its second "
+                             f"step")
+    require(rep["ok"], f"22c {what}: {rep['violations']}")
+    return rep
+
+
 class WalkProbe:
     """While active, ``module.streaming_argmax`` is wrapped: each walk of
     this rank (its caller passes the mesh) is timed (host clock between
@@ -3551,7 +3621,12 @@ class WalkProbe:
     input (int8 codes and scales) is required identical on every rank (a
     MAX and a MIN all-reduce of a checksum, outside the walk's count).
     The walk's collectives (policy.all_reduce, progressive.all_gather)
-    are timed by a :class:`CollectiveClock`."""
+    are timed by a :class:`CollectiveClock`.  22d: the walk's recorded
+    collectives (sharding/collectives.py's recorder, the probe's own
+    unless a run's is active) are audited against the port's consensus
+    contract (analysis/registry.py:consensus_contract): per level two MAX
+    and one MIN tagged, the consensus SUM with early exit on split rows,
+    the finalize and the tagged gathers."""
 
     def __init__(self, module, mesh, rows_sharded: bool | None = True,
                  same_inputs: bool = True):
@@ -3560,18 +3635,42 @@ class WalkProbe:
         self.same_inputs = same_inputs  # every rank walks the same rows
         self.walks: list[dict] = []
         self.inputs: list = []
+        self.audited = {"walks": 0, "records": 0, "levels": []}
 
     def __enter__(self):
         from repro_torch.core import policy, progressive
+        from repro_torch.sharding import collectives
 
         self.clock = CollectiveClock(policy, progressive).__enter__()
+        self.rec = None
+        if collectives.active_records() is None:
+            self.rec = collectives.recording()
+            self.rec.__enter__()
         self.real = self.module.streaming_argmax
         self.module.streaming_argmax = self._walk
         return self
 
     def __exit__(self, *exc):
         self.module.streaming_argmax = self.real
+        if self.rec is not None:
+            self.rec.__exit__(*exc)
         self.clock.__exit__(*exc)
+
+    def _audit(self, records: list, run: int, rows: bool, early: bool):
+        from repro_torch.analysis.registry import consensus_contract
+        from repro_torch.analysis.sharding import audit_records
+
+        contract = consensus_contract(self.mesh.shape.get("data", 1),
+                                      self.mesh.shape["model"], early,
+                                      rows_sharded=rows)
+        rep = audit_records(records, contract, f"walk {len(self.walks)}",
+                            with_cost=False)
+        require(rep.ok and rep.schedule["levels_run"] == run,
+                f"22d: a walk of {run} levels: " + "; ".join(
+                    v.reason for v in rep.violations))
+        self.audited["walks"] += 1
+        self.audited["records"] += len(records)
+        self.audited["levels"].append(run)
 
     def _walk(self, xq, wq, xs, ws, *args, **kw):
         from repro_torch.core.progressive import sharded_walk_collectives
@@ -3579,6 +3678,8 @@ class WalkProbe:
 
         torch.cuda.synchronize()
         before = dict(collectives.COUNTS)
+        records = collectives.active_records()
+        i0 = len(records)
         coll_s = self.clock.seconds
         t0 = time.perf_counter()
         out = self.real(xq, wq, xs, ws, *args, **kw)
@@ -3592,6 +3693,7 @@ class WalkProbe:
         want = sharded_walk_collectives(run, True, rows, early)
         require(made == want, f"a walk of {run} levels made collectives "
                               f"{made}, the code derives {want}")
+        self._audit(records[i0:], run, rows, early)
         self.walks.append({"ms": ms, "levels": run, "collectives": made,
                            "collective_ms":
                            (self.clock.seconds - coll_s) * 1e3})
@@ -3716,6 +3818,7 @@ def mesh_vgg(dev, mesh) -> dict:
             out["results"][early_exit] = res
             out["launches"][early_exit] = launched
     out["walks"] = probe.walks
+    out["audit22"] = probe.audited
     out["shard_shape"] = shard_shape_check(
         mesh_rows(mesh, probe.inputs[0][0]), weights_q["fc8"], "fc8")
     return out
@@ -3771,6 +3874,7 @@ def mesh_lm(dev, mesh, head_bytes_whole: int) -> dict:
                           "seconds": time.perf_counter() - t0,
                           "warmup_s": warm_s, "launches": counts()}
         gw.close()
+    out["audit22"] = probe.audited
     # walks: the scan's prefill and steps, early exit's, the gateway's
     out["walk_ms_per_step"] = {
         ee: statistics.median(w["ms"] for w in walks[i + 1:i + 1 + MESH_STEPS])
@@ -3805,6 +3909,23 @@ def mesh_rank(head_bytes_whole: int) -> dict:
     out["lm"] = mesh_lm(dev, mesh, head_bytes_whole)
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["seconds"] = time.perf_counter() - t0
+    # 22d: the registered split entries at the registry's shapes, on this
+    # 2 x 2 mesh (analysis/lint.py:rank_pass): exactness and schedule
+    from repro_torch.analysis import lint
+
+    t1 = time.perf_counter()
+    entries = lint.rank_pass("cuda", False, mesh)
+    bad = [r["entry"] for rows in entries.values() for r in rows
+           if r["status"] != "ok"]
+    require(not bad, f"22d rank {out['rank']}: split entries {bad} fail "
+                     f"their audit: {entries}")
+    out["audit22"] = {"walks_18a": out["vgg"]["audit22"],
+                      "walks_18b": out["lm"]["audit22"],
+                      "split_entries": {k: [{f: r.get(f) for f in (
+                          "entry", "status", "kernel_nodes", "schedule",
+                          "collectives")} for r in rows]
+                          for k, rows in entries.items()},
+                      "split_entries_s": time.perf_counter() - t1}
     if out["rank"]:  # the logits travel once, from rank 0
         for ee in (False, True):
             del out["lm"][ee]["logits"]
@@ -3889,6 +4010,7 @@ def phase_mesh(dev, prog: dict, serve: dict) -> dict:
         "head_cache_bytes_whole": serve["head_bytes"],
         "lm_walks_per_rank": lm0["walks"]}
     print("phase 18: " + json.dumps(out, default=str), flush=True)
+    out["audit22"] = [r["audit22"] for r in ranks]
     print(f"phase 18: 18a VGG-16 (224x224, batch 8, 1000 classes; fc8 500 "
           f"a rank, 4 rows a rank in the walk) == phase 4 and 18b "
           f"SmolLM-135M (8 x 2048 prefill + {MESH_STEPS} steps, scan and "
@@ -4089,10 +4211,11 @@ def dp_batcher(dev, mesh, ref15: dict) -> dict:
         collectives.reset()
         t0 = time.perf_counter()
         with CollectiveClock(policy, progressive) as clock:
-            eng.run()
+            audit = run_audited(eng, "19b batcher")
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    out = {"reqs": served(reqs), "stats": served_stats(eng),
+    out = {"audit22": audit, "reqs": served(reqs),
+           "stats": served_stats(eng),
            "launches": counts(), "seconds": seconds,
            "collective_s": clock.seconds,
            "collectives": dict(collectives.COUNTS),
@@ -4338,6 +4461,7 @@ def phase_dp(dev, train: dict, serve: dict) -> dict:
                    "peak_gb", "seconds_total")}}
                for r in ranks]}
     print("phase 19: " + json.dumps(out, default=str), flush=True)
+    out["audit22"] = [r["batcher"]["audit22"] for r in ranks]
     tr0 = ranks[0]["train"]
     print(f"phase 19: 19a SmolLM-135M {DP_STEPS} ZeRO-1 steps of 8 x "
           f"{TRAIN_SEQ} (4 a data rank), the params split over 'model' and "
@@ -4624,9 +4748,10 @@ def tp_serve(dev, mesh, ref15) -> dict:
         reset_counts()
         collectives.reset()
         t0 = time.perf_counter()
-        with CollectiveClock(ops) as clock, \
+        with collectives.recording() as records, \
+                CollectiveClock(ops) as clock, \
                 WalkProbe(engine, mesh, rows_sharded=False) as probe:
-            eng.run()
+            batcher_audit = run_audited(eng, "20a batcher")
             torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t0
     out.update(reqs=served(reqs), stats=served_stats(eng),
@@ -4644,6 +4769,8 @@ def tp_serve(dev, mesh, ref15) -> dict:
             f"20a: collectives {out['collectives']}, the code derives "
             f"{want} ({forwards} forwards of {per}, {len(probe.walks)} "
             f"walks and their same-input checks)")
+    out["audit22"] = {"batcher": batcher_audit, "walks": probe.audited,
+                      "run": audit_run(records, want, mesh, "20a", False)}
     require(out["reqs"] == ref15["batcher_reqs"],
             "20a: tokens or exit levels differ from 15e's batcher")
     require(out["stats"] == ref15["batcher_stats"],
@@ -4879,9 +5006,12 @@ def tp_moe(dev, mesh, ref16: dict) -> dict:
     out.update(calls=[], per_call_collectives=per_call)
     torch.cuda.reset_peak_memory_stats(dev)
     toks = []
-    with torch.no_grad(), CollectiveClock(engine, ops) as clock:
+    out["audit22"] = []
+    with torch.no_grad(), collectives.recording() as records, \
+            CollectiveClock(engine, ops) as clock:
         state = tok = None
         for i in range(1 + TP_DECODE_STEPS):
+            i0 = len(records)
             torch.cuda.synchronize()
             reset_counts()
             collectives.reset()
@@ -4908,6 +5038,9 @@ def tp_moe(dev, mesh, ref16: dict) -> dict:
             made = dict(collectives.COUNTS)
             require(made == per_call, f"20c call {i}: collectives {made}, "
                                       f"expected {per_call}")
+            # the MoE layers' aux means are float router sums
+            out["audit22"].append(audit_run(records[i0:], per_call, mesh,
+                                            f"20c call {i}", True))
             out["calls"].append({"ms": ms, "launches": n, "collectives": made,
                                  "collective_ms": (clock.seconds - c0) * 1e3})
     seqs = torch.cat(toks, 1).tolist()
@@ -5002,6 +5135,8 @@ def phase_tp(dev, train: dict, serve: dict, mix: dict) -> dict:
                    "backbone_bytes_whole", "kv_heads", "peak_gb")}}
                for r in moe]}
     print("phase 20: " + json.dumps(out, default=str), flush=True)
+    out["audit22"] = {"20a": [r["serve"]["audit22"] for r in ranks],
+                      "20c": [r["moe"]["audit22"] for r in moe]}
     tr0 = ranks[0]["train"]
     print(f"phase 20: 20a SmolLM-135M on {TP_SHAPE[0]} x {TP_SHAPE[1]}: "
           f"15e's requests in the 'specs' layout == 15e's batcher bit for "
@@ -5305,9 +5440,12 @@ def tpm_mixer(dev, mesh, arch: str, ref16: dict) -> dict:
     out.update(calls=[])
     torch.cuda.reset_peak_memory_stats(dev)
     toks = []
-    with torch.no_grad(), CollectiveClock(engine, ops) as clock:
+    out["audit22"] = []
+    with torch.no_grad(), collectives.recording() as records, \
+            CollectiveClock(engine, ops) as clock:
         state = tok = None
         for i in range(1 + TPM_STEPS):
+            i0 = len(records)
             torch.cuda.synchronize()
             reset_counts()
             collectives.reset()
@@ -5338,6 +5476,9 @@ def tpm_mixer(dev, mesh, arch: str, ref16: dict) -> dict:
             made = dict(collectives.COUNTS)
             require(made == per, f"21 {arch} call {i}: collectives {made}, "
                                  f"derived {per}")
+            # every row-parallel product is L2R: integer sums only
+            out["audit22"].append(audit_run(records[i0:], per, mesh,
+                                            f"21 {arch} call {i}", False))
             out["calls"].append({"ms": ms, "launches": n,
                                  "collectives": made,
                                  "collective_ms": (clock.seconds - c0) * 1e3})
@@ -5394,7 +5535,8 @@ def tpm_smollm(dev, mesh, ref: dict) -> dict:
         collectives.reset()
         t0 = time.perf_counter()
         # a data rank walks its own slots' rows: no same-input check
-        with CollectiveClock(ops) as clock, WalkProbe(
+        with collectives.recording() as records, \
+                CollectiveClock(ops) as clock, WalkProbe(
                 engine, mesh, rows_sharded=None, same_inputs=False) as probe:
             eng.run()
             torch.cuda.synchronize()
@@ -5415,6 +5557,8 @@ def tpm_smollm(dev, mesh, ref: dict) -> dict:
             f"21d: collectives {out['collectives']}, the code derives {want} "
             f"({st['prefills']} prefills, {st['steps']} steps of {per}, "
             f"{len(probe.walks)} walks)")
+    out["audit22"] = {"walks": probe.audited,
+                      "run": audit_run(records, want, mesh, "21d", False)}
     require(out["reqs"] == ref["reqs"],
             "21d: tokens or exit levels differ from the one-process batcher")
     require(out["stats"] == ref["stats"],
@@ -5670,6 +5814,8 @@ def phase_tp_mixers(dev, mix: dict) -> dict:
                             for k, fields in keep.items()}}
                         for r in ranks]}
     print("phase 21: " + json.dumps(out, default=str), flush=True)
+    out["audit22"] = {key: [r[key]["audit22"] for r in ranks]
+                      for key in [*archs, "smollm"]}
     r0 = ranks[0]
     for arch in archs:
         a = r0[arch]
@@ -5700,6 +5846,133 @@ def phase_tp_mixers(dev, mix: dict) -> dict:
           f"{t['launches']} B5 a step a rank; {out['seconds']:.1f} s",
           flush=True)
     return out
+
+
+AUDIT_NODES = {  # the kernel each cuda entry of the registry launches
+    "gemm/stacked/cuda": "l2r_stacked_gemm",
+    "gemm/streaming/cuda": "l2r_streaming_gemm",
+    "gemm/pairs/cuda": "l2r_pairs_gemm",
+}
+
+
+def audit_exactness_rows(dev) -> tuple[list[dict], dict]:
+    """22a: every registered entry but the split ones through the lint's
+    exactness pass on the card (the ``cpu`` entries on CPU tensors, the
+    ``cuda`` ones on the card with their result against the CPU run), and
+    the ``pairs`` schedule on the card as ``gemm/pairs/cuda`` (the
+    reference registers pairs on ``jnp`` only; B3 is audited here, not
+    registered).  Each cuda run launches its kernel once, seen as one
+    node; nothing else launches.  Returns the rows and the launches."""
+    import dataclasses
+
+    from repro_torch.analysis import lint, registry
+    from repro_torch.analysis.exactness import audit_exactness
+    from repro_torch.kernels import _build
+
+    entries = {e.name: e for e in registry.iter_entries()
+               if e.sharding is None}
+    rows, launched = [], {}
+    for name, e in entries.items():
+        reset_counts()
+        row = lint.pass_exactness([e], "cuda", allow_skips=False)[0]
+        rows.append(row)
+        n = {k: v for k, v in counts().items() if v}
+        want = {AUDIT_NODES[name]: 1} if e.device == "cuda" else {}
+        require(row["status"] == "ok", f"22a {name}: {row}")
+        require(row["kernel_nodes"] == want == n,
+                f"22a {name}: kernel nodes {row['kernel_nodes']}, launches "
+                f"{n}, expected {want}")
+        require(e.device != "cuda" or row["matches_cpu"],
+                f"22a {name}: the card's result differs from the CPU's")
+        for k, v in n.items():
+            launched[k] = launched.get(k, 0) + v
+    pairs = entries["gemm/pairs/cpu"]
+    contract = dataclasses.replace(pairs.contract, mode="kernel-int")
+    fn, args = pairs.build(device="cuda")
+    reset_counts()
+    rep = audit_exactness(fn, args, contract, entry="gemm/pairs/cuda")
+    n = {k: v for k, v in counts().items() if v}
+    cpu_fn, cpu_args = pairs.build(device="cpu")
+    same = torch.equal(rep.output.cpu(), cpu_fn(*cpu_args))
+    require(rep.ok and same and rep.kernel_nodes == n
+            == {"l2r_pairs_gemm": 1},
+            f"22a gemm/pairs/cuda: {rep.to_json()}, launches {n}, equal to "
+            f"the CPU's: {same}")
+    rows.append({"entry": "gemm/pairs/cuda", "device": "cuda",
+                 "status": "ok", "matches_cpu": same, **rep.to_json()})
+    launched["l2r_pairs_gemm"] = launched.get("l2r_pairs_gemm", 0) + 1
+    require(_build.AUDIT is None, "22a: the kernel hook is set after the "
+                                  "audits")
+    return rows, launched
+
+
+def phase_audit(dev, serve: dict, mesh: dict, dp: dict, tp: dict,
+                tpm: dict) -> dict:
+    """Phase 22: the lint's passes (analysis/lint.py) on the card, in this
+    process, and the audits the split phases made inside their ranks.
+    22a exactness (:func:`audit_exactness_rows`); 22b overflow: every
+    entry's digit config and ``audit_registry``'s 20 rows sound; 22c
+    15e's gateway (warmup coverage, prefill shapes) and the batchers of
+    15e, 19b and 20a (each run's second step taken by the in-place state
+    audit); 22d phase 18's walks and the registered split entries on its
+    2 x 2 mesh, 20a's and 21d's runs and walks, 20c's and 21a-c's calls,
+    each audited against its contract inside its rank.  Nothing is
+    caught: each audit raised where it ran."""
+    from repro_torch.analysis import lint, registry
+
+    t0 = time.perf_counter()
+    smi = card()
+    rows, launched = audit_exactness_rows(dev)
+    cuda_rows = [r for r in rows if r["device"] == "cuda"]
+    print(f"phase 22: 22a exactness ({smi}): {len(rows)} entries, 0 "
+          f"violations; on the card " + ", ".join(
+              f"{r['entry']} {r['kernel_nodes']} (= the CPU's bits: "
+              f"{r['matches_cpu']}, {r['eqns_checked']} ops recorded)"
+              for r in cuda_rows) + f"; launches {launched}", flush=True)
+    over = lint.pass_overflow(registry.iter_entries())
+    bad = [r["entry"] for r in over if r["status"] != "ok"]
+    require(not bad, f"22b: unsound {bad}")
+    n_cfg = sum(r["entry"].startswith("configs/") for r in over)
+    require(n_cfg == 20, f"22b: {n_cfg} audit_registry rows")
+    print(f"phase 22: 22b overflow: {len(over)} certificates sound "
+          f"({n_cfg} audit_registry rows: 10 archs x (head, attention))",
+          flush=True)
+    eng = serve["engines"]
+    batchers = [eng["audit22_batcher"], *dp["audit22"],
+                *(r["batcher"] for r in tp["audit22"]["20a"])]
+    require(all(b["ok"] for b in batchers) and eng["audit22_gateway"]["ok"],
+            "22c: an engine audit failed")
+    gw = eng["audit22_gateway"]
+    print(f"phase 22: 22c compiled: 15e gateway warmed {gw['warmed_buckets']}"
+          f" + decode, prefill shapes {gw['prefill_shapes']}; batchers (15e, "
+          f"19b x {len(dp['audit22'])} ranks, 20a x {len(tp['audit22']['20a'])}"
+          f" ranks) kept every state tensor's storage: " + ", ".join(
+              f"{b['entry']} {b['in_place']['n_kept']}/"
+              f"{b['in_place']['n_leaves']}" for b in batchers), flush=True)
+    walks = sum(r["walks_18a"]["walks"] + r["walks_18b"]["walks"]
+                for r in mesh["audit22"])
+    split = mesh["audit22"][0]["split_entries"]["sharding"]
+    runs = [a["run"] for key in ("20a",) for a in tp["audit22"][key]] \
+        + [a["run"] for a in tpm["audit22"]["smollm"]]
+    calls = [c for a in tp["audit22"]["20c"] for c in a] + [
+        c for key, per in tpm["audit22"].items() if key != "smollm"
+        for a in per for c in a]
+    walks += sum(a["walks"]["walks"] for a in tp["audit22"]["20a"]) + sum(
+        a["walks"]["walks"] for a in tpm["audit22"]["smollm"])
+    print(f"phase 22: 22d sharding: registered split entries on phase 18's "
+          f"2 x 2 mesh " + ", ".join(
+              f"{r['entry']} {r['collectives']}" for r in split)
+          + f"; {walks} full-width walks (18a, 18b, 20a, 21d on every rank) "
+          f"to the consensus contract; {len(runs)} whole runs (20a, 21d) "
+          f"and {len(calls)} calls (20c, 21a-c) to their derived counts, "
+          f"{sum(c['float_sums'] for c in runs + calls)} float sums (20c's "
+          f"router means only); 0 violations", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 22: {seconds:.1f} s in this process (22c and 22d ran in "
+          f"their phases: phase 18's split entries "
+          f"{max(r['split_entries_s'] for r in mesh['audit22']):.1f} s a "
+          f"rank)", flush=True)
+    return {"launches": launched, "seconds": seconds, "rows": rows}
 
 
 def tpm_summary(tpm: dict, lib: str) -> dict:
@@ -5837,6 +6110,49 @@ def decode_profiles(dev) -> dict:
     return out
 
 
+def hot_path(dev) -> dict:
+    """The serving hot path with no audit active, as phases 13a and 15e
+    run it: one decode step of 13a profiled (:func:`profile_forward`:
+    device ms and device events), and 15e's batcher over its requests,
+    served four times (the first run warms, the others are timed:
+    tokens/s).
+    Copied into an older checkout it measures that one."""
+    from repro_torch.serve import ContinuousBatcher
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg, params, _ = lm_model(dev)
+    batch = {"tokens": lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 130)}
+    with torch.no_grad():
+        state, logits = make_prefill_step(cfg, LM_PROMPT + LM_STEPS,
+                                          torch.float32)(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        decode = make_decode_step(cfg)
+        out = {"13a_decode_step": profile_forward(
+            lambda: decode(params, state, tok))}
+        del state, logits
+        torch.cuda.empty_cache()
+        runs = []
+        for _ in range(4):
+            eng = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                                    max_len=SERVE_MAX_LEN, progressive=True,
+                                    early_exit=True, device=dev)
+            reqs = serve_requests(cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            tokens = sum(len(r.output) for r in reqs)
+            runs.append({"tokens": tokens, "seconds": seconds,
+                         "tokens_per_s": tokens / seconds})
+            del eng
+            torch.cuda.empty_cache()
+    out["15e_batcher"] = runs
+    return out
+
+
 def mixer_profile(dev, arch: str) -> dict:
     """The device profiles of phase 16's ``arch`` in one process: its
     prefill of seed 162's prompts and one decode step after it, set up as
@@ -5874,6 +6190,12 @@ def main() -> int:
         print("decode profiles: " + json.dumps(
             {"card": smi, "src": str(ROOT / "src"),
              **decode_profiles(dev)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--hot-path"]:
+        _build.build_all()
+        print("hot path: " + json.dumps(
+            {"card": smi, "src": str(ROOT / "src"), **hot_path(dev)}),
+            flush=True)
         return 0
     if sys.argv[1:2] == ["--mixer-profile"] and len(sys.argv) == 3:
         _build.build_all()
@@ -5922,6 +6244,7 @@ def main() -> int:
     dp = phase_dp(dev, train, serve)
     tp = phase_tp(dev, train, serve, mix)
     tpm = phase_tp_mixers(dev, mix)
+    audit = phase_audit(dev, serve, mesh, dp, tp, tpm)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -5974,7 +6297,9 @@ def main() -> int:
                      mesh=mesh_summary(mesh, "l2r_stacked_gemm"),
                      dp=dp_summary(dp, "l2r_stacked_gemm"),
                      tp=tp_summary(tp, "l2r_stacked_gemm"),
-                     tp_mixers=tpm_summary(tpm, "l2r_stacked_gemm")),
+                     tp_mixers=tpm_summary(tpm, "l2r_stacked_gemm"),
+                     audit_launches=audit["launches"].get(
+                         "l2r_stacked_gemm", 0)),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -5999,12 +6324,16 @@ def main() -> int:
                      mesh=mesh_summary(mesh, "l2r_streaming_gemm"),
                      dp=dp_summary(dp, "l2r_streaming_gemm"),
                      tp=tp_summary(tp, "l2r_streaming_gemm"),
-                     tp_mixers=tpm_summary(tpm, "l2r_streaming_gemm")),
+                     tp_mixers=tpm_summary(tpm, "l2r_streaming_gemm"),
+                     audit_launches=audit["launches"].get(
+                         "l2r_streaming_gemm", 0)),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
                      f"(its 3 launches); launches over the 3 heads of "
-                     f"phase 5", weight=fc),
+                     f"phase 5", weight=fc,
+                     audit_launches=audit["launches"].get(
+                         "l2r_pairs_gemm", 0)),
         kernel_entry("flash_attention_l2r", b4["rows"], b4["launches"],
                      "the three SmolLM-135M attention calls of phase 11b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "

@@ -29,6 +29,10 @@ This module certifies that statically from the digit configuration:
   Mode comes from the ``L2R_CERTIFY`` env var: ``warn`` (default) emits an
   :class:`AccumulatorOverflowWarning` once per config, ``strict`` raises
   with the computed bound in the message, ``off`` skips the check.
+* :func:`audit_registry` — sweeps every config in
+  ``repro_torch.configs.registry`` and certifies each L2R contraction it
+  declares (head walk over ``d_model``, attention score walk over
+  ``head_dim``).
 
 Exactness of the k * M scaling: the per-element extreme M is achieved by
 some representable operand pair (x*, y*) at some prefix t*; aligning all
@@ -38,8 +42,7 @@ aligned entries.  So for ``n_bits <= 8`` the certificate is *tight* — an
 adversarial operand set achieving it exists (see
 tests/test_torch_quant.py::test_certificate_tightness_pair).
 
-A numpy-only copy of ``repro/analysis/overflow.py`` (the registry sweep
-stays with the JAX package, whose config registry it walks).
+A numpy-only copy of ``repro/analysis/overflow.py``.
 
 ``window_pad`` is accepted for interface completeness: window padding
 contributes all-zero digit planes, which add nothing to any level, so it
@@ -64,6 +67,7 @@ __all__ = [
     "per_element_extremes",
     "certify",
     "check_or_raise",
+    "audit_registry",
     "certify_mode",
     "INT32_LIMIT",
 ]
@@ -306,3 +310,35 @@ def check_or_raise(n_bits: int, log2_radix: int, k: int,
             _WARNED.add(key)
             warnings.warn(msg, AccumulatorOverflowWarning, stacklevel=3)
     return cert
+
+
+# ---------------------------------------------------------- config sweep
+def audit_registry() -> list[dict]:
+    """Certify the L2R contractions of every config in the arch registry.
+
+    For each arch this certifies the digit config its ``l2r`` /
+    ``attn_l2r`` switch runs — the declared ``QuantConfig`` when set, the
+    default otherwise (``declared`` records which) — at the arch's real
+    contraction lengths: the head walk over ``d_model`` (serve/engine.py
+    quantizes head weights with ``k = d_model``) and the attention score
+    walk over ``head_dim``.  Returns one report row per (arch, site).
+    """
+    # deferred: the configs pull in the models
+    from repro_torch.configs import registry
+    from repro_torch.core.quant import QuantConfig
+
+    rows = []
+    for arch in registry.ARCHS:
+        cfg = registry.get_config(arch)
+        sites = [
+            ("head", cfg.l2r, cfg.l2r_levels, cfg.d_model),
+            ("attention", cfg.attn_l2r, cfg.attn_levels, cfg.head_dim),
+        ]
+        for site, qc, levels, k in sites:
+            declared = qc is not None
+            if qc is None:
+                qc = QuantConfig()
+            cert = certify(qc.n_bits, qc.log2_radix, k, levels=levels)
+            rows.append({"arch": arch, "site": site, "declared": declared,
+                         **cert.to_json()})
+    return rows

@@ -3,13 +3,15 @@
 The port of ``repro/configs/registry.py``: the 10 assigned architectures
 x 4 shapes = 40 cells.  `long_500k` requires sub-quadratic attention: it
 runs for the SSM/hybrid/mostly-local archs and is a documented skip for
-the pure-full-attention ones.  The reference's ``input_specs`` (the XLA
-dry-run's abstract inputs) has no counterpart here.
+the pure-full-attention ones.  :func:`input_specs` gives a cell's inputs
+as tensors on the ``meta`` device (shapes and dtypes, no storage).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -18,7 +20,7 @@ from . import (deepseek_moe_16b, gemma3_27b, granite_8b,
                qwen2_vl_7b, recurrentgemma_2b, smollm_135m, whisper_base)
 
 __all__ = ["ARCHS", "SHAPES", "get_config", "get_smoke", "cell_supported",
-           "all_cells"]
+           "all_cells", "input_specs"]
 
 _MODULES = {
     "recurrentgemma-2b": recurrentgemma_2b,
@@ -77,3 +79,39 @@ def all_cells():
     for a in ARCHS:
         for s in SHAPES:
             yield a, s, *cell_supported(a, s)
+
+
+def input_specs(arch: str, shape: str, cfg: ModelConfig | None = None
+                ) -> dict:
+    """Every model input of this cell as an empty tensor on the ``meta``
+    device (its shape and dtype; nothing is allocated).
+
+    train/prefill: the full token (or stub-embedding) batch, with the
+    labels for train; decode: the current token (the cache or state
+    enters separately).
+    """
+    cfg = cfg or get_config(arch)
+    sp = SHAPES[shape]
+    b, s = sp.global_batch, sp.seq_len
+
+    def sd(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if sp.kind == "decode":
+        out = {"tokens": sd((b, 1), i32)}
+        if cfg.rope_mode == "mrope":
+            out["rope_positions"] = sd((3, b, 1), i32)
+        return out
+    if cfg.family == "encdec":
+        out = {"frames": sd((b, cfg.encoder_seq, cfg.d_model), bf16),
+               "tokens": sd((b, s), i32)}
+    elif cfg.embeds_input:  # vlm stub: precomputed patch/text embeddings
+        out = {"embeds": sd((b, s, cfg.d_model), bf16)}
+        if cfg.rope_mode == "mrope":
+            out["rope_positions"] = sd((3, b, s), i32)
+    else:
+        out = {"tokens": sd((b, s), i32)}
+    if sp.kind == "train":
+        out["labels"] = sd((b, s), i32)
+    return out

@@ -36,7 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.collectives import (TAG_CONSENSUS, TAG_MAX,
+                                              TAG_MIN, all_reduce, tag)
 
 __all__ = [
     "MODE_EXACT",
@@ -257,10 +258,12 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
     dp_group = mesh.group(dp) if dp else None
 
     def reduce(op: str, *rows):
-        """``rows`` (each (M_l,)) reduced over the model group at once."""
+        """``rows`` (each (M_l,)) reduced over the model group at once,
+        tagged ``l2r_coll_max`` / ``l2r_coll_min``."""
         if model_group is None:
             return rows
-        return tuple(all_reduce(torch.stack(rows), op, model_group))
+        with tag(TAG_MAX if op == "max" else TAG_MIN):
+            return tuple(all_reduce(torch.stack(rows), op, model_group))
 
     def first_index(vals, vmax_l, vmax):
         """The first index achieving the row maximum ``vmax``
@@ -322,7 +325,8 @@ def head_walk_machinery(bounds_f32, xsf, wsr, bias, out_dtype, *,
         if early_exit:
             n_done = done.sum().to(torch.int32)
             if dp_group is not None:
-                n_done = all_reduce(n_done, "sum", dp_group)
+                with tag(TAG_CONSENSUS):
+                    n_done = all_reduce(n_done, "sum", dp_group)
             all_done = n_done == m_global
         else:
             all_done = torch.zeros((), dtype=torch.bool, device=dev)

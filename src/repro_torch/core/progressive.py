@@ -52,7 +52,8 @@ import torch
 from repro_torch.device import no_tf32
 from repro_torch.sharding import ctx
 from repro_torch.sharding.axes import dp_axes
-from repro_torch.sharding.collectives import all_gather
+from repro_torch.sharding.collectives import (TAG_GATHER, all_gather,
+                                              level_loop, tag)
 
 from .l2r_gemm import _f32_dot_exact, _int_dot, wrap_int32
 from .online import msdf_levels, tail_bound
@@ -271,12 +272,13 @@ def scan_plain(aq, bq, fold: Callable | None = None, init=None,
     fold_c, snaps = init, []
     if svals:
         term = _stream_setup(aq, bq, n_bits, log2_radix)
-    for t, (ao, bo, s) in enumerate(zip(a_off, b_off, svals)):
-        acc = _shift_add(acc, term(ao, bo), log2_radix * s)
-        if fold is not None:
-            fold_c = fold(fold_c, acc, t)
-        if emit:
-            snaps.append(acc)
+    with level_loop():
+        for t, (ao, bo, s) in enumerate(zip(a_off, b_off, svals)):
+            acc = _shift_add(acc, term(ao, bo), log2_radix * s)
+            if fold is not None:
+                fold_c = fold(fold_c, acc, t)
+            if emit:
+                snaps.append(acc)
     stack = None
     if emit:
         stack = torch.stack(snaps) if snaps else \
@@ -317,8 +319,9 @@ def streaming_matmul_scan(
     lead, n = _lhs_lead(aq), _rhs_n(bq)
     fold_c = init
     if fold is not None:
-        for t in range(stream.shape[0]):
-            fold_c = fold(fold_c, stream[t], t)
+        with level_loop():
+            for t in range(stream.shape[0]):
+                fold_c = fold(fold_c, stream[t], t)
     if stream.shape[0] == 0:
         acc = torch.zeros((*lead, n), dtype=torch.int32,
                           device=stream.device)
@@ -334,12 +337,13 @@ def _while_emitter(advance: Callable, n_steps: int, acc0: torch.Tensor,
     read on the host before each further level.  Returns ``(levels_run,
     acc, fold_carry)``."""
     t, acc, fold_c = 0, acc0, init
-    while t < n_steps and not (done_fn is not None
-                               and bool(done_fn(fold_c))):
-        acc = advance(acc, t)
-        if fold is not None:
-            fold_c = fold(fold_c, acc, t)
-        t += 1
+    with level_loop():
+        while t < n_steps and not (done_fn is not None
+                                   and bool(done_fn(fold_c))):
+            acc = advance(acc, t)
+            if fold is not None:
+                fold_c = fold(fold_c, acc, t)
+            t += 1
     return t, acc, fold_c
 
 
@@ -669,11 +673,13 @@ def _streaming_argmax_sharded(xq, wq, xs, ws, n_bits, log2_radix, levels,
             xq, wq, fold, init, n_bits, log2_radix, levels,
             cuda_walk=cuda_walk)
     logits, tok, lv = finalize(acc, carry)
-    if model_ax:
-        logits = all_gather(logits, mesh.group(model_ax), dim=-1)
-    if dp:
-        logits = all_gather(logits, mesh.group(dp), dim=0)
-        tok, lv = all_gather(torch.stack([tok, lv]), mesh.group(dp), dim=1)
+    with tag(TAG_GATHER):
+        if model_ax:
+            logits = all_gather(logits, mesh.group(model_ax), dim=-1)
+        if dp:
+            logits = all_gather(logits, mesh.group(dp), dim=0)
+            tok, lv = all_gather(torch.stack([tok, lv]), mesh.group(dp),
+                                 dim=1)
     return logits, tok, lv
 
 

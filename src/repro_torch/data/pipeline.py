@@ -2,7 +2,7 @@
 
 The port of ``repro/data/pipeline.py``, a copy: batches are numpy, drawn
 from ``np.random.SeedSequence``, equal to the reference's bit for bit.
-``lm_spec_batch`` (abstract shapes for the XLA dry run) is not ported.
+``lm_spec_batch`` gives a batch's shapes as ``meta`` tensors.
 
 A production run would wire a tokenized corpus here; the pipeline
 substrate (deterministic sharding, packing, resumable cursor, elastic
@@ -18,8 +18,10 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
-__all__ = ["DataConfig", "ShardedPipeline", "synthetic_batch"]
+__all__ = ["DataConfig", "ShardedPipeline", "synthetic_batch",
+           "lm_spec_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +88,11 @@ class ShardedPipeline:
         self.shard = int(d["shard"])
         self.n_shards = int(d["n_shards"])
 
+
+
+def lm_spec_batch(vocab: int, seq_len: int, global_batch: int) -> dict:
+    """A token batch's inputs as empty ``meta`` tensors (shapes and
+    dtypes for a dry run; nothing is allocated)."""
+    del vocab
+    return {k: torch.empty((global_batch, seq_len), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}

@@ -10,6 +10,11 @@ into ``build/repro_torch/<name>-<hash>/`` at the repository root, keyed by
 a hash of the source, the headers beside it and the flags, at first use.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.  A failed build raises with
 ``nvcc``'s stderr; nothing falls back.  Nothing here runs at import time.
+
+:data:`AUDIT` is the one place an exactness audit (analysis/exactness.py)
+sees a kernel: None unless an audit records, else called after each
+launch as ``AUDIT(name, reads, writes)`` with the tensors the kernel read
+as operands and the tensors it wrote.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["sources", "build_all", "load", "launch", "BUILD_DIR"]
+__all__ = ["sources", "build_all", "load", "launch", "note_launch",
+           "BUILD_DIR", "AUDIT"]
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -32,6 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+
+#: the kernel hook of an active exactness audit (None: no audit records)
+AUDIT = None
 
 
 def sources() -> dict[str, Path]:
@@ -104,10 +113,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, argtypes: list, dev, what: str, *args) -> None:
+def note_launch(name: str, reads: tuple, writes: tuple) -> None:
+    """Tell an active audit that kernel ``name`` read ``reads`` (its
+    operands) and wrote ``writes``; nothing when no audit records."""
+    if AUDIT is not None:
+        AUDIT(name, reads, writes)
+
+
+def launch(name: str, argtypes: list, dev, what: str, *args,
+           reads: tuple = (), writes: tuple = ()) -> None:
     """Call the C entry ``name`` of ``csrc/<name>.cu`` (built on first use)
     with ``args`` and the current stream of the card ``dev``.  The entry
-    returns a ``cudaError_t``; anything but 0 raises, naming ``what``."""
+    returns a ``cudaError_t``; anything but 0 raises, naming ``what``.
+    ``reads`` and ``writes`` (the operand and output tensors behind the
+    pointers) go to :data:`AUDIT` when an audit records."""
     import torch
 
     fn = _FNS.get(name)
@@ -120,3 +139,4 @@ def launch(name: str, argtypes: list, dev, what: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)}, {what})")
+    note_launch(name, reads, writes)

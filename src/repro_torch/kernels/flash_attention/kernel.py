@@ -194,7 +194,8 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, skv, h, kvh, dh, int(causal),
                   int(window is not None), window or 0, scale,
-                  int(q.dtype == torch.bfloat16))
+                  int(q.dtype == torch.bfloat16), reads=(q, k, v),
+                  writes=(out,))
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -321,7 +322,8 @@ def flash_attention_l2r_launch(ops, dh: int, n_bits: int = 8,
         v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, width,
         int(causal), int(window is not None), window or 0, scale, len(masks),
         arr(*(ma for ma, _ in masks)), arr(*(mb for _, mb in masks)),
-        int(v.dtype == torch.bfloat16))
+        int(v.dtype == torch.bfloat16), reads=(qq, qs, kq, ks, v),
+        writes=(out,))
     LAUNCHES["flash_attention_l2r"] += 1
     return out
 

@@ -99,8 +99,10 @@ def _unshift(stack: torch.Tensor, side: str, n_bits: int, log2_radix: int,
     return po.core_stack(shifted=False)
 
 
-def _launch(name: str, dev: torch.device, shape: str, *args) -> None:
-    _build.launch(name, _ARGTYPES[name], dev, shape, *args)
+def _launch(name: str, dev: torch.device, shape: str, reads: tuple,
+            writes: tuple, *args) -> None:
+    _build.launch(name, _ARGTYPES[name], dev, shape, *args, reads=reads,
+                  writes=writes)
     LAUNCHES[name] += 1
 
 
@@ -303,8 +305,8 @@ def l2r_gemm_stacked_planes(
         return c
     bt, ldb = _k_major(b_rev)
     _launch("l2r_stacked_gemm", a_stack.device, f"M={m} K={k} N={n}",
-            a_stack.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n,
-            a_stack.shape[1], ldb, d, k, *plan)
+            (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
+            c.data_ptr(), m, n, a_stack.shape[1], ldb, d, k, *plan)
     return c
 
 
@@ -401,9 +403,9 @@ def l2r_gemm_streaming_planes(
     bt, ldb = _k_major(b_rev)
     tile, splits = streaming_plan(m, n, k, _sm_count(dev))
     _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
-            a_stack.data_ptr(), bt.data_ptr(), c.data_ptr(), m, n,
-            a_stack.shape[1], ldb, d, k, n_lv, cnt.data_ptr(), tile, splits,
-            int(out is not None))
+            (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
+            c.data_ptr(), m, n, a_stack.shape[1], ldb, d, k, n_lv,
+            cnt.data_ptr(), tile, splits, int(out is not None))
     return c
 
 
@@ -441,5 +443,6 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
         return torch.zeros((m, n), dtype=torch.int32, device=aq.device)
     c = torch.empty((m, n), dtype=torch.int32, device=aq.device)
     _launch("l2r_pairs_gemm", aq.device, f"M={m} K={k} N={n}",
-            aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m, n, k, *plan)
+            (aq, bq), (c,), aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m,
+            n, k, *plan)
     return c

@@ -79,6 +79,6 @@ def cipu_array(a: torch.Tensor, b: torch.Tensor,
         return out
     _build.launch("cipu_array", _ARGTYPES, a.device,
                   f"M={m} k={k} n_bits={n_bits}", a.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), m, k, n_bits)
+                  out.data_ptr(), m, k, n_bits, reads=(a, b), writes=(out,))
     LAUNCHES["cipu_array"] += 1
     return out

@@ -54,6 +54,9 @@ class Mesh:
         self.size = math.prod(self.shape.values())
         self.rank = rank
         self._groups = groups or {}
+        if self._groups:
+            from repro_torch.sharding.collectives import name_groups
+            name_groups(self._groups)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"

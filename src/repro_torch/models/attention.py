@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.kernel import _MAX_DH
 from repro_torch.sharding import ctx
-from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.collectives import TAG_CONSENSUS, all_reduce, tag
 
 __all__ = [
     "apply_rope",
@@ -577,7 +577,8 @@ def _global_done(done_fn):
 
     def done(carry):
         flag = done_fn(carry).to(torch.int32).reshape(1)
-        return all_reduce(flag, "min", group)[0] > 0
+        with tag(TAG_CONSENSUS):
+            return all_reduce(flag, "min", group)[0] > 0
 
     return done
 

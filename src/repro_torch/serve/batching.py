@@ -393,6 +393,8 @@ class ContinuousBatcher:
             self._bucket_prefill = make_bucket_prefill_step(
                 cfg, max_len, cache_dtype, **step_kw)
         self.steps = 0
+        # the (rows, length) shapes of every prefill call
+        self.prefill_shapes: set[tuple[int, int]] = set()
         # saved-levels accounting (progressive mode): histograms over the
         # exit level of every decoded token and of every streamed prefill
         # head, in total and per precision class
@@ -447,12 +449,14 @@ class ContinuousBatcher:
                 if self.progressive else None)
         if self.bucketed:
             lb = bucket_for(len(prompt), self._buckets)
+            self.prefill_shapes.add((1, lb))
             padded = np.zeros((1, lb), np.int32)
             padded[0, :len(prompt)] = prompt
             return self._bucket_prefill(
                 self.params, torch.from_numpy(padded).to(self.device),
                 torch.tensor([len(prompt)], dtype=torch.int32,
                              device=self.device), pol1)
+        self.prefill_shapes.add((1, len(prompt)))
         return self._prefill1(
             self.params,
             {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)},

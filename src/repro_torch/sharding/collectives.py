@@ -32,6 +32,7 @@ of them in the same order.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -39,7 +40,10 @@ import torch.distributed as dist
 
 from repro_torch.core.l2r_gemm import wrap_int32
 
-__all__ = ["COUNTS", "reset", "all_reduce", "all_gather", "gather_columns",
+__all__ = ["COUNTS", "reset", "Record", "recording", "active_records",
+           "tag", "level_loop", "name_groups", "TAG_MAX", "TAG_MIN",
+           "TAG_CONSENSUS", "TAG_GATHER", "TAG_SUM_INT", "all_reduce",
+           "all_gather", "gather_columns",
            "all_reduce_many", "all_to_all", "sum_forward", "split_rows",
            "gather_rows", "gather_slices", "copy_in", "reduce_scatter",
            "sum_int", "gather_channels", "copy_in_columns"]
@@ -50,9 +54,127 @@ _OPS = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
         "sum": dist.ReduceOp.SUM}
 
 
+#: the tags of the level walks' collectives (the reference's names,
+#: repro/core/policy.py COLL_TAG_*), of their result gathers, and of the
+#: row-parallel product's exact integer sum
+TAG_MAX = "l2r_coll_max"
+TAG_MIN = "l2r_coll_min"
+TAG_CONSENSUS = "l2r_coll_consensus"
+TAG_GATHER = "l2r_coll_gather"
+TAG_SUM_INT = "l2r_coll_sum_int"
+
+
 def reset() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Record:
+    """One collective as it ran: ``op`` ("all_reduce", "all_gather" or
+    "all_to_all"), ``reduce_op`` ("max", "min", "sum"; None for the
+    others), the dtype and bytes of this rank's operand, the group's
+    axis names (``"model"``, ``"data"``, ``"data,model"``; "?" for a
+    group no mesh named) and size, whether it ran inside a level loop
+    (and which loop: ``walk``, counted from 0 in the recording), the
+    innermost :func:`tag` ("" untagged), and ``taint``, the exactness
+    taint of the operand where a taint audit runs (else None)."""
+
+    op: str
+    reduce_op: str | None
+    dtype: str
+    nbytes: int
+    group: str
+    group_size: int
+    in_loop: bool
+    walk: int | None
+    tag: str
+    taint: str | None = None
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+#: the recorder's list (None: nothing records) and the taint callback
+#: of an active taint audit (tensor -> taint)
+_REC: dict = {"records": None, "taint": None, "walks": 0}
+_TAGS: list[str] = []
+_LOOP: list[int] = []  # the walk index of each open level loop
+_GROUP_NAMES: dict = {}
+
+
+class recording:
+    """``with recording() as records:`` appends a :class:`Record` of every
+    collective issued inside to ``records`` (``taint``: a callable that
+    gives an operand's taint, set by a taint audit).  Not reentrant."""
+
+    def __init__(self, taint=None):
+        self.records: list[Record] = []
+        self.taint = taint
+
+    def __enter__(self) -> list[Record]:
+        if _REC["records"] is not None:
+            raise RuntimeError("a collective recording is already active")
+        _REC.update(records=self.records, taint=self.taint, walks=0)
+        return self.records
+
+    def __exit__(self, *exc) -> None:
+        _REC.update(records=None, taint=None)
+
+
+def active_records() -> list | None:
+    """The list an active :func:`recording` appends to, else None."""
+    return _REC["records"]
+
+
+class tag:
+    """``with tag(name):`` tags the collectives issued inside (the
+    innermost tag wins)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _TAGS.append(self.name)
+
+    def __exit__(self, *exc):
+        _TAGS.pop()
+
+
+class level_loop:
+    """``with level_loop():`` marks a walk's level loop: a collective
+    issued inside is a per-level one of that walk."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        _LOOP.append(_REC["walks"])
+        _REC["walks"] += 1
+
+    def __exit__(self, *exc):
+        _LOOP.pop()
+
+
+def name_groups(groups: dict) -> None:
+    """Name process groups for the recorder: ``groups`` maps a tuple of
+    axis names to its group (launch/mesh.py:Mesh does this)."""
+    for names, pg in groups.items():
+        if pg is not None:
+            _GROUP_NAMES[pg] = ",".join(names)
+
+
+def _record(op: str, reduce_op: str | None, x: torch.Tensor, group) -> None:
+    taint = _REC["taint"]
+    _REC["records"].append(Record(
+        op=op, reduce_op=reduce_op, dtype=str(x.dtype).replace("torch.", ""),
+        nbytes=x.numel() * x.element_size(),
+        group=_GROUP_NAMES.get(group, "?"),
+        group_size=dist.get_world_size(group), in_loop=bool(_LOOP),
+        walk=_LOOP[-1] if _LOOP else None,
+        tag=_TAGS[-1] if _TAGS else "",
+        taint=None if taint is None else taint(x)))
 
 
 def _host_staged(x: torch.Tensor, group) -> bool:
@@ -63,6 +185,8 @@ def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     """``x`` reduced elementwise over ``group`` with ``op`` ("max", "min"
     or "sum"), as a new tensor on ``x``'s device."""
     COUNTS["all_reduce"] += 1
+    if _REC["records"] is not None:
+        _record("all_reduce", op, x, group)
     staged = _host_staged(x, group)
     y = x.cpu() if staged else x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=_OPS[op], group=group)
@@ -73,6 +197,8 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in group-rank order,
     on ``x``'s device."""
     COUNTS["all_gather"] += 1
+    if _REC["records"] is not None:
+        _record("all_gather", None, x, group)
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
     parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
@@ -112,6 +238,8 @@ def all_reduce_many(xs: list[torch.Tensor], op: str, group
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     COUNTS["all_to_all"] += 1
+    if _REC["records"] is not None:
+        _record("all_to_all", None, x, group)
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
     out = torch.empty_like(y)
@@ -281,8 +409,10 @@ def sum_int(x: torch.Tensor, group) -> torch.Tensor:
     """The group's sum of the int32 ``x`` as an int32 accumulator holds
     it: summed in int64 and narrowed mod 2^32 on purpose (a K-split
     integer product then equals the one-rank product, wrap included;
-    gloo's own int32 arithmetic is not relied on)."""
-    return wrap_int32(all_reduce(x.to(torch.int64), "sum", group))
+    gloo's own int32 arithmetic is not relied on).  Tagged
+    :data:`TAG_SUM_INT`."""
+    with tag(TAG_SUM_INT):
+        return wrap_int32(all_reduce(x.to(torch.int64), "sum", group))
 
 
 class _GatherChannels(torch.autograd.Function):

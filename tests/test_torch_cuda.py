@@ -1529,3 +1529,72 @@ def test_b5_on_whisper_rank_heads(dev, m, dtype, sq, skv, causal):
                                  k[:, :, h].contiguous(),
                                  v[:, :, h].contiguous(), causal=causal)
         assert torch.equal(got, full[:, :, h]), j
+
+
+# ------------------------------------------------ the exactness audit
+def _cuda_entries():
+    from repro_torch.analysis.registry import iter_entries
+    return [e.name for e in iter_entries() if e.device == "cuda"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _cuda_entries())
+def test_cuda_registry_entry_audits_clean_as_one_node(dev, name):
+    """Each ``cuda`` entry of analysis/registry.py on the card: zero
+    violations, its kernel seen as exactly one node (B1 for stacked, B2
+    for streaming), the result equal to the entry's CPU run bit for
+    bit, and the kernel hook unset afterwards."""
+    from repro_torch.analysis.exactness import audit_exactness
+    from repro_torch.analysis.registry import iter_entries
+    from repro_torch.kernels import _build
+
+    e = next(x for x in iter_entries() if x.name == name)
+    fn, args = e.build(device="cuda")
+    rep = audit_exactness(fn, args, e.contract, entry=name)
+    assert rep.ok, [v.to_json() for v in rep.violations]
+    want = "l2r_stacked_gemm" if "stacked" in name else "l2r_streaming_gemm"
+    assert rep.kernel_nodes == {want: 1}
+    cpu_fn, cpu_args = e.build(device="cpu")
+    assert torch.equal(rep.output.cpu(), cpu_fn(*cpu_args))
+    assert _build.AUDIT is None
+
+
+@pytest.mark.cuda
+def test_pairs_schedule_on_the_card_is_one_b3_node(dev):
+    import dataclasses
+
+    from repro_torch.analysis.exactness import audit_exactness
+    from repro_torch.analysis.registry import iter_entries
+
+    e = next(x for x in iter_entries() if x.name == "gemm/pairs/cpu")
+    fn, args = e.build(device="cuda")
+    rep = audit_exactness(fn, args,
+                          dataclasses.replace(e.contract, mode="kernel-int"))
+    assert rep.ok and rep.kernel_nodes == {"l2r_pairs_gemm": 1}
+
+
+@pytest.mark.cuda
+def test_f32_product_with_tf32_allowed_is_flagged_on_the_card(dev):
+    """An f32 product of int8 digits on the card with TF32 allowed is
+    not bit-exact: flagged; with TF32 off (repro_torch.device.no_tf32)
+    the same product is the guarded fast path."""
+    from repro_torch.analysis.exactness import (ExactnessContract,
+                                                audit_exactness)
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import _build
+
+    a, b = _ints(dev, 16, 64, 32, 8)
+
+    def walk(x, y):
+        return (x.to(torch.float32) @ y.to(torch.float32)).to(torch.int32)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        rep = audit_exactness(walk, (a, b), ExactnessContract(k=64))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert not rep.ok and "TF32" in rep.violations[0].reason
+    with no_tf32():
+        assert audit_exactness(walk, (a, b), ExactnessContract(k=64)).ok
+    assert _build.AUDIT is None
