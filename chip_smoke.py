@@ -266,6 +266,20 @@ Phases (any failure exits non-zero; nothing is caught):
      against the counts the code derives (no undeclared gather, no float
      SUM but 20c's router means), and the registered split entries on
      phase 18's 2 x 2 mesh at the registry's shapes.
+ 23. the dry run and the examples: 23a launch/dryrun.py's meta steps
+     (no launch: the meta device) against this run's card: 13a's
+     prepared params and f32 state bytes equal the live tensors' exactly,
+     the predicted peaks of 13a's prefill and 17a's training step printed
+     beside ``torch.cuda.max_memory_allocated`` with their ratio (not
+     gated), the roofline bound of 13a's prefill beside its measured
+     time; for each rank of phase 21's mamba2-130m, recurrentgemma-2b
+     and whisper-base the params and state bytes (held_layouts,
+     engine.local_state) equal phase 21's and the meta prefill's
+     collectives equal the rank's records one for one.  23b the nine
+     examples of examples/torch/ in parallel processes (started before
+     23a), each with ``--device cuda`` (train_smollm ``--steps 100``):
+     exit 0 within EXAMPLE_TIMEOUT_S and the kernels each reaches
+     launched (EXAMPLE_KERNELS); each one's seconds and the phase's.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
@@ -314,9 +328,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM data sheet, dense: int8 tensor-core rate and HBM3 bandwidth
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
+# the card's data-sheet rates (H100 SXM, dense), from their one home
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S as PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_INT8_OPS,
+    PEAK_TF32_FLOPS)
+
 BATCH = 8
 RAGGED = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (17, 48, 33),
           (300, 128, 96)]
@@ -1154,9 +1170,6 @@ def phase_resize(dev) -> dict:
 
 
 # ------------------------------------------------------------------ slice 3
-# H100 SXM data sheet, dense: bf16 and TF32 tensor cores
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
 # CUDA C++ Programming Guide, throughput of native arithmetic instructions,
 # compute capability 9.0: results per clock per SM
 INT32_PER_CLK_SM, POPC_PER_CLK_SM = 64, 16
@@ -1673,6 +1686,7 @@ def phase_lm(dev) -> dict:
     import dataclasses
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models.transformer import (init_lm_state, lm_forward,
                                                 logits_from_hidden)
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
@@ -1689,6 +1703,9 @@ def phase_lm(dev) -> dict:
         reset_counts()
         state, logits = prefill(params, batch)
         torch.cuda.synchronize()
+        prefill_peak = torch.cuda.max_memory_allocated(dev)
+        live = {"param_bytes": tree_bytes(params),
+                "state_bytes": tree_bytes(state)}
         n = counts()
         require(n == only(l2r_stacked_gemm=B1_PER_STEP,
                           flash_attention=B5_PER_PREFILL),
@@ -1737,7 +1754,8 @@ def phase_lm(dev) -> dict:
            "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
            "tokens_per_s": LM_BATCH * LM_STEPS
            / (prefill_ms + LM_STEPS * step_ms) * 1e3,
-           "peak_memory_gb": peak_gb,
+           "peak_memory_gb": peak_gb, "prefill_peak_bytes": prefill_peak,
+           **live,
            "launches_per_prefill": {"B1": B1_PER_STEP, "B5": B5_PER_PREFILL},
            "launches_per_decode_step": {"B1": B1_PER_STEP},
            "launches": launched}
@@ -3162,7 +3180,8 @@ def train_smollm(dev) -> dict:
                  if torch.equal(a, b)]
         require(not still, f"train step {i}: leaves {still} did not move")
         params, opt = new_p, new_o
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    peak_gb = peak_bytes / 1e9
     batch = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
     prof = profile_forward(lambda: step(params, opt, batch))
     warm = statistics.median(times[2:])
@@ -3171,7 +3190,8 @@ def train_smollm(dev) -> dict:
            "xent_chunk": TRAIN_XENT, "step_ms": times,
            "warm_step_ms": warm,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / warm * 1e3,
-           "peak_memory_gb": peak_gb, "losses": losses,
+           "peak_memory_gb": peak_gb, "peak_memory_bytes": peak_bytes,
+           "losses": losses,
            "grad_norms": gnorms,
            "launches": launched, "launches_per_step": B5_PER_TRAIN_STEP,
            "profile": prof}
@@ -5029,6 +5049,7 @@ def tp_moe(dev, mesh, ref16: dict) -> dict:
                 tok = torch.argmax(logits, -1).to(torch.int32)
                 out["prefill_logits_checksum"] = float(tree_checksum(
                     [logits.float()]).item())
+                out["prefill_records"] = [r.to_json() for r in records]
                 out["kv_heads"] = int(state.stack[0].k.shape[-2])
             toks.append(tok)
             n = counts()
@@ -5464,6 +5485,7 @@ def tpm_mixer(dev, mesh, arch: str, ref16: dict) -> dict:
                 tok = torch.argmax(logits, -1).to(torch.int32)
                 out["prefill_logits_checksum"] = float(tree_checksum(
                     [logits.float()]).item())
+                out["prefill_records"] = [r.to_json() for r in records]
             toks.append(tok)
             n = counts()
             want = only(l2r_stacked_gemm=b1p if i == 0 else b1s,
@@ -5816,6 +5838,8 @@ def phase_tp_mixers(dev, mix: dict) -> dict:
     print("phase 21: " + json.dumps(out, default=str), flush=True)
     out["audit22"] = {key: [r[key]["audit22"] for r in ranks]
                       for key in [*archs, "smollm"]}
+    out["records21"] = {arch: [r[arch]["prefill_records"] for r in ranks]
+                        for arch in archs}
     r0 = ranks[0]
     for arch in archs:
         a = r0[arch]
@@ -5973,6 +5997,269 @@ def phase_audit(dev, serve: dict, mesh: dict, dp: dict, tp: dict,
           f"{max(r['split_entries_s'] for r in mesh['audit22']):.1f} s a "
           f"rank)", flush=True)
     return {"launches": launched, "seconds": seconds, "rows": rows}
+
+
+# ------------------------------------------------------------------ slice 17
+# the dry run (src/repro_torch/launch/dryrun.py) held against what the
+# card measured in this run (23a), and the nine examples of
+# examples/torch/ on the card (23b)
+EXAMPLES_DIR = ROOT / "examples" / "torch"
+EXAMPLE_KERNELS = {  # example: the kernels it must launch on the card
+    "quickstart": ("B1", "B6"),  # act 4's GEMM, act 1's PE array
+    "vgg16_inference": ("B1",),
+    "progressive_precision": ("B1", "B2", "B5"),  # early exit, scan, prefill
+    "progressive_attention": ("B4",),  # the attn_l2r prefills
+    "serve_decode": ("B1", "B5"),
+    "serve_gateway": ("B1", "B5"),
+    "train_smollm": ("B5",),
+    "precision_policies": ("B1", "B2", "B5"),
+    "exactness_audit": ("B1",),  # the kernel-int entry gemm/stacked/cuda
+}
+EXAMPLE_ARGS = {"train_smollm": ["--steps", "100"]}  # 300 by default
+EXAMPLE_TIMEOUT_S = 600
+# an example's main(["--device", "cuda", *its EXAMPLE_ARGS]), imported
+# from its directory (so the ranks serve_decode spawns import it by name),
+# then the launch counts of this process
+EXAMPLE_RUNNER = (
+    "import json, sys\n"
+    "sys.path[:0] = ['src', sys.argv[1]]\n"
+    "__import__(sys.argv[2]).main(['--device', 'cuda', *sys.argv[3:]])\n"
+    "from repro_torch.kernels import flash_attention, msdf_ipu\n"
+    "from repro_torch.kernels.l2r_gemm import kernel\n"
+    "print('launches: ' + json.dumps({**kernel.LAUNCHES, **msdf_ipu.LAUNCHES,"
+    " **flash_attention.LAUNCHES}))\n")
+
+
+def start_examples() -> dict:
+    """23b: every example of examples/torch/ started at once, each in a
+    process of its own on the card, its output to a temporary file."""
+    import tempfile
+
+    procs = {}
+    for path in sorted(EXAMPLES_DIR.glob("*.py")):
+        log = tempfile.TemporaryFile(mode="w+")
+        procs[path.stem] = (time.perf_counter(), log, subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_RUNNER, str(EXAMPLES_DIR),
+             path.stem, *EXAMPLE_ARGS.get(path.stem, [])], cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT, text=True))
+    require(sorted(procs) == sorted(EXAMPLE_KERNELS),
+            f"examples {sorted(procs)}, expected {sorted(EXAMPLE_KERNELS)}")
+    return procs
+
+
+def stop_examples(procs: dict) -> None:
+    for _, log, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_examples(procs: dict) -> dict:
+    """23b: each example exited 0 within EXAMPLE_TIMEOUT_S and launched
+    the kernels it reaches (its seconds: from its start to its exit, or
+    to this call where it exited before: 23a runs first); every process
+    is stopped before this returns."""
+    ids = {name: kid for name, (kid, _, _) in KERNELS.items()}
+    ends: dict = {}
+    t_end = min(t0 for t0, _, _ in procs.values()) + EXAMPLE_TIMEOUT_S
+    try:
+        while len(ends) < len(procs) and time.perf_counter() < t_end:
+            for name, (t0, _, proc) in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+        out, failed = {}, []
+        for name, (_, log, proc) in procs.items():
+            log.seek(0)
+            text = log.read()
+            line = [x for x in text.splitlines()
+                    if x.startswith("launches: ")]
+            launched = {ids[k]: v for k, v in json.loads(
+                line[-1][len("launches: "):]).items()} if line else {}
+            missing = [k for k in EXAMPLE_KERNELS[name]
+                       if not launched.get(k)]
+            out[name] = {"exit_code": proc.poll(),
+                         "seconds": ends.get(name),
+                         "args": EXAMPLE_ARGS.get(name, []),
+                         "launches": launched, "missing": missing}
+            if proc.poll() != 0 or missing:
+                failed.append(name)
+                print(f"phase 23b: {name} failed (exit {proc.poll()}, "
+                      f"missing {missing}):\n{text[-3000:]}", flush=True)
+    finally:
+        stop_examples(procs)
+    require(not failed, f"23b: examples {failed} failed, ran past "
+                        f"{EXAMPLE_TIMEOUT_S} s or did not launch their "
+                        f"kernels")
+    return out
+
+
+def dry_lm(lm: dict, train: dict) -> dict:
+    """23a, one process: the dry run's meta steps of SmolLM-135M at 13a's
+    shapes (the prefill on the prepared params) and 17a's (the training
+    step), against the bytes and peaks this run measured."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.models.common import abstract
+    from repro_torch.serve.engine import prepare_params
+    from repro_torch.sharding.axes import _desc
+    from repro_torch.train.step import TrainConfig
+
+    meta = torch.device("meta")
+    cfg = dataclasses.replace(get_config(LM_ARCH), l2r=QuantConfig())
+    params = prepare_params(cfg, abstract(_desc(cfg, None)))
+    batch = {"tokens": torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int32,
+                                   device=meta)}
+    res = dryrun.meta_step(cfg, None, "prefill", params, batch,
+                           LM_PROMPT + LM_STEPS, cache_dtype=torch.float32)
+    run = lm["run"]
+    pred = {"param_bytes": dryrun.tree_bytes(params),
+            "state_bytes": dryrun.tree_bytes(res["out"][0])}
+    for k, v in pred.items():
+        require(v == run[k], f"23a 13a: the dry run's {k} {v}, the card's "
+                             f"live tensors {run[k]}")
+    peak = pred["param_bytes"] + dryrun.tree_bytes(batch) + \
+        res["temp_peak_bytes"]
+    rl = roofline_terms(res["flops"], res["bytes_moved"], 0.0, 1, "int8")
+    out13 = {**pred, "predicted_peak_bytes": peak,
+             "measured_peak_bytes": run["prefill_peak_bytes"],
+             "peak_ratio": peak / run["prefill_peak_bytes"],
+             "flops": res["flops"], "bytes_moved": res["bytes_moved"],
+             "roofline": rl.asdict(), "bound_ms": rl.bound_s * 1e3,
+             "prefill_ms": run["prefill_ms"]}
+
+    tcfg = TrainConfig(remat=True, seq_shard=False, xent_chunk=TRAIN_XENT)
+    tcfg_cfg = dataclasses.replace(get_config(LM_ARCH),
+                                   compute_dtype="float32")
+    tparams = abstract(_desc(tcfg_cfg, None))
+    tbatch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                             device=meta) for k in ("tokens", "labels")}
+    tres = dryrun.meta_step(tcfg_cfg, None, "train", tparams, tbatch,
+                            TRAIN_SEQ, tcfg)
+    # the step's inputs: the params, AdamW's two f32 moments of them and
+    # its int32 step count, the batch
+    base = dryrun.tree_bytes(tparams) * 3 + 4 + dryrun.tree_bytes(tbatch)
+    tpeak = base + tres["temp_peak_bytes"]
+    measured = train["run"]["peak_memory_bytes"]
+    trl = roofline_terms(tres["flops"], tres["bytes_moved"], 0.0, 1, "f32")
+    out17 = {"predicted_peak_bytes": tpeak, "measured_peak_bytes": measured,
+             "peak_ratio": tpeak / measured, "flops": tres["flops"],
+             "bytes_moved": tres["bytes_moved"], "roofline": trl.asdict(),
+             "bound_ms": trl.bound_s * 1e3,
+             "warm_step_ms": train["run"]["warm_step_ms"]}
+    return {"13a": out13, "17a": out17}
+
+
+def dry_mesh(tpm: dict) -> dict:
+    """23a, phase 21's 2 x 2 mesh: for each rank of mamba2-130m,
+    recurrentgemma-2b and whisper-base the dry run's bytes (held_layouts,
+    engine.local_state) equal the rank's live params and state, and its
+    meta prefill records the rank's collectives one for one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_shape_mesh
+    from repro_torch.models.common import abstract
+    from repro_torch.sharding.axes import _desc, shard_params
+
+    shape = {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]}
+    out = {}
+    for arch, recs in tpm["records21"].items():
+        cfg = dataclasses.replace(get_config(arch), l2r=QuantConfig())
+        desc = _desc(cfg, None)
+        prompt = MIXERS[arch]["prompt"]
+        max_len = prompt + MIX_STEPS + 4
+        batch = {"tokens": torch.empty((MIX_BATCH, prompt),
+                                       dtype=torch.int32, device="meta")}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.empty(
+                (MIX_BATCH, cfg.encoder_seq, cfg.d_model), device="meta")
+        rows = []
+        for r in range(MESH_WORLD):
+            mesh = make_shape_mesh(shape, r)
+            lay = dryrun.layout_bytes(cfg, mesh, desc, "prefill", MIX_BATCH,
+                                      max_len, "heads", batch,
+                                      param_dtype=torch.float32,
+                                      cache_dtype=torch.float32)
+            live = next(x[arch] for x in tpm["per_rank"] if x["rank"] == r)
+            got = {"param_bytes": lay["params"]["rank"],
+                   "state_bytes": lay["state"]["held_rank"]}
+            for k, v in got.items():
+                require(v == live[k], f"23a {arch} rank {r}: the dry run's "
+                                      f"{k} {v}, phase 21's {live[k]}")
+            res = dryrun.meta_step(cfg, mesh, "prefill", shard_params(
+                cfg, abstract(desc), mesh, desc), batch, max_len,
+                cache_dtype=torch.float32, measure=False)
+            meta_recs = [x.to_json() for x in res["records"]]
+            diff = next(((i, a, b) for i, (a, b) in enumerate(zip(
+                meta_recs, recs[r])) if a != b), None)
+            require(meta_recs == recs[r],
+                    f"23a {arch} rank {r}: the meta prefill's "
+                    f"{len(meta_recs)} collectives differ from the "
+                    f"{len(recs[r])} phase 21 recorded (first: {diff})")
+            rows.append({**got, "collectives": len(meta_recs),
+                         "collective_bytes": sum(x["nbytes"]
+                                                 for x in meta_recs)})
+        out[arch] = rows
+    return out
+
+
+def phase_dryrun(dev, lm: dict, train: dict, tpm: dict) -> dict:
+    """Phase 23: 23b's nine examples started on the card, meanwhile 23a
+    (the dry run against 13a, 17a and phase 21 of this run), then 23b's
+    exits and launch counts."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    t0 = time.perf_counter()
+    procs = start_examples()
+    try:
+        one = dry_lm(lm, train)
+        mesh = dry_mesh(tpm)
+    except BaseException:
+        stop_examples(procs)
+        raise
+    t_a = time.perf_counter() - t0
+    a13, a17 = one["13a"], one["17a"]
+    print(f"phase 23a: dry run of 13a (SmolLM-135M l2r, batch {LM_BATCH} x "
+          f"{LM_PROMPT}): params {a13['param_bytes']} and state "
+          f"{a13['state_bytes']} bytes == the live tensors' on {smi}; peak "
+          f"predicted {a13['predicted_peak_bytes']} bytes beside the "
+          f"prefill's max_memory_allocated {a13['measured_peak_bytes']} "
+          f"(ratio {a13['peak_ratio']}); bound {a13['bound_ms']} ms "
+          f"({a13['roofline']['dominant']}) beside the measured prefill "
+          f"{a13['prefill_ms']} ms", flush=True)
+    print(f"phase 23a: dry run of 17a (SmolLM-135M f32 train step, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): peak predicted "
+          f"{a17['predicted_peak_bytes']} bytes beside "
+          f"{a17['measured_peak_bytes']} measured (ratio "
+          f"{a17['peak_ratio']}); bound {a17['bound_ms']} ms "
+          f"({a17['roofline']['dominant']}) beside the warm step "
+          f"{a17['warm_step_ms']} ms", flush=True)
+    for arch, rows in mesh.items():
+        print(f"phase 23a: {arch} on the {MESH_SHAPE[0]} x {MESH_SHAPE[1]} "
+              f"mesh: every rank's params and state bytes == phase 21's "
+              f"({[(x['param_bytes'], x['state_bytes']) for x in rows]}); "
+              f"the meta prefill's {rows[0]['collectives']} collectives "
+              f"({[x['collective_bytes'] for x in rows]} operand bytes a "
+              f"rank) == phase 21's records", flush=True)
+    ex = finish_examples(procs)
+    seconds = time.perf_counter() - t0
+    print("phase 23b: " + json.dumps(ex), flush=True)
+    print(f"phase 23b: the nine examples of examples/torch/ exited 0 on "
+          f"{smi} and launched the kernels they reach; phase 23: "
+          f"{seconds:.1f} s (23a {t_a:.1f} s while 23b ran)", flush=True)
+    return {"card": smi, "13a": a13, "17a": a17, "mesh": mesh,
+            "examples": ex, "seconds": seconds}
 
 
 def tpm_summary(tpm: dict, lib: str) -> dict:
@@ -6245,6 +6532,7 @@ def main() -> int:
     tp = phase_tp(dev, train, serve, mix)
     tpm = phase_tp_mixers(dev, mix)
     audit = phase_audit(dev, serve, mesh, dp, tp, tpm)
+    phase_dryrun(dev, lm, train, tpm)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]

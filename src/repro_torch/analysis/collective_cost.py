@@ -16,8 +16,9 @@ mesh) **sync-cost certificate**:
 
 Time is priced with a DATA-SHEET MODEL, not a measurement: the H100 SXM
 data sheet's NVLink 4 figure, 900 GB/s of bidirectional bandwidth a GPU
-(:data:`NVLINK_BYTES_PER_S`, 450 GB/s each way).  The port's meshes run
-host-staged gloo ranks on one card, which this model does not describe.
+(:data:`NVLINK_BYTES_PER_S`, 450 GB/s each way, from launch/roofline.py,
+the one home of the card's constants).  The port's meshes run host-staged
+gloo ranks on one card, which this model does not describe.
 The reference's compiled-module roofline branch (``hlo_text``) is not
 ported here.
 """
@@ -29,12 +30,11 @@ import math
 
 import torch
 
+from repro_torch.launch.roofline import NVLINK_BYTES_PER_S
+
 __all__ = ["CollectiveRecord", "sync_cost_certificate", "ring_wire_bytes",
            "prim_of", "from_records", "NVLINK_BYTES_PER_S"]
 
-#: H100 SXM data sheet: NVLink 4, 900 GB/s bidirectional a GPU, so 450
-#: GB/s each way — a data-sheet model of the wire, not a measurement
-NVLINK_BYTES_PER_S = 450e9
 
 
 def ring_wire_bytes(kind: str, size: float, n: int) -> float:

@@ -19,8 +19,8 @@ from . import (deepseek_moe_16b, gemma3_27b, granite_8b,
                llama4_maverick_400b_a17b, mamba2_130m, phi3_medium_14b,
                qwen2_vl_7b, recurrentgemma_2b, smollm_135m, whisper_base)
 
-__all__ = ["ARCHS", "SHAPES", "get_config", "get_smoke", "cell_supported",
-           "all_cells", "input_specs"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "get_config", "get_smoke",
+           "cell_supported", "all_cells", "input_specs"]
 
 _MODULES = {
     "recurrentgemma-2b": recurrentgemma_2b,
@@ -81,17 +81,18 @@ def all_cells():
             yield a, s, *cell_supported(a, s)
 
 
-def input_specs(arch: str, shape: str, cfg: ModelConfig | None = None
-                ) -> dict:
+def input_specs(arch: str, shape: str | ShapeSpec,
+                cfg: ModelConfig | None = None) -> dict:
     """Every model input of this cell as an empty tensor on the ``meta``
-    device (its shape and dtype; nothing is allocated).
+    device (its shape and dtype; nothing is allocated).  ``shape`` names
+    a cell of :data:`SHAPES`, or is a :class:`ShapeSpec` of its own.
 
     train/prefill: the full token (or stub-embedding) batch, with the
     labels for train; decode: the current token (the cache or state
     enters separately).
     """
     cfg = cfg or get_config(arch)
-    sp = SHAPES[shape]
+    sp = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
     b, s = sp.global_batch, sp.seq_len
 
     def sd(shape: tuple, dtype: torch.dtype) -> torch.Tensor:

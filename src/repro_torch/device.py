@@ -4,6 +4,15 @@ Public entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  On a host without CUDA a call that names no device
 raises: the port never carries on quietly on the CPU.  Kernel dispatch
 below the entry points follows the device of the tensor it is given.
+
+A ``meta`` tensor (shapes only: the dry run, launch/dryrun.py) takes the
+card's path where the model code orders its arithmetic otherwise on the
+card (:func:`card_path`: ``models/common.py``'s row means, whose split
+form gathers other tensors there): the dry run describes the card.
+:func:`meta_target` makes it take the CPU's instead, to hold a meta run
+against a CPU run.  Kernel dispatch is not such a path: a kernel wrapper
+launches only on a CUDA tensor, so a meta tensor takes the plain version
+(and ``chunked_attention`` its plain loop).
 """
 
 from __future__ import annotations
@@ -12,7 +21,10 @@ import contextlib
 
 import torch
 
-__all__ = ["resolve_device", "no_tf32"]
+__all__ = ["resolve_device", "no_tf32", "card_path", "meta_target"]
+
+#: the device whose paths a ``meta`` tensor takes (:func:`meta_target`)
+_META_TARGET = ["cuda"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -52,3 +64,22 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def card_path(x: torch.Tensor) -> bool:
+    """Does the model code take its card path for ``x``: a CUDA tensor,
+    or a ``meta`` tensor while the meta target is the card."""
+    return x.is_cuda or (x.is_meta and _META_TARGET[-1] == "cuda")
+
+
+@contextlib.contextmanager
+def meta_target(device: str):
+    """Within the block ``meta`` tensors take ``device``'s paths
+    (``"cuda"``, the default, or ``"cpu"``)."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"meta_target({device!r}): cuda or cpu")
+    _META_TARGET.append(device)
+    try:
+        yield
+    finally:
+        _META_TARGET.pop()

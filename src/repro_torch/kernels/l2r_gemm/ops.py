@@ -34,7 +34,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.analysis.overflow import check_or_raise
@@ -52,7 +51,7 @@ from repro_torch.core.quant import (PlaneOperands, QuantConfig,
                                     _symmetric_quant, quantize,
                                     quantize_weights, stack_planes_lhs,
                                     stack_planes_rhs)
-from repro_torch.sharding.collectives import all_reduce, sum_int
+from repro_torch.sharding.collectives import all_reduce, group_size, sum_int
 
 from . import kernel
 
@@ -348,7 +347,7 @@ def l2r_matmul_f(
     keep = 0 if cfg.per_channel else None
     if group is not None:
         check_or_raise(cfg.n_bits, cfg.log2_radix,
-                       x2.shape[-1] * dist.get_world_size(group),
+                       x2.shape[-1] * group_size(group),
                        levels=levels, where="l2r_matmul_f (row-parallel)")
         xq, xs = _row_split_quant(x2.to(torch.float32), keep, cfg, group)
     else:

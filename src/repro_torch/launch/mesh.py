@@ -30,8 +30,9 @@ import torch.distributed as dist
 
 from repro_torch.sharding import ctx
 
-__all__ = ["Mesh", "make_production_mesh", "make_local_mesh",
-           "install_local_mesh", "spawn_local", "TIMEOUT_S"]
+__all__ = ["Mesh", "make_shape_mesh", "make_production_mesh",
+           "make_local_mesh", "install_local_mesh", "spawn_local",
+           "TIMEOUT_S"]
 
 #: seconds a collective waits for another rank before it raises
 TIMEOUT_S = 300.0
@@ -94,13 +95,31 @@ class Mesh:
         return self._groups[key]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_shape_mesh(shape: dict[str, int], rank: int = 0) -> Mesh:
+    """A mesh of shapes only seen from ``rank``: it has that rank's
+    coordinates, and one sharding/collectives.py:ShapeGroup (axis names
+    and size, no process group) per set of axes.  Collectives over it run
+    on ``meta`` tensors only (launch/dryrun.py)."""
+    from repro_torch.sharding.collectives import ShapeGroup
+
+    names = tuple(shape)
+    groups = {sub: ShapeGroup(sub, math.prod(shape[a] for a in sub))
+              for n in range(1, len(names) + 1)
+              for sub in itertools.combinations(names, n)}
+    return Mesh(shape, rank=rank, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int | None = None) -> Mesh:
     """The reference's production shapes, as a mesh of shapes only:
     (data=16, model=16), or (pod=2, data=16, model=16) with
-    ``multi_pod``."""
-    if multi_pod:
-        return Mesh({"pod": 2, "data": 16, "model": 16})
-    return Mesh({"data": 16, "model": 16})
+    ``multi_pod``; seen from ``rank`` (:func:`make_shape_mesh`) where it
+    is given, else with no rank."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod \
+        else {"data": 16, "model": 16}
+    if rank is not None:
+        return make_shape_mesh(shape, rank)
+    return Mesh(shape)
 
 
 def _subset_groups(shape: dict[str, int], timeout: timedelta) -> dict:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.l2r_gemm import l2r_dense
 from repro_torch.core.quant import (QuantConfig, QuantizedWeights, quantize,
                                     quantize_weights)
-from repro_torch.device import resolve_device
+from repro_torch.device import card_path, resolve_device
 from repro_torch.kernels.l2r_gemm.ops import l2r_gemm, l2r_matmul_f
 from repro_torch.sharding import ctx
 from repro_torch.sharding.axes import P
@@ -365,9 +365,10 @@ def _row_mean(x: torch.Tensor) -> torch.Tensor:
     rank decoding its 4 slots of a batch would round apart from one
     process decoding all 8.  Summed as 32 partial sums (32 or more rows
     of work, the widest launch; a width 32 does not divide is padded with
-    zeros) and then those 32, it does not.  On the CPU ``torch.mean``."""
+    zeros) and then those 32, it does not.  On the CPU ``torch.mean``
+    (a meta tensor takes the card's path: device.card_path)."""
     d = x.shape[-1]
-    if not x.is_cuda:
+    if not card_path(x):
         return torch.mean(x, dim=-1, keepdim=True)
     if d % 32:
         x = F.pad(x, (0, -d % 32))
@@ -390,7 +391,7 @@ def split_row_mean(x: torch.Tensor, split) -> torch.Tensor:
     The gathered values' gradient is summed over the ranks
     (sharding/collectives.py:gather_channels)."""
     d = x.shape[-1] * split.size
-    if x.is_cuda and 32 % split.size == 0 and d % 32 == 0:
+    if card_path(x) and 32 % split.size == 0 and d % 32 == 0:
         parts = gather_channels(row_mean_parts(x, split.size), split.group,
                                 split.index)
         return row_mean_of_parts(parts, d)

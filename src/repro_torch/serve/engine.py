@@ -62,7 +62,7 @@ __all__ = ["prepare_params", "make_prefill_step", "make_decode_step",
            "make_bucket_prefill_step", "prefill_buckets", "bucket_for",
            "supports_bucketed_prefill", "progressive_logits_from_hidden",
            "state_specs", "greedy_generate", "split_scope",
-           "split_collectives", "local_state"]
+           "split_collectives", "local_state", "abstract_state"]
 
 
 # ------------------------------------------------------- weight preparation
@@ -211,6 +211,15 @@ def state_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
         suffix=[mixer_spec(kk[0]) for kk in suffix],
         pos=P(b),
     )
+
+
+def abstract_state(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """The whole serving state on the ``meta`` device (shapes and
+    dtypes, nothing allocated): the dry run's input, as the reference's
+    ``jax.eval_shape`` of the state."""
+    init = init_encdec_state if cfg.family == "encdec" else init_lm_state
+    return init(cfg, batch, max_len, dtype, device="meta")
 
 
 def local_state(cfg: ModelConfig, mesh, state):

@@ -28,20 +28,29 @@ channels of a whole tensor that every rank then uses: the gradient summed
 and cut back) and :func:`copy_in_columns` (:func:`copy_in` on a range of
 a weight's columns that every rank holds alike).  Every rank issues each
 of them in the same order.
+
+**Shapes only.**  A collective on a ``meta`` operand touches no process
+group: it returns a ``meta`` tensor of its result's shape and dtype, and
+is counted and recorded as on a running rank.  Its group may then be a
+:class:`ShapeGroup` (axis names and size only, launch/mesh.py:
+make_shape_mesh), so one rank's step runs on ``meta`` under a mesh of
+any size with no process started (launch/dryrun.py: the eager
+counterpart of lowering under a mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.l2r_gemm import wrap_int32
 
-__all__ = ["COUNTS", "reset", "Record", "recording", "active_records",
-           "tag", "level_loop", "name_groups", "TAG_MAX", "TAG_MIN",
+__all__ = ["COUNTS", "reset", "ShapeGroup", "group_size", "Record",
+           "recording", "active_records", "tag", "level_loop", "name_groups", "TAG_MAX", "TAG_MIN",
            "TAG_CONSENSUS", "TAG_GATHER", "TAG_SUM_INT", "all_reduce",
            "all_gather", "gather_columns",
            "all_reduce_many", "all_to_all", "sum_forward", "split_rows",
@@ -67,6 +76,34 @@ TAG_SUM_INT = "l2r_coll_sum_int"
 def reset() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+class ShapeGroup(NamedTuple):
+    """The group of a mesh of shapes only: its axis ``names`` and its
+    ``size``.  Only collectives on ``meta`` operands take one."""
+
+    names: tuple[str, ...]
+    size: int
+
+
+def group_size(group) -> int:
+    """The number of ranks in ``group`` (a process group or a
+    :class:`ShapeGroup`)."""
+    if isinstance(group, ShapeGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def _shapes_only(x: torch.Tensor, group) -> bool:
+    """Does this collective run on shapes only (a ``meta`` operand)?  A
+    :class:`ShapeGroup` cannot reduce values."""
+    if x.is_meta:
+        return True
+    if isinstance(group, ShapeGroup):
+        raise ValueError(f"a collective over {group} (a mesh of shapes "
+                         f"only) on a {x.device} tensor: only meta "
+                         f"operands run without a process group")
+    return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +208,7 @@ def _record(op: str, reduce_op: str | None, x: torch.Tensor, group) -> None:
         op=op, reduce_op=reduce_op, dtype=str(x.dtype).replace("torch.", ""),
         nbytes=x.numel() * x.element_size(),
         group=_GROUP_NAMES.get(group, "?"),
-        group_size=dist.get_world_size(group), in_loop=bool(_LOOP),
+        group_size=group_size(group), in_loop=bool(_LOOP),
         walk=_LOOP[-1] if _LOOP else None,
         tag=_TAGS[-1] if _TAGS else "",
         taint=None if taint is None else taint(x)))
@@ -187,6 +224,8 @@ def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     COUNTS["all_reduce"] += 1
     if _REC["records"] is not None:
         _record("all_reduce", op, x, group)
+    if _shapes_only(x, group):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     staged = _host_staged(x, group)
     y = x.cpu() if staged else x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=_OPS[op], group=group)
@@ -199,9 +238,13 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     COUNTS["all_gather"] += 1
     if _REC["records"] is not None:
         _record("all_gather", None, x, group)
+    if _shapes_only(x, group):
+        shape = list(x.shape)
+        shape[dim] *= group_size(group)
+        return x.new_empty(shape)
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    parts = [torch.empty_like(y) for _ in range(group_size(group))]
     dist.all_gather(parts, y, group=group)
     out = torch.cat(parts, dim)
     return out.to(x.device) if staged else out
@@ -240,6 +283,8 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     COUNTS["all_to_all"] += 1
     if _REC["records"] is not None:
         _record("all_to_all", None, x, group)
+    if _shapes_only(x, group):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
     out = torch.empty_like(y)

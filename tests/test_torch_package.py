@@ -57,7 +57,9 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.launch.train", "repro_torch.sharding",
                 "repro_torch.sharding.ctx", "repro_torch.sharding.axes",
                 "repro_torch.sharding.collectives",
-                "repro_torch.launch.mesh"]
+                "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+                "repro_torch.launch.dryrun"]
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 
 
 def _env():
@@ -67,8 +69,17 @@ def _env():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    code = ("import sys\n"
+    """Every port module and every example of examples/torch/ (loaded
+    by path, as a module: its acts do not run) imports no jax and no
+    repro."""
+    assert len(EXAMPLES) == 9
+    code = ("import sys, importlib.util\n"
             f"for m in {PORT_MODULES!r}: __import__(m)\n"
+            f"for f in {[str(f) for f in EXAMPLES]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location("
+            "'ex_' + f.split('/')[-1][:-3], f)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
             "or m.startswith(('jax.', 'repro.')))\n"
             "print(bad)\n"
@@ -81,7 +92,7 @@ def test_port_imports_neither_jax_nor_repro():
 def test_port_sources_have_no_jax_or_repro_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", *EXAMPLES]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]

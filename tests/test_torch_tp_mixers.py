@@ -124,8 +124,9 @@ def _steps(arch: str, over: dict, mesh) -> dict:
     counts, flags = [], []
     with scope:
         collectives.reset()
-        state, logits = prefill(params, {k: v[rows]
-                                         for k, v in batch.items()})
+        with collectives.recording() as records:
+            state, logits = prefill(params, {k: v[rows]
+                                             for k, v in batch.items()})
         counts.append(dict(collectives.COUNTS))
         flags.append(0)
         tok = torch.argmax(logits, -1).to(torch.int32)
@@ -142,7 +143,8 @@ def _steps(arch: str, over: dict, mesh) -> dict:
     res = {"tokens": torch.cat(out, 1).numpy(),
            "logits": torch.cat(all_logits, 1).numpy(),
            "state": _np(_tensors(state)), "counts": counts,
-           "flags": flags}
+           "flags": flags,
+           "prefill_records": [r.to_json() for r in records]}
     if mesh is not None:
         from repro_torch.serve.engine import split_collectives
 
@@ -292,6 +294,49 @@ def test_split_collectives_are_the_derived_ones(runs, shape, case):
             else:
                 assert got["flags"][i] == 0, (rank, i)
             assert counts == want, (rank, i, counts, want)
+
+
+def _meta_prefill_records(arch: str, over: dict, shape, rank: int) -> list:
+    """The collectives of ``_steps``' prefill on rank ``rank``, from the
+    dry run's meta step (launch/dryrun.py:meta_step) under a mesh of
+    shapes only: params, inputs and state on the meta device, no process
+    group, the meta tensors on the CPU's paths as the ranks were."""
+    from repro_torch.device import meta_target
+    from repro_torch.launch.dryrun import meta_step
+    from repro_torch.launch.mesh import make_shape_mesh
+    from repro_torch.models.common import abstract
+    from repro_torch.serve.engine import prepare_params
+    from repro_torch.sharding.axes import _desc, shard_params
+
+    cfg = _cfg(arch, **over)
+    mesh = make_shape_mesh({"data": shape[0], "model": shape[1]}, rank)
+    params = abstract(_desc(cfg, None))
+    if cfg.family == "dense":
+        params = prepare_params(cfg, params, mesh=mesh)
+    params = shard_params(cfg, params, mesh)
+    batch = {"tokens": torch.empty((4, 8), dtype=torch.int32,
+                                   device="meta")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.empty((4, cfg.encoder_seq, cfg.d_model),
+                                      device="meta")
+    with meta_target("cpu"):  # the ranks ran on the CPU
+        res = meta_step(cfg, mesh, "prefill", params, batch, 12,
+                        cache_dtype=torch.float32, measure=False)
+    return [r.to_json() for r in res["records"]]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in STEPS])
+def test_meta_prefill_records_are_the_ranks(runs, case):
+    """The dry run's meta prefill of each rank of the 2 x 2 mesh records
+    the collectives that rank's real prefill issued, one for one: op,
+    reduce op, dtype, bytes, group, group size, loop and tag."""
+    out, _ = runs
+    shape = (2, 2)
+    name, arch, over = next(c for c in STEPS if c[0] == case)
+    for rank in range(WORLD):
+        got = _meta_prefill_records(arch, over, shape, rank)
+        want = out[rank][shape][case]["prefill_records"]
+        assert got == want, (rank, len(got), len(want))
 
 
 @pytest.mark.parametrize("shape", MESHES)
