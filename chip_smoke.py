@@ -280,6 +280,21 @@ Phases (any failure exits non-zero; nothing is caught):
      23a), each with ``--device cuda`` (train_smollm ``--steps 100``):
      exit 0 within EXAMPLE_TIMEOUT_S and the kernels each reaches
      launched (EXAMPLE_KERNELS); each one's seconds and the phase's.
+     23a also captures 17a's step and rank 0's split prefills for 24.
+ 24. the compiled-graph layer (launch/graph_analysis.py): 24a 13a's
+     prefill and one decode step captured on the card's tensors (the
+     state from a copy), each kernel one node, the kernel nodes equal to
+     the eager launches (181 B1 and 30 B5 in the prefill, 181 B1 a
+     step), each graph replayed on fresh inputs bit for bit the eager
+     step's outputs with the same launches; 24b the graph roofline of
+     both and of 17a's f32 step (captured on meta with the card's paths
+     in 23a): FLOPs at each class's peak and bytes, the bound at most the
+     device time measured in this run (a floor), beside 23a's meta-run
+     bound; 24c the split prefills of phase 21 (mamba2-130m,
+     recurrentgemma-2b, whisper-base; rank 0 of 2 x 2, captured on meta
+     in 23a): their collective nodes equal the recorder's and phase 21's
+     records one for one, and analysis/sharding.py:audit_partitioned_graph
+     finds no violation.
 Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
@@ -328,10 +343,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# the card's data-sheet rates (H100 SXM, dense), from their one home
-from repro_torch.launch.roofline import (  # noqa: E402
+# the card's data-sheet rates (H100 SXM, dense), from their one home (the
+# bounds reach the compute peaks through compute_seconds)
+from repro_torch.launch.roofline import (  # noqa: E402, F401
     HBM_BYTES_PER_S as PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_INT8_OPS,
-    PEAK_TF32_FLOPS)
+    PEAK_TF32_FLOPS, compute_seconds)
 
 BATCH = 8
 RAGGED = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (17, 48, 33),
@@ -463,7 +479,16 @@ def host_ms(fn) -> float:
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """The least time on this card: int8 operations over the peak rate or
     bytes over the memory rate, whichever is larger."""
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return cost_bound({"int8": ops}, nbytes)
+
+
+def cost_bound(ops: dict, nbytes: float) -> tuple[float, str]:
+    """The least time on this card of a kernel's work as its module counts
+    it (``*_cost``: operations by the peak they run at, bytes moved once):
+    the operations' time (launch/roofline.py:compute_seconds) or the bytes
+    over the memory rate, whichever is larger."""
+    t_ops = compute_seconds(ops) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -610,9 +635,8 @@ def phase_kernel(dev) -> list[dict]:
         d = 4  # planes of the main path's config (n=8, radix 4)
         # at full depth the function is aq @ bq (mod 2^32): 2*M*N*K int8
         # operations, however many plane products the kernel runs
-        bound_ms, by = bound(
-            2 * m * n * k,
-            m * d * k + d * k * n + m * n * 4 * (2 if acc_mode else 1))
+        bound_ms, by = cost_bound(*kernel.stacked_cost(
+            m, k, n, d, accumulate=bool(acc_mode)))
         row = {**sh, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
                "bound_by": by, "max_abs_err": err, "int_mm_padded": padded}
@@ -701,10 +725,8 @@ def phase_streaming(dev) -> list[dict]:
         d = 4
         # each plane is a different sum of pair products: the D^2 of
         # them, 2*M*N*K int8 operations each
-        bound_ms, by = bound(
-            2 * m * n * k * d * d,
-            m * d * k + d * k * n
-            + N_LEVELS * m * n * 4 * (2 if acc_mode else 1))
+        bound_ms, by = cost_bound(*kernel.streaming_cost(
+            m, k, n, d, N_LEVELS, bool(acc_mode)))
         row = {**sh, "ms": ms, "kernel_ms": kernel_ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": time_ms(lib_fn),
                "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
@@ -762,7 +784,7 @@ def phase_pairs(dev) -> list[dict]:
         # the timed call runs every pair: the function is aq @ bq (mod
         # 2^32), so it needs 2*M*N*K int8 operations, not the D^2 pair
         # products the kernel runs
-        bound_ms, by = bound(2 * m * n * k, m * k + k * n + m * n * 4)
+        bound_ms, by = cost_bound(*kernel.pairs_cost(m, k, n))
         row = {**sh, "accumulate": False, "ms": ms, "kernel_ms": kernel_ms,
                "device_ms": dev_ms, "plain_ms": plain_ms,
                "library_ms": time_ms(lib_fn), "bound_ms": bound_ms,
@@ -1208,15 +1230,17 @@ def cipu_bound(m: int, k: int, n_bits: int) -> tuple:
     3:2 CSAs of 2 XOR, 3 AND, 2 OR, 1 shift) plus the two PPR shifts:
     2*ceil(k/32) + 34 int32 operations and ceil(k/32) popc, at the
     issue rates per SM times the SMs times the card's max SM clock."""
-    words = -(-k // 32)
+    from repro_torch.kernels.msdf_ipu.kernel import cipu_cost
+
+    ops, nbytes = cipu_cost(m, k, n_bits)
     props = torch.cuda.get_device_properties(0)
     clk = sm_clock_max_hz()
-    t_int = m * n_bits ** 2 * (2 * words + 34) / (
+    t_int = ops["int32"] / (
         props.multi_processor_count * INT32_PER_CLK_SM * clk) * 1e3
-    t_popc = m * n_bits ** 2 * words / (
+    t_popc = ops["popc"] / (
         props.multi_processor_count * POPC_PER_CLK_SM * clk) * 1e3
     t_ops = max(t_int, t_popc)
-    t_bytes = (2 * m * k * 4 + 4 * m) / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1349,14 +1373,9 @@ def attn_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    q = np.arange(sq)[:, None]
-    kv = np.arange(skv)[None, :]
-    mask = np.ones((sq, skv), bool)
-    if causal:
-        mask &= kv <= q
-    if window is not None:
-        mask &= kv > q - window
-    return int(mask.sum())
+    from repro_torch.kernels.flash_attention.kernel import visible_pairs
+
+    return visible_pairs(sq, skv, causal, window)
 
 
 def attn_qkv(g, dev, b, sq, skv, h, kvh, dh, dtype):
@@ -1393,12 +1412,9 @@ def attn_bound(b, h, dh, pairs, dtype, nbytes, qk_int8=False) -> tuple:
     accuracy (bf16 on the bf16 tensor cores; f32 as three TF32 products,
     the 3xTF32 split of B5, at 495 / 3 = 165 TFLOP/s; B4's QK^T on the
     int8 tensor cores), against the bytes moved once."""
-    peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
-            else PEAK_TF32_FLOPS / 3)
-    per = 2 * b * h * pairs * dh
-    t_ops = (per / (PEAK_INT8_OPS if qk_int8 else peak) + per / peak) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    from repro_torch.kernels.flash_attention.kernel import attention_ops
+
+    return cost_bound(attention_ops(b, h, dh, pairs, dtype, qk_int8), nbytes)
 
 
 def phase_attention(dev, l2r: bool) -> dict:
@@ -1661,7 +1677,7 @@ def b1_shape_row(g, dev, m: int, k: int, n: int, count: int, where: str,
                                    f"M={m} K={k} N={n}")
     del got, ref, lib
     d = 4
-    bound_ms, by = bound(2 * m * n * k, m * d * k + d * k * n + m * n * 4)
+    bound_ms, by = cost_bound(*kernel.stacked_cost(m, k, n, d))
     row = {"name": f"{where} K={k} N={n}", "m": m, "k": k, "n": n,
            "count": count, "where": where,
            "ms": time_ms(lambda: kernel.l2r_gemm_stacked_planes(sa, sbk)),
@@ -2238,8 +2254,8 @@ def b2_head_rows(dev) -> list[dict]:
                     sa, view)), f"torch._int_mm disagrees with the final "
                                 f"plane at M={m}")
             d = 4
-            bound_ms, by = bound(2 * m * n * k * d * d,
-                                 m * d * k + d * k * n + n_lv * m * n * 4)
+            bound_ms, by = cost_bound(*kernel.streaming_cost(m, k, n, d,
+                                                             n_lv))
             row = {"name": f"head M={m} levels={levels}", "m": m, "k": k,
                    "n": n, "levels": levels, "where": "head",
                    "count": 1 if (m == LM_BATCH and levels is None) else 0,
@@ -3744,8 +3760,9 @@ def slab_bound(m: int, k: int, n: int, t: int, d: int = 4) -> tuple:
     """Level ``t``'s slab of the stacked walk: its plane pairs (i + j = t)
     at 2 m n k operations each, the planes they read and the (M, N) int32
     it writes."""
-    pairs = min(t, 2 * d - 2 - t) + 1
-    return bound(2 * m * n * k * pairs, pairs * (m * k + k * n) + m * n * 4)
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    return cost_bound(*kernel.slab_cost(m, k, n, t, d))
 
 
 def shard_shape_check(xq_rows, cache, where: str) -> dict:
@@ -3781,8 +3798,8 @@ def shard_shape_check(xq_rows, cache, where: str) -> dict:
     require(torch.equal(lib, got[-1]), f"torch._int_mm disagrees with B2's "
                                        f"final plane at {where}")
     d = 4
-    bound_ms, by = bound(2 * m * n * k * d * d,
-                         m * d * k + d * k * n + N_LEVELS * m * n * 4)
+    bound_ms, by = cost_bound(*kernel.streaming_cost(m, k, n, d,
+                                                     N_LEVELS))
     fn = lambda: kernel.l2r_gemm_streaming_planes(a, b)  # noqa: E731
     return {"where": where, "m": m, "k": k, "n": n, "b1_slabs": slabs,
             "ms": time_ms(fn),
@@ -4116,8 +4133,8 @@ def dp_kernel_rows(dev) -> dict:
     require(torch.equal(lib, got[-1]), "torch._int_mm disagrees with B2's "
                                        "final plane at 19b's rank shape")
     d = 4
-    bound_ms, by = bound(2 * m * n * k * d * d,
-                         m * d * k + d * k * n + N_LEVELS * m * n * 4)
+    bound_ms, by = cost_bound(*kernel.streaming_cost(m, k, n, d,
+                                                     N_LEVELS))
     fn = lambda: kernel.l2r_gemm_streaming_planes(sa, sb)  # noqa: E731
     b2 = {"name": f"19b head walk K={k} N={n}", "m": m, "k": k, "n": n,
           "count": 1, "ms": time_ms(fn), "kernel_ms": stream_ms(fn),
@@ -6103,7 +6120,7 @@ def dry_lm(lm: dict, train: dict) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, graph_analysis
     from repro_torch.launch.roofline import roofline_terms
     from repro_torch.models.common import abstract
     from repro_torch.serve.engine import prepare_params
@@ -6139,8 +6156,9 @@ def dry_lm(lm: dict, train: dict) -> dict:
     tparams = abstract(_desc(tcfg_cfg, None))
     tbatch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
                              device=meta) for k in ("tokens", "labels")}
+    # metered as eager torch runs it, then captured (24b reads the graph)
     tres = dryrun.meta_step(tcfg_cfg, None, "train", tparams, tbatch,
-                            TRAIN_SEQ, tcfg)
+                            TRAIN_SEQ, tcfg, graph=True)
     # the step's inputs: the params, AdamW's two f32 moments of them and
     # its int32 step count, the batch
     base = dryrun.tree_bytes(tparams) * 3 + 4 + dryrun.tree_bytes(tbatch)
@@ -6152,7 +6170,9 @@ def dry_lm(lm: dict, train: dict) -> dict:
              "bytes_moved": tres["bytes_moved"], "roofline": trl.asdict(),
              "bound_ms": trl.bound_s * 1e3,
              "warm_step_ms": train["run"]["warm_step_ms"]}
-    return {"13a": out13, "17a": out17}
+    graph17 = {"records": graph_analysis.to_records(tres["graph"].gm),
+               "capture_s": tres["graph"].seconds}
+    return {"13a": out13, "17a": out17, "graph17": graph17}
 
 
 def dry_mesh(tpm: dict) -> dict:
@@ -6164,13 +6184,14 @@ def dry_mesh(tpm: dict) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, graph_analysis
     from repro_torch.launch.mesh import make_shape_mesh
     from repro_torch.models.common import abstract
+    from repro_torch.serve.engine import split_collectives
     from repro_torch.sharding.axes import _desc, shard_params
 
     shape = {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]}
-    out = {}
+    out, graphs = {}, {}
     for arch, recs in tpm["records21"].items():
         cfg = dataclasses.replace(get_config(arch), l2r=QuantConfig())
         desc = _desc(cfg, None)
@@ -6194,10 +6215,22 @@ def dry_mesh(tpm: dict) -> dict:
             for k, v in got.items():
                 require(v == live[k], f"23a {arch} rank {r}: the dry run's "
                                       f"{k} {v}, phase 21's {live[k]}")
-            res = dryrun.meta_step(cfg, mesh, "prefill", shard_params(
-                cfg, abstract(desc), mesh, desc), batch, max_len,
-                cache_dtype=torch.float32, measure=False)
+            params = shard_params(cfg, abstract(desc), mesh, desc)
+            # rank 0's prefill is captured (24c reads its graph): the
+            # recorder records the captured run
+            res = dryrun.meta_step(cfg, mesh, "prefill", params, batch,
+                                   max_len, cache_dtype=torch.float32,
+                                   measure=False, graph=r == 0)
             meta_recs = [x.to_json() for x in res["records"]]
+            if r == 0:
+                want = dict(split_collectives(cfg, params, "prefill"))
+                want["all_gather"] += int(cfg.vocab % MESH_SHAPE[1] == 0) \
+                    + int(MESH_SHAPE[0] > 1)
+                graphs[arch] = {
+                    "records": graph_analysis.to_records(res["graph"].gm),
+                    "capture_s": res["graph"].seconds,
+                    "recorder": meta_recs, "phase21": recs[r],
+                    "want": want}
             diff = next(((i, a, b) for i, (a, b) in enumerate(zip(
                 meta_recs, recs[r])) if a != b), None)
             require(meta_recs == recs[r],
@@ -6208,7 +6241,13 @@ def dry_mesh(tpm: dict) -> dict:
                          "collective_bytes": sum(x["nbytes"]
                                                  for x in meta_recs)})
         out[arch] = rows
-    return out
+    return out, graphs
+
+
+#: what 23a printed while a meta tensor took each kernel's plain version
+#: (an earlier run of this script, NVIDIA H100 80GB HBM3, 700.00 W)
+PLAIN_META = {"13a": "predicted peak 3553 MB, bound 638 ms",
+              "17a": "predicted peak 7047 MB, bound 615 ms"}
 
 
 def phase_dryrun(dev, lm: dict, train: dict, tpm: dict) -> dict:
@@ -6224,7 +6263,7 @@ def phase_dryrun(dev, lm: dict, train: dict, tpm: dict) -> dict:
     procs = start_examples()
     try:
         one = dry_lm(lm, train)
-        mesh = dry_mesh(tpm)
+        mesh, graphs = dry_mesh(tpm)
     except BaseException:
         stop_examples(procs)
         raise
@@ -6235,16 +6274,19 @@ def phase_dryrun(dev, lm: dict, train: dict, tpm: dict) -> dict:
           f"{a13['state_bytes']} bytes == the live tensors' on {smi}; peak "
           f"predicted {a13['predicted_peak_bytes']} bytes beside the "
           f"prefill's max_memory_allocated {a13['measured_peak_bytes']} "
-          f"(ratio {a13['peak_ratio']}); bound {a13['bound_ms']} ms "
-          f"({a13['roofline']['dominant']}) beside the measured prefill "
-          f"{a13['prefill_ms']} ms", flush=True)
+          f"(ratio {a13['peak_ratio']}); the meta run's bound (eager "
+          f"bytes) {a13['bound_ms']} ms ({a13['roofline']['dominant']}) "
+          f"beside the measured prefill {a13['prefill_ms']} ms; before the "
+          f"kernels were one node each (kernel plain versions on meta): "
+          f"{PLAIN_META['13a']}", flush=True)
     print(f"phase 23a: dry run of 17a (SmolLM-135M f32 train step, batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}): peak predicted "
           f"{a17['predicted_peak_bytes']} bytes beside "
           f"{a17['measured_peak_bytes']} measured (ratio "
-          f"{a17['peak_ratio']}); bound {a17['bound_ms']} ms "
-          f"({a17['roofline']['dominant']}) beside the warm step "
-          f"{a17['warm_step_ms']} ms", flush=True)
+          f"{a17['peak_ratio']}); the meta run's bound (eager bytes) "
+          f"{a17['bound_ms']} ms ({a17['roofline']['dominant']}) beside "
+          f"the warm step {a17['warm_step_ms']} ms; before: "
+          f"{PLAIN_META['17a']}", flush=True)
     for arch, rows in mesh.items():
         print(f"phase 23a: {arch} on the {MESH_SHAPE[0]} x {MESH_SHAPE[1]} "
               f"mesh: every rank's params and state bytes == phase 21's "
@@ -6259,7 +6301,189 @@ def phase_dryrun(dev, lm: dict, train: dict, tpm: dict) -> dict:
           f"{smi} and launched the kernels they reach; phase 23: "
           f"{seconds:.1f} s (23a {t_a:.1f} s while 23b ran)", flush=True)
     return {"card": smi, "13a": a13, "17a": a17, "mesh": mesh,
-            "examples": ex, "seconds": seconds}
+            "examples": ex, "seconds": seconds, "graph17": one["graph17"],
+            "graphs21": graphs}
+
+
+# ------------------------------------------------------------------ slice 18
+# the compiled-graph layer: 13a's prefill and decode step captured on the
+# card, each kernel one node, replayed bit for bit (24a); the graph
+# roofline of both and of 17a's step against this run's device times
+# (24b); phase 21's split prefills' collectives as graph nodes (24c)
+def clone_tree(tree):
+    """``tree`` (a state, a batch) with each tensor cloned."""
+    from repro_torch.serve.batching import _map
+
+    return _map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                tree)
+
+
+def graph_replay(fn, fresh, what: str) -> dict:
+    """24a for one step: ``fn(*fresh())`` run eagerly with its launches
+    counted, then captured (launch/graph_analysis.py:capture) on another
+    ``fresh()`` copy, its kernel nodes equal to the eager launches, then
+    the graph replayed on a third copy: every output tensor bit for bit
+    the eager run's, with the same launches.  Returns the records and the
+    counts."""
+    from repro_torch.analysis.exactness import tensors_of
+    from repro_torch.launch import graph_analysis as ga
+
+    reset_counts()
+    ref = fn(*fresh())
+    torch.cuda.synchronize()
+    eager = {k: v for k, v in counts().items() if v}
+    reset_counts()
+    cap = ga.capture(fn, fresh())
+    torch.cuda.synchronize()
+    traced = {k: v for k, v in counts().items() if v}
+    cap.output = None
+    records = ga.to_records(cap.gm)
+    nodes = ga.kernel_nodes(records)
+    require(nodes == eager == traced,
+            f"24a {what}: kernel nodes {nodes}, eager launches {eager}, "
+            f"launches while captured {traced}")
+    reset_counts()
+    got = cap(*fresh())
+    torch.cuda.synchronize()
+    replayed = {k: v for k, v in counts().items() if v}
+    require(replayed == eager, f"24a {what}: the replay launched "
+                               f"{replayed}, the eager run {eager}")
+    a, b = tensors_of(ref), tensors_of(got)
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+    require(same, f"24a {what}: the replayed graph's outputs differ from "
+                  f"the eager step's")
+    del ref, got, cap
+    return {"records": records, "kernel_nodes": nodes, "launches": eager,
+            "nodes": ga.node_count(records), "outputs": len(a)}
+
+
+def graph_bound(records: list, measured, host_ms: float, meta_bound,
+                what: str) -> dict:
+    """24b for one step: its graph's FLOPs (each class at its peak) and
+    bytes, the roofline bound, gated to be at most the step's device time
+    measured in this run (``measured``; its host time where the profiler
+    gave none), beside the meta run's bound of 23a (eager bytes)."""
+    from repro_torch.launch import graph_analysis as ga
+    from repro_torch.launch.roofline import roofline_terms
+
+    ana = ga.analyze(records)
+    rl = roofline_terms(ana["flops"], ana["bytes"], 0.0, 1,
+                        flops_by_peak=ana["flops_by_peak"])
+    gate = measured if isinstance(measured, float) else host_ms
+    row = {"what": what, "flops": ana["flops"],
+           "flops_by_peak": ana["flops_by_peak"], "bytes": ana["bytes"],
+           "weight_bytes": ana["weight_bytes"], "compute_ms":
+           rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3,
+           "bound_ms": rl.bound_s * 1e3, "dominant": rl.dominant,
+           "measured_device_ms": measured, "host_ms": host_ms,
+           "gated_against": "device" if isinstance(measured, float)
+           else "host", "meta_run_bound_ms": meta_bound,
+           "kernel_nodes": ga.kernel_nodes(records),
+           "nodes": ga.node_count(records)}
+    require(row["bound_ms"] <= gate,
+            f"24b {what}: the graph bound {row['bound_ms']} ms exceeds the "
+            f"measured {gate} ms: it is no floor")
+    return row
+
+
+def phase_graph(dev, lm: dict, train: dict, dry: dict) -> dict:
+    """Phase 24: 24a 13a's prefill and one decode step captured on the
+    card and replayed; 24b their graph roofline and 17a's (captured on
+    meta in 23a) against this run's device times; 24c phase 21's split
+    prefills (rank 0, captured on a mesh of shapes only in 23a): graph
+    collectives equal to the recorder's and to phase 21's one for one,
+    no violation of analysis/sharding.py:audit_partitioned_graph."""
+    import gc
+
+    from repro_torch.analysis.sharding import (ShardingContract,
+                                               audit_partitioned_graph)
+    from repro_torch.launch import graph_analysis as ga
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = card()
+    t0 = time.perf_counter()
+    cfg, params, _ = lm_model(dev)
+    batch = {"tokens": lm_prompt(dev, LM_BATCH, LM_PROMPT, cfg.vocab, 130)}
+    prefill = make_prefill_step(cfg, LM_PROMPT + LM_STEPS, torch.float32)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        state, logits = prefill(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        del logits
+        t1 = time.perf_counter()
+        pre = graph_replay(prefill, lambda: (params, batch), "13a prefill")
+        t2 = time.perf_counter()
+        dec = graph_replay(decode, lambda: (params, clone_tree(state), tok),
+                           "13a decode step")
+        t3 = time.perf_counter()
+    del state, params
+    torch.cuda.empty_cache()
+    for name, g, secs in (("prefill", pre, t2 - t1),
+                          ("decode step", dec, t3 - t2)):
+        print(f"phase 24a: 13a's {name} (SmolLM-135M l2r, batch "
+              f"{LM_BATCH}) captured on {smi}: {g['nodes']} nodes, kernel "
+              f"nodes {g['kernel_nodes']} == the eager launches; replayed "
+              f"bit for bit ({g['outputs']} output tensors) with the same "
+              f"launches; capture, eager run and replay {secs:.1f} s",
+              flush=True)
+
+    run = lm["run"]
+    rows = [graph_bound(pre["records"], lm["prof_prefill"].get("device_ms"),
+                        run["prefill_ms"], dry["13a"]["bound_ms"],
+                        "13a prefill"),
+            graph_bound(dec["records"], lm["prof_decode"].get("device_ms"),
+                        run["decode_ms_per_token"], None, "13a decode step"),
+            graph_bound(dry["graph17"]["records"],
+                        train["run"]["profile"].get("device_ms"),
+                        train["run"]["warm_step_ms"], dry["17a"]["bound_ms"],
+                        "17a train step (f32, captured on meta)")]
+    for row in rows:
+        print(f"phase 24b: {row['what']} on {smi}: graph FLOPs "
+              f"{row['flops']} ({row['flops_by_peak']}), bytes "
+              f"{row['bytes']}, bound {row['bound_ms']} ms "
+              f"({row['dominant']}) <= {row['measured_device_ms']} ms "
+              f"measured ({row['gated_against']}); the meta run's bound "
+              f"{row['meta_run_bound_ms']} ms", flush=True)
+
+    coll = {}
+    for arch, g in dry["graphs21"].items():
+        crecs = ga.collective_records(g["records"])
+        graph = [ga.recorded(c) for c in crecs]
+        require(graph == g["recorder"] == g["phase21"],
+                f"24c {arch}: the graph's {len(graph)} collectives, the "
+                f"recorder's {len(g['recorder'])}, phase 21's "
+                f"{len(g['phase21'])} are not one for one")
+        contract = ShardingContract(
+            mesh_axes=(("data", MESH_SHAPE[0]), ("model", MESH_SHAPE[1])),
+            kinds=tuple(sorted(g["want"].items())))
+        violations, _ = audit_partitioned_graph(g["records"], contract,
+                                                f"24c {arch}")
+        require(not violations, f"24c {arch}: " + "; ".join(
+            f"{v.primitive}: {v.reason}" for v in violations))
+        coll[arch] = {"collectives": len(graph),
+                      "nodes": ga.node_count(g["records"]),
+                      "capture_s": g["capture_s"],
+                      "wire_bytes": sum(c["wire_bytes"] for c in crecs),
+                      "violations": 0}
+        print(f"phase 24c: {arch} rank 0 of {MESH_SHAPE[0]} x "
+              f"{MESH_SHAPE[1]}: {len(graph)} collective nodes == the "
+              f"recorder's == phase 21's one for one, zero violations; "
+              f"{coll[arch]['nodes']} nodes captured on meta in "
+              f"{g['capture_s']:.1f} s (during 23a)", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 24: {seconds:.1f} s (17a's and 24c's captures ran in "
+          f"23a: {dry['graph17']['capture_s']:.1f} s and "
+          f"{sum(c['capture_s'] for c in coll.values()):.1f} s)",
+          flush=True)
+    return {"card": smi, "24a": {k: {kk: v for kk, v in g.items()
+                                     if kk != "records"}
+                                 for k, g in (("prefill", pre),
+                                              ("decode", dec))},
+            "24b": rows, "24c": coll, "seconds": seconds}
 
 
 def tpm_summary(tpm: dict, lib: str) -> dict:
@@ -6532,7 +6756,9 @@ def main() -> int:
     tp = phase_tp(dev, train, serve, mix)
     tpm = phase_tp_mixers(dev, mix)
     audit = phase_audit(dev, serve, mesh, dp, tp, tpm)
-    phase_dryrun(dev, lm, train, tpm)
+    dry = phase_dryrun(dev, lm, train, tpm)
+    phase_graph(dev, lm, train, dry)
+    del dry
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]

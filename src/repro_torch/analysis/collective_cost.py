@@ -18,9 +18,11 @@ Time is priced with a DATA-SHEET MODEL, not a measurement: the H100 SXM
 data sheet's NVLink 4 figure, 900 GB/s of bidirectional bandwidth a GPU
 (:data:`NVLINK_BYTES_PER_S`, 450 GB/s each way, from launch/roofline.py,
 the one home of the card's constants).  The port's meshes run host-staged
-gloo ranks on one card, which this model does not describe.
-The reference's compiled-module roofline branch (``hlo_text``) is not
-ported here.
+gloo ranks on one card, which this model does not describe.  Given the
+records of the entry's captured step (launch/graph_analysis.py, the
+counterpart of the reference's ``hlo_text``), the certificate also
+carries the roofline terms of that graph with the verified schedule's
+wire bytes, and the collective share of their serial sum.
 """
 
 from __future__ import annotations
@@ -135,14 +137,19 @@ def _bucket(records: list, axis_sizes: dict) -> dict:
 
 
 def sync_cost_certificate(records: list, mesh_axes: tuple, n_levels: int,
-                          *, ks: tuple = (1, 2, 4, 8)) -> dict:
+                          *, ks: tuple = (1, 2, 4, 8),
+                          graph: list | None = None) -> dict:
     """Fold a verified schedule into the per-(entry x mesh) certificate.
 
     ``records`` are the :class:`CollectiveRecord` s of one walk with its
     per-level collectives once (one level's), ``mesh_axes`` the
     contract's ``(name, size)`` pairs, ``n_levels`` the stream depth the
     per-level schedule fires at.  ``collective_s`` is the wire bytes over
-    :data:`NVLINK_BYTES_PER_S` (a data-sheet model)."""
+    :data:`NVLINK_BYTES_PER_S` (a data-sheet model).  With ``graph`` (the
+    entry's captured step, launch/graph_analysis.py:to_records) the
+    certificate also carries ``roofline`` (the graph's FLOPs and bytes,
+    the schedule's wire bytes: what the contract declares, not the
+    graph's census) and ``collective_share``."""
     axis_sizes = dict(mesh_axes)
     chips = 1
     for _, s in mesh_axes:
@@ -179,4 +186,15 @@ def sync_cost_certificate(records: list, mesh_axes: tuple, n_levels: int,
             "collectives": count, "wire_bytes": wire, "collective_s": secs,
             "savings_frac": 0.0 if secs1 <= 0 else 1.0 - secs / secs1,
         })
+    if graph is not None:
+        from repro_torch.launch.graph_analysis import analyze
+        from repro_torch.launch.roofline import roofline_terms
+
+        ana = analyze(graph)
+        rf = roofline_terms(ana["flops"], ana["bytes"], wire1, chips,
+                            flops_by_peak=ana["flops_by_peak"])
+        serial = rf.compute_s + rf.memory_s + rf.collective_s
+        cert["roofline"] = rf.asdict()
+        cert["collective_share"] = (rf.collective_s / serial
+                                    if serial > 0 else 0.0)
     return cert

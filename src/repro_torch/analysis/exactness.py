@@ -53,8 +53,11 @@ dequantization, also when an arithmetic op promotes the accumulator),
 comparisons (bool decisions), and argmax / argmin (index decisions).
 
 The reference's ``audit_hlo_text`` re-checks XLA's compiled module after
-its rewrites.  It has no counterpart here: eager torch runs the ops it
-records, so the recorded run is the compiled artifact.
+its rewrites.  Its counterpart, :func:`audit_graph`, re-checks a claimed
+entry's captured ATen graph (launch/graph_analysis.py): the only float
+contractions in it are f32, and those only where the contract's guard
+holds.  Eager torch runs the ops it records, so the graph holds the ops
+the taint walk saw; the graph check is the artifact-level one.
 """
 
 from __future__ import annotations
@@ -76,6 +79,7 @@ __all__ = [
     "ExactnessReport",
     "f32_guard_holds",
     "audit_exactness",
+    "audit_graph",
     "tensors_of",
 ]
 
@@ -488,3 +492,41 @@ def audit_exactness(fn: Callable, args: tuple,
     aud.finish()
     aud.keep.clear()
     return aud.rep
+
+
+def audit_graph(records: list, contract: ExactnessContract,
+                entry: str = "<graph>") -> list[Violation]:
+    """The counterpart of the reference's ``audit_hlo_text`` on a captured
+    graph's records (launch/graph_analysis.py:to_records): every float
+    contraction (``mm``, ``bmm``, ``addmm``, ``baddbmm``, convolution,
+    ...), loop bodies included, must be f32 (a bf16 / f16 one silently
+    rounds digit products), and an f32 one is allowed only where the
+    contract's f32 guard holds.  Integer contractions and kernel nodes
+    (integer by construction, opaque) pass."""
+    violations: list[Violation] = []
+
+    def walk(recs, where):
+        for r in recs:
+            if r.get("body"):
+                walk(r["body"], f"{where}/{r['name']}")
+            name = r["target"].split(".")[-1]
+            if r["kind"] != "product" or not r["out"]:
+                continue
+            dt = getattr(torch, r["out"][0]["dtype"])
+            if not dt.is_floating_point:
+                continue  # integer contraction: exact by construction
+            if dt != torch.float32:
+                violations.append(Violation(
+                    entry=entry, primitive=name,
+                    reason=f"captured graph contains a {_dt(dt)} "
+                           f"contraction (sub-f32 floats round digit "
+                           f"products)", detail=f"{where}::{r['name']}"))
+            elif not contract.f32_ok:
+                violations.append(Violation(
+                    entry=entry, primitive=name,
+                    reason="captured graph contains an f32 contraction but "
+                           "the f32 fast-path guard does not hold for this "
+                           "contract", detail=f"{where}::{r['name']}"))
+
+    walk(records, "main")
+    return violations

@@ -2,10 +2,12 @@
 
 The port of ``repro/analysis/sharding.py``.  The reference lowers each
 shard_mapped entry and lints the jaxpr's reductions and the partitioned
-HLO.  Eager torch has no partitioner: every collective of the port goes
+HLO.  The port splits by hand (no partitioner): every collective goes
 through sharding/collectives.py, whose recorder gives the schedule as it
-ran, one :class:`~repro_torch.sharding.collectives.Record` per call, with
-its tag (:func:`~repro_torch.sharding.collectives.tag`, the reference's
+ran, and a rank's captured step holds the same collectives as graph
+nodes (:func:`audit_partitioned_graph`).  The recorder gives them one
+:class:`~repro_torch.sharding.collectives.Record` per call, with its
+tag (:func:`~repro_torch.sharding.collectives.tag`, the reference's
 ``l2r_coll_*`` names), its group and whether it ran inside a level loop.
 Per entry with a :class:`ShardingContract` the audit checks:
 
@@ -34,6 +36,14 @@ gathers the logits (and the tokens and levels over the data axes) at the
 end (core/progressive.py:sharded_walk_collectives counts the same).  The
 port's contracts declare the port's schedule.
 
+The reference's second pass, ``audit_partitioned_hlo``, reads the
+partitioned module; its counterpart :func:`audit_partitioned_graph` reads
+a rank's captured step (launch/graph_analysis.py), whose collectives are
+nodes carrying the recorder's fields, with the reference's rules: a data
+mover the contract does not declare, a float SUM all-reduce (unless
+``allow_float_psum``), an all-reduce without a declared tag (where the
+contract declares tags), and the count budget.
+
 The reference's layout conformance (the compiled module's input
 shardings) has no counterpart: a rank's operands are its own tensors,
 and the walk raises where a cache holds another rank's slice.
@@ -59,6 +69,7 @@ __all__ = [
     "ShardingReport",
     "audit_sharding",
     "audit_records",
+    "audit_partitioned_graph",
     "audit_sharded_registry",
 ]
 
@@ -298,6 +309,66 @@ def audit_records(records: list, sharding: ShardingContract,
                   "levels_run": levels_run, "walks": n_walks},
         collectives={"census": census, "records": len(records)},
         cost=cost)
+
+
+def _budget(c: ShardingContract) -> int:
+    """The static collective budget of a captured step: unrolled, each
+    per-level collective appears once a level."""
+    if c.max_collectives is not None:
+        return c.max_collectives
+    if c.kinds is not None:
+        return sum(n for _, n in c.kinds)
+    return (c.n_levels * sum(s.count for s in c.per_level)
+            + sum(s.count for s in c.per_walk))
+
+
+def audit_partitioned_graph(records: list, contract: ShardingContract,
+                            entry: str = "<graph>") -> tuple[list, list]:
+    """Check a rank's captured step (its records,
+    launch/graph_analysis.py:to_records) against the contract: the
+    counterpart of the reference's ``audit_partitioned_hlo``.  Returns
+    ``(violations, collective_records)``.  The rules: a data mover
+    (all-gather, all-to-all) the contract does not declare, a float
+    ``add`` all-reduce (partial sums reassociated across ranks) unless
+    ``allow_float_psum``, an all-reduce without one of the contract's
+    declared tags (where it declares any: a collective the schedule never
+    declared), and the static count budget."""
+    from repro_torch.launch.graph_analysis import collective_records
+
+    recs = collective_records(records)
+    violations: list[Violation] = []
+    tags = {s.tag for s in contract.per_level + contract.per_walk if s.tag}
+    for r in recs:
+        where = f"{r['computation']}::{r['name']}"
+        if r["op"] in DATA_MOVERS and not contract.declares(r["op"]):
+            violations.append(Violation(
+                entry, r["op"], f"{r['kind']} in the captured step that "
+                                f"the contract does not declare: a sharded "
+                                f"operand is moved between ranks", where))
+            continue
+        if r["op"] != "all_reduce":
+            continue
+        if getattr(torch, r["dtype"]).is_floating_point \
+                and r["reduce_op"] == "add" \
+                and not contract.allow_float_psum:
+            violations.append(Violation(
+                entry, "all_reduce",
+                f"float add all-reduce ({r['dtype']}): partial sums are "
+                f"reassociated across ranks", where))
+        elif tags and r["tag"] not in tags:
+            violations.append(Violation(
+                entry, "all_reduce",
+                f"{r['dtype']} {r['reduce_op'] or '?'} all-reduce without "
+                f"a declared l2r_coll tag: a collective the schedule never "
+                f"declared (tag={r['tag'] or '<none>'!r})", where))
+    budget = _budget(contract)
+    if len(recs) > budget:
+        violations.append(Violation(
+            entry, "graph",
+            f"collective-count budget exceeded: {len(recs)} collectives in "
+            f"the captured step, budget {budget}",
+            detail=",".join(sorted({r["kind"] for r in recs}))))
+    return violations, recs
 
 
 def audit_sharding(fn: Callable, args: tuple, sharding: ShardingContract,

@@ -15,6 +15,15 @@ starts one ``nvcc`` per source, all at once.  A failed build raises with
 sees a kernel: None unless an audit records, else called after each
 launch as ``AUDIT(name, reads, writes)`` with the tensors the kernel read
 as operands and the tensors it wrote.
+
+:data:`CAPTURE` is the one switch that makes every kernel wrapper call its
+kernel as a ``torch.library`` custom op (``repro_torch::<name>``): True
+only while ``launch/graph_analysis.py:capture`` traces a step, so that each
+launch is one node of the captured graph.  :func:`as_op` is the wrappers'
+test: a capture is active, or the operand is a ``meta`` tensor on the
+card's path (device.py:card_path), whose op returns its output's shape and
+dtype and counts the kernel's work (the dry run).  The eager paths are
+untouched: a CUDA tensor launches, a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["sources", "build_all", "load", "launch", "note_launch",
-           "BUILD_DIR", "AUDIT"]
+           "BUILD_DIR", "AUDIT", "CAPTURE", "as_op"]
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch"
@@ -41,6 +50,20 @@ _LOCK = threading.Lock()
 
 #: the kernel hook of an active exactness audit (None: no audit records)
 AUDIT = None
+#: True while a graph capture traces (launch/graph_analysis.py:capture)
+CAPTURE = False
+
+
+def as_op(x) -> bool:
+    """Does a wrapper call its kernel as its custom op for operand ``x``:
+    inside a capture, or on a ``meta`` tensor that takes the card's path."""
+    if CAPTURE:
+        return True
+    if not x.is_meta:
+        return False
+    from repro_torch.device import card_path
+
+    return card_path(x)
 
 
 def sources() -> dict[str, Path]:

@@ -35,14 +35,25 @@ keys at a time, by default the kernels' own KV tile, so that the running
 max and the rounding of p to v's dtype follow the kernel's steps) in
 torch, true f32 (TF32 off).  ``LAUNCHES[name]``
 counts one kernel's launches and nothing else.
+
+Inside a graph capture, and on a ``meta`` tensor on the card's path
+(kernels/_build.py:as_op), a wrapper calls its kernel as the custom op
+``repro_torch::flash_attention`` / ``repro_torch::flash_attention_l2r``
+(B4 on the operands the kernel reads: :func:`l2r_kernel_operands`): one
+node of the graph, the same launch on the card and the plain version on
+the CPU.  The work PERF.md's bound column counts, :func:`flash_cost`
+(with :func:`visible_pairs` and :func:`attention_ops`), is the ops' FLOP
+formula and chip_smoke.py's bound.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.l2r_attention import quantize_per_vector
 from repro_torch.core.l2r_gemm import wrap_int32
@@ -57,7 +68,8 @@ __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
            "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile",
            "l2r_masks", "l2r_width", "l2r_kernel_operands",
-           "flash_attention_l2r_launch", "plain_grads", "FlashAttentionL2R"]
+           "flash_attention_l2r_launch", "plain_grads", "FlashAttentionL2R",
+           "visible_pairs", "attention_ops", "flash_cost"]
 
 #: kernel launches per library since the counts were last reset (plain
 #: calls are not counted)
@@ -136,6 +148,43 @@ def _online_softmax_plain(scores, v, sq: int, h: int, causal: bool,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs a mask lets through: key j of query i is seen
+    when ``j <= i`` (causal) and ``j > i - window`` (a window)."""
+    total = 0
+    for i in range(sq):
+        hi = min(skv, i + 1) if causal else skv
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def attention_ops(b: int, h: int, dh: int, pairs: int, dtype: torch.dtype,
+                  qk_int8: bool = False) -> dict:
+    """QK^T and PV at 2 dh operations per visible pair each, by the peak
+    they run at (launch/roofline.py:PEAKS): bf16 on the bf16 tensor cores,
+    f32 as the 3xTF32 split (``"tf32x3"``), B4's QK^T on the int8 tensor
+    cores."""
+    per = 2 * b * h * pairs * dh
+    peak = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+    ops = {peak: per}
+    qk = "int8" if qk_int8 else peak
+    ops[qk] = ops.get(qk, 0) + per
+    return ops
+
+
+def flash_cost(b: int, sq: int, skv: int, h: int, kvh: int, dh: int,
+               causal: bool, window, dtype: torch.dtype,
+               qk_int8: bool = False) -> tuple[dict, int]:
+    """Kernel B5's (B4's with ``qk_int8``) work: :func:`attention_ops` over
+    the visible pairs, and q, k, v read and the output written once in
+    ``dtype``."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return (attention_ops(b, h, dh, visible_pairs(sq, skv, causal, window),
+                          dtype, qk_int8),
+            (2 * b * sq * h * dh + 2 * b * skv * kvh * dh) * elem)
+
+
 def _require(which: str, dh: int, *tensors, dtypes=None) -> None:
     dev = tensors[0].device
     for x in tensors:
@@ -179,8 +228,17 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
     kernel: q, k, v contiguous, all f32 or all bf16, dh <= 128.
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    if _build.as_op(q):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
+                                                     scale)
     if not q.is_cuda:
         return flash_attention_kernel_plain(q, k, v, causal, window, scale)
+    return _b5_launch(q, k, v, causal, window, scale)
+
+
+def _b5_launch(q, k, v, causal, window, scale) -> torch.Tensor:
+    """B5 on the card: the eager path and the op's CUDA implementation."""
+    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
     _require("B5", dh, q, k, v, dtypes=(torch.float32, torch.bfloat16))
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"kernel B5 takes q, k, v of one dtype, got "
@@ -198,6 +256,26 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
                   writes=(out,))
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _b5_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int], scale: Optional[float]) -> torch.Tensor:
+    return flash_attention_kernel_plain(q, k, v, causal, window, scale)
+
+
+_b5_op.register_kernel("cuda")(_b5_launch)
+_b5_op.register_fake(lambda q, k, v, *args: v.new_empty(q.shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _b5_flops(q_shape, k_shape, v_shape, causal, window, scale, *,
+              out_val=None, **_):
+    b, sq, h, dh = q_shape
+    ops, _ = flash_cost(b, sq, k_shape[1], h, k_shape[2], dh, causal, window,
+                        out_val.dtype if out_val is not None
+                        else torch.float32)
+    return sum(ops.values())
 
 
 # ----------------------------------------------------- B4: level-walk QK^T
@@ -244,9 +322,17 @@ def flash_attention_l2r_plain(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     """Plain version of kernel B4: :func:`l2r_operands`, then the
     reference kernel's online softmax over blocks of ``bkv`` keys with
     each score ``s_int * q_scale * k_scale * scale`` (f32, that order)."""
-    b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    _shapes(q, k, v)
+    return _l2r_plain_walk(*l2r_operands(q, k, n_bits, log2_radix), v,
+                           n_bits, log2_radix, levels, causal, window, scale,
+                           bkv)
+
+
+def _l2r_plain_walk(q_stack, qs, k_stack, ks, v, n_bits, log2_radix, levels,
+                    causal, window, scale, bkv=KV_TILE) -> torch.Tensor:
+    b, skv, kvh, dh = v.shape
+    sq, h = q_stack.shape[1], q_stack.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    q_stack, qs, k_stack, ks = l2r_operands(q, k, n_bits, log2_radix)
     qst, qsc = _gqa_rows(q_stack, kvh), _gqa_rows(qs, kvh)
     kst = _gqa_keys(k_stack)
     ksc = _gqa_keys(ks).transpose(-1, -2)  # (B, Kv, 1, 1, Skv)
@@ -328,6 +414,43 @@ def flash_attention_l2r_launch(ops, dh: int, n_bits: int = 8,
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention_l2r", mutates_args=())
+def _b4_op(qq: torch.Tensor, qs: torch.Tensor, kq: torch.Tensor,
+           ks: torch.Tensor, v: torch.Tensor, dh: int, n_bits: int,
+           log2_radix: int, levels: Optional[int], causal: bool,
+           window: Optional[int], scale: Optional[float]) -> torch.Tensor:
+    # the plain walk on the codes the kernel reads (its zero padding cut)
+    qq, kq, v = qq[..., :dh], kq[..., :dh], v[..., :dh]
+    return _l2r_plain_walk(
+        stack_planes_lhs(qq, n_bits, log2_radix), qs,
+        stack_planes_rhs(kq, n_bits, log2_radix, axis=-1), ks, v, n_bits,
+        log2_radix, levels, causal, window, scale)
+
+
+@_b4_op.register_kernel("cuda")
+def _(qq, qs, kq, ks, v, dh, n_bits, log2_radix, levels, causal, window,
+      scale):
+    return flash_attention_l2r_launch((qq, qs, kq, ks, v), dh, n_bits,
+                                      log2_radix, levels, causal, window,
+                                      scale)
+
+
+@_b4_op.register_fake
+def _(qq, qs, kq, ks, v, dh, *args):
+    return v.new_empty((*qq.shape[:3], dh))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_l2r)
+def _b4_flops(qq_shape, qs_shape, kq_shape, ks_shape, v_shape, dh, n_bits,
+              log2_radix, levels, causal, window, scale, *, out_val=None,
+              **_):
+    b, sq, h, _ = qq_shape
+    ops, _ = flash_cost(b, sq, kq_shape[1], h, kq_shape[2], dh, causal,
+                        window, out_val.dtype if out_val is not None
+                        else torch.float32, qk_int8=True)
+    return sum(ops.values())
+
+
 def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
                         levels: int | None = None, causal: bool = True,
                         window: int | None = None,
@@ -343,6 +466,10 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     planes and raise), v f32 or bf16, dh <= 128.
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
+    if _build.as_op(q):
+        return torch.ops.repro_torch.flash_attention_l2r(
+            *l2r_kernel_operands(q, k, v, n_bits, log2_radix), dh, n_bits,
+            log2_radix, levels, causal, window, scale)
     if not q.is_cuda:
         return flash_attention_l2r_plain(q, k, v, n_bits, log2_radix, levels,
                                          causal, window, scale)

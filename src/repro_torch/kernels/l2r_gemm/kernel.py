@@ -23,16 +23,27 @@ The three kernels have their own pipelines; B2 and B3 share device helpers
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.
-``LAUNCHES[name]`` counts one kernel's launches and nothing else.
+``LAUNCHES[name]`` counts one kernel's launches and nothing else.  Inside
+a graph capture, and on a ``meta`` tensor on the card's path
+(kernels/_build.py:as_op), a wrapper calls its kernel as the custom op
+``repro_torch::<name>`` instead: one node of the captured graph, whose
+CUDA implementation is the same launch, whose CPU implementation is the
+plain version and whose fake returns the output's shape.  Each kernel's
+work, as PERF.md's bound column counts it, has one home here
+(:func:`stacked_cost`, :func:`slab_cost`, :func:`streaming_cost`,
+:func:`pairs_cost`): the ops' FLOP formulas and chip_smoke.py's bounds
+read it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
 from repro_torch.core.online import (msdf_level_slices, msdf_products,
@@ -46,7 +57,8 @@ __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
            "pairs_plan", "l2r_gemm_stacked_planes",
            "l2r_gemm_stacked_planes_plain", "l2r_gemm_streaming_planes",
            "l2r_gemm_streaming_planes_plain", "l2r_gemm_pairs",
-           "l2r_gemm_pairs_plain"]
+           "l2r_gemm_pairs_plain", "stacked_cost", "slab_cost",
+           "streaming_cost", "pairs_cost"]
 
 #: kernel launches per library since the counts were last reset (plain
 #: calls are not counted)
@@ -226,6 +238,52 @@ def _check_out(out, shape, dev):
                          f"{dev}")
 
 
+# ------------------------------------------------------------- the work
+def stacked_cost(m: int, k: int, n: int, d: int, levels: int | None = None,
+                 first_level: int = 0, accumulate: bool = False
+                 ) -> tuple[dict, int]:
+    """Kernel B1's work: ``({"int8": operations}, bytes)``.  A prefix
+    (``first_level=0``) is at most D plane-range products of 2 M N K int8
+    operations (one at full depth: the function is aq @ bq mod 2^32),
+    reading the two stacks once and writing (with ``accumulate``, reading
+    and writing) the int32 result; a table that starts above level 0 is
+    its plane pairs, reading the slices they touch (:func:`slab_cost`)."""
+    prods = len(msdf_products(d, levels, first_level))
+    ops = {"int8": 2 * m * n * k * prods}
+    if first_level:
+        return ops, prods * (m * k + k * n) + m * n * 4
+    return ops, m * d * k + d * k * n + m * n * 4 * (2 if accumulate else 1)
+
+
+def slab_cost(m: int, k: int, n: int, t: int, d: int) -> tuple[dict, int]:
+    """Level ``t``'s slab of B1's walk (``levels=t+1, first_level=t``): its
+    plane pairs (i + j = t) at 2 M N K int8 operations each, the planes
+    they read and the (M, N) int32 it writes."""
+    pairs = min(t, 2 * d - 2 - t) + 1
+    return ({"int8": 2 * m * n * k * pairs},
+            pairs * (m * k + k * n) + m * n * 4)
+
+
+def streaming_cost(m: int, k: int, n: int, d: int, n_levels: int,
+                   accumulate: bool = False) -> tuple[dict, int]:
+    """Kernel B2's work: each snapshot plane is a different sum of the D²
+    pair products, 2 M N K int8 operations each; the stacks read once, the
+    (L, M, N) int32 stream written (read and written with
+    ``accumulate``)."""
+    return ({"int8": 2 * m * n * k * d * d},
+            m * d * k + d * k * n
+            + n_levels * m * n * 4 * (2 if accumulate else 1))
+
+
+def pairs_cost(m: int, k: int, n: int, d: int = 4,
+               levels: int | None = None) -> tuple[dict, int]:
+    """Kernel B3's work: its plane-range products (one at full depth) at
+    2 M N K int8 operations each, the raw int8 operands read once and
+    the int32 result written."""
+    return ({"int8": 2 * m * n * k * len(msdf_products(d, levels))},
+            m * k + k * n + m * n * 4)
+
+
 # ------------------------------------------------------------- B1: stacked
 def l2r_gemm_stacked_planes_plain(
     a_stack: torch.Tensor,
@@ -290,24 +348,62 @@ def l2r_gemm_stacked_planes(
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     _check_out(out, (m, n), a_stack.device)
+    if _build.as_op(a_stack):
+        c = torch.zeros((m, n), dtype=torch.int32, device=a_stack.device) \
+            if out is None else out
+        torch.ops.repro_torch.l2r_stacked_gemm(a_stack, b_rev, c, n_bits,
+                                               log2_radix, levels,
+                                               first_level)
+        return c
     if not a_stack.is_cuda:
         return l2r_gemm_stacked_planes_plain(a_stack, b_rev, n_bits,
                                              log2_radix, levels, out,
                                              first_level)
-    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack)
-    _check_b_rev(b_rev, a_stack.device)
     # the kernel adds into its output (atomically where it splits the walk)
     c = torch.zeros((m, n), dtype=torch.int32, device=a_stack.device) \
         if out is None else out
+    _b1_launch(a_stack, b_rev, c, n_bits, log2_radix, levels, first_level)
+    return c
+
+
+def _b1_launch(a_stack, b_rev, c, n_bits, log2_radix, levels,
+               first_level) -> None:
+    """B1 added into ``c`` on the card (the eager path and the op's CUDA
+    implementation)."""
+    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack)
+    _check_b_rev(b_rev, a_stack.device)
+    (m, dk), n = a_stack.shape, b_rev.shape[1]
     d = n_bits // log2_radix
+    k = dk // d
     plan = _b1_plan(d, levels, first_level)
     if not plan[0] or 0 in (m, n, k):  # levels=0: empty MSDF prefix
-        return c
+        return
     bt, ldb = _k_major(b_rev)
     _launch("l2r_stacked_gemm", a_stack.device, f"M={m} K={k} N={n}",
             (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
-            c.data_ptr(), m, n, a_stack.shape[1], ldb, d, k, *plan)
-    return c
+            c.data_ptr(), m, n, dk, ldb, d, k, *plan)
+
+
+@torch.library.custom_op("repro_torch::l2r_stacked_gemm",
+                         mutates_args=("out",))
+def _b1_op(a_stack: torch.Tensor, b_rev: torch.Tensor, out: torch.Tensor,
+           n_bits: int, log2_radix: int, levels: Optional[int],
+           first_level: int) -> None:
+    out += l2r_gemm_stacked_planes_plain(a_stack, b_rev, n_bits, log2_radix,
+                                         levels, None, first_level)
+
+
+_b1_op.register_kernel("cuda")(_b1_launch)
+_b1_op.register_fake(lambda *args: None)
+
+
+@register_flop_formula(torch.ops.repro_torch.l2r_stacked_gemm)
+def _b1_flops(a_shape, b_shape, c_shape, n_bits, log2_radix, levels,
+              first_level, **_):
+    d = n_bits // log2_radix
+    ops, _ = stacked_cost(a_shape[0], a_shape[1] // d, b_shape[1], d, levels,
+                          first_level)
+    return sum(ops.values())
 
 
 # ----------------------------------------------------------- B2: streaming
@@ -375,38 +471,94 @@ def l2r_gemm_streaming_planes(
     n_lv = _n_levels(d, levels)
     dev = a_stack.device
     _check_out(out, (n_lv, m, n), dev)
+    # the level count on the card, else as an int
+    count = level_count if isinstance(level_count, torch.Tensor) else None
+    n_count = 0 if count is not None else (
+        n_lv if level_count is None else int(level_count))
+    if _build.as_op(a_stack):
+        c = torch.zeros((n_lv, m, n), dtype=torch.int32, device=dev) \
+            if out is None else out
+        torch.ops.repro_torch.l2r_streaming_gemm(
+            a_stack, b_rev, c, n_bits, log2_radix, levels, count, n_count,
+            out is not None)
+        return c
     if not a_stack.is_cuda:
         return l2r_gemm_streaming_planes_plain(a_stack, b_rev, n_bits,
                                                log2_radix, levels,
                                                level_count, out)
-    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack)
-    _check_b_rev(b_rev, dev)
-    if d not in B2_PLANES:
-        raise ValueError(f"kernel B2 is built for D in {B2_PLANES} planes; "
-                         f"n_bits={n_bits}, log2_radix={log2_radix} has D={d}")
-    if n_lv == 0 or 0 in (m, n, k):
-        return torch.zeros((n_lv, m, n), dtype=torch.int32, device=dev) \
-            if out is None else out
     # without out= the kernel writes the planes (unspecified at or above
     # the level count, as the docstring says) instead of adding to them
     c = torch.empty((n_lv, m, n), dtype=torch.int32, device=dev) \
         if out is None else out
-    if level_count is None:
-        level_count = n_lv
-    if isinstance(level_count, torch.Tensor):
-        cnt = level_count
+    _b2_launch(a_stack, b_rev, c, n_bits, log2_radix, levels, count,
+               n_count, out is not None)
+    return c
+
+
+def _b2_check(a_stack, b_rev, n_bits, log2_radix) -> None:
+    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack)
+    _check_b_rev(b_rev, a_stack.device)
+    d = n_bits // log2_radix
+    if d not in B2_PLANES:
+        raise ValueError(f"kernel B2 is built for D in {B2_PLANES} planes; "
+                         f"n_bits={n_bits}, log2_radix={log2_radix} has D={d}")
+
+
+def _b2_launch(a_stack, b_rev, c, n_bits, log2_radix, levels, count,
+               n_count, accumulate) -> None:
+    """B2 written (or, with ``accumulate``, added) into ``c`` on the card:
+    the eager path and the op's CUDA implementation.  ``count`` is the
+    one-element level count on the card, else ``n_count`` levels run."""
+    _b2_check(a_stack, b_rev, n_bits, log2_radix)
+    (m, dk), n = a_stack.shape, b_rev.shape[1]
+    d = n_bits // log2_radix
+    k = dk // d
+    n_lv = _n_levels(d, levels)
+    dev = a_stack.device
+    if n_lv == 0 or 0 in (m, n, k):  # nothing to add; written as zeros
+        if not accumulate:
+            c.zero_()
+        return
+    if count is None:
+        cnt = _count_tensor(dev, n_count)
+    else:
+        cnt = count
         if cnt.dtype != torch.int32 or cnt.numel() != 1 or cnt.device != dev:
             raise ValueError(f"level_count must be a one-element int32 "
                              f"tensor on {dev}")
-    else:
-        cnt = _count_tensor(dev, int(level_count))
     bt, ldb = _k_major(b_rev)
     tile, splits = streaming_plan(m, n, k, _sm_count(dev))
     _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
             (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
-            c.data_ptr(), m, n, a_stack.shape[1], ldb, d, k, n_lv,
-            cnt.data_ptr(), tile, splits, int(out is not None))
-    return c
+            c.data_ptr(), m, n, dk, ldb, d, k, n_lv,
+            cnt.data_ptr(), tile, splits, int(accumulate))
+
+
+@torch.library.custom_op("repro_torch::l2r_streaming_gemm",
+                         mutates_args=("out",))
+def _b2_op(a_stack: torch.Tensor, b_rev: torch.Tensor, out: torch.Tensor,
+           n_bits: int, log2_radix: int, levels: Optional[int],
+           count: Optional[torch.Tensor], n_count: int,
+           accumulate: bool) -> None:
+    stream = l2r_gemm_streaming_planes_plain(a_stack, b_rev, n_bits,
+                                             log2_radix, levels)
+    if accumulate:
+        out += stream
+    else:
+        out.copy_(stream)
+
+
+_b2_op.register_kernel("cuda")(_b2_launch)
+_b2_op.register_fake(lambda *args: None)
+
+
+@register_flop_formula(torch.ops.repro_torch.l2r_streaming_gemm)
+def _b2_flops(a_shape, b_shape, c_shape, n_bits, log2_radix, levels, count,
+              n_count, accumulate, **_):
+    d = n_bits // log2_radix
+    ops, _ = streaming_cost(a_shape[0], a_shape[1] // d, b_shape[1], d,
+                            c_shape[0], accumulate)
+    return sum(ops.values())
 
 
 # ---------------------------------------------------------- B3: pair loop
@@ -434,8 +586,16 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
     if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
         raise ValueError(f"operands must be (M, K) x (K, N), got "
                          f"{tuple(aq.shape)} x {tuple(bq.shape)}")
+    if _build.as_op(aq):
+        return torch.ops.repro_torch.l2r_pairs_gemm(aq, bq, n_bits,
+                                                    log2_radix, levels)
     if not aq.is_cuda:
         return l2r_gemm_pairs_plain(aq, bq, n_bits, log2_radix, levels)
+    return _b3_launch(aq, bq, n_bits, log2_radix, levels)
+
+
+def _b3_launch(aq, bq, n_bits, log2_radix, levels) -> torch.Tensor:
+    """B3 on the card: the eager path and the op's CUDA implementation."""
     _require_int8(n_bits, log2_radix, "B3", aq=aq, bq=bq)
     (m, k), n = aq.shape, bq.shape[1]
     plan = _b3_c_plan(n_bits // log2_radix, log2_radix, levels)
@@ -446,3 +606,24 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
             (aq, bq), (c,), aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m,
             n, k, *plan)
     return c
+
+
+@torch.library.custom_op("repro_torch::l2r_pairs_gemm", mutates_args=())
+def _b3_op(aq: torch.Tensor, bq: torch.Tensor, n_bits: int, log2_radix: int,
+           levels: Optional[int]) -> torch.Tensor:
+    return l2r_gemm_pairs_plain(aq, bq, n_bits, log2_radix, levels)
+
+
+_b3_op.register_kernel("cuda")(_b3_launch)
+
+
+@_b3_op.register_fake
+def _(aq, bq, n_bits, log2_radix, levels):
+    return aq.new_empty((aq.shape[0], bq.shape[1]), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.l2r_pairs_gemm)
+def _b3_flops(a_shape, b_shape, n_bits, log2_radix, levels, **_):
+    ops, _ = pairs_cost(a_shape[0], a_shape[1], b_shape[1],
+                        n_bits // log2_radix, levels)
+    return sum(ops.values())

@@ -7,8 +7,8 @@ priced without a card, one JSON artifact per cell.
 
 The port of ``repro/launch/dryrun.py``, with its CLI.  Where the
 reference lowers and compiles each cell under a mesh of 256 (or 512)
-devices, eager PyTorch has no compiled module; the dry run here does two
-things instead:
+devices and reads the compiled module, the port captures one rank's step
+as an ATen graph (launch/graph_analysis.py) and reads that:
 
 * **the layout**: the bytes one rank holds, from the port's layouts
   (params under sharding/axes.py:held_layouts, the serving state under
@@ -16,36 +16,39 @@ things instead:
   AdamW moments under ``zero1_specs``, the inputs under ``batch_spec``),
   for rank 0 and the largest over the ranks, beside the reference's
   ``param_specs`` arithmetic;
-* **one recorded step of rank 0 on the ``meta`` device** at the rank's
+* **one captured step of rank 0 on the ``meta`` device** at the rank's
   local shapes, through the step factories a rank runs
   (``make_prefill_step``, ``make_decode_step``, ``make_train_step(
-  mesh=)``) under a mesh of shapes only (launch/mesh.py:make_shape_mesh:
-  its collectives return meta tensors and are recorded,
-  sharding/collectives.py).  From it: the FLOPs
-  (``torch.utils.flop_counter.FlopCounterMode``, the counterpart of
-  ``cost_analysis``), the bytes moved (each op's operands plus its
-  results: eager torch's own unfused traffic, an upper bound on what a
-  fused program moves), the peak of live storage (the rank's inputs plus
-  the most the step holds at once: the counterpart of
-  ``memory_analysis``) and the collectives, priced with the ring models
-  (analysis/collective_cost.py:ring_wire_bytes).
+  mesh=)``) under a mesh of shapes only (launch/mesh.py:make_shape_mesh).
+  Each kernel is one node (its custom op: kernels/_build.py:as_op), each
+  collective one node carrying its group and tag
+  (sharding/collectives.py).  ``analyze`` of the graph gives the cell's
+  ``roofline`` and ``collectives`` as the reference's HLO analysis gives
+  them (a fused program's traffic: views, pointwise ops and casts free;
+  products and kernels at their operands and result), archived as
+  ``<cell>.graph.json.xz`` (launch/reanalyze.py re-reads it);
+  ``capture_s`` and ``graph_nodes`` are the counterparts of
+  ``compile_s`` and ``hlo_bytes``.  The same run, meanwhile, is metered
+  as eager torch runs it: ``cost_analysis_raw`` (the counterpart of
+  XLA's raw cost analysis) holds its FLOPs
+  (``torch.utils.flop_counter.FlopCounterMode``, kernels by their
+  formulas) and the bytes of every op's operands and results (eager
+  unfused traffic), and ``memory_analysis`` the peak of live storage (the
+  rank's inputs plus the most the step holds at once).
 
-launch/roofline.py turns those into the three roofline terms at the H100
-data sheet's rates: the compute term at the bf16 peak, or the int8 peak
-where ``--l2r`` / ``--wq`` puts the products on kernel B1.  Kernel
-wrappers take their plain versions on ``meta`` tensors, so the FLOPs of
-a kernel are its plain version's.  Nothing is launched and no card is
-needed.
+launch/roofline.py turns the graph's FLOPs, bytes and wire bytes into the
+three roofline terms at the H100 data sheet's rates: the compute term at
+the bf16 peak, or the int8 peak where ``--l2r`` / ``--wq`` puts the
+products on kernel B1.  Nothing is launched and no card is needed.
 
-Where the meta run cannot go, the artifact gives that part as null with
+Where the capture cannot go, the artifact gives that part as null with
 the reason, never a guessed number; the layout bytes are always given.
 Two cases are expected: a read of a tensor's value on the host (MoE
 dispatch counts, an early-exit walk, the ``L2R_CERTIFY`` guard), and
 decode over a cache split by sequence (``--kv-seq-shard``), which the
-port has no code for.  The reference's keys with no meaning here
-(``compile_s``, ``hlo_bytes``, ``cost_analysis_raw``, the ``.hlo.zst``
-archive) are absent.  ``--moe-hints`` raises: the port has no interior
-sharding hints to turn on (eager torch has no partitioner).
+port has no code for.  ``lower_s`` has no meaning here and is absent.
+``--moe-hints`` raises: the port has no interior sharding hints to turn
+on (eager torch has no partitioner).
 """
 
 from __future__ import annotations
@@ -63,12 +66,13 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.analysis.collective_cost import ring_wire_bytes
 from repro_torch.configs import (SHAPES, all_cells, cell_supported,
                                  get_config)
 from repro_torch.configs.registry import input_specs
+from repro_torch.launch import graph_analysis
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.roofline import model_flops, roofline_terms
+from repro_torch.launch.roofline import (model_flops, parse_collectives,
+                                         roofline_terms)
 from repro_torch.models.common import (abstract, count_params,
                                        quantize_desc)
 from repro_torch.models.config import ModelConfig
@@ -79,8 +83,8 @@ from repro_torch.sharding.axes import (P, _desc, _paths, _spec_leaves,
                                        zero1_specs)
 
 __all__ = ["MeterMode", "meter", "meta_step", "layout_bytes", "tree_bytes",
-           "collective_summary", "cell_config", "dry_cell", "run_cell",
-           "rank_gb", "main", "BYTES_NOTE"]
+           "cell_config", "dry_cell", "run_cell",
+           "rank_gb", "graph_roofline", "main", "BYTES_NOTE"]
 
 BYTES_NOTE = ("bytes_moved: each op's operands plus its results as eager "
               "PyTorch runs them, unfused (views move nothing); a fused "
@@ -88,8 +92,6 @@ BYTES_NOTE = ("bytes_moved: each op's operands plus its results as eager "
 SEQ_DECODE = ("decode over a KV cache split by sequence "
               "(state_specs(kv_shard='seq')): the port has no decode "
               "attention for that layout")
-_KIND = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-         "all_to_all": "all-to-all"}
 
 
 # ------------------------------------------------------------ the meter
@@ -162,37 +164,36 @@ class MeterMode(TorchDispatchMode):
 
 
 def meter(fn, args: tuple, inputs: list[torch.Tensor],
-          measure: bool = True) -> dict:
+          measure: bool = True, graph: bool = False) -> dict:
     """Run ``fn(*args)`` on meta tensors under the FLOP counter, the
     :class:`MeterMode` and the collective recorder: ``{"out", "flops",
     "bytes_moved", "temp_peak_bytes", "records", "ops"}`` (the peak of
     the storage the step made, over the ``inputs`` already held); with
-    ``measure=False`` under the recorder alone (``{"out", "records"}``)."""
+    ``measure=False`` under the recorder alone (``{"out", "records"}``).
+    With ``graph`` the step is also captured
+    (launch/graph_analysis.py:capture), given as ``"graph"``: in a run of
+    its own where it is metered (a trace holds its tensors longer than the
+    step does, so the peak is the eager run's), else in the recorded run
+    itself."""
+    def captured():
+        cap = graph_analysis.capture(fn, args)
+        out, cap.output = cap.output, None
+        return out, cap
+
     if not measure:
         with collectives.recording() as records:
-            return {"out": fn(*args), "records": list(records)}
+            out, cap = captured() if graph else (fn(*args), None)
+        return {"out": out, "records": list(records), "graph": cap}
     flops = FlopCounterMode(display=False)
     with collectives.recording() as records:
         with flops, MeterMode(inputs) as m:
             out = fn(*args)
-    return {"out": out, "flops": flops.get_total_flops(),
-            "bytes_moved": m.moved, "temp_peak_bytes": m.peak,
-            "records": list(records), "ops": m.ops}
-
-
-def collective_summary(records: list) -> dict:
-    """Counts and ring-model wire bytes a kind (the reference's keys) of
-    :func:`sharding.collectives.recording` records."""
-    wire = {k: 0.0 for k in _KIND.values()}
-    counts = {k: 0 for k in _KIND.values()}
-    for r in records:
-        kind = _KIND[r.op]
-        size = r.nbytes * (r.group_size if r.op == "all_gather" else 1)
-        wire[kind] += ring_wire_bytes(kind, size, r.group_size)
-        counts[kind] += 1
-    return {"wire_bytes": wire, "counts": counts,
-            "total_wire_bytes": sum(wire.values()),
-            "operand_bytes": sum(r.nbytes for r in records)}
+    res = {"out": out, "flops": flops.get_total_flops(),
+           "bytes_moved": m.moved, "temp_peak_bytes": m.peak,
+           "records": list(records), "ops": m.ops, "graph": None}
+    if graph:
+        res["graph"] = captured()[1]
+    return res
 
 
 # ------------------------------------------------------------ the layout
@@ -347,7 +348,7 @@ def _reason(exc: BaseException) -> str:
     msg = str(exc).strip().split(". ")[0] if str(exc).strip() else ""
     values = any(s in msg for s in ("meta tensor", "Cannot copy out of meta",
                                     "data-dependent", "data-independent",
-                                    "Meta kernel"))
+                                    "Meta kernel", "value out of a tracing"))
     return (("an op that needs a tensor's values on the host, at "
              if values else "") + f"{where}{type(exc).__name__}: {msg}"
             )[:400]
@@ -362,13 +363,13 @@ def _fresh(t: torch.Tensor) -> torch.Tensor:
 def meta_step(cfg: ModelConfig, mesh, kind: str, params, batch: dict,
               max_len: int, tcfg=None,
               cache_dtype: torch.dtype = torch.bfloat16,
-              measure: bool = True) -> dict:
+              measure: bool = True, graph: bool = False) -> dict:
     """One step of the rank ``mesh.rank`` (one process where ``mesh`` is
     None) on meta tensors (:func:`meter`):
     ``params`` the rank's (sharding/axes.py:shard_params of meta
     params), ``batch`` the global batch on meta (this rank takes its rows
     as a running rank does).  Returns :func:`meter`'s dict (``measure``
-    as there)."""
+    and ``graph`` as there)."""
     from repro_torch.analysis.exactness import tensors_of
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.serve.batching import _map, _tensors
@@ -385,7 +386,7 @@ def meta_step(cfg: ModelConfig, mesh, kind: str, params, batch: dict,
         opt = adamw_init(params, None if mesh is None
                          else zero1_layout(cfg, mesh))
         return meter(step, (params, opt, batch), inputs + _tensors(opt),
-                     measure)
+                     measure, graph)
     bsz = _batch_size(batch)
     axes, r0, n = batch_rows(mesh, bsz)
     rows = {k: v.narrow(1 if k == "rope_positions" else 0, r0, n)
@@ -397,7 +398,7 @@ def meta_step(cfg: ModelConfig, mesh, kind: str, params, batch: dict,
             with ctx.row_shard(mesh, axes):
                 return step(p, b)
 
-        return meter(prefill, (params, rows), inputs, measure)
+        return meter(prefill, (params, rows), inputs, measure, graph)
     state = abstract_state(cfg, bsz, max_len, cache_dtype)
     if mesh is not None:
         state = _map(_fresh, local_state(cfg, mesh, state))
@@ -408,7 +409,7 @@ def meta_step(cfg: ModelConfig, mesh, kind: str, params, batch: dict,
             return step(p, s, b["tokens"], b.get("rope_positions"))
 
     return meter(decode, (params, state, rows), inputs + _tensors(state),
-                 measure)
+                 measure, graph)
 
 
 def rank_gb(rec: dict) -> float:
@@ -424,13 +425,40 @@ def rank_gb(rec: dict) -> float:
     return tot / 1e9
 
 
+def graph_roofline(records: list[dict], chips: int, peak: str,
+                   model_flops_per_chip: float | None) -> dict:
+    """The graph's part of an artifact (launch/graph_analysis.py:analyze
+    of its records): ``collectives``, ``roofline`` and
+    ``useful_compute_ratio``, as the reference derives them from its HLO
+    (launch/reanalyze.py refreshes them from an archive the same way);
+    a loop of unknown trip count makes them null with the reason."""
+    try:
+        ana = graph_analysis.analyze(records)
+    except graph_analysis.UnknownTripCount as e:
+        return {"collectives": None, "roofline": None,
+                "useful_compute_ratio": None, "graph_cost": None,
+                "unavailable": str(e)}
+    rl = roofline_terms(ana["flops"], ana["bytes"], ana["total_wire_bytes"],
+                        chips, peak)
+    return {"collectives": parse_collectives(records),
+            "roofline": {**rl.asdict(), "peak": peak},
+            "useful_compute_ratio": (model_flops_per_chip / ana["flops"]
+                                     if model_flops_per_chip
+                                     and ana["flops"] else None),
+            "graph_cost": {k: ana[k] for k in ("flops", "bytes",
+                                               "flops_by_peak",
+                                               "weight_bytes")}}
+
+
 def dry_cell(arch: str, cfg: ModelConfig, sp, mesh, tcfg=None,
              l2r: bool = False, wq: bool = False, kv_shard: str = "heads",
-             opts: dict | None = None) -> dict:
+             opts: dict | None = None,
+             graph_path: str | None = None) -> dict:
     """The artifact of ``arch`` at ``cfg`` (its switches applied) and the
     cell ``sp`` (configs/registry.py:ShapeSpec) on ``mesh`` (a mesh of
-    shapes only seen from the rank the meta run takes): the layout bytes,
-    then the meta run, or its reason for null."""
+    shapes only seen from the rank the step is captured for): the layout
+    bytes, then the captured step (its graph archived at ``graph_path``
+    unless None), or its reason for null."""
     t0 = time.time()
     desc = _desc(cfg, None)
     if wq:
@@ -463,7 +491,7 @@ def dry_cell(arch: str, cfg: ModelConfig, sp, mesh, tcfg=None,
         with ctx.restored((None, (), None)):
             params = shard_params(cfg, params, mesh, desc)
             res = meta_step(cfg, mesh, sp.kind, params, specs, sp.seq_len,
-                            tcfg)
+                            tcfg, graph=True)
     except _Unavailable as e:
         res, unavailable["meta_run"] = None, str(e)
     except Exception as e:  # noqa: BLE001 - reported in the artifact
@@ -471,27 +499,34 @@ def dry_cell(arch: str, cfg: ModelConfig, sp, mesh, tcfg=None,
     rec["meta_s"] = time.time() - t1
     rec["unavailable"] = unavailable
     if res is None:
-        rec.update(memory_analysis=None, cost=None, collectives=None,
-                   roofline=None, useful_compute_ratio=None)
+        rec.update(memory_analysis=None, cost_analysis_raw=None,
+                   collectives=None, roofline=None,
+                   useful_compute_ratio=None, capture_s=None,
+                   graph_nodes=None, graph_cost=None)
         return rec
     by = rec["bytes_per_rank"]
     base = by["params"]["rank"] + by["inputs"]["rank"] + \
         by.get("opt_state", {}).get("rank", 0)
     if "state" in by:
         base += by["state"]["held_rank"]
-    coll = collective_summary(res["records"])
-    rl = roofline_terms(res["flops"], res["bytes_moved"],
-                        coll["total_wire_bytes"], mesh.size, peak)
     rec["memory_analysis"] = {
         "argument_size_in_bytes": base,
         "temp_size_in_bytes": res["temp_peak_bytes"],
         "peak_bytes": base + res["temp_peak_bytes"]}
-    rec["cost"] = {"flops": res["flops"], "bytes_moved": res["bytes_moved"],
-                   "ops": res["ops"], "note": BYTES_NOTE}
-    rec["collectives"] = coll
-    rec["roofline"] = {**rl.asdict(), "peak": peak}
-    rec["useful_compute_ratio"] = (rec["model_flops_per_chip"] / res["flops"]
-                                   if res["flops"] else None)
+    rec["cost_analysis_raw"] = {
+        "flops": res["flops"], "bytes_moved": res["bytes_moved"],
+        "ops": res["ops"], "note": BYTES_NOTE}
+    records = graph_analysis.to_records(res["graph"].gm)
+    rec["capture_s"] = res["graph"].seconds
+    rec["graph_nodes"] = graph_analysis.node_count(records)
+    if graph_path:
+        rec["graph_bytes"] = graph_analysis.save_graph(graph_path, records)
+        rec["graph_archive"] = os.path.basename(graph_path)
+    part = graph_roofline(records, mesh.size, peak,
+                          rec["model_flops_per_chip"])
+    if "unavailable" in part:
+        unavailable["graph"] = part.pop("unavailable")
+    rec.update(part)
     return rec
 
 
@@ -512,22 +547,26 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str | None,
         print(f"[CACHED] {arch} x {shape} x {mp_name}{tag}")
         return rec
     cfg = cell_config(arch, l2r, score_bf16, head_shard, moe_dp_local)
+    if path:
+        os.makedirs(out_dir, exist_ok=True)
     rec = dry_cell(arch, cfg, SHAPES[shape],
                    make_production_mesh(multi_pod=multi_pod, rank=0), tcfg,
                    l2r, wq, kv_shard,
                    dict(score_bf16=score_bf16, moe_dp_local=moe_dp_local,
-                        head_shard=head_shard))
+                        head_shard=head_shard),
+                   graph_path=path and path.replace(".json", ".graph.json.xz"))
     if path:
-        os.makedirs(out_dir, exist_ok=True)
         with open(path, "w") as fh:
             json.dump(rec, fh, indent=1)
     head = f"[OK] {arch} x {shape} x {mp_name}{tag}: {rank_gb(rec):.2f} GB " \
         f"a rank"
     if rec["roofline"] is None:
-        print(f"{head}; meta run null: {rec['unavailable']['meta_run']}")
+        print(f"{head}; roofline null: "
+              f"{'; '.join(rec['unavailable'].values())}")
     else:
         rl, u = rec["roofline"], rec["useful_compute_ratio"]
-        print(f"{head}, meta {rec['meta_s']:.1f}s dominant={rl['dominant']} "
+        print(f"{head}, captured {rec['graph_nodes']} nodes in "
+              f"{rec['capture_s']:.1f}s dominant={rl['dominant']} "
               f"bound={rl['bound_s'] * 1e3:.2f}ms "
               f"useful={u and round(u, 3)}")
     return rec

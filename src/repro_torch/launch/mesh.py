@@ -103,7 +103,9 @@ def make_shape_mesh(shape: dict[str, int], rank: int = 0) -> Mesh:
     from repro_torch.sharding.collectives import ShapeGroup
 
     names = tuple(shape)
-    groups = {sub: ShapeGroup(sub, math.prod(shape[a] for a in sub))
+    world = math.prod(shape.values())
+    groups = {sub: ShapeGroup(sub, math.prod(shape[a] for a in sub),
+                              world // math.prod(shape[a] for a in sub))
               for n in range(1, len(names) + 1)
               for sub in itertools.combinations(names, n)}
     return Mesh(shape, rank=rank, groups=groups)

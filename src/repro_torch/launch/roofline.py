@@ -24,10 +24,9 @@ NVLink 4 gives a GPU 900 GB/s in both directions together, so 450 GB/s
 each way; a ring sends and receives at once, so its wire time is the
 bytes one way over 450 GB/s.
 
-The reference's ``parse_collectives`` is not ported: it reads the
-collectives from compiled HLO text, and eager PyTorch has no compiled
-module.  The dry run records them as they are issued
-(``sharding/collectives.py:recording``).
+:func:`parse_collectives` is the reference's fold over the collective
+records of a compiled module; here the module is a step's captured ATen
+graph (launch/graph_analysis.py), whose collectives are nodes.
 """
 
 from __future__ import annotations
@@ -37,8 +36,10 @@ import math
 from typing import Any
 
 __all__ = ["PEAK_INT8_OPS", "PEAK_BF16_FLOPS", "PEAK_TF32_FLOPS",
-           "PEAK_F32_FLOPS", "HBM_BYTES_PER_S", "NVLINK_BYTES_PER_S",
-           "PEAKS", "CARD", "Roofline", "roofline_terms",
+           "PEAK_F32_FLOPS", "PEAK_F64_FLOPS", "PEAK_INT32_OPS",
+           "PEAK_POPC_OPS", "HBM_BYTES_PER_S", "NVLINK_BYTES_PER_S",
+           "PEAKS", "OP_PEAKS", "CARD", "Roofline", "roofline_terms",
+           "compute_seconds", "parse_collectives",
            "attn_decode_step_bytes", "model_flops"]
 
 #: the card these constants describe, as nvidia-smi names it with its
@@ -62,9 +63,51 @@ HBM_BYTES_PER_S = 3.35e12
 #: each way (NVIDIA H100 80GB HBM3, 700.00 W)
 NVLINK_BYTES_PER_S = 450e9
 
+#: H100 SXM data sheet, FP64 tensor cores: 67 TFLOP/s
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+PEAK_F64_FLOPS = 67e12
+#: int32 operations on the CUDA cores: 64 a clock per SM (Hopper's
+#: throughput table), 132 SMs at the data sheet's 1,980 MHz boost
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+#: popc: 16 a clock per SM on the same 132 SMs at 1,980 MHz
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+PEAK_POPC_OPS = 16 * 132 * 1.98e9
+
 #: the compute peaks by name, as the dry run's artifacts name them
 PEAKS = {"int8": PEAK_INT8_OPS, "bf16": PEAK_BF16_FLOPS,
          "tf32": PEAK_TF32_FLOPS, "f32": PEAK_F32_FLOPS}
+#: every class of operation the graph analysis counts
+#: (launch/graph_analysis.py: ``flops_by_peak``) at its peak; ``tf32x3``
+#: is f32 as three TF32 products (kernel B5's f32 route)
+OP_PEAKS = {**PEAKS, "tf32x3": PEAK_TF32_FLOPS / 3, "f64": PEAK_F64_FLOPS,
+            "int32": PEAK_INT32_OPS, "popc": PEAK_POPC_OPS}
+
+
+def compute_seconds(flops_by_peak: dict) -> float:
+    """The least time of operations counted by the peak they run at
+    (:data:`OP_PEAKS`): the classes' times add, except popc, which runs
+    on its own pipe beside the int32 operations (their times overlap)."""
+    t = {k: v / OP_PEAKS[k] for k, v in flops_by_peak.items()}
+    overlap = max(t.pop("int32", 0.0), t.pop("popc", 0.0))
+    return sum(t.values()) + overlap
+
+
+def parse_collectives(records: list[dict]) -> dict[str, Any]:
+    """Ring-model wire bytes and counts per collective kind of a captured
+    graph's records (launch/graph_analysis.py:to_records): the reference's
+    thin fold over ``collective_records``, one record a collective node
+    (a loop's body once)."""
+    from repro_torch.launch import graph_analysis
+
+    out = {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0, "collective-permute": 0.0}
+    counts = {k: 0 for k in out}
+    for rec in graph_analysis.collective_records(records):
+        out[rec["kind"]] += rec["wire_bytes"]
+        counts[rec["kind"]] += 1
+    return {"wire_bytes": out, "counts": counts,
+            "total_wire_bytes": sum(out.values())}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +136,15 @@ class Roofline:
 
 
 def roofline_terms(flops: float, bytes_hbm: float, wire_bytes: float,
-                   chips: int, peak: str = "bf16") -> Roofline:
+                   chips: int, peak: str = "bf16",
+                   flops_by_peak: dict | None = None) -> Roofline:
     """The three terms of one rank: ``flops``, ``bytes_hbm`` and
     ``wire_bytes`` are that rank's; ``peak`` names the compute rate
-    (:data:`PEAKS`)."""
+    (:data:`PEAKS`), or ``flops_by_peak`` prices each class at its own
+    (:func:`compute_seconds`)."""
     return Roofline(
-        compute_s=flops / PEAKS[peak],
+        compute_s=(compute_seconds(flops_by_peak) if flops_by_peak
+                   is not None else flops / PEAKS[peak]),
         memory_s=bytes_hbm / HBM_BYTES_PER_S,
         collective_s=wire_bytes / NVLINK_BYTES_PER_S,
         flops=flops, bytes_hbm=bytes_hbm, wire_bytes=wire_bytes, chips=chips,

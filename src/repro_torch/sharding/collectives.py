@@ -35,7 +35,14 @@ is counted and recorded as on a running rank.  Its group may then be a
 :class:`ShapeGroup` (axis names and size only, launch/mesh.py:
 make_shape_mesh), so one rank's step runs on ``meta`` under a mesh of
 any size with no process started (launch/dryrun.py: the eager
-counterpart of lowering under a mesh).
+counterpart of lowering under a mesh).  Such a collective is the custom
+op ``repro_torch::all_reduce`` / ``all_gather`` / ``all_to_all`` (fake
+only: it returns the result's shape), whose arguments carry what the
+recorder records (the reduce op, the group's axis names, size and count,
+whether it runs in a level loop, the tag), so a captured graph
+(launch/graph_analysis.py) holds each collective as one node with the
+recorder's fields.  A collective over a process group is never an op:
+gloo runs are as they were.
 """
 
 from __future__ import annotations
@@ -79,11 +86,13 @@ def reset() -> None:
 
 
 class ShapeGroup(NamedTuple):
-    """The group of a mesh of shapes only: its axis ``names`` and its
-    ``size``.  Only collectives on ``meta`` operands take one."""
+    """The group of a mesh of shapes only: its axis ``names``, its
+    ``size`` and how many such groups the mesh has (``count``).  Only
+    collectives on ``meta`` operands take one."""
 
     names: tuple[str, ...]
     size: int
+    count: int = 1
 
 
 def group_size(group) -> int:
@@ -214,6 +223,50 @@ def _record(op: str, reduce_op: str | None, x: torch.Tensor, group) -> None:
         taint=None if taint is None else taint(x)))
 
 
+def _op_args(group) -> tuple:
+    """What a shapes-only collective's op carries besides its operand: the
+    group's axis names, size and count, the level loop (in it, and the
+    walk's index or -1) and the innermost tag."""
+    size = group_size(group)
+    count = group.count if isinstance(group, ShapeGroup) \
+        else max(1, dist.get_world_size() // size)
+    return (_GROUP_NAMES.get(group, "?"), size, count, bool(_LOOP),
+            _LOOP[-1] if _LOOP else -1, _TAGS[-1] if _TAGS else "")
+
+
+@torch.library.custom_op("repro_torch::all_reduce", mutates_args=())
+def _all_reduce_op(x: torch.Tensor, reduce_op: str, group: str, size: int,
+                   count: int, in_loop: bool, walk: int,
+                   tag: str) -> torch.Tensor:
+    raise RuntimeError("a shapes-only all_reduce has no values to reduce")
+
+
+@torch.library.custom_op("repro_torch::all_gather", mutates_args=())
+def _all_gather_op(x: torch.Tensor, dim: int, group: str, size: int,
+                   count: int, in_loop: bool, walk: int,
+                   tag: str) -> torch.Tensor:
+    raise RuntimeError("a shapes-only all_gather has no values to gather")
+
+
+@torch.library.custom_op("repro_torch::all_to_all", mutates_args=())
+def _all_to_all_op(x: torch.Tensor, group: str, size: int, count: int,
+                   in_loop: bool, walk: int, tag: str) -> torch.Tensor:
+    raise RuntimeError("a shapes-only all_to_all has no values to exchange")
+
+
+_all_reduce_op.register_fake(lambda x, *args: torch.empty_like(
+    x, memory_format=torch.contiguous_format))
+_all_to_all_op.register_fake(lambda x, *args: torch.empty_like(
+    x, memory_format=torch.contiguous_format))
+
+
+@_all_gather_op.register_fake
+def _(x, dim, group, size, *args):
+    shape = list(x.shape)
+    shape[dim] *= size
+    return x.new_empty(shape)
+
+
 def _host_staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
@@ -225,7 +278,8 @@ def all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     if _REC["records"] is not None:
         _record("all_reduce", op, x, group)
     if _shapes_only(x, group):
-        return torch.empty_like(x, memory_format=torch.contiguous_format)
+        return torch.ops.repro_torch.all_reduce(x.detach(), op,
+                                                *_op_args(group))
     staged = _host_staged(x, group)
     y = x.cpu() if staged else x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=_OPS[op], group=group)
@@ -239,9 +293,8 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if _REC["records"] is not None:
         _record("all_gather", None, x, group)
     if _shapes_only(x, group):
-        shape = list(x.shape)
-        shape[dim] *= group_size(group)
-        return x.new_empty(shape)
+        return torch.ops.repro_torch.all_gather(x.detach(), dim % x.ndim,
+                                                *_op_args(group))
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
     parts = [torch.empty_like(y) for _ in range(group_size(group))]
@@ -284,7 +337,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if _REC["records"] is not None:
         _record("all_to_all", None, x, group)
     if _shapes_only(x, group):
-        return torch.empty_like(x, memory_format=torch.contiguous_format)
+        return torch.ops.repro_torch.all_to_all(x.detach(), *_op_args(group))
     staged = _host_staged(x, group)
     y = x.contiguous().cpu() if staged else x.contiguous()
     out = torch.empty_like(y)

@@ -1598,3 +1598,88 @@ def test_f32_product_with_tf32_allowed_is_flagged_on_the_card(dev):
     with no_tf32():
         assert audit_exactness(walk, (a, b), ExactnessContract(k=64)).ok
     assert _build.AUDIT is None
+
+
+def _launch_counts():
+    return {**kernel.LAUNCHES, **fa.LAUNCHES, **msdf_ipu.LAUNCHES}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()
+            if v != before[k]}
+
+
+@pytest.mark.cuda
+def test_each_kernel_op_launches_as_its_wrapper(dev):
+    """Inside a capture every wrapper calls its kernel as its custom op:
+    one graph node each, launching the same kernel once on the card (the
+    traced run), with the eager call's bits; the replay launches again."""
+    from repro_torch.launch import graph_analysis as ga
+
+    sa, sb = _stacks(dev, 70, 64, 40, 8, 2)
+    a, b = _ints(dev, 33, 96, 50, 8, seed=3)
+    q = torch.randn((2, 70, 6, 32), device=dev)
+    k = torch.randn((2, 70, 2, 32), device=dev)
+    v = torch.randn((2, 70, 2, 32), device=dev)
+    ua = torch.randint(0, 256, (300, 72), device=dev, dtype=torch.int32)
+    ub = torch.randint(0, 256, (300, 72), device=dev, dtype=torch.int32)
+    cases = [
+        ("l2r_stacked_gemm", kernel.l2r_gemm_stacked_planes, (sa, sb)),
+        ("l2r_streaming_gemm", kernel.l2r_gemm_streaming_planes, (sa, sb)),
+        ("l2r_pairs_gemm", kernel.l2r_gemm_pairs, (a, b)),
+        ("flash_attention_l2r", fa.flash_attention_l2r, (q, k, v)),
+        ("flash_attention", fa.flash_attention_kernel, (q, k, v)),
+        ("cipu_array", msdf_ipu.simulate_pe_array, (ua, ub)),
+    ]
+    for lib, fn, args in cases:
+        ref = fn(*args)
+        before = _launch_counts()
+        cap = ga.capture(fn, args)
+        assert _launched(before) == {lib: 1}, lib
+        assert ga.kernel_nodes(ga.to_records(cap.gm)) == {lib: 1}, lib
+        assert torch.equal(cap.output, ref), lib
+        before = _launch_counts()
+        assert torch.equal(cap(*args), ref), lib
+        assert _launched(before) == {lib: 1}, lib
+
+
+@pytest.mark.cuda
+def test_captured_smoke_steps_replay_bit_for_bit(dev):
+    """The smoke SmolLM's l2r prefill and decode step captured on the
+    card: kernel nodes equal the eager launches, and the replayed graphs
+    give the eager steps' logits, caches and state bit for bit."""
+    import dataclasses
+
+    from repro_torch.analysis.exactness import tensors_of
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import graph_analysis as ga
+    from repro_torch.models.common import materialize
+    from repro_torch.models.transformer import lm_build
+    from repro_torch.serve.batching import _map
+    from repro_torch.serve.engine import (make_decode_step,
+                                          make_prefill_step, prepare_params)
+
+    cfg = dataclasses.replace(get_smoke("smollm-135m"), l2r=QuantConfig())
+    params = prepare_params(cfg, materialize(
+        lm_build(cfg), torch.Generator(device=dev).manual_seed(5),
+        device=dev))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), device=dev,
+                                     dtype=torch.int32)}
+    prefill = make_prefill_step(cfg, 72, torch.float32)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        state, logits = prefill(params, batch)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        fresh = lambda: _map(torch.clone, state)  # noqa: E731
+        for fn, args in ((prefill, lambda: (params, batch)),
+                         (decode, lambda: (params, fresh(), tok))):
+            before = _launch_counts()
+            ref = fn(*args())
+            eager = _launched(before)
+            cap = ga.capture(fn, args())
+            assert ga.kernel_nodes(ga.to_records(cap.gm)) == eager
+            before = _launch_counts()
+            got = cap(*args())
+            assert _launched(before) == eager
+            assert all(torch.equal(x, y) for x, y in
+                       zip(tensors_of(ref), tensors_of(got), strict=True))

@@ -44,8 +44,10 @@ MESHES = {"16x16": {"data": 16, "model": 16},
           "2x2": {"data": 2, "model": 2}}
 REF_KEYS = ("arch", "shape", "kind", "multi_pod", "chips", "params",
             "n_tokens", "l2r", "opts", "memory_analysis", "collectives",
-            "roofline", "model_flops_per_chip", "useful_compute_ratio")
-NO_MEANING = ("compile_s", "hlo_bytes", "cost_analysis_raw", "lower_s")
+            "roofline", "model_flops_per_chip", "useful_compute_ratio",
+            "cost_analysis_raw")
+#: the reference's compile_s and hlo_bytes are capture_s and graph_nodes
+NO_MEANING = ("compile_s", "hlo_bytes", "lower_s")
 
 
 class _FakeMesh:
@@ -151,7 +153,10 @@ def test_meta_run_of_a_smoke_cell_gives_the_artifact(arch, kind):
     assert rl["peak"] == "int8" and rl["chips"] == 4
     assert rl["bound_s"] == max(rl["compute_s"], rl["memory_s"],
                                 rl["collective_s"]) > 0
-    assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes_moved"] > 0
+    raw = rec["cost_analysis_raw"]
+    assert raw["flops"] > 0 and raw["bytes_moved"] > 0
+    assert rec["capture_s"] > 0 and rec["graph_nodes"] > 0
+    assert rl["flops"] == rec["graph_cost"]["flops"] > 0
     mem = rec["memory_analysis"]
     assert mem["peak_bytes"] == mem["argument_size_in_bytes"] + \
         mem["temp_size_in_bytes"] and mem["temp_size_in_bytes"] > 0

@@ -58,7 +58,9 @@ PORT_MODULES = ["repro_torch", "repro_torch.device", "repro_torch.core.quant",
                 "repro_torch.sharding.ctx", "repro_torch.sharding.axes",
                 "repro_torch.sharding.collectives",
                 "repro_torch.launch.mesh", "repro_torch.launch.roofline",
-                "repro_torch.launch.dryrun"]
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.graph_analysis",
+                "repro_torch.launch.reanalyze"]
 EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 
 
