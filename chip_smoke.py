@@ -22,7 +22,13 @@ Phases (any failure exits non-zero; nothing is caught):
      snapshot stream; also ``level_count`` and ``out=``; B K-major, the
      weight cache's layout that the model passes, and row-major), 2e/2f
      kernel B3 (the pair loop); 2g the host time of one wrapper call of
-     B1, B2 and B3 at fc8's shape;
+     B1, B2 and B3 at fc8's shape.  The ragged checks (2a, 2c, 2e) run the
+     int8 configs and the wide ones (WIDE_CONFIGS: (6, 2) and (7, 1), D =
+     3 and 7 on B2's tensor cores; (12, 4), (16, 4), (16, 2) and (16, 1),
+     int16 planes with D 3-16 on the int16 entries of B1-B3); 2h times
+     each wide config at fc8 (M 8, K 4096, N 1000) for B1, B2 and B3 bit
+     for bit beside its plain version, its bound (an int16 product as four
+     int8 products) and torch._int_mm (int8 configs; none for int16);
   3. VGG-16 at its published width (224x224, 1000 classes, seeded
      He-normal weights) serving 3 batches of 8 images through
      ``vgg16_apply(..., l2r=QuantConfig())``: 120 B1 launches per
@@ -66,7 +72,13 @@ Phases (any failure exits non-zero; nothing is caught):
      quantized beforehand, the launch alone), beside the wrapper's
      ``ms``.  Once, at the causal bf16 shape,
      a plain version without the rounding of p to bf16 must fail the
-     bf16 limit: the limit sees that rounding;
+     bf16 limit: the limit sees that rounding.  10c / 11c the wide
+     routes at full width (B 8, S 2048, causal): B5 f32 and bf16 at
+     recurrentgemma-2b's local attention (H 10, Kv 1, dh 256, window
+     2048: column blocks), B4 bf16 there on int8 q, k and at SmolLM-135M's
+     shape on int16 q, k (n_bits 12 and 16, radix 16), each one launch
+     within ATTN_TOL of its plain version, timed beside it, the bound and
+     SDPA;
  12. the FC head's 7x7 resize (models/resize.py, the reference's
      ``jax.image.resize`` bits): on the card equal to the CPU bit for
      bit at every final map size 2-14, C = 512, batches 1 and 8, and
@@ -132,7 +144,9 @@ Phases (any failure exits non-zero; nothing is caught):
      served greedily through ``make_prefill_step`` and
      ``make_decode_step``: mamba2-130m (24 SSD layers, raw params: 49 B1
      a prefill of 8 x 2048 tokens and a step), recurrentgemma-2b (26
-     RG-LRU / local layers, raw: 139 B1), deepseek-moe-16b cut to 4
+     RG-LRU / local layers, raw: 139 B1 a prefill and a step, 8 B5 a
+     prefill at head_dim 256; its prefill also profiled on the plain
+     chunk loop, B5's dispatch switched off), deepseek-moe-16b cut to 4
      layers (one dense, 3 MoE of 64 experts top-6 + 2 shared; prepared:
      412 B1 a prefill and a step, 4 B5 a prefill) and whisper-base (6 +
      6 layers, 1500 seeded frames, 128-token prompts, raw: 97 B1 + 18 B5
@@ -295,7 +309,18 @@ Phases (any failure exits non-zero; nothing is caught):
      in 23a): their collective nodes equal the recorder's and phase 21's
      records one for one, and analysis/sharding.py:audit_partitioned_graph
      finds no violation.
-Then one JSON line per kernel (B1-B6; B1, B4 and B5 also with the
+ 25. a W12A12 VGG-16: phase 3's model and batches at ``QuantConfig(
+     n_bits=12, log2_radix=4)`` (int16 planes, D = 3, 5 levels):
+     ``vgg16_apply`` (120 B1 launches a forward on its int16 entry) bit
+     for bit the plain-GEMM forward, top-1 agreement with the float
+     forward at least phase 3's; ``vgg16_classify_progressive`` scan (119
+     B1 + 1 B2 at D = 3) and early exit, classes ``argmax(vgg16_apply)``;
+     the pair-schedule FC head (3 B3 a head, int16) bit for bit its plain
+     version and the stacked schedule; the reference's default
+     ``L2R_CERTIFY=warn`` warnings (fc6's K overflows int32) counted as
+     shown, not silenced; timed and profiled.
+Then one JSON line per kernel (B1-B6; each with its ``routes``: the C
+entries, the domain each takes and this run's rows on it; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
 and B5 with phase 16's per model, B5 with phase 17's training run,
 B4 and B5 with their 17d rows, B1 and B2 with phase 18's per rank, B1,
@@ -352,7 +377,11 @@ from repro_torch.launch.roofline import (  # noqa: E402, F401
 BATCH = 8
 RAGGED = [(5, 3, 7), (130, 19, 67), (16, 64, 1000), (17, 48, 33),
           (300, 128, 96)]
-RAGGED_CONFIGS = [(8, 2), (8, 1), (8, 4), (4, 2)]
+# (n_bits, log2_radix): the int8 configs, then the wide ones: D = 3 and 7
+# on B2's tensor cores, int16 planes (n_bits 12 and 16, D 3-16) on the int16
+# entries of B1-B3
+WIDE_CONFIGS = [(6, 2), (7, 1), (12, 4), (16, 4), (16, 2), (16, 1)]
+RAGGED_CONFIGS = [(8, 2), (8, 1), (8, 4), (4, 2)] + WIDE_CONFIGS
 SPLIT_K = [(8, 4096, 1000), (16, 300, 130), (3, 1000, 77)]  # M <= 16
 LEVELS = [None, 0, 1, 3, 7]
 PORT = "src/repro_torch/kernels"
@@ -512,11 +541,12 @@ def main_path_shapes() -> list[dict]:
 
 
 def operands(g, dev, m, k, n, n_bits):
+    """Random n_bits operands (M, K) and (K, N), int8 up to 8 bits, int16
+    above (the planes' type)."""
     hi = 1 << (n_bits - 1)
-    a = torch.randint(-hi, hi, (m, k), generator=g, device=dev,
-                      dtype=torch.int8)
-    b = torch.randint(-hi, hi, (k, n), generator=g, device=dev,
-                      dtype=torch.int8)
+    dt = torch.int8 if n_bits <= 8 else torch.int16
+    a = torch.randint(-hi, hi, (m, k), generator=g, device=dev, dtype=dt)
+    b = torch.randint(-hi, hi, (k, n), generator=g, device=dev, dtype=dt)
     return a, b
 
 
@@ -823,11 +853,77 @@ def phase_wrapper_host(dev) -> dict:
     return out
 
 
-_IDS = ((re.compile(r"stacked_kernel"), "B1"),
-        (re.compile(r"stream_kernel"), "B2"),
-        (re.compile(r"pairs_kernel"), "B3"),
-        (re.compile(r"flash_kernel"), "B5"),
-        (re.compile(r"flash_l2r_kernel"), "B4"))
+WIDE_SHAPE = (BATCH, 4096, 1000)  # fc8 at batch 8: 2h's one VGG-16 shape
+
+
+def phase_wide_rows(dev) -> dict:
+    """2h: each of WIDE_CONFIGS at one VGG-16 shape (fc8 at batch 8): B1
+    (the prefix at full depth, B K-major), B2 (every level, B K-major) and
+    B3 (the pair loop) bit for bit against their plain versions, timed
+    beside the plain version and the bound (an int16 product as four int8
+    products or its bytes, kernel.stacked_cost); the library yardstick is
+    torch._int_mm on the unstacked operands for the int8 configs and none
+    for the int16 ones: no PyTorch call computes an int16 GEMM modulo 2^32
+    on CUDA."""
+    from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    m, k, n = WIDE_SHAPE
+    rows: dict[str, list] = {"B1": [], "B2": [], "B3": []}
+    for nb, r in WIDE_CONFIGS:
+        d = nb // r
+        a, b = operands(g, dev, m, k, n, nb)
+        sa, sb = stack_planes_lhs(a, nb, r), stack_planes_rhs(b, nb, r)
+        sbk = k_major(sb)
+        calls = {
+            "B1": (lambda: kernel.l2r_gemm_stacked_planes(sa, sbk, nb, r),
+                   lambda: kernel.l2r_gemm_stacked_planes_plain(sa, sb, nb,
+                                                                r),
+                   kernel.stacked_cost(m, k, n, d, n_bits=nb)),
+            "B2": (lambda: kernel.l2r_gemm_streaming_planes(sa, sbk, nb, r),
+                   lambda: kernel.l2r_gemm_streaming_planes_plain(sa, sb, nb,
+                                                                  r),
+                   kernel.streaming_cost(m, k, n, d, 2 * d - 1, n_bits=nb)),
+            "B3": (lambda: kernel.l2r_gemm_pairs(a, b, nb, r),
+                   lambda: kernel.l2r_gemm_pairs_plain(a, b, nb, r),
+                   kernel.pairs_cost(m, k, n, d, n_bits=nb)),
+        }
+        lib_ms = None
+        if nb <= 8:
+            lib, lib_fn, _ = int_mm(a, b)
+            lib_ms = time_ms(lib_fn)
+        for kid, (fn, plain, cost) in calls.items():
+            got, ref = fn(), plain()
+            require(torch.equal(got, ref),
+                    f"{kid} != plain at fc8 n_bits={nb} log2_radix={r}")
+            if nb <= 8:
+                require(torch.equal(got[-1] if kid == "B2" else got, lib),
+                        f"torch._int_mm disagrees with {kid} at n_bits={nb}")
+            bound_ms, by = cost_bound(*cost)
+            row = {"name": "fc8", "m": m, "k": k, "n": n, "count": 1,
+                   "n_bits": nb, "log2_radix": r, "planes": d,
+                   "route": "int16, CUDA cores" if nb > 8
+                   else "int8, tensor cores",
+                   "ms": time_ms(fn), "kernel_ms": stream_ms(fn),
+                   "plain_ms": time_ms(plain, iters=3, warmup=1),
+                   "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "max_abs_err": max_err(got, ref)}
+            rows[kid].append(row)
+            print("phase 2h: " + json.dumps({"kernel": kid, **row}),
+                  flush=True)
+        del a, b, sa, sb, sbk
+    print(f"phase 2h: B1, B2 and B3 == plain (bit for bit) at fc8 for "
+          f"{WIDE_CONFIGS}; library_ms torch._int_mm for the int8 configs, "
+          f"none for int16", flush=True)
+    return rows
+
+
+_IDS = ((re.compile(r"stacked_kernel|gemm_kernel<1,"), "B1"),
+        (re.compile(r"stream_kernel|gemm_kernel<2,"), "B2"),
+        (re.compile(r"pairs_kernel|gemm_kernel<3,"), "B3"),
+        (re.compile(r"flash_kernel|flash_wide_kernel"), "B5"),
+        (re.compile(r"flash_l2r_kernel|flash_l2r_wide_kernel"), "B4"))
 
 
 def kernel_id(name: str) -> str | None:
@@ -1544,6 +1640,104 @@ def phase_attention(dev, l2r: bool) -> dict:
           f"plain; library_ms is scaled_dot_product_attention"
           f"{' on the dequantized q, k' if l2r else ''}", flush=True)
     return {"rows": rows, "launches": n[name]}
+
+
+# recurrentgemma-2b's local attention (src/repro/configs/recurrentgemma_2b.py):
+# 10 q heads of 256, one kv head, window 2048
+RGEMMA = dict(h=10, kvh=1, dh=256, window=2048)
+
+
+def phase_attention_wide(dev, l2r: bool) -> list[dict]:
+    """10c (B5) / 11c (B4): the kernels' wide routes at full width, B =
+    8, S = 2048, causal: B5 f32 and bf16 at recurrentgemma-2b's local
+    attention (dh 256, column blocks), B4 bf16 there on int8 q, k (its
+    wide route at dh 256) and at SmolLM-135M's shape on int16 q, k
+    (n_bits 12 and 16, radix 16), full depth; each within ATTN_TOL of its
+    plain version, one launch, timed beside the plain version, the bound
+    and scaled_dot_product_attention (on the dequantized q, k for B4)."""
+    from repro_torch.core.l2r_attention import quantize_per_vector
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.device import no_tf32
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention.kernel import attention_ops
+
+    name = "flash_attention_l2r" if l2r else "flash_attention"
+    tag = "11c" if l2r else "10c"
+    g = torch.Generator(device=dev).manual_seed(111 if l2r else 110)
+    b, s = ATTN_BATCH, ATTN_SEQ
+    smol = {**SMOLLM, "window": None}
+    runs = ([("rgemma_causal_bf16_w8", torch.bfloat16, RGEMMA, (8, 2)),
+             ("smollm_causal_bf16_w12", torch.bfloat16, smol, (12, 4)),
+             ("smollm_causal_bf16_w16", torch.bfloat16, smol, (16, 4))]
+            if l2r else
+            [("rgemma_causal_f32", torch.float32, RGEMMA, None),
+             ("rgemma_causal_bf16", torch.bfloat16, RGEMMA, None)])
+    rows = []
+    for key, dtype, shape, qc in runs:
+        h, kvh, dh, window = (shape[x] for x in ("h", "kvh", "dh", "window"))
+        q, k, v = attn_qkv(g, dev, b, s, s, h, kvh, dh, dtype)
+        kw = {"n_bits": qc[0], "log2_radix": qc[1]} if l2r else {}
+        if l2r:
+            fn = lambda: fa.flash_attention_l2r(  # noqa: E731
+                q, k, v, causal=True, window=window, **kw)
+            plain = lambda: fa.flash_attention_l2r_plain(  # noqa: E731
+                q, k, v, causal=True, window=window, **kw)
+        else:
+            fn = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=True, window=window)
+            plain = lambda: fa.flash_attention_kernel_plain(  # noqa: E731
+                q, k, v, causal=True, window=window)
+        reset_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        n = counts()
+        require(n == only(**{name: 1}), f"{tag} {key}: launches {n}")
+        ref = plain()
+        err, excess = attn_err(got, ref)
+        require(got.shape == q.shape and bool(torch.isfinite(got).all())
+                and excess <= ATTN_TOL[dtype][1],
+                f"{name} at {key}: max |d| {err} from plain, {excess} "
+                f"beyond the relative term")
+        del ref
+        ms = time_ms(fn, iters=5, warmup=1)
+        if l2r:  # the launch alone, on operands quantized beforehand
+            ops = fa.l2r_kernel_operands(q, k, v, *qc)
+            require(torch.equal(fa.flash_attention_l2r_launch(
+                ops, dh, *qc, causal=True, window=window), got),
+                f"{name} launch on prepared operands differs at {key}")
+            kernel_ms = stream_ms(lambda: fa.flash_attention_l2r_launch(
+                ops, dh, *qc, causal=True, window=window), iters=5)
+            del ops
+            (qq, qs), (kq, ks) = (quantize_per_vector(x, QuantConfig(*qc))
+                                  for x in (q, k))
+            lq, lk = (qq.float() * qs).to(dtype), (kq.float() * ks).to(dtype)
+        else:
+            kernel_ms = stream_ms(fn, iters=5)
+            lq, lk = q, k
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        with no_tf32():
+            _, lib_fn = sdpa(lq, lk, v, True, window)
+            lib_ms = time_ms(lib_fn, iters=5, warmup=1)
+        pairs = visible_pairs(s, s, True, window)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        bound_ms, by = cost_bound(attention_ops(
+            b, h, dh, pairs, dtype, qk_int8=l2r and qc[0] <= 8,
+            qk_int16=l2r and qc[0] > 8), nbytes)
+        row = {"name": key, "count": 1, "B": b, "S": s, "H": h, "Kv": kvh,
+               "dh": dh, "dtype": str(dtype).split(".")[-1],
+               "window": window, "n_bits": qc[0] if l2r else None,
+               "route": "wide: column blocks" if dh > 128 else "wide",
+               "visible_pairs": pairs, "ms": ms, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+               "excess_over_ulp": excess}
+        rows.append(row)
+        print(f"phase {tag}: " + json.dumps(row), flush=True)
+        del q, k, v, got, lq, lk
+        torch.cuda.empty_cache()
+    print(f"phase {tag}: {name}'s wide routes within tolerance of plain at "
+          f"full width", flush=True)
+    return rows
 
 
 # ------------------------------------------------------------------ slice 7
@@ -2703,8 +2897,9 @@ MIXERS = {  # arch: prompt tokens, layers kept (None: all), prepared
         prompt=2048, layers=None, prepared=False,
         # 18 rec layers x (gate_proj, rec_proj, out_proj, mlp wi, wo), 8
         # local layers x (q, k, v, o, wi, wo), the head (w_a, w_x are float
-        # denses; head_dim 256 is past B5's 128: the plain loop)
-        prefill=(18 * 5 + 8 * 6 + 1, 0), step=(18 * 5 + 8 * 6 + 1, 0)),
+        # denses); B5 the prefill's 8 local attentions at head_dim 256
+        # (column blocks); decode attends on its cache, not through B5
+        prefill=(18 * 5 + 8 * 6 + 1, 8), step=(18 * 5 + 8 * 6 + 1, 0)),
     "deepseek-moe-16b": dict(
         prompt=2048, layers=4, prepared=True,
         # layer 0 (q, k, v, o, wi, wo), 3 MoE layers x (q, k, v, o, the
@@ -2720,6 +2915,9 @@ MIXERS = {  # arch: prompt tokens, layers kept (None: all), prepared
         # the head; B5 the 6 cross-attentions at Sq = 1
         prefill=(6 * 6 + 6 * 10 + 1, 18), step=(6 * 8 + 1, 6)),
 }
+# the model whose prefill 16a also profiles on the plain chunk loop (B5
+# kept off by its dispatch test): the device time B5 at dh 256 replaced
+PLAIN_LOOP_ARCH = "recurrentgemma-2b"
 DECODE_LIMIT = {  # tests/test_serve.py, tests/test_encdec_serve.py
     "mamba2-130m": 5e-2, "recurrentgemma-2b": 5e-2, "whisper-base": 1e-4}
 MIX_PREFILL_M = MIX_BATCH * 2048  # the served prefill's rows (16b: 256)
@@ -2848,8 +3046,23 @@ def mixer_serve(arch: str, cfg, params, batch: dict) -> dict:
         # a second, warm prefill timed as phase 13 times its own
         prefill_ms = host_ms(lambda: prefill(params, batch))
         prof_prefill = profile_forward(lambda: prefill(params, batch))
+        loop = {}
+        if arch == PLAIN_LOOP_ARCH:  # the same prefill on the plain loop
+            from repro_torch.models import attention as ta
+
+            fits = ta.b5_fits
+            ta.b5_fits = lambda *a: False
+            try:
+                reset_counts()
+                loop = {"prof_prefill_plain_loop": profile_forward(
+                    lambda: prefill(params, batch))}
+                n = counts()
+            finally:
+                ta.b5_fits = fits
+            require(n["flash_attention"] == 0,
+                    f"{arch}: B5 launched with its dispatch switched off")
     return {"prefill_ms": prefill_ms, "first_prefill_ms": first_prefill_ms,
-            "decode_ms_per_token": step_ms,
+            **loop, "decode_ms_per_token": step_ms,
             "decode_tokens_per_s": MIX_BATCH / step_ms * 1e3,
             "tokens_per_s": MIX_BATCH * MIX_STEPS
             / (prefill_ms + MIX_STEPS * step_ms) * 1e3,
@@ -3091,6 +3304,13 @@ def phase_mixers(dev) -> dict:
               f"ms (B1 {pp.get('B1_ms')}, B5 {pp.get('B5_ms')}, other "
               f"{pp.get('other_ms')}), idle {pp.get('idle_share')}; "
               f"{run['seconds']:.1f} s", flush=True)
+        if "prof_prefill_plain_loop" in run:
+            pl = run["prof_prefill_plain_loop"]
+            print(f"phase 16a: {arch}: the prefill on the plain chunk loop "
+                  f"(no B5): device {pl.get('device_ms')} ms (B1 "
+                  f"{pl.get('B1_ms')}, other {pl.get('other_ms')}); with B5 "
+                  f"{pp.get('device_ms')} ms (B5 {pp.get('B5_ms')})",
+                  flush=True)
         print(f"phase 16a: {arch}: " + json.dumps(run), flush=True)
         runs[arch] = run
     b5_rows = b5_mixer_rows(dev)
@@ -6486,6 +6706,166 @@ def phase_graph(dev, lm: dict, train: dict, dry: dict) -> dict:
             "24b": rows, "24c": coll, "seconds": seconds}
 
 
+# ------------------------------------------------------------------ slice 19
+# a W12A12 VGG-16: phase 3's model with int16 planes (n_bits 12, radix 16:
+# D = 3, 5 levels), the int16 entries of B1, B2 and B3 on a model path
+W12 = (12, 4)
+
+
+def phase_w12_vgg(dev, top1_w8: float) -> dict:
+    """Phase 25: phase 3's VGG-16 (224x224, batch 8, 1000 classes, the
+    same seeded weights and 3 batches) at ``QuantConfig(n_bits=12,
+    log2_radix=4)``: ``vgg16_apply`` with 120 B1 launches a forward (the
+    int16 entry), bit for bit the same forward on the plain GEMM, top-1
+    agreement with the float forward (TF32 off) at least phase 3's W8A8
+    one; ``vgg16_classify_progressive`` with the scan (119 B1 + 1 B2 at D =
+    3 on fc8) and early exit (119 B1 + one level slab a level run), the
+    classes ``argmax(vgg16_apply)``, the scan's logits its bits; the
+    pair-schedule FC head (3 B3 launches a head, int16) bit for bit its
+    plain version and the stacked schedule.  The reference's guard
+    (``L2R_CERTIFY``, default warn) warns that fc6's K overflows int32: the
+    warnings are counted as they are shown, not silenced."""
+    import warnings
+
+    from repro_torch.analysis.overflow import AccumulatorOverflowWarning
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.l2r_gemm import kernel
+    from repro_torch.kernels.l2r_gemm.ops import l2r_matmul_f
+    from repro_torch.models.cnn import (vgg16_apply, vgg16_build,
+                                        vgg16_classify_progressive,
+                                        vgg16_quantize_weights)
+
+    t_phase = time.perf_counter()
+    cfg = QuantConfig(*W12)
+    n_lv = 2 * (W12[0] // W12[1]) - 1
+    seen: list[str] = []
+    show = warnings.showwarning
+
+    def counted(message, category, *args, **kw):
+        if issubclass(category, AccumulatorOverflowWarning):
+            seen.append(str(message))
+        show(message, category, *args, **kw)
+
+    warnings.showwarning = counted
+    try:
+        params = vgg16_build(1000, generator=torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+        weights_q = vgg16_quantize_weights(params, cfg)
+        require(weights_q["fc6"].q.dtype == torch.int16,
+                "W12 weights are not int16 planes")
+        gi = torch.Generator(device=dev).manual_seed(1)
+        batches = [torch.randn((BATCH, 224, 224, 3), generator=gi,
+                               device=dev) for _ in range(3)]
+
+        def fwd(x):
+            return vgg16_apply(params, x, l2r=cfg, weights_q=weights_q,
+                               device=dev)
+
+        reset_counts()
+        logits = [fwd(x) for x in batches]
+        torch.cuda.synchronize()
+        n = counts()
+        require(n == only(l2r_stacked_gemm=120 * len(batches)),
+                f"25: launches {n}, expected 120 B1 a forward")
+        for lg in logits:
+            require(lg.shape == (BATCH, 1000)
+                    and bool(torch.isfinite(lg).all()),
+                    "25: non-finite or misshapen logits")
+        timed = [host_ms(lambda: fwd(x)) / 1e3 for x in batches]
+        prof = profile_forward(lambda: fwd(batches[0]))
+        require(torch.equal(plain_b1(lambda: fwd(batches[0])), logits[0]),
+                "25: W12 logits differ from the plain-GEMM forward")
+        flt = torch.cat([vgg16_apply(params, x, device=dev)
+                         for x in batches])
+        top1 = (flt.argmax(-1) == torch.cat(logits).argmax(-1)).float() \
+            .mean().item()
+        require(top1 >= top1_w8, f"25: top-1 agreement with the float "
+                f"forward {top1} below W8A8's {top1_w8}")
+
+        run = {}
+        for early_exit in (False, True):
+            reset_counts()
+            outs = [vgg16_classify_progressive(params, x, cfg, weights_q,
+                                               early_exit=early_exit,
+                                               device=dev)
+                    for x in batches]
+            torch.cuda.synchronize()
+            run[early_exit] = (outs, counts())
+        (scan, n_scan), (early, n_early) = run[False], run[True]
+        b = len(batches)
+        require(n_scan == only(l2r_stacked_gemm=119 * b,
+                               l2r_streaming_gemm=b),
+                f"25: scan launches {n_scan}, expected 119 B1 + 1 B2")
+        levels_run = [int(lv.max()) + 1 for _, lv, _ in scan]
+        require(n_early == only(l2r_stacked_gemm=119 * b + sum(levels_run)),
+                f"25: early-exit launches {n_early}, levels run "
+                f"{levels_run}")
+        for (p_s, lv_s, lg_s), (p_e, lv_e, _), ref in zip(scan, early,
+                                                          logits):
+            require(torch.equal(p_s, ref.argmax(-1).to(torch.int32)),
+                    "25: progressive class != argmax(vgg16_apply)")
+            require(torch.equal(lg_s, ref),
+                    "25: scan logits differ from vgg16_apply's")
+            require(torch.equal(p_s, p_e) and torch.equal(lv_s, lv_e),
+                    "25: classes or exit levels differ between scan and "
+                    "early exit")
+        lv_all = torch.cat([lv for _, lv, _ in scan]).cpu()
+
+        gf = torch.Generator(device=dev).manual_seed(4)
+        feats = [torch.relu(torch.randn((BATCH, 25088), generator=gf,
+                                        device=dev)) for _ in range(3)]
+
+        def head(x, schedule):
+            for name in ("fc6", "fc7", "fc8"):
+                x = l2r_matmul_f(x, None, cfg, w_q=weights_q[name],
+                                 schedule=schedule) + params[name]["b"]
+                x = torch.relu(x) if name != "fc8" else x
+            return x
+
+        reset_counts()
+        heads = [head(x, "pairs") for x in feats]
+        torch.cuda.synchronize()
+        n_pairs = counts()
+        require(n_pairs == only(l2r_pairs_gemm=3 * len(feats)),
+                f"25: pairs-head launches {n_pairs}, expected 3 B3 a head")
+        fast = kernel.l2r_gemm_pairs
+        kernel.l2r_gemm_pairs = kernel.l2r_gemm_pairs_plain
+        try:
+            plain_heads = [head(x, "pairs") for x in feats]
+        finally:
+            kernel.l2r_gemm_pairs = fast
+        for x, lg, pl in zip(feats, heads, plain_heads):
+            require(torch.equal(lg, pl), "25: B3 head != its plain version")
+            require(torch.equal(lg, head(x, "stacked")),
+                    "25: pairs-schedule head != stacked-schedule head")
+        head_ms = statistics.median(host_ms(lambda: head(x, "pairs"))
+                                    for x in feats)
+    finally:
+        warnings.showwarning = show
+    require(any(re.search(r" k=25088\b", m) for m in seen),
+            f"25: no int32 overflow warning at fc6's K ({len(seen)} shown)")
+    out = {"config": {"n_bits": W12[0], "log2_radix": W12[1],
+                      "levels": n_lv},
+           "launches": n["l2r_stacked_gemm"], "forward_s": timed,
+           "images_per_s": BATCH / statistics.median(timed),
+           "top1_agreement_vs_float": top1, "top1_w8a8_phase3": top1_w8,
+           "plain_gemm_forward_bit_identical": True, "profile": prof,
+           "launches_scan": n_scan, "launches_early_exit": n_early,
+           "levels_run_early_exit": levels_run,
+           "exit_level_hist": torch.bincount(
+               lv_all.to(torch.int64), minlength=n_lv).tolist(),
+           "pred_equals_argmax_vgg16_apply": True,
+           "scan_logits_bit_identical_to_vgg16_apply": True,
+           "pairs_launches": n_pairs, "pairs_head_ms": head_ms,
+           "pairs_head_bit_identical_to_plain_and_stacked": True,
+           "overflow_warnings": len(seen),
+           "overflow_warning_ks": sorted({int(k.group(1)) for k in (
+               re.search(r" k=(\d+)", m) for m in seen) if k}),
+           "seconds": time.perf_counter() - t_phase}
+    print("phase 25: " + json.dumps(out), flush=True)
+    return out
+
+
 def tpm_summary(tpm: dict, lib: str) -> dict:
     """Kernel ``lib``'s launches on each rank of phase 21 and its rows at
     the ranks' shapes."""
@@ -6525,6 +6905,60 @@ def dp_summary(dp: dict, lib: str) -> dict:
             "batcher": r["batcher"]["launches"][lib],
             "moe": sum(c["launches"][lib] for c in r["moe"]["calls"])})
     return out
+
+
+def kernel_routes(wide: dict, b5_wide: list, b4_wide: list, w12: dict,
+                  mix: dict) -> dict:
+    """Each kernel's routes for the kernels line: the C entry, the domain
+    it takes, and the rows and launches this run measured on it (the
+    int8 / dh <= 128 routes are the kernel record's own rows)."""
+    fc8 = [r for r in wide["B1"] if r["n_bits"] > 8]
+    rg = mix["runs"][PLAIN_LOOP_ARCH]
+    return {
+        "B1": [{"entry": "l2r_stacked_gemm", "takes": "int8 planes, D <= 8",
+                "on": "mma.sync s8"},
+               {"entry": "l2r_stacked_gemm16",
+                "takes": "int16 planes (n_bits 9-16), D <= 16",
+                "on": "CUDA cores (l2r_int16.cuh)",
+                "launches_phase25": w12["launches"],
+                "images_per_s_phase25": w12["images_per_s"],
+                "device_ms_phase25_forward": w12["profile"].get("B1_ms"),
+                "shapes": fc8}],
+        "B2": [{"entry": "l2r_streaming_gemm", "takes": "int8 planes, D 1-8",
+                "on": "mma.sync s8",
+                "shapes": [r for r in wide["B2"] if r["n_bits"] <= 8]},
+               {"entry": "l2r_streaming_gemm16",
+                "takes": "int16 planes (n_bits 9-16), D <= 16",
+                "on": "CUDA cores (l2r_int16.cuh)",
+                "launches_phase25": w12["launches_scan"]["l2r_streaming_gemm"],
+                "shapes": [r for r in wide["B2"] if r["n_bits"] > 8]}],
+        "B3": [{"entry": "l2r_pairs_gemm", "takes": "int8 operands",
+                "on": "mma.sync s8"},
+               {"entry": "l2r_pairs_gemm16",
+                "takes": "int16 operands (n_bits 9-16)",
+                "on": "CUDA cores (l2r_int16.cuh)",
+                "launches_phase25": w12["pairs_launches"]["l2r_pairs_gemm"],
+                "head_ms_phase25": w12["pairs_head_ms"],
+                "shapes": [r for r in wide["B3"] if r["n_bits"] > 8]}],
+        "B4": [{"entry": "flash_attention_l2r",
+                "takes": "int8 q, k, dh <= 128", "on": "mma.sync s8"},
+               {"entry": "flash_attention_l2r_wide",
+                "takes": "int16 q, k at any dh; int8 q, k at dh > 128",
+                "on": "column blocks of 128, QK^T on CUDA cores "
+                      "(l2r_int16.cuh)", "shapes": b4_wide}],
+        "B5": [{"entry": "flash_attention", "takes": "dh <= 128",
+                "on": "head tiles 16-128"},
+               {"entry": "flash_attention (dh > 128)", "takes": "dh > 128",
+                "on": "column blocks of 128 (flash_wide_kernel)",
+                "launches_phase16_prefill": MIXERS[PLAIN_LOOP_ARCH][
+                    "prefill"][1],
+                "device_ms_phase16_prefill": rg["prof_prefill"].get(
+                    "B5_ms"),
+                "prefill_device_ms": rg["prof_prefill"].get("device_ms"),
+                "prefill_device_ms_plain_loop": rg[
+                    "prof_prefill_plain_loop"].get("device_ms"),
+                "shapes": b5_wide}],
+    }
 
 
 def kernel_entry(lib: str, rows: list[dict], launches: int, per: str,
@@ -6733,18 +7167,22 @@ def main() -> int:
     b2_rows = phase_streaming(dev)
     b3_rows = phase_pairs(dev)
     phase_wrapper_host(dev)
+    wide = phase_wide_rows(dev)
     vgg = phase_vgg(dev)
     prog = phase_progressive(dev, vgg)
     pairs = phase_pairs_path(dev, vgg)
     phase_protohead(dev)
     phase_conv_progressive(dev, vgg)
     b1_launches, b1_images_per_s = vgg["launches"], vgg["images_per_s"]
+    top1_w8 = vgg["top1_agreement_vs_float"]
     del vgg  # the VGG-16 weights and batches: room for phase 8's operands
     torch.cuda.empty_cache()
     b6 = phase_cipu(dev)
     phase_golden(dev)
     b5 = phase_attention(dev, l2r=False)
+    b5_wide = phase_attention_wide(dev, l2r=False)
     b4 = phase_attention(dev, l2r=True)
+    b4_wide = phase_attention_wide(dev, l2r=True)
     phase_resize(dev)
     lm = phase_lm(dev)
     lm_attn = phase_lm_attn(dev, b4["rows"])
@@ -6759,6 +7197,8 @@ def main() -> int:
     dry = phase_dryrun(dev, lm, train, tpm)
     phase_graph(dev, lm, train, dry)
     del dry
+    w12 = phase_w12_vgg(dev, top1_w8)
+    routes = kernel_routes(wide, b5_wide, b4_wide, w12, mix)
     bwd = lambda kid: [r for r in train["rows"]  # noqa: E731
                        if r["name"].endswith(kid)]
     del lm["step_logits"]
@@ -6813,7 +7253,8 @@ def main() -> int:
                      tp=tp_summary(tp, "l2r_stacked_gemm"),
                      tp_mixers=tpm_summary(tpm, "l2r_stacked_gemm"),
                      audit_launches=audit["launches"].get(
-                         "l2r_stacked_gemm", 0)),
+                         "l2r_stacked_gemm", 0),
+                     routes=routes["B1"]),
         kernel_entry("l2r_streaming_gemm", b2_rows,
                      prog["launches_scan"]["l2r_streaming_gemm"],
                      f"one vgg16_classify_progressive scan forward at batch "
@@ -6840,14 +7281,16 @@ def main() -> int:
                      tp=tp_summary(tp, "l2r_streaming_gemm"),
                      tp_mixers=tpm_summary(tpm, "l2r_streaming_gemm"),
                      audit_launches=audit["launches"].get(
-                         "l2r_streaming_gemm", 0)),
+                         "l2r_streaming_gemm", 0),
+                     routes=routes["B2"]),
         kernel_entry("l2r_pairs_gemm", b3_rows,
                      pairs["launches"]["l2r_pairs_gemm"],
                      f"one pair-schedule FC head (fc6-fc8) at batch {BATCH} "
                      f"(its 3 launches); launches over the 3 heads of "
                      f"phase 5", weight=fc,
                      audit_launches=audit["launches"].get(
-                         "l2r_pairs_gemm", 0)),
+                         "l2r_pairs_gemm", 0),
+                     routes=routes["B3"]),
         kernel_entry("flash_attention_l2r", b4["rows"], b4["launches"],
                      "the three SmolLM-135M attention calls of phase 11b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
@@ -6868,7 +7311,7 @@ def main() -> int:
                          "decode_ms_per_token":
                          lm_attn["run"]["decode_ms_per_token"],
                          **lm_attn["b4"]},
-                     train_backward=bwd("B4")),
+                     train_backward=bwd("B4"), routes=routes["B4"]),
         kernel_entry("flash_attention", b5["rows"], b5["launches"],
                      "the three SmolLM-135M attention calls of phase 10b "
                      "(B=8, S=2048: causal f32, causal bf16, window 512 "
@@ -6890,11 +7333,14 @@ def main() -> int:
                      train=train["train"], train_backward=bwd("B5"),
                      dp=dp_summary(dp, "flash_attention"),
                      tp=tp_summary(tp, "flash_attention"),
-                     tp_mixers=tpm_summary(tpm, "flash_attention")),
+                     tp_mixers=tpm_summary(tpm, "flash_attention"),
+                     routes=routes["B5"]),
         kernel_entry("cipu_array", b6["rows"], b6["launches"],
                      "one simulate_pe_array call over conv4_2's 25,690,112 "
                      "SOP windows (k=72, n=8, int32 operands); library_ms "
-                     "is (a*b).sum(-1)"),
+                     "is (a*b).sum(-1)",
+                     routes=[{"route": "the whole domain (n within int32)",
+                              "entry": "cipu_array"}]),
     ]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

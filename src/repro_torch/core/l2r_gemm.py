@@ -16,7 +16,8 @@ device: on the CPU they run in int64 and narrow to int32 on purpose, so
 a sum that leaves int32 wraps exactly as the reference's int32
 accumulator does (``L2R_CERTIFY=warn`` parity); CUDA has no integer
 matmul, so on a CUDA tensor only the guarded raw-digit f32 dot
-(:func:`_f32_dot_exact`) runs and anything else raises — the card's
+(:func:`_f32_dot_exact`, a long level dot as exact chunks) runs and
+anything else raises — the card's
 integer GEMM is the hand-written kernel (kernels/l2r_gemm/kernel.py).
 """
 
@@ -105,6 +106,14 @@ def _f32_dot_exact(k: int, max_pairs: int, log2_radix: int) -> bool:
     return max_pairs * k * dmax * dmax < (1 << 24)
 
 
+def _f32_chunk(max_pairs: int, log2_radix: int) -> int:
+    """The longest contraction chunk (of each plane) whose level dot passes
+    :func:`_f32_dot_exact`: a longer dot on the card runs as such chunks,
+    each exact in f32, summed in int64 (the same integer)."""
+    dmax = (1 << log2_radix) - 1
+    return max(1, ((1 << 24) - 1) // (max_pairs * dmax * dmax))
+
+
 def stacked_gemm_planes(
     a_stack: torch.Tensor,
     b_rev: torch.Tensor,
@@ -121,7 +130,9 @@ def stacked_gemm_planes(
     ``k`` is the un-stacked contraction length.  ``shifted=True`` takes
     pre-shifted bit-field planes (one integer dot per level, no shifts);
     ``shifted=False`` takes raw digits, shifts once per level, and runs
-    the level dots in true f32 when :func:`_f32_dot_exact` holds.
+    the level dots in true f32 when :func:`_f32_dot_exact` holds; on a
+    CUDA tensor a longer contraction (fc6 at n_bits 12, radix 16) runs as
+    exact f32 chunks of :func:`_f32_chunk` summed in int64.
     ``first_level`` skips the walk's leading levels: the result is the
     sum of levels ``[first_level, levels)`` (one level of an early-exit
     walk).
@@ -132,8 +143,10 @@ def stacked_gemm_planes(
                       dtype=torch.int64, device=a_stack.device)
     if not slices:  # levels=0: empty MSDF prefix, same as the pair loop
         return acc.to(torch.int32)
-    use_f32 = not shifted and _f32_dot_exact(
-        k, max(hi - lo + 1 for _, lo, hi in slices), log2_radix)
+    max_pairs = max(hi - lo + 1 for _, lo, hi in slices)
+    exact = _f32_dot_exact(k, max_pairs, log2_radix)
+    use_f32 = not shifted and (exact or a_stack.is_cuda)
+    kc = k if exact else _f32_chunk(max_pairs, log2_radix)
     if use_f32:
         a_stack = a_stack.to(torch.float32)
         b_rev = b_rev.to(torch.float32)
@@ -141,9 +154,19 @@ def stacked_gemm_planes(
         a_l = a_stack[..., i_lo * k:(i_hi + 1) * k]
         r0 = (d - 1 - s + i_lo) * k
         b_l = b_rev[r0:r0 + (i_hi - i_lo + 1) * k]
-        if use_f32:
+        if use_f32 and kc >= k:
             with no_tf32():
                 term = torch.matmul(a_l, b_l).to(torch.int64)
+        elif use_f32:  # exact chunks of every plane's contraction
+            p = i_hi - i_lo + 1
+            a3 = a_l.unflatten(-1, (p, k))
+            b3 = b_l.unflatten(0, (p, k))
+            term = 0
+            for c0 in range(0, k, kc):
+                with no_tf32():
+                    term = term + torch.matmul(
+                        a3[..., c0:c0 + kc].flatten(-2),
+                        b3[:, c0:c0 + kc].flatten(0, 1)).to(torch.int64)
         else:
             term = _int_dot(a_l, b_l)
         if not shifted:

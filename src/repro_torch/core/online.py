@@ -108,12 +108,14 @@ def msdf_products(
              for i in range(j_min, t)] + [(t, planes - 1, j_min, planes - 1)])
 
 
-def plane_bits(planes: int, log2_radix: int, lo: int, hi: int) -> int:
-    """The byte mask of pre-shifted planes ``lo..hi`` of an int8 operand:
-    plane i < D-1 keeps bits [b*i, b*(i+1)); the top plane keeps bit
-    b*(D-1) and every bit above it, the sign extension included, so
-    ``x & mask`` read as int8 is the planes' sum."""
-    top = 8 if hi == planes - 1 else log2_radix * (hi + 1)
+def plane_bits(planes: int, log2_radix: int, lo: int, hi: int,
+               bits: int = 8) -> int:
+    """The mask of pre-shifted planes ``lo..hi`` of a ``bits``-bit operand
+    (int8, or int16 for n_bits 9-16): plane i < D-1 keeps bits [b*i,
+    b*(i+1)); the top plane keeps bit b*(D-1) and every bit above it, the
+    sign extension included, so ``x & mask`` read as the operand's type
+    is the planes' sum."""
+    top = bits if hi == planes - 1 else log2_radix * (hi + 1)
     return ((1 << top) - 1) & ~((1 << (log2_radix * lo)) - 1)
 
 

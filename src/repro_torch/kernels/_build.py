@@ -7,7 +7,9 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -o lib<name>.so <name>.cu
 
 into ``build/repro_torch/<name>-<hash>/`` at the repository root, keyed by
-a hash of the source, the headers beside it and the flags, at first use.  :func:`build_all`
+a hash of the source, every header of the package (a source may include
+another kernel's, as B4 includes the int16 routine of ``l2r_gemm/csrc``) and
+the flags, at first use.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.  A failed build raises with
 ``nvcc``'s stderr; nothing falls back.  Nothing here runs at import time.
 
@@ -84,7 +86,7 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):  # what the source includes
+    for header in sorted(_KERNELS.glob("**/csrc/*.cuh")):  # what it includes
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}" / f"lib{src.stem}.so"
@@ -144,22 +146,25 @@ def note_launch(name: str, reads: tuple, writes: tuple) -> None:
 
 
 def launch(name: str, argtypes: list, dev, what: str, *args,
-           reads: tuple = (), writes: tuple = ()) -> None:
-    """Call the C entry ``name`` of ``csrc/<name>.cu`` (built on first use)
-    with ``args`` and the current stream of the card ``dev``.  The entry
-    returns a ``cudaError_t``; anything but 0 raises, naming ``what``.
-    ``reads`` and ``writes`` (the operand and output tensors behind the
-    pointers) go to :data:`AUDIT` when an audit records."""
+           reads: tuple = (), writes: tuple = (),
+           entry: str | None = None) -> None:
+    """Call the C entry ``entry`` (by default ``name``) of ``csrc/<name>.cu``
+    (built on first use) with ``args`` and the current stream of the card
+    ``dev``.  The entry returns a ``cudaError_t``; anything but 0 raises,
+    naming ``what``.  ``reads`` and ``writes`` (the operand and output
+    tensors behind the pointers) go to :data:`AUDIT` when an audit
+    records."""
     import torch
 
-    fn = _FNS.get(name)
+    entry = entry or name
+    fn = _FNS.get(entry)
     if fn is None:
-        fn = getattr(load(name), name)
+        fn = getattr(load(name), entry)
         fn.argtypes = [*argtypes, ctypes.c_void_p]  # the stream last
         fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        _FNS[entry] = fn
     err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({torch.cuda.get_device_name(dev)}, {what})")
     note_launch(name, reads, writes)

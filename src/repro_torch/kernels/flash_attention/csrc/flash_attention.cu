@@ -55,6 +55,15 @@
 //    (the same order for V's rows, so the sum is unchanged); V's B fragments
 //    are read from shared memory, conflict-free at a row pitch of dh + 4.
 //  * KV tiles wholly outside the causal or window band are skipped (exact).
+//  * dh > 128 (recurrentgemma-2b's 256) takes flash_wide_kernel: the output's
+//    head dim split over blocks of 128 columns (flash_softmax.cuh), QK^T
+//    over the whole dh in 64-column chunks of q and k through a two-slot
+//    cp.async ring, as f32 FMAs in d order for both dtypes (bf16: the same
+//    d-order sum as above, carried from chunk to chunk, so the scores keep
+//    the plain version's bits; f32: true f32 products, within the 3e-5
+//    limit), then PV for the block's 128 columns (bf16 on mma.sync, f32 as
+//    FMAs).  Each column block recomputes the scores: twice the QK^T work at
+//    dh 256, accepted for a first version.
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
@@ -343,6 +352,169 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ dh > 128: column blocks
+constexpr int kWDC = 64;  // d columns of a staged q / k chunk
+
+// 8 consecutive T of shared memory (16-byte aligned) as f32
+template <typename T>
+__device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    widen8(*reinterpret_cast<const uint4*>(p), f);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 16);
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+    f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  }
+}
+
+template <typename T>
+struct WideSmem {
+  static constexpr int kCRow = kWDC * (int)sizeof(T) + fa::kPad;  // q/k chunk
+  static constexpr int kVRow = fa::kDC * (int)sizeof(T) + fa::kPad;
+  static constexpr int kSlot = 2 * 64 * kCRow;  // a q chunk and a k chunk
+  static constexpr int kV = 2 * kSlot;          // two V column slabs
+  static constexpr int kP = kV + 2 * fa::kBKV * kVRow;  // f32 PV: parked p
+  static constexpr int kBytes =
+      kP + (sizeof(T) == 4 ? fa::kWarps * 16 * (fa::kBKV + 4) * 4 : 0);
+};
+
+// One (batch * q head, 64-row q tile) and output columns [c0, c0 + 128),
+// c0 = blockIdx.y * 128.  The walk is a sequence of steps (KV tile, d chunk):
+// step i's q and k chunks (and, at a tile's first chunk, its V slab) are in
+// flight while step i - 1 computes.
+template <typename T>
+__global__ void __launch_bounds__(fa::kThreads)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      fa::Shape s, int vec) {
+  using L = WideSmem<T>;
+  constexpr int NT = fa::kBKV / 8;  // n8 score tiles a warp
+  constexpr int DT = fa::kDC / 8;   // n8 output tiles a warp
+  extern __shared__ __align__(16) int8_t smem[];
+  const fa::Block blk = fa::block_of(s);
+  const int c0 = blockIdx.y * fa::kDC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, gb = g & 1;
+
+  const size_t kv_stride = (size_t)s.kv_heads * s.dh;
+  const size_t kvb = ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * s.dh;
+  const size_t q_stride = (size_t)s.heads * s.dh;
+  const T* qb = q + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) * s.dh;
+  const int nch = (s.dh + kWDC - 1) / kWDC;
+  int t0, t1;
+  fa::kv_tiles(s, blk.q0, t0, t1);
+  const int steps = (t1 - t0) * nch;
+  auto issue = [&](int step) {
+    const int tile = t0 + step / nch, ch = step % nch;
+    int8_t* slot = smem + (step & 1) * L::kSlot;
+    const size_t off = kvb + (size_t)tile * fa::kBKV * kv_stride;
+    const int rows = s.skv - tile * fa::kBKV;
+    fa::stage_cols<T, kWDC>(slot, L::kCRow, qb, q_stride, s.sq - blk.q0,
+                            ch * kWDC, s.dh, vec);
+    fa::stage_cols<T, kWDC>(slot + 64 * L::kCRow, L::kCRow, k + off,
+                            kv_stride, rows, ch * kWDC, s.dh, vec);
+    if (ch == 0)
+      fa::stage_cols<T, fa::kDC>(
+          smem + L::kV + ((tile - t0) & 1) * fa::kBKV * L::kVRow, L::kVRow,
+          v + off, kv_stride, rows, c0, s.dh, vec);
+  };
+  if (steps) issue(0);
+  fa::cp_async_commit();
+
+  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
+  wr.init(blk);
+  float c[4][NT];  // rows g - gb + {0, 1, 8, 9}, my key of tile j
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);  // into the slot read two steps ago
+    fa::cp_async_commit();
+    fa::cp_async_wait<1>();  // everything but the copies just started
+    __syncthreads();
+    const int tile = t0 + step / nch, ch = step % nch;
+    if (ch == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) c[r][j] = 0.f;
+    }
+    // ---- QK^T over this chunk: f32 FMAs in d order, B5's lane pairing (the
+    // lane and lane ^ 4 each sum four rows of their keys and swap halves)
+    const int8_t* qs = smem + (step & 1) * L::kSlot;
+    const int8_t* ks = qs + 64 * L::kCRow;
+    const int8_t* q0 = qs + (warp * 16 + g - gb) * L::kCRow;
+#pragma unroll 2
+    for (int d0 = 0; d0 < kWDC; d0 += 8) {
+      float qv[4][8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        load8<T>(q0 + ((r & 1) + 8 * (r >> 1)) * L::kCRow +
+                     d0 * (int)sizeof(T),
+                 qv[r]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float kv[8];
+        load8<T>(ks + (j * 8 + 2 * t + gb) * L::kCRow + d0 * (int)sizeof(T),
+                 kv);
+#pragma unroll
+        for (int dd = 0; dd < 8; ++dd)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            c[r][j] = fmaf(qv[r][dd], kv[dd], c[r][j]);
+      }
+    }
+    if (ch == nch - 1) {
+      float p[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float mine = gb ? c[2 * h + 1][j] : c[2 * h][j];
+          const float got = __shfl_xor_sync(
+              0xffffffffu, gb ? c[2 * h][j] : c[2 * h + 1][j], 4);
+          p[j][2 * h] = (gb ? got : mine) * s.scale;  // key 8j + 2t
+          p[j][2 * h + 1] = (gb ? mine : got) * s.scale;
+        }
+      wr.softmax(s, tile * fa::kBKV, p);
+      const int8_t* vs = smem + L::kV + ((tile - t0) & 1) * fa::kBKV * L::kVRow;
+      if constexpr (sizeof(T) == 2)
+        wr.pv_bf16(p, vs, L::kVRow);
+      else
+        fa::pv_f32(wr, p,
+                   reinterpret_cast<float*>(smem + L::kP) +
+                       warp * 16 * (fa::kBKV + 4),
+                   vs, L::kVRow);
+    }
+    __syncthreads();  // this slot (and V slab) is refilled two steps on
+  }
+  fa::cp_async_wait<0>();
+
+  fa::store_cols(wr, s, blk, out, c0);
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, const fa::Shape& s, int vec,
+                        cudaStream_t stream) {
+  constexpr int bytes = WideSmem<T>::kBytes;
+  static int set_on = -1;  // the card the attribute was set for
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != set_on) {
+    err = cudaFuncSetAttribute(flash_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    set_on = dev;
+  }
+  const long long blocks =
+      (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
+  const dim3 grid((unsigned)blocks, (s.dh + fa::kDC - 1) / fa::kDC);
+  flash_wide_kernel<T><<<grid, fa::kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, s, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      const fa::Shape& s, cudaStream_t stream) {
@@ -353,14 +525,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     case 32: return launch<T, 32>(q, k, v, out, s, vec, stream);
     case 64: return launch<T, 64>(q, k, v, out, s, vec, stream);
     case 128: return launch<T, 128>(q, k, v, out, s, vec, stream);
-    default: return cudaErrorInvalidValue;
+    default: return launch_wide<T>(q, k, v, out, s, vec, stream);
   }
 }
 
 }  // namespace
 
 // out (B, Sq, H, dh) = flash attention of q, k, v (layouts above), f32
-// (is_bf16 = 0) or bf16 (1); has_window = 0 means no window.  Returns a
+// (is_bf16 = 0) or bf16 (1), any dh (above 128 the column-block kernel);
+// has_window = 0 means no window.  Returns a
 // cudaError_t as int: 0 when the launch was accepted.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int batch, int sq, int skv,
@@ -368,7 +541,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int has_window, int window, float scale,
                                int is_bf16, void* stream) {
   if (batch < 1 || sq < 1 || skv < 1 || kv_heads < 1 || heads % kv_heads ||
-      dh < 1 || !fa::head_tile(dh))
+      dh < 1)
     return (int)cudaErrorInvalidValue;
   const fa::Shape s = {batch,  sq, skv, heads, kv_heads, dh, causal ? 1 : 0,
                        has_window ? 1 : 0, window, scale};

@@ -50,11 +50,22 @@
 //    parks its p in shared memory and runs f32 FMAs over the 64 keys (B5's
 //    3xTF32 PV could take their place).
 //  * KV tiles wholly outside the causal or window band are skipped (exact).
+//  * int16 q and k (n_bits 9-16, which the tensor cores do not take) at any
+//    dh, and int8 q and k wider than 128, take the entry
+//    flash_attention_l2r_wide: the output's head dim split over blocks of 128
+//    columns (flash_softmax.cuh), each KV tile's 64 x 64 int32 score tile
+//    walked over the whole dh through the integer routine of kernels B1-B3
+//    (l2r_gemm/csrc/l2r_int16.cuh: q and k chunks masked per product and
+//    widened to int32 in shared memory, unsigned multiply-adds that wrap as
+//    the reference's int32 dot), parked in shared memory and read back in the
+//    warp layout; then the same dequantization, softmax and PV.  Every
+//    column block recomputes the scores.
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
+#include "../../l2r_gemm/csrc/l2r_int16.cuh"
 #include "flash_softmax.cuh"
 
 namespace {
@@ -311,6 +322,168 @@ cudaError_t dispatch(int width, const void* qq, const void* qsc,
   }
 }
 
+// ------------------------------------------------ the wide route
+constexpr int kWideProducts = 16;  // a prefix of the walk: at most D <= 16
+constexpr int kIBK = 32;           // d steps of a staged q / k chunk
+constexpr int kIP = fa::kBQ + 4;   // int32 pitch of the staged chunks and scores
+
+struct WideProducts {
+  int n;
+  uint32_t ma[kWideProducts], mb[kWideProducts];  // masks of the raw operand
+};
+
+template <typename T>
+struct WideSmem {
+  static constexpr int kVRow = fa::kDC * (int)sizeof(T) + fa::kPad;
+  static constexpr int kQs = 0;                          // [kIBK][kIP] int32
+  static constexpr int kKs = kQs + kIBK * kIP * 4;       // [kIBK][kIP] int32
+  static constexpr int kSt = kKs + kIBK * kIP * 4;       // scores [64][kIP]
+  static constexpr int kV = kSt + fa::kBQ * kIP * 4;     // V columns [64][kVRow]
+  static constexpr int kS = kV + fa::kBKV * kVRow;       // key scales
+  static constexpr int kP = kS + fa::kBKV * 4;           // f32 PV: parked p
+  static constexpr int kBytes =
+      kP + (sizeof(T) == 4 ? fa::kWarps * 16 * kPPitch * 4 : 0);
+};
+
+// One (batch * q head, 64-row q tile) and output columns [c0, c0 + 128).
+// Q is the raw operand type (int8_t or int16_t).  Each KV tile: its V
+// columns and key scales in flight (cp.async) while the score tile is walked
+// (the block's 128 threads as 8 x 16 tiles of 8 q rows x 4 keys), then
+// s = s_int * q_scale * k_scale * scale (f32, the reference's order), the
+// softmax and PV as in flash_l2r_kernel.
+template <typename T, typename Q>
+__global__ void __launch_bounds__(fa::kThreads)
+    flash_l2r_wide_kernel(const Q* __restrict__ qq,
+                          const float* __restrict__ qsc,
+                          const Q* __restrict__ kq,
+                          const float* __restrict__ ksc,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          fa::Shape s, WideProducts pr, int vec) {
+  using L = WideSmem<T>;
+  constexpr int NT = fa::kBKV / 8;  // n8 score tiles per warp
+  constexpr int DT = fa::kDC / 8;   // n8 output tiles per warp
+  extern __shared__ __align__(16) int8_t smem[];
+  int32_t* qs = reinterpret_cast<int32_t*>(smem + L::kQs);
+  int32_t* ks = reinterpret_cast<int32_t*>(smem + L::kKs);
+  int32_t* st = reinterpret_cast<int32_t*>(smem + L::kSt);
+  const float* ss = reinterpret_cast<const float*>(smem + L::kS);
+  const fa::Block blk = fa::block_of(s);
+  const int c0 = blockIdx.y * fa::kDC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tx = tid % 16, ty = tid / 16;  // keys 4tx.., q rows 8ty..
+
+  const size_t kv_stride = (size_t)s.kv_heads * s.dh;
+  const size_t kvb = ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * s.dh;
+  const auto qop = l2r16::operand<Q>(
+      qq + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) * s.dh,
+      (long long)s.heads * s.dh, 1, 0, 0, s.sq - blk.q0, s.dh);
+
+  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
+  wr.init(blk);
+  float q_scale[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    q_scale[h] = wr.row[h] < s.sq
+                     ? qsc[((size_t)blk.b * s.sq + wr.row[h]) * s.heads + blk.h]
+                     : 0.f;
+
+  int t0, t1;
+  fa::kv_tiles(s, blk.q0, t0, t1);
+  for (int tile = t0; tile < t1; ++tile) {
+    const int kv0 = tile * fa::kBKV, rows = s.skv - kv0;
+    // V's columns [c0, c0 + 128) and the key scales, in flight meanwhile
+    fa::stage_cols<T, fa::kDC>(smem + L::kV, L::kVRow,
+                               v + kvb + (size_t)kv0 * kv_stride, kv_stride,
+                               rows, c0, s.dh, vec);
+    for (int r = tid; r < fa::kBKV; r += fa::kThreads) {
+      const bool ok = r < rows;
+      fa::cp_async4(
+          smem + L::kS + r * 4,
+          ok ? ksc + ((size_t)blk.b * s.skv + kv0 + r) * s.kv_heads + blk.kvh
+             : ksc,
+          ok);
+    }
+    fa::cp_async_commit();
+
+    // ---- s_int = the walk's products, each over the whole dh
+    const auto kop = l2r16::operand<Q>(kq + kvb + (size_t)kv0 * kv_stride,
+                                       (long long)kv_stride, 1, 0, 0, rows,
+                                       s.dh);
+    uint32_t acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int p = 0; p < pr.n; ++p)
+      for (int d0 = 0; d0 < s.dh; d0 += kIBK) {
+        l2r16::stage<Q, fa::kBQ, kIBK, fa::kThreads>(qs, kIP, qop, 0, d0, 0,
+                                                     0, pr.ma[p]);
+        l2r16::stage<Q, fa::kBKV, kIBK, fa::kThreads>(ks, kIP, kop, 0, d0, 0,
+                                                      0, pr.mb[p]);
+        __syncthreads();
+        l2r16::mac<8, 4, kIBK>(acc, qs + ty * 8, kIP, ks + tx * 4, kIP);
+        __syncthreads();
+      }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint4*>(st + (ty * 8 + i) * kIP + tx * 4) =
+          make_uint4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    fa::cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- scores (f32, the reference's order), masks, online softmax
+    float p[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          p[j][2 * h + e] =
+              (float)st[(warp * 16 + g + 8 * h) * kIP + j * 8 + 2 * t + e] *
+              q_scale[h] * ss[j * 8 + 2 * t + e] * s.scale;
+    wr.softmax(s, kv0, p);
+
+    // ---- acc += p @ v, this block's columns
+    if constexpr (sizeof(T) == 2)
+      wr.pv_bf16(p, smem + L::kV, L::kVRow);
+    else
+      fa::pv_f32(wr, p,
+                 reinterpret_cast<float*>(smem + L::kP) + warp * 16 * kPPitch,
+                 smem + L::kV, L::kVRow);
+    __syncthreads();  // the V columns, scales and scores are refilled next
+  }
+
+  fa::store_cols(wr, s, blk, out, c0);
+}
+
+template <typename T, typename Q>
+cudaError_t launch_wide(const void* qq, const void* qsc, const void* kq,
+                        const void* ksc, const void* v, void* out,
+                        const fa::Shape& s, const WideProducts& pr, int vec,
+                        cudaStream_t stream) {
+  const int bytes = WideSmem<T>::kBytes;
+  static int set_on = -1;  // the card the attribute was set for
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != set_on) {
+    err = cudaFuncSetAttribute(flash_l2r_wide_kernel<T, Q>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    set_on = dev;
+  }
+  const long long blocks =
+      (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
+  const dim3 grid((unsigned)blocks, (s.dh + fa::kDC - 1) / fa::kDC);
+  flash_l2r_wide_kernel<T, Q><<<grid, fa::kThreads, bytes, stream>>>(
+      (const Q*)qq, (const float*)qsc, (const Q*)kq, (const float*)ksc,
+      (const T*)v, (T*)out, s, pr, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // out (B, Sq, H, dh) in v's dtype (f32: is_bf16 = 0, bf16: 1) = flash
@@ -344,4 +517,43 @@ extern "C" int flash_attention_l2r(
                                                  k_scale, v, out, s, pr, st)
                        : dispatch<float>(width, qq, q_scale, kq, k_scale, v,
                                          out, s, pr, st));
+}
+
+// The wide route: as flash_attention_l2r on unpadded qq (B, Sq, H, dh) and kq
+// (B, Skv, Kv, dh) of elem_bytes 1 (int8, dh > 128) or 2 (int16, any dh),
+// v (B, Skv, Kv, dh), with masks of the raw operand's bits (at most 16
+// products).  Returns a cudaError_t as int: 0 when the launch was accepted.
+extern "C" int flash_attention_l2r_wide(
+    const void* qq, const void* q_scale, const void* kq, const void* k_scale,
+    const void* v, void* out, int batch, int sq, int skv, int heads,
+    int kv_heads, int dh, int causal, int has_window, int window, float scale,
+    int n_products, const int* mask_a, const int* mask_b, int is_bf16,
+    int elem_bytes, void* stream) {
+  if (batch < 1 || sq < 1 || skv < 1 || kv_heads < 1 || heads % kv_heads ||
+      dh < 1 || n_products < 0 || n_products > kWideProducts ||
+      (elem_bytes != 1 && elem_bytes != 2))
+    return (int)cudaErrorInvalidValue;
+  WideProducts pr = {};
+  pr.n = n_products;
+  const int top = elem_bytes == 1 ? 0xFF : 0xFFFF;
+  for (int p = 0; p < n_products; ++p) {
+    if (mask_a[p] < 0 || mask_a[p] > top || mask_b[p] < 0 || mask_b[p] > top)
+      return (int)cudaErrorInvalidValue;
+    pr.ma[p] = (uint32_t)mask_a[p];
+    pr.mb[p] = (uint32_t)mask_b[p];
+  }
+  const fa::Shape s = {batch,  sq, skv, heads, kv_heads, dh, causal ? 1 : 0,
+                       has_window ? 1 : 0, window, scale};
+  const int vsize = is_bf16 ? 2 : 4;
+  const int vec = (dh * vsize) % 16 == 0 && (uintptr_t)v % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (elem_bytes == 1)
+    return (int)(is_bf16 ? launch_wide<__nv_bfloat16, int8_t>(
+                               qq, q_scale, kq, k_scale, v, out, s, pr, vec, st)
+                         : launch_wide<float, int8_t>(qq, q_scale, kq, k_scale,
+                                                      v, out, s, pr, vec, st));
+  return (int)(is_bf16 ? launch_wide<__nv_bfloat16, int16_t>(
+                             qq, q_scale, kq, k_scale, v, out, s, pr, vec, st)
+                       : launch_wide<float, int16_t>(qq, q_scale, kq, k_scale,
+                                                     v, out, s, pr, vec, st));
 }

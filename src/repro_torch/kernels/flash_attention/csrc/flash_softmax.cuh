@@ -256,11 +256,103 @@ struct WarpRows {
   }
 };
 
-// The smallest instantiated head width >= dh (16, 32, 64, 128), 0 if none.
+// The smallest instantiated head width >= dh (16, 32, 64, 128), 0 if none:
+// a wider head takes the wide kernels below.
 inline int head_tile(int dh) {
   for (int t = 16; t <= 128; t *= 2)
     if (dh <= t) return t;
   return 0;
+}
+
+// ------------------------------------------------ the wide kernels
+// A head wider than the widest tile (dh > 128: recurrentgemma-2b's 256), and
+// B4 on int16 q and k at any dh, split the output's head dim over blocks of
+// kDC columns (grid.y = ceil(dh / kDC)).  Each block walks QK^T over the whole
+// dh in chunks staged through shared memory, so every column block recomputes
+// the scores, and runs PV and the store for its kDC columns only: a warp's
+// carry stays at 16 rows x kDC (64 f32 registers a thread).
+constexpr int kDC = 128;
+
+// 64 rows of columns [c0, c0 + W) of a slab in T (row r at base + r * stride)
+// into shared rows of `pitch` bytes, zero past n_rows and dh: 16-byte cp.async
+// pieces when `vec` (dh * sizeof(T) a multiple of 16, the tensors 16-byte
+// aligned), else element by element (plain stores, seen after the caller's
+// barrier).
+template <typename T, int W>
+__device__ __forceinline__ void stage_cols(int8_t* dst, int pitch,
+                                           const T* base, size_t stride,
+                                           int n_rows, int c0, int dh,
+                                           bool vec) {
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T), CP = W / E;  // pieces a row
+    for (int e = threadIdx.x; e < 64 * CP; e += kThreads) {
+      const int r = e / CP, c = (e % CP) * E;
+      const bool ok = r < n_rows && c0 + c < dh;
+      cp_async16(dst + r * pitch + c * (int)sizeof(T),
+                 ok ? base + r * stride + c0 + c : base, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 64 * W; e += kThreads) {
+      const int r = e / W, c = e % W;
+      T x = from_float<T>(0.f);
+      if (r < n_rows && c0 + c < dh) x = base[r * stride + c0 + c];
+      *reinterpret_cast<T*>(dst + r * pitch + c * (int)sizeof(T)) = x;
+    }
+  }
+}
+
+// The wide kernels' f32 PV: the warp parks its p (16 rows of kBKV + 4 floats
+// at ps), then each lane sums its columns over the 64 keys in f32 FMAs (vs: a
+// (kBKV, 8 * DT) f32 tile with rows of vp bytes).
+template <int NT, int DT>
+__device__ __forceinline__ void pv_f32(WarpRows<DT>& wr,
+                                       const float (&p)[NT][4], float* ps,
+                                       const int8_t* vs, int vp) {
+  constexpr int PP = kBKV + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(ps + (g + 8 * h) * PP + j * 8 + 2 * t) =
+          make_float2(p[j][2 * h], p[j][2 * h + 1]);
+  __syncwarp();
+  const float* vf = reinterpret_cast<const float*>(vs);
+  for (int c = 0; c < kBKV; ++c) {
+    const float p0 = ps[g * PP + c], p1 = ps[(g + 8) * PP + c];
+    const float* vr = vf + c * (vp / 4);
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const float2 vv = *reinterpret_cast<const float2*>(vr + j * 8 + 2 * t);
+      wr.acc[j][0] = fmaf(p0, vv.x, wr.acc[j][0]);
+      wr.acc[j][1] = fmaf(p0, vv.y, wr.acc[j][1]);
+      wr.acc[j][2] = fmaf(p1, vv.x, wr.acc[j][2]);
+      wr.acc[j][3] = fmaf(p1, vv.y, wr.acc[j][3]);
+    }
+  }
+  __syncwarp();  // p read before the next tile parks its own
+}
+
+// out[b, q, h, c0 + c] = acc / max(l, 1e-30) in T, rows < sq and columns
+// c0 + c < dh: the store of a wide kernel's column block
+template <typename T, int DT>
+__device__ __forceinline__ void store_cols(const WarpRows<DT>& wr,
+                                           const Shape& s, const Block& blk,
+                                           T* __restrict__ out, int c0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (wr.row[h] >= s.sq) continue;
+    const float den = fmaxf(wr.l[h], 1e-30f);
+    T* o = out + (((size_t)blk.b * s.sq + wr.row[h]) * s.heads + blk.h) * s.dh;
+#pragma unroll
+    for (int jj = 0; jj < DT; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + jj * 8 + 2 * t + e;
+        if (c < s.dh) o[c] = from_float<T>(wr.acc[jj][2 * h + e] / den);
+      }
+  }
 }
 
 }  // namespace fa

@@ -17,6 +17,14 @@ scores, and their plain versions.
   truncates the walk.  PV runs on the bf16 tensor cores for bf16 v and
   as f32 FMAs for f32 v.
 
+Both take any head width: above 128 (recurrentgemma-2b's 256) a column
+block kernel splits the output's head dim over blocks of 128 columns and
+recomputes QK^T in each.  B4 on int16 q and k (n_bits 9-16), and on int8
+above 128, takes its wide entry ``flash_attention_l2r_wide``: the score
+tile walked through kernels B1-B3's integer routine
+(``l2r_gemm/csrc/l2r_int16.cuh``), wrapping as the reference's int32
+dot; both routes count as ``LAUNCHES["flash_attention_l2r"]``.
+
 Both run the warp-layout online softmax, bf16 PV and epilogue of
 ``csrc/flash_softmax.cuh`` (4 warps of 16 q rows, K and V double-buffered
 through ``cp.async``) and differ in how they fill a score tile.  Layouts
@@ -59,7 +67,7 @@ from repro_torch.core.l2r_attention import quantize_per_vector
 from repro_torch.core.l2r_gemm import wrap_int32
 from repro_torch.core.online import (msdf_level_slices, msdf_products,
                                     plane_bits)
-from repro_torch.core.quant import (QuantConfig, plane_count,
+from repro_torch.core.quant import (QuantConfig, _int_dtype, plane_count,
                                     stack_planes_lhs, stack_planes_rhs)
 from repro_torch.device import no_tf32
 from repro_torch.kernels import _build
@@ -67,7 +75,7 @@ from repro_torch.kernels import _build
 __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
            "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile",
-           "l2r_masks", "l2r_width", "l2r_kernel_operands",
+           "l2r_masks", "l2r_width", "l2r_wide", "l2r_kernel_operands",
            "flash_attention_l2r_launch", "plain_grads", "FlashAttentionL2R",
            "visible_pairs", "attention_ops", "flash_cost"]
 
@@ -77,13 +85,14 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_l2r": 0}
 
 _NEG = -1e30
 KV_TILE = 64  # keys per KV tile of both kernels (flash_softmax.cuh: kBKV)
-_MAX_DH = 128  # the kernels' widest head tile
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _I],
     "flash_attention_l2r": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _I, _P, _P, _I],
+    "flash_attention_l2r_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _I, _P, _P, _I, _I],
 }
 
 
@@ -160,32 +169,34 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
 
 
 def attention_ops(b: int, h: int, dh: int, pairs: int, dtype: torch.dtype,
-                  qk_int8: bool = False) -> dict:
+                  qk_int8: bool = False, qk_int16: bool = False) -> dict:
     """QK^T and PV at 2 dh operations per visible pair each, by the peak
     they run at (launch/roofline.py:PEAKS): bf16 on the bf16 tensor cores,
     f32 as the 3xTF32 split (``"tf32x3"``), B4's QK^T on the int8 tensor
-    cores."""
+    cores; on int16 q and k (``qk_int16``) each product counts as four
+    int8 products (the byte split)."""
     per = 2 * b * h * pairs * dh
     peak = "bf16" if dtype == torch.bfloat16 else "tf32x3"
     ops = {peak: per}
-    qk = "int8" if qk_int8 else peak
-    ops[qk] = ops.get(qk, 0) + per
+    qk = "int8" if qk_int8 or qk_int16 else peak
+    ops[qk] = ops.get(qk, 0) + per * (4 if qk_int16 else 1)
     return ops
 
 
 def flash_cost(b: int, sq: int, skv: int, h: int, kvh: int, dh: int,
                causal: bool, window, dtype: torch.dtype,
-               qk_int8: bool = False) -> tuple[dict, int]:
-    """Kernel B5's (B4's with ``qk_int8``) work: :func:`attention_ops` over
-    the visible pairs, and q, k, v read and the output written once in
-    ``dtype``."""
+               qk_int8: bool = False, qk_int16: bool = False
+               ) -> tuple[dict, int]:
+    """Kernel B5's (B4's with ``qk_int8``, on int16 q and k with
+    ``qk_int16``) work: :func:`attention_ops` over the visible pairs, and
+    q, k, v read and the output written once in ``dtype``."""
     elem = torch.empty((), dtype=dtype).element_size()
     return (attention_ops(b, h, dh, visible_pairs(sq, skv, causal, window),
-                          dtype, qk_int8),
+                          dtype, qk_int8, qk_int16),
             (2 * b * sq * h * dh + 2 * b * skv * kvh * dh) * elem)
 
 
-def _require(which: str, dh: int, *tensors, dtypes=None) -> None:
+def _require(which: str, *tensors, dtypes=None) -> None:
     dev = tensors[0].device
     for x in tensors:
         if (x.device != dev or not x.is_contiguous()
@@ -194,8 +205,6 @@ def _require(which: str, dh: int, *tensors, dtypes=None) -> None:
                 f"kernel {which} takes contiguous tensors on one card"
                 f"{'' if dtypes is None else f' of dtype {dtypes}'}, got "
                 f"{x.dtype} on {x.device}")
-    if dh > _MAX_DH:
-        raise ValueError(f"kernel {which} takes dh <= {_MAX_DH}, got {dh}")
 
 
 # ------------------------------------------------------------ B5: float
@@ -225,7 +234,8 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
     dh) -> (B, Sq, H, dh) in v's dtype.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: q, k, v contiguous, all f32 or all bf16, dh <= 128.
+    kernel: q, k, v contiguous, all f32 or all bf16, any dh (above 128 the
+    column-block kernel).
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
     if _build.as_op(q):
@@ -239,7 +249,7 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
 def _b5_launch(q, k, v, causal, window, scale) -> torch.Tensor:
     """B5 on the card: the eager path and the op's CUDA implementation."""
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
-    _require("B5", dh, q, k, v, dtypes=(torch.float32, torch.bfloat16))
+    _require("B5", q, k, v, dtypes=(torch.float32, torch.bfloat16))
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"kernel B5 takes q, k, v of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -350,33 +360,45 @@ def _l2r_plain_walk(q_stack, qs, k_stack, ks, v, n_bits, log2_radix, levels,
 def l2r_masks(n_bits: int, log2_radix: int, levels: int | None
               ) -> list[tuple[int, int]]:
     """Kernel B4's walk: per product of ``msdf_products(D, levels)`` the
-    byte masks (q's, k's) that cut its plane ranges out of the raw int8
-    operands (``plane_bits``); full depth is one product, (0xFF, 0xFF)."""
+    masks (q's, k's) that cut its plane ranges out of the raw int8 (int16
+    for n_bits > 8) operands (``plane_bits``); full depth is one product,
+    all ones."""
     d = plane_count(n_bits, log2_radix)
-    return [(plane_bits(d, log2_radix, il, ih), plane_bits(d, log2_radix,
-                                                           jl, jh))
+    bits = 8 if n_bits <= 8 else 16
+    return [(plane_bits(d, log2_radix, il, ih, bits),
+             plane_bits(d, log2_radix, jl, jh, bits))
             for il, ih, jl, jh in msdf_products(d, levels)]
 
 
-def l2r_width(dh: int) -> int:
-    """The head width kernel B4 stages: dh zero-padded to 32, 64 or 128
-    (whole k32 steps of the int8 mma)."""
+def l2r_wide(dh: int, n_bits: int = 8) -> bool:
+    """Does B4 take its wide route: int16 q and k (n_bits > 8), or a head
+    wider than the tensor-core route's 128."""
+    return n_bits > 8 or dh > 128
+
+
+def l2r_width(dh: int, n_bits: int = 8) -> int:
+    """The head width kernel B4 stages: on its tensor-core route dh
+    zero-padded to 32, 64 or 128 (whole k32 steps of the int8 mma); on its
+    wide route (:func:`l2r_wide`) dh itself."""
+    if l2r_wide(dh, n_bits):
+        return dh
     return max(32, 1 << (dh - 1).bit_length())
 
 
 def l2r_kernel_operands(q, k, v, n_bits: int = 8, log2_radix: int = 2):
     """What kernel B4 reads, made on the card: q and k quantized per vector
-    (``quantize_per_vector``) as raw int8 with their f32 scales, and the
-    three zero-padded to :func:`l2r_width` when dh is not 32, 64 or 128
-    (exact: zero columns add nothing to a score, and the padded output
-    columns are not written).  Returns (qq, q_scale, kq, k_scale, v), each
-    contiguous.  No plane stack: the kernel masks the planes out of the
-    raw bytes (:func:`l2r_masks`)."""
+    (``quantize_per_vector``) as raw int8 (int16 for n_bits > 8) with their
+    f32 scales, and on the tensor-core route the three zero-padded to
+    :func:`l2r_width` when dh is not 32, 64 or 128 (exact: zero columns add
+    nothing to a score, and the padded output columns are not written).
+    Returns (qq, q_scale, kq, k_scale, v), each contiguous.  No plane
+    stack: the kernel masks the planes out of the raw operands
+    (:func:`l2r_masks`)."""
     cfg = QuantConfig(n_bits=n_bits, log2_radix=log2_radix)
     qq, qs = quantize_per_vector(q, cfg)
     kq, ks = quantize_per_vector(k, cfg)
     dh = q.shape[-1]
-    width = l2r_width(dh)
+    width = l2r_width(dh, n_bits)
     if width != dh:
         qq, kq, v = (torch.nn.functional.pad(x, (0, width - dh))
                      for x in (qq, kq, v))
@@ -400,16 +422,26 @@ def flash_attention_l2r_launch(ops, dh: int, n_bits: int = 8,
         return out.zero_()
     masks = l2r_masks(n_bits, log2_radix, levels)
     arr = ctypes.c_int * max(len(masks), 1)
-    _build.launch(
-        "flash_attention_l2r", _ARGTYPES["flash_attention_l2r"], v.device,
-        f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh} "
-        f"levels={levels}",
-        qq.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(),
-        v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh, width,
-        int(causal), int(window is not None), window or 0, scale, len(masks),
-        arr(*(ma for ma, _ in masks)), arr(*(mb for _, mb in masks)),
-        int(v.dtype == torch.bfloat16), reads=(qq, qs, kq, ks, v),
-        writes=(out,))
+    what = f"B={b} Sq={sq} Skv={skv} H={h} Kv={kvh} dh={dh} levels={levels}"
+    common = (qq.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+              v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dh)
+    tail = (int(causal), int(window is not None), window or 0, scale,
+            len(masks), arr(*(ma for ma, _ in masks)),
+            arr(*(mb for _, mb in masks)), int(v.dtype == torch.bfloat16))
+    if l2r_wide(dh, n_bits):
+        if qq.dtype != _int_dtype(n_bits) or width != dh:
+            raise ValueError(f"kernel B4's wide route takes unpadded "
+                             f"{_int_dtype(n_bits)} q, k; got {qq.dtype} "
+                             f"of width {width} for dh={dh}")
+        _build.launch("flash_attention_l2r",
+                      _ARGTYPES["flash_attention_l2r_wide"], v.device, what,
+                      *common, *tail, qq.element_size(),
+                      reads=(qq, qs, kq, ks, v), writes=(out,),
+                      entry="flash_attention_l2r_wide")
+    else:
+        _build.launch("flash_attention_l2r", _ARGTYPES["flash_attention_l2r"],
+                      v.device, what, *common[:12], width, *tail,
+                      reads=(qq, qs, kq, ks, v), writes=(out,))
     LAUNCHES["flash_attention_l2r"] += 1
     return out
 
@@ -447,7 +479,8 @@ def _b4_flops(qq_shape, qs_shape, kq_shape, ks_shape, v_shape, dh, n_bits,
     b, sq, h, _ = qq_shape
     ops, _ = flash_cost(b, sq, kq_shape[1], h, kq_shape[2], dh, causal,
                         window, out_val.dtype if out_val is not None
-                        else torch.float32, qk_int8=True)
+                        else torch.float32, qk_int8=True,
+                        qk_int16=n_bits > 8)
     return sum(ops.values())
 
 
@@ -462,8 +495,8 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     float, ``levels`` truncates the MSDF walk.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: int8 operands only (n_bits <= 8; wider configs have int16
-    planes and raise), v f32 or bf16, dh <= 128.
+    kernel: v f32 or bf16, any dh; int8 q, k up to dh 128 on the tensor
+    cores, int16 (n_bits 9-16) and wider heads on its wide route.
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
     if _build.as_op(q):
@@ -473,14 +506,10 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     if not q.is_cuda:
         return flash_attention_l2r_plain(q, k, v, n_bits, log2_radix, levels,
                                          causal, window, scale)
-    if n_bits > 8:
-        raise ValueError(
-            f"kernel B4 takes int8 planes only; the config n_bits={n_bits}, "
-            f"log2_radix={log2_radix} has int16 planes and has no CUDA route")
     if q.device != v.device or k.device != v.device:
         raise ValueError(f"kernel B4 takes q, k, v on one card, got "
                          f"{q.device}, {k.device}, {v.device}")
-    _require("B4", dh, v, dtypes=(torch.float32, torch.bfloat16))
+    _require("B4", v, dtypes=(torch.float32, torch.bfloat16))
     return flash_attention_l2r_launch(
         l2r_kernel_operands(q, k, v, n_bits, log2_radix), dh, n_bits,
         log2_radix, levels, causal, window, scale)

@@ -52,6 +52,7 @@
 
 #include <algorithm>
 
+#include "l2r_int16.cuh"
 #include "l2r_mma.cuh"
 
 namespace {
@@ -319,4 +320,27 @@ extern "C" int l2r_pairs_gemm(const void* a, const void* b, void* c, int m,
   if (m <= 16) return launch<1, 1, 1, 4>(async, m, n, k, s, pa, pb, pc, pl);
   if (n <= 64) return launch<4, 1, 2, 3>(async, m, n, k, s, pa, pb, pc, pl);
   return launch<4, 2, 2, 3>(async, m, n, k, s, pa, pb, pc, pl);
+}
+
+// The int16 route (n_bits 9-16): C (m, n) int32 = sum over products p of
+// (aq & ma[p]) @ (bq & mb[p]) on raw int16 aq (m, k) and bq (k, n), both
+// row-major, 16-bit masks, through l2r_int16.cuh (B staged column by column:
+// the unit-stride axis first).  Returns a cudaError_t as int.
+extern "C" int l2r_pairs_gemm16(const void* a, const void* b, void* c, int m,
+                                int n, int k, int n_products, const int* ma,
+                                const int* mb, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || n_products < 1 || n_products > 16)
+    return (int)cudaErrorInvalidValue;
+  l2r16::Walk w = {};
+  w.n = n_products;
+  for (int p = 0; p < n_products; ++p) {
+    if (ma[p] < 0 || ma[p] > 0xFFFF || mb[p] < 0 || mb[p] > 0xFFFF)
+      return (int)cudaErrorInvalidValue;
+    w.p[p] = {0, 0, 0, 0, (uint16_t)ma[p], (uint16_t)mb[p], 0,
+              (uint8_t)(p == n_products - 1)};
+  }
+  const auto A = l2r16::operand<int16_t>(a, k, 1, 0, 0, m, k);
+  const auto B = l2r16::operand<int16_t>(b, 1, n, 0, 0, n, k);
+  return (int)l2r16::run<3>(A, B, c, m, n, w, nullptr, 1, false, true,
+                         (cudaStream_t)stream);
 }

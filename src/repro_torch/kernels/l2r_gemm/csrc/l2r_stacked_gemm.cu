@@ -55,6 +55,10 @@
 // Not yet: wgmma, TMA, a persistent grid, and a raw-operand A that would
 // drop the D-times-wider activation stacks.
 //
+// int16 stacks (n_bits 9-16) take the entry l2r_stacked_gemm16: the same
+// products through the CUDA-core routine of l2r_int16.cuh (the tensor cores
+// take no int16 operand).
+//
 // The kernel adds into C, which the caller initialises.  The launch uses the
 // caller's stream, allocates nothing, and returns cudaGetLastError() so the
 // Python wrapper can raise on a refused launch.
@@ -63,6 +67,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "l2r_int16.cuh"
 
 namespace {
 
@@ -421,4 +427,30 @@ extern "C" int l2r_stacked_gemm(const void* a, const void* bt, void* c, int m,
   if (n <= 64)
     return launch_tile<2, 4, 4, 3>(async, m, n, s, pa, pb, pc, lda, ldb, pl);
   return launch_tile<4, 4, 2, 3>(async, m, n, s, pa, pb, pc, lda, ldb, pl);
+}
+
+// The int16 route: C (m, n) int32 += the plane-range products over int16
+// stacks a (m, lda) and bt (n, ldb), laid out as above (elements, not bytes),
+// D <= 16, through l2r_int16.cuh.  Returns a cudaError_t as int.
+extern "C" int l2r_stacked_gemm16(const void* a, const void* bt, void* c,
+                                  int m, int n, int lda, int ldb, int d, int k,
+                                  int n_products, const int* il, const int* ih,
+                                  const int* jl, const int* jh, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || d < 1 || d > 16 || n_products < 1 ||
+      n_products > l2r16::kMaxProducts || lda < d * k || ldb < d * k)
+    return (int)cudaErrorInvalidValue;
+  l2r16::Walk w = {};
+  w.n = n_products;
+  for (int p = 0; p < n_products; ++p) {
+    if (il[p] < 0 || il[p] > ih[p] || ih[p] >= d || jl[p] < 0 ||
+        jl[p] > jh[p] || jh[p] >= d)
+      return (int)cudaErrorInvalidValue;
+    w.p[p] = {(uint8_t)il[p], (uint8_t)ih[p], (uint8_t)jl[p], (uint8_t)jh[p],
+              0xFFFF, 0xFFFF, 0, (uint8_t)(p == n_products - 1)};
+  }
+  const auto A = l2r16::operand<int16_t>(a, lda, 1, 0, k, m, k);
+  const auto B = l2r16::operand<int16_t>(bt, ldb, 1, (long long)(d - 1) * k,
+                                         -(long long)k, n, k);
+  return (int)l2r16::run<1>(A, B, c, m, n, w, nullptr, 1, true, false,
+                         (cudaStream_t)stream);
 }

@@ -41,8 +41,10 @@
 //    M: 32 x 64 tiles, 113 registers at D = 4, two blocks an SM.
 //  * Operands that are not 16-byte aligned (conv1_1's K = 3, ragged tests)
 //    are staged with byte loads, two stages, into the same layout.
-// Instantiated for D = 1, 2, 4, 8 (n_bits = 8 at every radix); the host
-// refuses other D.
+// Instantiated for D = 1-8 (every int8 config); the int16 stacks (n_bits
+// 9-16, D up to 16) take the entry l2r_streaming_gemm16: one plane pair a
+// product through the CUDA-core routine of l2r_int16.cuh, the running sum
+// written after each level.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -51,6 +53,7 @@
 
 #include <algorithm>
 
+#include "l2r_int16.cuh"
 #include "l2r_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -384,8 +387,43 @@ extern "C" int l2r_streaming_gemm(const void* a, const void* bt, void* c,
   switch (d) {
     case 1: return (int)run<1>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
     case 2: return (int)run<2>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
+    case 3: return (int)run<3>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
     case 4: return (int)run<4>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
+    case 5: return (int)run<5>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
+    case 6: return (int)run<6>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
+    case 7: return (int)run<7>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
     case 8: return (int)run<8>(tile, async, acc, splits, m, n, lda, ldb, k, n_levels, cnt, s, pa, pb, pc);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The int16 route: C (n_levels, m, n) int32 = (accumulate: C +) the level
+// prefixes of the walk over int16 stacks a (m, lda) and bt (n, ldb), laid out
+// as above (elements), D <= 16, through l2r_int16.cuh; level_count as above.
+// Returns a cudaError_t as int.
+extern "C" int l2r_streaming_gemm16(const void* a, const void* bt, void* c,
+                                    int m, int n, int lda, int ldb, int d,
+                                    int k, int n_levels,
+                                    const void* level_count, int accumulate,
+                                    void* stream) {
+  if (m < 1 || n < 1 || k < 1 || d < 1 || d > 16 || lda < d * k ||
+      ldb < d * k || n_levels < 1 || n_levels > 2 * d - 1 ||
+      level_count == nullptr)
+    return (int)cudaErrorInvalidValue;
+  l2r16::Walk w = {};
+  for (int t = 0; t < n_levels; ++t) {  // level t: pairs with i + j = 2D-2-t
+    const int sig = 2 * d - 2 - t;
+    for (int i = std::min(sig, d - 1); i >= std::max(0, sig - d + 1); --i) {
+      const int j = sig - i;
+      w.p[w.n++] = {(uint8_t)i, (uint8_t)i, (uint8_t)j, (uint8_t)j, 0xFFFF,
+                    0xFFFF, (uint8_t)t, 0};
+    }
+    w.p[w.n - 1].flush = 1;
+  }
+  const auto A = l2r16::operand<int16_t>(a, lda, 1, 0, k, m, k);
+  const auto B = l2r16::operand<int16_t>(bt, ldb, 1, (long long)(d - 1) * k,
+                                         -(long long)k, n, k);
+  return (int)l2r16::run<2>(A, B, c, m, n, w, (const int*)level_count, n_levels,
+                         accumulate != 0, accumulate == 0,
+                         (cudaStream_t)stream);
 }

@@ -19,7 +19,11 @@ versions.
   as the weight cache holds it.
 
 The three kernels have their own pipelines; B2 and B3 share device helpers
-(``csrc/l2r_mma.cuh``).
+(``csrc/l2r_mma.cuh``).  On int16 planes (n_bits 9-16, which the tensor
+cores do not take) each wrapper launches its kernel's int16 entry
+(``l2r_stacked_gemm16``, ``l2r_streaming_gemm16``, ``l2r_pairs_gemm16``):
+the same walk through one CUDA-core routine shared by the three
+(``csrc/l2r_int16.cuh``), counted in the same ``LAUNCHES[name]``.
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.
@@ -49,7 +53,7 @@ from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
 from repro_torch.core.online import (msdf_level_slices, msdf_products,
                                     plane_bits)
 from repro_torch.core.progressive import scan_plain
-from repro_torch.core.quant import PlaneOperands
+from repro_torch.core.quant import PlaneOperands, _int_dtype
 from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
@@ -72,6 +76,11 @@ _ARGTYPES = {  # the C entries' arguments before the stream
     "l2r_streaming_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                            _I, _I],
     "l2r_pairs_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "l2r_stacked_gemm16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P],
+    "l2r_streaming_gemm16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                             _I],
+    "l2r_pairs_gemm16": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -112,23 +121,24 @@ def _unshift(stack: torch.Tensor, side: str, n_bits: int, log2_radix: int,
 
 
 def _launch(name: str, dev: torch.device, shape: str, reads: tuple,
-            writes: tuple, *args) -> None:
-    _build.launch(name, _ARGTYPES[name], dev, shape, *args, reads=reads,
-                  writes=writes)
+            writes: tuple, *args, wide: bool = False) -> None:
+    """Launch library ``name``'s int8 entry, or with ``wide`` its int16
+    entry ``<name>16``; either counts as one launch of the kernel."""
+    entry = f"{name}16" if wide else name
+    _build.launch(name, _ARGTYPES[entry], dev, shape, *args, reads=reads,
+                  writes=writes, entry=entry)
     LAUNCHES[name] += 1
 
 
-def _require_int8(n_bits: int, log2_radix: int, which: str, **tensors):
-    if n_bits > 8:
-        raise ValueError(
-            f"kernel {which} takes int8 operands only; the config n_bits="
-            f"{n_bits}, log2_radix={log2_radix} has int16 planes and has no "
-            f"CUDA route")
+def _require_planes(n_bits: int, **tensors):
     dev = next(iter(tensors.values())).device
+    dt = _int_dtype(n_bits)
     for name, x in tensors.items():
-        if x.dtype != torch.int8 or not x.is_contiguous() or x.device != dev:
-            raise ValueError(f"{name} must be a contiguous int8 tensor on "
-                             f"{dev}, got {x.dtype} on {x.device}"
+        if x.dtype != dt or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be a contiguous "
+                             f"{str(dt).split('.')[-1]} tensor on "
+                             f"{dev} (n_bits={n_bits}), got {x.dtype} on "
+                             f"{x.device}"
                              f"{'' if x.is_contiguous() else ', strided'}")
 
 
@@ -155,10 +165,6 @@ def _b1_plan(d: int, levels: int | None, first_level: int):
         else (0,)
 
 
-#: B2's plane counts with a kernel instantiation (n_bits = 8 at any radix)
-B2_PLANES = (1, 2, 4, 8)
-
-
 @functools.lru_cache(maxsize=None)
 def streaming_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     """Kernel B2's launch shape: ``(tile, splits)``.  Tile 0 is 16 x 64
@@ -175,21 +181,22 @@ def streaming_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def pairs_plan(d: int, log2_radix: int, levels: int | None
+def pairs_plan(d: int, log2_radix: int, levels: int | None, bits: int = 8
                ) -> tuple[tuple[int, int], ...]:
-    """Kernel B3's products: ``(mask_a, mask_b)`` byte masks of the raw
-    operands, one pair per plane-range product of ``msdf_products(d,
-    levels)`` (at most D; one, ``(0xFF, 0xFF)``, at full depth)."""
-    return tuple((plane_bits(d, log2_radix, il, ih),
-                  plane_bits(d, log2_radix, jl, jh))
+    """Kernel B3's products: ``(mask_a, mask_b)`` masks of the raw
+    ``bits``-bit operands (8 or 16), one pair per plane-range product of
+    ``msdf_products(d, levels)`` (at most D; one, all ones, at full
+    depth)."""
+    return tuple((plane_bits(d, log2_radix, il, ih, bits),
+                  plane_bits(d, log2_radix, jl, jh, bits))
                  for il, ih, jl, jh in msdf_products(d, levels))
 
 
 @functools.lru_cache(maxsize=None)
-def _b3_c_plan(d: int, log2_radix: int, levels: int | None):
+def _b3_c_plan(d: int, log2_radix: int, levels: int | None, bits: int = 8):
     """:func:`pairs_plan` for the C entry: (count, masks a, masks b) as
     ctypes arrays, built once per table."""
-    plan = pairs_plan(d, log2_radix, levels)
+    plan = pairs_plan(d, log2_radix, levels, bits)
     arr = ctypes.c_int * max(len(plan), 1)
     return len(plan), arr(*(a for a, _ in plan)), arr(*(b for _, b in plan))
 
@@ -223,11 +230,12 @@ def _k_major(b_rev: torch.Tensor) -> tuple[torch.Tensor, int]:
     return bt, dk
 
 
-def _check_b_rev(b_rev: torch.Tensor, dev: torch.device) -> None:
+def _check_b_rev(b_rev: torch.Tensor, dev: torch.device, n_bits: int) -> None:
     # B1's and B2's B stack: any strides (see _k_major)
-    if b_rev.dtype != torch.int8 or b_rev.device != dev:
-        raise ValueError(f"b_rev must be an int8 tensor on {dev}, got "
-                         f"{b_rev.dtype} on {b_rev.device}")
+    if b_rev.dtype != _int_dtype(n_bits) or b_rev.device != dev:
+        raise ValueError(f"b_rev must be a {_int_dtype(n_bits)} tensor on "
+                         f"{dev} (n_bits={n_bits}), got {b_rev.dtype} on "
+                         f"{b_rev.device}")
 
 
 def _check_out(out, shape, dev):
@@ -239,49 +247,67 @@ def _check_out(out, shape, dev):
 
 
 # ------------------------------------------------------------- the work
+def _width(n_bits: int) -> tuple[int, int]:
+    """(int8 products an operand product counts as, bytes an element): an
+    int16 product is four int8 products on the tensor cores (the byte
+    split), the least the card could spend on it."""
+    return (1, 1) if n_bits <= 8 else (4, 2)
+
+
 def stacked_cost(m: int, k: int, n: int, d: int, levels: int | None = None,
-                 first_level: int = 0, accumulate: bool = False
-                 ) -> tuple[dict, int]:
+                 first_level: int = 0, accumulate: bool = False,
+                 n_bits: int = 8) -> tuple[dict, int]:
     """Kernel B1's work: ``({"int8": operations}, bytes)``.  A prefix
     (``first_level=0``) is at most D plane-range products of 2 M N K int8
     operations (one at full depth: the function is aq @ bq mod 2^32),
     reading the two stacks once and writing (with ``accumulate``, reading
     and writing) the int32 result; a table that starts above level 0 is
-    its plane pairs, reading the slices they touch (:func:`slab_cost`)."""
+    its plane pairs, reading the slices they touch (:func:`slab_cost`).
+    int16 planes (``n_bits`` > 8): four int8 operations a product, two
+    bytes an element."""
+    x, e = _width(n_bits)
     prods = len(msdf_products(d, levels, first_level))
-    ops = {"int8": 2 * m * n * k * prods}
+    ops = {"int8": 2 * m * n * k * prods * x}
     if first_level:
-        return ops, prods * (m * k + k * n) + m * n * 4
-    return ops, m * d * k + d * k * n + m * n * 4 * (2 if accumulate else 1)
+        return ops, prods * (m * k + k * n) * e + m * n * 4
+    return ops, (m * d * k + d * k * n) * e + m * n * 4 * (2 if accumulate
+                                                          else 1)
 
 
-def slab_cost(m: int, k: int, n: int, t: int, d: int) -> tuple[dict, int]:
+def slab_cost(m: int, k: int, n: int, t: int, d: int, n_bits: int = 8
+              ) -> tuple[dict, int]:
     """Level ``t``'s slab of B1's walk (``levels=t+1, first_level=t``): its
     plane pairs (i + j = t) at 2 M N K int8 operations each, the planes
-    they read and the (M, N) int32 it writes."""
+    they read and the (M, N) int32 it writes (int16: as
+    :func:`stacked_cost`)."""
+    x, e = _width(n_bits)
     pairs = min(t, 2 * d - 2 - t) + 1
-    return ({"int8": 2 * m * n * k * pairs},
-            pairs * (m * k + k * n) + m * n * 4)
+    return ({"int8": 2 * m * n * k * pairs * x},
+            pairs * (m * k + k * n) * e + m * n * 4)
 
 
 def streaming_cost(m: int, k: int, n: int, d: int, n_levels: int,
-                   accumulate: bool = False) -> tuple[dict, int]:
+                   accumulate: bool = False, n_bits: int = 8
+                   ) -> tuple[dict, int]:
     """Kernel B2's work: each snapshot plane is a different sum of the D²
     pair products, 2 M N K int8 operations each; the stacks read once, the
     (L, M, N) int32 stream written (read and written with
-    ``accumulate``)."""
-    return ({"int8": 2 * m * n * k * d * d},
-            m * d * k + d * k * n
+    ``accumulate``).  int16: as :func:`stacked_cost`."""
+    x, e = _width(n_bits)
+    return ({"int8": 2 * m * n * k * d * d * x},
+            (m * d * k + d * k * n) * e
             + n_levels * m * n * 4 * (2 if accumulate else 1))
 
 
 def pairs_cost(m: int, k: int, n: int, d: int = 4,
-               levels: int | None = None) -> tuple[dict, int]:
+               levels: int | None = None, n_bits: int = 8
+               ) -> tuple[dict, int]:
     """Kernel B3's work: its plane-range products (one at full depth) at
-    2 M N K int8 operations each, the raw int8 operands read once and
-    the int32 result written."""
-    return ({"int8": 2 * m * n * k * len(msdf_products(d, levels))},
-            m * k + k * n + m * n * 4)
+    2 M N K int8 operations each, the raw operands read once and the
+    int32 result written.  int16: as :func:`stacked_cost`."""
+    x, e = _width(n_bits)
+    return ({"int8": 2 * m * n * k * len(msdf_products(d, levels)) * x},
+            (m * k + k * n) * e + m * n * 4)
 
 
 # ------------------------------------------------------------- B1: stacked
@@ -343,8 +369,8 @@ def l2r_gemm_stacked_planes(
     depth; any other table as its plane pairs.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: int8 stacks only (n_bits <= 8; wider configs have int16
-    planes and no int16 tensor-core path, so they raise).
+    kernel: int8 stacks (n_bits <= 8) on the tensor cores, int16 stacks
+    (n_bits 9-16) through its int16 entry.
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     _check_out(out, (m, n), a_stack.device)
@@ -370,8 +396,8 @@ def _b1_launch(a_stack, b_rev, c, n_bits, log2_radix, levels,
                first_level) -> None:
     """B1 added into ``c`` on the card (the eager path and the op's CUDA
     implementation)."""
-    _require_int8(n_bits, log2_radix, "B1", a_stack=a_stack)
-    _check_b_rev(b_rev, a_stack.device)
+    _require_planes(n_bits, a_stack=a_stack)
+    _check_b_rev(b_rev, a_stack.device, n_bits)
     (m, dk), n = a_stack.shape, b_rev.shape[1]
     d = n_bits // log2_radix
     k = dk // d
@@ -381,7 +407,7 @@ def _b1_launch(a_stack, b_rev, c, n_bits, log2_radix, levels,
     bt, ldb = _k_major(b_rev)
     _launch("l2r_stacked_gemm", a_stack.device, f"M={m} K={k} N={n}",
             (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
-            c.data_ptr(), m, n, dk, ldb, d, k, *plan)
+            c.data_ptr(), m, n, dk, ldb, d, k, *plan, wide=n_bits > 8)
 
 
 @torch.library.custom_op("repro_torch::l2r_stacked_gemm",
@@ -402,7 +428,7 @@ def _b1_flops(a_shape, b_shape, c_shape, n_bits, log2_radix, levels,
               first_level, **_):
     d = n_bits // log2_radix
     ops, _ = stacked_cost(a_shape[0], a_shape[1] // d, b_shape[1], d, levels,
-                          first_level)
+                          first_level, n_bits=n_bits)
     return sum(ops.values())
 
 
@@ -464,7 +490,8 @@ def l2r_gemm_streaming_planes(
     The kernel reads B K-major, as B1 does: a K-major ``b_rev`` (the
     weight caches) is read in place, a row-major one transposed once.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (int8 stacks with D in :data:`B2_PLANES` planes).
+    kernel: int8 stacks (D 1-8) on the tensor cores, int16 stacks (n_bits
+    9-16, D up to 16) through its int16 entry.
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     d = n_bits // log2_radix
@@ -495,21 +522,13 @@ def l2r_gemm_streaming_planes(
     return c
 
 
-def _b2_check(a_stack, b_rev, n_bits, log2_radix) -> None:
-    _require_int8(n_bits, log2_radix, "B2", a_stack=a_stack)
-    _check_b_rev(b_rev, a_stack.device)
-    d = n_bits // log2_radix
-    if d not in B2_PLANES:
-        raise ValueError(f"kernel B2 is built for D in {B2_PLANES} planes; "
-                         f"n_bits={n_bits}, log2_radix={log2_radix} has D={d}")
-
-
 def _b2_launch(a_stack, b_rev, c, n_bits, log2_radix, levels, count,
                n_count, accumulate) -> None:
     """B2 written (or, with ``accumulate``, added) into ``c`` on the card:
     the eager path and the op's CUDA implementation.  ``count`` is the
     one-element level count on the card, else ``n_count`` levels run."""
-    _b2_check(a_stack, b_rev, n_bits, log2_radix)
+    _require_planes(n_bits, a_stack=a_stack)
+    _check_b_rev(b_rev, a_stack.device, n_bits)
     (m, dk), n = a_stack.shape, b_rev.shape[1]
     d = n_bits // log2_radix
     k = dk // d
@@ -527,6 +546,12 @@ def _b2_launch(a_stack, b_rev, c, n_bits, log2_radix, levels, count,
             raise ValueError(f"level_count must be a one-element int32 "
                              f"tensor on {dev}")
     bt, ldb = _k_major(b_rev)
+    if n_bits > 8:  # the int16 entry plans its own split
+        _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
+                (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
+                c.data_ptr(), m, n, dk, ldb, d, k, n_lv, cnt.data_ptr(),
+                int(accumulate), wide=True)
+        return
     tile, splits = streaming_plan(m, n, k, _sm_count(dev))
     _launch("l2r_streaming_gemm", dev, f"M={m} K={k} N={n}",
             (a_stack, bt), (c,), a_stack.data_ptr(), bt.data_ptr(),
@@ -557,7 +582,7 @@ def _b2_flops(a_shape, b_shape, c_shape, n_bits, log2_radix, levels, count,
               n_count, accumulate, **_):
     d = n_bits // log2_radix
     ops, _ = streaming_cost(a_shape[0], a_shape[1] // d, b_shape[1], d,
-                            c_shape[0], accumulate)
+                            c_shape[0], accumulate, n_bits)
     return sum(ops.values())
 
 
@@ -580,8 +605,8 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
     bit-identical to ``l2r_matmul_int(levels)``.  The kernel runs the
     pair list as :func:`pairs_plan`'s plane-range products, masking the
     raw tiles (both read row-major in place).  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (int8 operands only,
-    n_bits <= 8).
+    plain version; a CUDA tensor launches the kernel: int8 operands on the
+    tensor cores, int16 (n_bits 9-16) through its int16 entry.
     """
     if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
         raise ValueError(f"operands must be (M, K) x (K, N), got "
@@ -596,15 +621,17 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
 
 def _b3_launch(aq, bq, n_bits, log2_radix, levels) -> torch.Tensor:
     """B3 on the card: the eager path and the op's CUDA implementation."""
-    _require_int8(n_bits, log2_radix, "B3", aq=aq, bq=bq)
+    _require_planes(n_bits, aq=aq, bq=bq)
     (m, k), n = aq.shape, bq.shape[1]
-    plan = _b3_c_plan(n_bits // log2_radix, log2_radix, levels)
+    wide = n_bits > 8
+    plan = _b3_c_plan(n_bits // log2_radix, log2_radix, levels,
+                      16 if wide else 8)
     if not plan[0] or 0 in (m, n, k):  # levels=0: empty MSDF prefix
         return torch.zeros((m, n), dtype=torch.int32, device=aq.device)
     c = torch.empty((m, n), dtype=torch.int32, device=aq.device)
     _launch("l2r_pairs_gemm", aq.device, f"M={m} K={k} N={n}",
             (aq, bq), (c,), aq.data_ptr(), bq.data_ptr(), c.data_ptr(), m,
-            n, k, *plan)
+            n, k, *plan, wide=wide)
     return c
 
 
@@ -625,5 +652,5 @@ def _(aq, bq, n_bits, log2_radix, levels):
 @register_flop_formula(torch.ops.repro_torch.l2r_pairs_gemm)
 def _b3_flops(a_shape, b_shape, n_bits, log2_radix, levels, **_):
     ops, _ = pairs_cost(a_shape[0], a_shape[1], b_shape[1],
-                        n_bits // log2_radix, levels)
+                        n_bits // log2_radix, levels, n_bits)
     return sum(ops.values())

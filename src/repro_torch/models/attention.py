@@ -40,7 +40,6 @@ from repro_torch.core.quant import (PlaneOperands, QuantConfig,
 from repro_torch.device import card_path, no_tf32, resolve_device
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.kernel import _MAX_DH
 from repro_torch.sharding import ctx
 from repro_torch.sharding.collectives import TAG_CONSENSUS, all_reduce, tag
 
@@ -154,10 +153,9 @@ def default_chunks(sq: int) -> tuple[int, int]:
 def b5_fits(q, k, v, softcap: float | None, q_offset: int) -> bool:
     """Does this float :func:`chunked_attention` call go to kernel B5?  On
     the card's path (a CUDA tensor, or a ``meta`` one: device.card_path),
-    with no softcap, no q offset, dh <= 128 and q, k, v of one dtype, f32
-    or bf16."""
+    with no softcap, no q offset (the reference kernel has neither) and q,
+    k, v of one dtype, f32 or bf16; any head width."""
     return (card_path(q) and softcap is None and q_offset == 0
-            and q.shape[-1] <= _MAX_DH
             and q.dtype == k.dtype == v.dtype
             and q.dtype in (torch.float32, torch.bfloat16))
 
@@ -165,11 +163,11 @@ def b5_fits(q, k, v, softcap: float | None, q_offset: int) -> bool:
 def b4_fits(q, k, v, softcap: float | None, q_offset: int,
             l2r: QuantConfig) -> bool:
     """Does this ``chunked_attention(l2r=)`` call go to kernel B4?  On the
-    card's path (device.card_path), with no softcap, no q offset, dh <=
-    128, int8 digit planes (n_bits <= 8) and v f32 or bf16 (q and k are
-    quantized)."""
+    card's path (device.card_path), with no softcap, no q offset and v f32
+    or bf16 (q and k are quantized); any head width and plane type (int8,
+    or int16 for n_bits 9-16)."""
+    del l2r  # every config: int8 and int16 planes both have a route
     return (card_path(q) and softcap is None and q_offset == 0
-            and q.shape[-1] <= _MAX_DH and l2r.n_bits <= 8
             and v.dtype in (torch.float32, torch.bfloat16))
 
 

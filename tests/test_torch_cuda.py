@@ -38,10 +38,9 @@ def dev():
 def _ints(dev, m, k, n, n_bits, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     hi = 1 << (n_bits - 1)
-    a = torch.randint(-hi, hi, (m, k), generator=g, device=dev,
-                      dtype=torch.int8)
-    b = torch.randint(-hi, hi, (k, n), generator=g, device=dev,
-                      dtype=torch.int8)
+    dt = torch.int8 if n_bits <= 8 else torch.int16
+    a = torch.randint(-hi, hi, (m, k), generator=g, device=dev, dtype=dt)
+    b = torch.randint(-hi, hi, (k, n), generator=g, device=dev, dtype=dt)
     return a, b
 
 
@@ -78,11 +77,72 @@ def test_kernel_accumulates_into_out(dev):
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(dev):
     sa, sb = _stacks(dev, 8, 16, 8, 8, 2)
-    with pytest.raises(ValueError, match="int16 planes"):
-        kernel.l2r_gemm_stacked_planes(sa.to(torch.int16), sb.to(torch.int16),
-                                       16, 4)
     with pytest.raises(ValueError, match="contiguous int8"):
         kernel.l2r_gemm_stacked_planes(sa.t().contiguous().t(), sb)
+
+
+# int16 planes (n_bits 9-16): the int16 entries of B1-B3, D up to 16
+WIDE_CONFIGS = [(12, 4), (16, 4), (16, 2), (16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", WIDE_CONFIGS)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_int16_planes_match_plain(dev, m, k, n, n_bits, log2_radix):
+    """B1 (prefix tables, a one-level slab, B K-major and row-major), B2
+    (every plane, out=) and B3 on int16 planes, bit for bit their plain
+    versions at full depth and truncated; one launch each."""
+    a, b = _ints(dev, m, k, n, n_bits)
+    sa = stack_planes_lhs(a, n_bits, log2_radix)
+    sb = stack_planes_rhs(b, n_bits, log2_radix)
+    d = n_bits // log2_radix
+    for lv in (None, 0, 1, 3, 2 * d - 2):
+        ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, n_bits,
+                                                   log2_radix, lv)
+        for rhs in (sb, sb.t().contiguous().t()):
+            assert torch.equal(kernel.l2r_gemm_stacked_planes(
+                sa, rhs, n_bits, log2_radix, lv), ref), ("B1", lv)
+        assert torch.equal(kernel.l2r_gemm_streaming_planes(
+            sa, sb, n_bits, log2_radix, lv),
+            kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
+                                                   log2_radix, lv)), ("B2", lv)
+        assert torch.equal(kernel.l2r_gemm_pairs(a, b, n_bits, log2_radix, lv),
+                           kernel.l2r_gemm_pairs_plain(a, b, n_bits,
+                                                       log2_radix, lv)), lv
+    t = d - 1
+    assert torch.equal(
+        kernel.l2r_gemm_stacked_planes(sa, sb, n_bits, log2_radix, t + 1,
+                                       first_level=t),
+        kernel.l2r_gemm_stacked_planes_plain(sa, sb, n_bits, log2_radix,
+                                             t + 1, first_level=t))
+    full = kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits, log2_radix)
+    acc = torch.full(full.shape, -5, dtype=torch.int32, device=dev)
+    kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix, out=acc)
+    assert torch.equal(acc, full - 5)
+    before = dict(kernel.LAUNCHES)
+    kernel.l2r_gemm_stacked_planes(sa, sb, n_bits, log2_radix)
+    kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix)
+    kernel.l2r_gemm_pairs(a, b, n_bits, log2_radix)
+    assert all(kernel.LAUNCHES[name] == before[name] + 1 for name in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", [(6, 2), (7, 1)])
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+def test_b2_int8_plane_counts(dev, m, k, n, n_bits, log2_radix):
+    """B2's tensor-core route at D = 3 and 7 (int8 planes): every plane at
+    every levels bit for bit, and a device-side level count."""
+    sa, sb = _stacks(dev, m, k, n, n_bits, log2_radix)
+    for lv in _levels(n_bits, log2_radix):
+        assert torch.equal(
+            kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix, lv),
+            kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits,
+                                                   log2_radix, lv)), lv
+    full = kernel.l2r_gemm_streaming_planes_plain(sa, sb, n_bits, log2_radix)
+    got = kernel.l2r_gemm_streaming_planes(
+        sa, sb, n_bits, log2_radix,
+        level_count=torch.full((1,), 2, dtype=torch.int32, device=dev))
+    assert torch.equal(got[:2], full[:2])
 
 
 @pytest.mark.cuda
@@ -274,17 +334,6 @@ def test_head_resize_on_card_matches_cpu(dev, size):
         got = resize_7x7(x.to(dev)).cpu()
         assert torch.equal(got.view(torch.int32),
                            resize_7x7(x).view(torch.int32)), batch
-
-
-@pytest.mark.cuda
-def test_b2_b3_reject_int16_planes(dev):
-    a, b = _ints(dev, 8, 16, 8, 8)
-    with pytest.raises(ValueError, match="int16 planes"):
-        kernel.l2r_gemm_pairs(a, b, 16, 4)
-    sa, sb = _stacks(dev, 8, 16, 8, 8, 2)
-    with pytest.raises(ValueError, match="int16 planes"):
-        kernel.l2r_gemm_streaming_planes(sa.to(torch.int16),
-                                         sb.to(torch.int16), 16, 4)
 
 
 @pytest.mark.cuda
@@ -494,13 +543,50 @@ def test_b4_launch_on_prepared_operands(dev, dtype, levels):
 @pytest.mark.cuda
 def test_b4_b5_reject_what_they_do_not_take(dev):
     q, k, v = _qkv(dev, (16, 16, 2, 1, 64), torch.float32)
-    with pytest.raises(ValueError, match="int16 planes"):
-        fa.flash_attention_l2r(q, k, v, n_bits=16, log2_radix=4)
     with pytest.raises(ValueError, match="one dtype"):
         fa.flash_attention(q, k, v.to(torch.bfloat16))
-    big = torch.zeros((1, 4, 1, 192), device=dev)
-    with pytest.raises(ValueError, match="dh <= 128"):
-        fa.flash_attention(big, big, big)
+
+
+# heads wider than 128 (column blocks) and B4 on int16 q, k
+WIDE_ATTN = [  # (sq, skv, h, kvh, dh, causal, window)
+    (130, 130, 2, 1, 256, True, None),
+    (100, 100, 4, 2, 256, True, 40),
+    (70, 130, 2, 1, 200, False, None),
+    (33, 70, 2, 2, 136, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WIDE_ATTN)
+def test_b5_wide_heads_match_plain(dev, case, dtype):
+    q, k, v = _qkv(dev, case, dtype, seed=3)
+    causal, window = case[5:]
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal, window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_kernel_plain(q, k, v, causal, window),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix,levels", [
+    (8, 2, None), (8, 2, 3), (12, 4, None), (12, 4, 2), (16, 4, None),
+    (16, 1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WIDE_ATTN + ATTN_CASES[:2])
+def test_b4_wide_route_matches_plain(dev, case, dtype, n_bits, log2_radix,
+                                     levels):
+    """B4's wide route: int8 q, k at dh > 128 and int16 q, k at any dh,
+    within the limits of its plain version; one launch."""
+    q, k, v = _qkv(dev, case, dtype, seed=4)
+    causal, window = case[5:]
+    before = fa.LAUNCHES["flash_attention_l2r"]
+    got = fa.flash_attention_l2r(q, k, v, n_bits, log2_radix, levels, causal,
+                                 window)
+    assert fa.LAUNCHES["flash_attention_l2r"] == before + 1
+    _close(got, fa.flash_attention_l2r_plain(q, k, v, n_bits, log2_radix,
+                                             levels, causal, window), dtype)
 
 
 # ----------------------------------------------------- slice 7: the LM path
@@ -1630,6 +1716,45 @@ def test_each_kernel_op_launches_as_its_wrapper(dev):
         ("flash_attention_l2r", fa.flash_attention_l2r, (q, k, v)),
         ("flash_attention", fa.flash_attention_kernel, (q, k, v)),
         ("cipu_array", msdf_ipu.simulate_pe_array, (ua, ub)),
+    ]
+    for lib, fn, args in cases:
+        ref = fn(*args)
+        before = _launch_counts()
+        cap = ga.capture(fn, args)
+        assert _launched(before) == {lib: 1}, lib
+        assert ga.kernel_nodes(ga.to_records(cap.gm)) == {lib: 1}, lib
+        assert torch.equal(cap.output, ref), lib
+        before = _launch_counts()
+        assert torch.equal(cap(*args), ref), lib
+        assert _launched(before) == {lib: 1}, lib
+
+
+@pytest.mark.cuda
+def test_each_wide_route_op_launches_as_its_wrapper(dev):
+    """The same on the wide routes: int16 planes through B1, B2 and B3
+    (n_bits 12, radix 16), B4 on int16 q, k, and B5 and B4 at dh 256; the
+    ops take the new dtypes and widths."""
+    from repro_torch.launch import graph_analysis as ga
+
+    sa, sb = _stacks(dev, 70, 64, 40, 12, 4)
+    a, b = _ints(dev, 33, 96, 50, 12, seed=3)
+    q = torch.randn((2, 70, 4, 256), device=dev)
+    k = torch.randn((2, 70, 2, 256), device=dev)
+    v = torch.randn((2, 70, 2, 256), device=dev)
+    cases = [
+        ("l2r_stacked_gemm",
+         lambda x, y: kernel.l2r_gemm_stacked_planes(x, y, 12, 4), (sa, sb)),
+        ("l2r_streaming_gemm",
+         lambda x, y: kernel.l2r_gemm_streaming_planes(x, y, 12, 4),
+         (sa, sb)),
+        ("l2r_pairs_gemm", lambda x, y: kernel.l2r_gemm_pairs(x, y, 12, 4),
+         (a, b)),
+        ("flash_attention_l2r",
+         lambda x, y, z: fa.flash_attention_l2r(x, y, z, 12, 4),
+         (q[..., :64].contiguous(), k[..., :64].contiguous(),
+          v[..., :64].contiguous())),
+        ("flash_attention_l2r", fa.flash_attention_l2r, (q, k, v)),
+        ("flash_attention", fa.flash_attention_kernel, (q, k, v)),
     ]
     for lib, fn, args in cases:
         ref = fn(*args)

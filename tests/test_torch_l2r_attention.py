@@ -689,8 +689,8 @@ def test_chunked_l2r_tracks_float_and_is_chunking_independent():
 
 def test_b4_fits_by_the_arguments():
     """b4_fits takes B4 only on a CUDA tensor with no softcap, no q
-    offset, dh <= 128, int8 planes and v f32/bf16 (a stand-in object
-    with ``is_cuda`` set plays the card's tensor here)."""
+    offset and v f32/bf16, at any head width and plane type (a stand-in
+    object with ``is_cuda`` set plays the card's tensor here)."""
     from types import SimpleNamespace
 
     cfg = tq.QuantConfig()
@@ -702,11 +702,11 @@ def test_b4_fits_by_the_arguments():
 
     assert ta.b4_fits(card(), card(), card(), None, 0, cfg)
     assert ta.b4_fits(card(), card(), card(dtype=torch.float32), None, 0, cfg)
+    assert ta.b4_fits(card(dh=192), card(dh=192), card(dh=192), None, 0, cfg)
+    assert ta.b4_fits(card(dh=256), card(dh=256), card(dh=256), None, 0,
+                      tq.QuantConfig(n_bits=16, log2_radix=4))
     for q, v, softcap, off, c in (
             (card(), card(), 30.0, 0, cfg),
             (card(), card(), None, 3, cfg),
-            (card(dh=192), card(), None, 0, cfg),
-            (card(), card(dtype=torch.float16), None, 0, cfg),
-            (card(), card(), None, 0, tq.QuantConfig(n_bits=16,
-                                                     log2_radix=4))):
+            (card(), card(dtype=torch.float16), None, 0, cfg)):
         assert not ta.b4_fits(q, q, v, softcap, off, c)
