@@ -75,7 +75,8 @@ Phases (any failure exits non-zero; nothing is caught):
      bf16 limit: the limit sees that rounding.  10c / 11c the wide
      routes at full width (B 8, S 2048, causal): B5 f32 and bf16 at
      recurrentgemma-2b's local attention (H 10, Kv 1, dh 256, window
-     2048: column blocks), B4 bf16 there on int8 q, k and at SmolLM-135M's
+     2048: the wide layout, each score once), B4 bf16 there on int8 q, k
+     and at SmolLM-135M's
      shape on int16 q, k (n_bits 12 and 16, radix 16), each one launch
      within ATTN_TOL of its plain version, timed beside it, the bound and
      SDPA;
@@ -1650,7 +1651,7 @@ RGEMMA = dict(h=10, kvh=1, dh=256, window=2048)
 def phase_attention_wide(dev, l2r: bool) -> list[dict]:
     """10c (B5) / 11c (B4): the kernels' wide routes at full width, B =
     8, S = 2048, causal: B5 f32 and bf16 at recurrentgemma-2b's local
-    attention (dh 256, column blocks), B4 bf16 there on int8 q, k (its
+    attention (dh 256, the wide layout), B4 bf16 there on int8 q, k (its
     wide route at dh 256) and at SmolLM-135M's shape on int16 q, k
     (n_bits 12 and 16, radix 16), full depth; each within ATTN_TOL of its
     plain version, one launch, timed beside the plain version, the bound
@@ -1726,7 +1727,12 @@ def phase_attention_wide(dev, l2r: bool) -> list[dict]:
         row = {"name": key, "count": 1, "B": b, "S": s, "H": h, "Kv": kvh,
                "dh": dh, "dtype": str(dtype).split(".")[-1],
                "window": window, "n_bits": qc[0] if l2r else None,
-               "route": "wide: column blocks" if dh > 128 else "wide",
+               "route": ("wide layout, each score once"
+                         + (", int16 byte split on mma.sync s8"
+                            if l2r and qc[0] > 8 else
+                            ", QK^T mma.sync s8" if l2r else
+                            ", QK^T 3xTF32 mma.sync" if dtype == torch.float32
+                            else ", QK^T d-order FMAs")),
                "visible_pairs": pairs, "ms": ms, "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
@@ -2898,7 +2904,7 @@ MIXERS = {  # arch: prompt tokens, layers kept (None: all), prepared
         # 18 rec layers x (gate_proj, rec_proj, out_proj, mlp wi, wo), 8
         # local layers x (q, k, v, o, wi, wo), the head (w_a, w_x are float
         # denses); B5 the prefill's 8 local attentions at head_dim 256
-        # (column blocks); decode attends on its cache, not through B5
+        # (the wide layout); decode attends on its cache, not through B5
         prefill=(18 * 5 + 8 * 6 + 1, 8), step=(18 * 5 + 8 * 6 + 1, 0)),
     "deepseek-moe-16b": dict(
         prompt=2048, layers=4, prepared=True,
@@ -6944,12 +6950,14 @@ def kernel_routes(wide: dict, b5_wide: list, b4_wide: list, w12: dict,
                 "takes": "int8 q, k, dh <= 128", "on": "mma.sync s8"},
                {"entry": "flash_attention_l2r_wide",
                 "takes": "int16 q, k at any dh; int8 q, k at dh > 128",
-                "on": "column blocks of 128, QK^T on CUDA cores "
-                      "(l2r_int16.cuh)", "shapes": b4_wide}],
+                "on": "wide layout (8 warps, each score once), QK^T on "
+                      "mma.sync s8 (int16: byte split), f32 PV 3xTF32",
+                "shapes": b4_wide}],
         "B5": [{"entry": "flash_attention", "takes": "dh <= 128",
                 "on": "head tiles 16-128"},
                {"entry": "flash_attention (dh > 128)", "takes": "dh > 128",
-                "on": "column blocks of 128 (flash_wide_kernel)",
+                "on": "wide layout (flash_wide_kernel, each score once): "
+                      "bf16 QK^T d-order FMAs, f32 both products 3xTF32",
                 "launches_phase16_prefill": MIXERS[PLAIN_LOOP_ARCH][
                     "prefill"][1],
                 "device_ms_phase16_prefill": rg["prof_prefill"].get(
@@ -7009,7 +7017,7 @@ def mixer_summary(mix: dict, kid: str, lib: str) -> dict:
 def ptxas_kernel(line: str) -> str | None:
     """The kernel a ptxas -v "Compiling entry function" line names, with
     its template arguments: '_ZN<ns>12flash_kernelI13__nv_bfloat16Li64EE
-    Ev...' -> 'flash_kernel<bf16 64>'."""
+    Ev...' -> 'flash_kernel<bf16 64>' (int8_t / int16_t as s8 / s16)."""
     m = re.search(r"entry function '_ZN(\w+)'", line)
     if not m:
         return None
@@ -7022,6 +7030,7 @@ def ptxas_kernel(line: str) -> str | None:
     args = re.sub(r"\d+__nv_bfloat16", "bf16 ", args)
     args = re.sub(r"L[ib](\d+)E?", r"\1 ", args)
     args = re.sub(r"^f", "f32 ", args).strip()
+    args = " ".join({"a": "s8", "s": "s16"}.get(x, x) for x in args.split())
     return f"{name}<{args}>" if args else name
 
 

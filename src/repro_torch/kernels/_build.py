@@ -8,8 +8,7 @@ shared library with a plain C interface:
 
 into ``build/repro_torch/<name>-<hash>/`` at the repository root, keyed by
 a hash of the source, every header of the package (a source may include
-another kernel's, as B4 includes the int16 routine of ``l2r_gemm/csrc``) and
-the flags, at first use.  :func:`build_all`
+another directory's) and the flags, at first use.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.  A failed build raises with
 ``nvcc``'s stderr; nothing falls back.  Nothing here runs at import time.
 

@@ -55,15 +55,17 @@
 //    (the same order for V's rows, so the sum is unchanged); V's B fragments
 //    are read from shared memory, conflict-free at a row pitch of dh + 4.
 //  * KV tiles wholly outside the causal or window band are skipped (exact).
-//  * dh > 128 (recurrentgemma-2b's 256) takes flash_wide_kernel: the output's
-//    head dim split over blocks of 128 columns (flash_softmax.cuh), QK^T
-//    over the whole dh in 64-column chunks of q and k through a two-slot
-//    cp.async ring, as f32 FMAs in d order for both dtypes (bf16: the same
-//    d-order sum as above, carried from chunk to chunk, so the scores keep
-//    the plain version's bits; f32: true f32 products, within the 3e-5
-//    limit), then PV for the block's 128 columns (bf16 on mma.sync, f32 as
-//    FMAs).  Each column block recomputes the scores: twice the QK^T work at
-//    dh 256, accepted for a first version.
+//  * dh > 128 (recurrentgemma-2b's 256) takes flash_wide_kernel, the wide
+//    layout of flash_softmax.cuh: one block of 8 warps owns 64 q rows and
+//    up to 256 output columns (a column grid dimension only above dh 256),
+//    the two warps of a row group each compute half of a KV tile's keys
+//    over the whole dh and its p, and exchange p, so each score and its exp
+//    are computed once and K and V are read once a block; q stays in shared
+//    memory for the band.  bf16: QK^T as f32 FMAs in d order as above (q staged as f32, a
+//    thread's 4 rows x 4 keys), so the scores keep the plain version's
+//    bits; PV bf16 mma.sync.  f32: both products as the 3xTF32 split on
+//    mma.sync, as flash_kernel's f32 route; 32-key tiles, so that q, K and V
+//    fit in shared memory at dh 256.
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
@@ -72,53 +74,6 @@
 #include "flash_softmax.cuh"
 
 namespace {
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cvt.rna.tf32.f32 on the bit pattern (round to nearest, ties away from
-// zero: the sign is its own bit, so adding half a TF32 ulp rounds the
-// magnitude), two integer operations instead of the conversion pipe
-__device__ __forceinline__ uint32_t rna_tf32(uint32_t u) {
-  return (u + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32; x - big is exact in f32 (Sterbenz)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = rna_tf32(__float_as_uint(x));
-  small = rna_tf32(__float_as_uint(x - __uint_as_float(big)));
-}
-
-// c += a.b on the 3xTF32 split of a (A fragment) and b (B fragment)
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], float b0,
-                                           float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_tf32(c, as, bb0, bb1);  // the small terms first
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-// 8 bf16 (16 bytes, element i in the low half of word i / 2 when i is even)
-// as f32
-__device__ __forceinline__ void widen8(uint4 w, float (&f)[8]) {
-  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(x[i] << 16);
-    f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
-  }
-}
 
 template <typename T, int DH>
 struct Smem {
@@ -200,7 +155,7 @@ __global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
   fa::cp_async_commit();
 
   fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
-  wr.init(blk);
+  wr.init(blk, warp);
   uint32_t qf[KC][4], qf_small[KC][4];  // f32: the warp's q, split
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
@@ -220,7 +175,7 @@ __global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
         for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(qf[kc][e]), qf[kc][e],
+            fa::split_tf32(__uint_as_float(qf[kc][e]), qf[kc][e],
                        qf_small[kc][e]);
       }
     }
@@ -250,13 +205,13 @@ __global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
         float qv[4][8];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          widen8(*reinterpret_cast<const uint4*>(
+          fa::widen8(*reinterpret_cast<const uint4*>(
                      q0 + ((r & 1) + 8 * (r >> 1)) * L::kRow + 2 * d0),
                  qv[r]);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           float kv[8];
-          widen8(*reinterpret_cast<const uint4*>(
+          fa::widen8(*reinterpret_cast<const uint4*>(
                      ks + (j * 8 + 2 * t + gb) * L::kRow + 2 * d0),
                  kv);
 #pragma unroll
@@ -293,8 +248,9 @@ __global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j)
-          mma_3xtf32(p[j], qf[kc], qf_small[kc], __uint_as_float(kf[j][0]),
-                     __uint_as_float(kf[j][1]));
+          fa::mma_3xtf32(p[j], qf[kc], qf_small[kc],
+                         __uint_as_float(kf[j][0]),
+                         __uint_as_float(kf[j][1]));
       }
     }
 #pragma unroll
@@ -308,20 +264,7 @@ __global__ void __launch_bounds__(fa::kThreads, min_blocks<T, DH>())
     if constexpr (kBf16) {
       wr.pv_bf16(p, vs, L::kRow);
     } else {
-      // 8 keys a k8 step: A column t is key 2t, column t + 4 key 2t + 1
-      const float* vf = reinterpret_cast<const float*>(vs);
-      constexpr int VP = L::kRow / 4;  // floats a V row: dh + 4
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t ab[4], as[4];
-        const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
-        const float* v0 = vf + (j * 8 + 2 * t) * VP + g;
-#pragma unroll
-        for (int jj = 0; jj < DT; ++jj)
-          mma_3xtf32(wr.acc[jj], ab, as, v0[jj * 8], v0[VP + jj * 8]);
-      }
+      wr.pv_tf32x3(p, reinterpret_cast<const float*>(vs), L::kRow / 4);
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
@@ -352,165 +295,212 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------ dh > 128: column blocks
-constexpr int kWDC = 64;  // d columns of a staged q / k chunk
-
-// 8 consecutive T of shared memory (16-byte aligned) as f32
+// ------------------------------------------------ dh > 128: the wide layout
+// (flash_softmax.cuh).  q is staged as f32 (bf16 q widened once, exact), so
+// the bf16 route's d-order FMAs widen no q; the KV tile is 64 keys for bf16
+// and 32 for f32 (fa::wide_kv).
 template <typename T>
-__device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
-  if constexpr (sizeof(T) == 2) {
-    widen8(*reinterpret_cast<const uint4*>(p), f);
-  } else {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 16);
-    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
-    f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-  }
+__host__ __device__ constexpr int wide_kv() {
+  return fa::wide_kv(4, (int)sizeof(T), (int)sizeof(T));
 }
 
+// One (batch * q head, 64-row q tile) and output columns [256 y, 256 y +
+// 256).  Each step (KV tile, d chunk) has the next step's copies in flight;
+// at a tile's last chunk the pair runs the softmax over its score halves,
+// then PV.
 template <typename T>
-struct WideSmem {
-  static constexpr int kCRow = kWDC * (int)sizeof(T) + fa::kPad;  // q/k chunk
-  static constexpr int kVRow = fa::kDC * (int)sizeof(T) + fa::kPad;
-  static constexpr int kSlot = 2 * 64 * kCRow;  // a q chunk and a k chunk
-  static constexpr int kV = 2 * kSlot;          // two V column slabs
-  static constexpr int kP = kV + 2 * fa::kBKV * kVRow;  // f32 PV: parked p
-  static constexpr int kBytes =
-      kP + (sizeof(T) == 4 ? fa::kWarps * 16 * (fa::kBKV + 4) * 4 : 0);
-};
-
-// One (batch * q head, 64-row q tile) and output columns [c0, c0 + 128),
-// c0 = blockIdx.y * 128.  The walk is a sequence of steps (KV tile, d chunk):
-// step i's q and k chunks (and, at a tile's first chunk, its V slab) are in
-// flight while step i - 1 computes.
-template <typename T>
-__global__ void __launch_bounds__(fa::kThreads)
+__global__ void __launch_bounds__(fa::kWThreads, 1)
     flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
                       fa::Shape s, int vec) {
-  using L = WideSmem<T>;
-  constexpr int NT = fa::kBKV / 8;  // n8 score tiles a warp
-  constexpr int DT = fa::kDC / 8;   // n8 output tiles a warp
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int KV = wide_kv<T>();
+  constexpr int NT = KV / 8;   // n8 score tiles of a KV tile
+  constexpr int NTW = NT / 2;  // ... of this warp's half
   extern __shared__ __align__(16) int8_t smem[];
+  const fa::WideLayout L(4, (int)sizeof(T), (int)sizeof(T), KV, s.dh);
   const fa::Block blk = fa::block_of(s);
-  const int c0 = blockIdx.y * fa::kDC;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, gb = g & 1;
+  const fa::WideWarp w(s, KV);
+  const int lane = threadIdx.x & 31;
+  float* xs = reinterpret_cast<float*>(smem + L.x) + w.rg * 16 * L.xp;
 
   const size_t kv_stride = (size_t)s.kv_heads * s.dh;
   const size_t kvb = ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * s.dh;
   const size_t q_stride = (size_t)s.heads * s.dh;
   const T* qb = q + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) * s.dh;
-  const int nch = (s.dh + kWDC - 1) / kWDC;
-  int t0, t1;
-  fa::kv_tiles(s, blk.q0, t0, t1);
-  const int steps = (t1 - t0) * nch;
-  auto issue = [&](int step) {
-    const int tile = t0 + step / nch, ch = step % nch;
-    int8_t* slot = smem + (step & 1) * L::kSlot;
-    const size_t off = kvb + (size_t)tile * fa::kBKV * kv_stride;
-    const int rows = s.skv - tile * fa::kBKV;
-    fa::stage_cols<T, kWDC>(slot, L::kCRow, qb, q_stride, s.sq - blk.q0,
-                            ch * kWDC, s.dh, vec);
-    fa::stage_cols<T, kWDC>(slot + 64 * L::kCRow, L::kCRow, k + off,
-                            kv_stride, rows, ch * kWDC, s.dh, vec);
-    if (ch == 0)
-      fa::stage_cols<T, fa::kDC>(
-          smem + L::kV + ((tile - t0) & 1) * fa::kBKV * L::kVRow, L::kVRow,
-          v + off, kv_stride, rows, c0, s.dh, vec);
+  auto stage_q = [&](int8_t* dst, int d0) {
+    if constexpr (kBf16)
+      fa::stage_widen(dst, L.qp, qb, q_stride, fa::kBQ, s.sq - blk.q0, d0,
+                      L.dw, s.dh, vec);
+    else
+      fa::stage_slab<T>(dst, L.qp, qb, q_stride, fa::kBQ, s.sq - blk.q0, d0,
+                        L.dw, s.dh, vec);
   };
-  if (steps) issue(0);
+  int t0, t1;
+  fa::kv_tiles<KV>(s, blk.q0, t0, t1);
+  const int steps = (t1 - t0) * L.nch;
+  auto issue = [&](int step) {  // into the slots read two steps ago
+    const int tile = t0 + step / L.nch, ch = step % L.nch;
+    const size_t off = kvb + (size_t)tile * KV * kv_stride;
+    const int rows = s.skv - tile * KV;
+    if (L.nch > 1) stage_q(smem + L.q + (step & 1) * fa::kBQ * L.qp, ch * L.dw);
+    fa::stage_slab<T>(smem + L.k + (step & 1) * KV * L.kp, L.kp, k + off,
+                      kv_stride, KV, rows, ch * L.dw, L.dw, s.dh, vec);
+    if (ch == 0)
+      fa::stage_slab<T>(smem + L.v + ((tile - t0) & 1) * KV * L.vp, L.vp,
+                        v + off, kv_stride, KV, rows, blockIdx.y * fa::kWCols,
+                        L.vw, s.dh, vec);
+  };
+  if (steps) {
+    if (L.nch == 1) stage_q(smem + L.q, 0);  // resident for the whole band
+    issue(0);
+  }
   fa::cp_async_commit();
 
-  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
-  wr.init(blk);
-  float c[4][NT];  // rows g - gb + {0, 1, 8, 9}, my key of tile j
+  fa::WarpRows<16> wr;  // rows g and g + 8 of the row group, 128 columns
+  wr.init(blk, w.rg);
+  float c[4][4];     // bf16: rows rq + 4i, keys kq + 8j of this warp's half
+  float sc[NTW][4];  // this warp's half of the scores in the C layout
+  const int rq = lane & 3, kq = lane >> 2;
   for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) issue(step + 1);  // into the slot read two steps ago
+    if (step + 1 < steps) issue(step + 1);
     fa::cp_async_commit();
     fa::cp_async_wait<1>();  // everything but the copies just started
     __syncthreads();
-    const int tile = t0 + step / nch, ch = step % nch;
-    if (ch == 0) {
+    const int tile = t0 + step / L.nch, ch = step % L.nch;
+    const int8_t* qs =
+        smem + L.q + (L.nch > 1 ? (step & 1) * fa::kBQ * L.qp : 0);
+    const int8_t* ks = smem + L.k + (step & 1) * KV * L.kp;
+    const int dn = min(L.dw, s.dh - ch * L.dw);  // d columns of this chunk
+    if constexpr (kBf16) {
+      // ---- QK^T as f32 FMAs in d order (the plain version's sum, bit for
+      // bit): a thread sums 4 rows x 4 keys, reading q as f32 (two 16-byte
+      // loads a row) and k as bf16 (one a key, widened in registers); rows
+      // rq + 4i and keys kq + 8j fall on distinct bank groups
+      if (ch == 0) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) c[r][j] = 0.f;
-    }
-    // ---- QK^T over this chunk: f32 FMAs in d order, B5's lane pairing (the
-    // lane and lane ^ 4 each sum four rows of their keys and swap halves)
-    const int8_t* qs = smem + (step & 1) * L::kSlot;
-    const int8_t* ks = qs + 64 * L::kCRow;
-    const int8_t* q0 = qs + (warp * 16 + g - gb) * L::kCRow;
+          for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+      }
+      const int8_t* q0 = qs + (w.rg * 16 + rq) * L.qp;
+      const int8_t* k0 = ks + (w.kb + kq) * L.kp;
 #pragma unroll 2
-    for (int d0 = 0; d0 < kWDC; d0 += 8) {
-      float qv[4][8];
+      for (int d0 = 0; d0 < dn; d0 += 8) {
+        float qv[4][8];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        load8<T>(q0 + ((r & 1) + 8 * (r >> 1)) * L::kCRow +
-                     d0 * (int)sizeof(T),
-                 qv[r]);
+        for (int i = 0; i < 4; ++i) {
+          const float4* r =
+              reinterpret_cast<const float4*>(q0 + 4 * i * L.qp + d0 * 4);
+          const float4 a = r[0], b = r[1];
+          qv[i][0] = a.x, qv[i][1] = a.y, qv[i][2] = a.z, qv[i][3] = a.w;
+          qv[i][4] = b.x, qv[i][5] = b.y, qv[i][6] = b.z, qv[i][7] = b.w;
+        }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float kv[8];
-        load8<T>(ks + (j * 8 + 2 * t + gb) * L::kCRow + d0 * (int)sizeof(T),
-                 kv);
+        for (int j = 0; j < 4; ++j) {
+          float kv[8];
+          fa::widen8(
+              *reinterpret_cast<const uint4*>(k0 + 8 * j * L.kp + d0 * 2), kv);
 #pragma unroll
-        for (int dd = 0; dd < 8; ++dd)
+          for (int dd = 0; dd < 8; ++dd)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            c[r][j] = fmaf(qv[r][dd], kv[dd], c[r][j]);
+            for (int i = 0; i < 4; ++i)
+              c[i][j] = fmaf(qv[i][dd], kv[dd], c[i][j]);
+        }
+      }
+      if (ch == L.nch - 1) {  // into the C layout through the warp's slab
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            xs[(rq + 4 * i) * L.xp + w.kb + kq + 8 * j] = c[i][j] * s.scale;
+        __syncwarp();
+        const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 f = *reinterpret_cast<const float2*>(
+                xs + (g + 8 * h) * L.xp + w.kb + j * 8 + 2 * t);
+            sc[j][2 * h] = f.x;
+            sc[j][2 * h + 1] = f.y;
+          }
+      }
+    } else {
+      // ---- QK^T as 3xTF32 on mma.sync, q's A fragment split once a k8
+      // step for the warp's NTW key tiles
+      if (ch == 0) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      }
+      for (int kc = 0; kc < (dn + 7) / 8; ++kc) {
+        uint32_t ab[4], as[4];
+        fa::ldsm_x4(ab, qs + (w.rg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 L.qp + kc * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          fa::split_tf32(__uint_as_float(ab[e]), ab[e], as[e]);
+#pragma unroll
+        for (int j = 0; j < NTW; j += 2) {
+          uint32_t r[4];
+          fa::ldsm_x4(r, ks + (w.kb + j * 8 + (lane & 7) + (lane >> 4) * 8) *
+                                  L.kp + kc * 32 + ((lane >> 3) & 1) * 16);
+          fa::mma_3xtf32(sc[j], ab, as, __uint_as_float(r[0]),
+                         __uint_as_float(r[1]));
+          fa::mma_3xtf32(sc[j + 1], ab, as, __uint_as_float(r[2]),
+                         __uint_as_float(r[3]));
+        }
+      }
+      if (ch == L.nch - 1) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= s.scale;
       }
     }
-    if (ch == nch - 1) {
-      float p[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float mine = gb ? c[2 * h + 1][j] : c[2 * h][j];
-          const float got = __shfl_xor_sync(
-              0xffffffffu, gb ? c[2 * h][j] : c[2 * h + 1][j], 4);
-          p[j][2 * h] = (gb ? got : mine) * s.scale;  // key 8j + 2t
-          p[j][2 * h + 1] = (gb ? mine : got) * s.scale;
-        }
-      wr.softmax(s, tile * fa::kBKV, p);
-      const int8_t* vs = smem + L::kV + ((tile - t0) & 1) * fa::kBKV * L::kVRow;
-      if constexpr (sizeof(T) == 2)
-        wr.pv_bf16(p, vs, L::kVRow);
-      else
-        fa::pv_f32(wr, p,
-                   reinterpret_cast<float*>(smem + L::kP) +
-                       warp * 16 * (fa::kBKV + 4),
-                   vs, L::kVRow);
+    if (ch == L.nch - 1) {
+      float p[NT][4];  // the pair's whole tile
+      wr.softmax_pair(s, tile * KV, w.kb, w.half, w.rg, xs, L.xp, sc, p);
+      if (w.ncols > 0) {
+        const int8_t* vs = smem + L.v + ((tile - t0) & 1) * KV * L.vp +
+                           w.half * 128 * (int)sizeof(T);
+        if constexpr (kBf16)
+          wr.pv_bf16(p, vs, L.vp, w.ncols);
+        else
+          wr.pv_tf32x3(p, reinterpret_cast<const float*>(vs), L.vp / 4,
+                       w.ncols);
+      }
     }
-    __syncthreads();  // this slot (and V slab) is refilled two steps on
+    __syncthreads();  // these slots and the exchange are refilled next
   }
   fa::cp_async_wait<0>();
 
-  fa::store_cols(wr, s, blk, out, c0);
+  if (w.ncols > 0) wr.store(s, blk, out, w.c0);
 }
 
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         void* out, const fa::Shape& s, int vec,
                         cudaStream_t stream) {
-  constexpr int bytes = WideSmem<T>::kBytes;
+  constexpr int KV = wide_kv<T>();
+  const fa::WideLayout L(4, (int)sizeof(T), (int)sizeof(T), KV, s.dh);
   static int set_on = -1;  // the card the attribute was set for
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev != set_on) {
-    err = cudaFuncSetAttribute(flash_wide_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    err = cudaFuncSetAttribute(
+        flash_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa::wide_max_bytes(4, (int)sizeof(T), (int)sizeof(T), KV));
     if (err != cudaSuccess) return err;
     set_on = dev;
   }
   const long long blocks =
       (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
-  const dim3 grid((unsigned)blocks, (s.dh + fa::kDC - 1) / fa::kDC);
-  flash_wide_kernel<T><<<grid, fa::kThreads, bytes, stream>>>(
+  const dim3 grid((unsigned)blocks, (s.dh + fa::kWCols - 1) / fa::kWCols);
+  flash_wide_kernel<T><<<grid, fa::kWThreads, L.bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, s, vec);
   return cudaGetLastError();
 }
@@ -532,7 +522,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // out (B, Sq, H, dh) = flash attention of q, k, v (layouts above), f32
-// (is_bf16 = 0) or bf16 (1), any dh (above 128 the column-block kernel);
+// (is_bf16 = 0) or bf16 (1), any dh (above 128 the wide layout);
 // has_window = 0 means no window.  Returns a
 // cudaError_t as int: 0 when the launch was accepted.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,

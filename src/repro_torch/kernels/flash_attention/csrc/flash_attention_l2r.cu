@@ -50,22 +50,21 @@
 //    parks its p in shared memory and runs f32 FMAs over the 64 keys (B5's
 //    3xTF32 PV could take their place).
 //  * KV tiles wholly outside the causal or window band are skipped (exact).
-//  * int16 q and k (n_bits 9-16, which the tensor cores do not take) at any
-//    dh, and int8 q and k wider than 128, take the entry
-//    flash_attention_l2r_wide: the output's head dim split over blocks of 128
-//    columns (flash_softmax.cuh), each KV tile's 64 x 64 int32 score tile
-//    walked over the whole dh through the integer routine of kernels B1-B3
-//    (l2r_gemm/csrc/l2r_int16.cuh: q and k chunks masked per product and
-//    widened to int32 in shared memory, unsigned multiply-adds that wrap as
-//    the reference's int32 dot), parked in shared memory and read back in the
-//    warp layout; then the same dequantization, softmax and PV.  Every
-//    column block recomputes the scores.
+//  * int16 q and k (n_bits 9-16) at any dh, and int8 q and k wider than
+//    128, take the entry flash_attention_l2r_wide: the wide layout of
+//    flash_softmax.cuh (8 warps own 64 q rows and up to 256 output columns,
+//    the two warps of a row group each walk half of a KV tile's keys over
+//    the whole dh, dequantize them and take their p, and exchange p, so
+//    each score is computed once), QK^T on mma.sync.m16n8k32 as here, an int16 product as
+//    its byte split (s8.s8, s8.u8 + u8.s8 and u8.u8 products combined mod
+//    2^32, below), f32 PV as B5's 3xTF32 split, 32-key tiles for int16 with
+//    f32 v (shared memory).  Every launch of B4 runs QK^T on the tensor
+//    cores.
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
-#include "../../l2r_gemm/csrc/l2r_int16.cuh"
 #include "flash_softmax.cuh"
 
 namespace {
@@ -175,7 +174,7 @@ __global__ void __launch_bounds__(fa::kThreads,
   }
 
   fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
-  wr.init(blk);
+  wr.init(blk, warp);
   float q_scale[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -323,64 +322,235 @@ cudaError_t dispatch(int width, const void* qq, const void* qsc,
 }
 
 // ------------------------------------------------ the wide route
+// int16 q, k at any dh and int8 q, k above dh 128, in the wide layout of
+// flash_softmax.cuh.  QK^T on the int8 tensor cores: a pair's warp runs its
+// half of the keys over the whole dh in k32 steps of mma.sync.m16n8k32, the
+// walk's masks applied to the fragments in registers.  An int16 operand,
+// masked first (the top plane's sign extension included, as the raw bits
+// hold it), is split as x = 256 xh + xl (xh = x >> 8 as s8, xl = x & 0xff as
+// u8), and
+//   x . y = 2^16 xh.yh + 2^8 (xh.yl + xl.yh) + xl.yl
+// over s8.s8, s8.u8 + u8.s8 (one accumulator) and u8.u8 products, combined
+// in unsigned 32-bit arithmetic: the reference's wrapping int32 dot mod 2^32
+// in any order.  No byte accumulator can overflow below dh 32,896 (2 * 128 *
+// 255 * dh < 2^31), so the exactness does not rest on how mma wraps.  The
+// bytes of an int16 fragment come from ldmatrix of the int16 rows: lane
+// (g, t) reads elements {2t, 2t + 1, 8 + 2t, 9 + 2t} of each 16 and byte
+// permutes put their high or low bytes in one register, the same k order
+// for q and k, so the sum is unchanged.
 constexpr int kWideProducts = 16;  // a prefix of the walk: at most D <= 16
-constexpr int kIBK = 32;           // d steps of a staged q / k chunk
-constexpr int kIP = fa::kBQ + 4;   // int32 pitch of the staged chunks and scores
 
 struct WideProducts {
   int n;
-  uint32_t ma[kWideProducts], mb[kWideProducts];  // masks of the raw operand
+  uint32_t ma[kWideProducts], mb[kWideProducts];  // masks in every lane
 };
 
-template <typename T>
-struct WideSmem {
-  static constexpr int kVRow = fa::kDC * (int)sizeof(T) + fa::kPad;
-  static constexpr int kQs = 0;                          // [kIBK][kIP] int32
-  static constexpr int kKs = kQs + kIBK * kIP * 4;       // [kIBK][kIP] int32
-  static constexpr int kSt = kKs + kIBK * kIP * 4;       // scores [64][kIP]
-  static constexpr int kV = kSt + fa::kBQ * kIP * 4;     // V columns [64][kVRow]
-  static constexpr int kS = kV + fa::kBKV * kVRow;       // key scales
-  static constexpr int kP = kS + fa::kBKV * 4;           // f32 PV: parked p
-  static constexpr int kBytes =
-      kP + (sizeof(T) == 4 ? fa::kWarps * 16 * kPPitch * 4 : 0);
+__device__ __forceinline__ void mma_hl(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_lh(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_ll(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The high (s8) or low (u8) bytes of two words of int16 pairs, x's first
+template <bool HI>
+__device__ __forceinline__ uint32_t bytes_of(uint32_t x, uint32_t y) {
+  return __byte_perm(x, y, HI ? 0x7531 : 0x6420);
+}
+
+// The score accumulators of a warp's NTW key tiles: int8 q, k one int32
+// sum; int16 the three byte-pair sums
+template <typename Q, int NTW>
+struct ScoreAcc {
+  int hh[NTW][4], cr[sizeof(Q) == 2 ? NTW : 1][4],
+      ll[sizeof(Q) == 2 ? NTW : 1][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hh[j][e] = 0;
+        if constexpr (sizeof(Q) == 2) cr[j][e] = ll[j][e] = 0;
+      }
+  }
+
+  // the walk's products over k32 step kc of this chunk: qs the 64 staged q
+  // rows (pitch qp), ks the KV tile's rows from this warp's first key (kp)
+  __device__ __forceinline__ void step(const int8_t* qs, int qp,
+                                       const int8_t* ks, int kp, int kc,
+                                       const WideProducts& pr) {
+    const int lane = threadIdx.x & 31;
+    const int8_t* qa = qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * qp +
+                       kc * 32 * (int)sizeof(Q) + (lane >> 4) * 16;
+    if constexpr (sizeof(Q) == 1) {
+      uint32_t a[4], kf[NTW][2];
+      fa::ldsm_x4(a, qa);
+#pragma unroll
+      for (int j = 0; j < NTW; j += 2) {
+        uint32_t r[4];
+        fa::ldsm_x4(r, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kp +
+                           kc * 32 + ((lane >> 3) & 1) * 16);
+        kf[j][0] = r[0];
+        kf[j][1] = r[1];
+        kf[j + 1][0] = r[2];
+        kf[j + 1][1] = r[3];
+      }
+      for (int p = 0; p < pr.n; ++p) {
+        const uint32_t ma = pr.ma[p], mb = pr.mb[p];
+        const uint32_t am[4] = {a[0] & ma, a[1] & ma, a[2] & ma, a[3] & ma};
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const uint32_t b[2] = {kf[j][0] & mb, kf[j][1] & mb};
+          mma_s8(hh[j], am, b);
+        }
+      }
+    } else {
+      // q: elements {2t, 2t + 1} of each 8 of row g (a[0][0], a[0][2],
+      // a[1][0], a[1][2]) and of row g + 8 (a[.][1], a[.][3]); k: of key g
+      // (kf[j][0..3])
+      uint32_t a[2][4], kf[NTW][4];
+      fa::ldsm_x4(a[0], qa);
+      fa::ldsm_x4(a[1], qa + 32);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        fa::ldsm_x4(kf[j], ks + (j * 8 + (lane & 7)) * kp + kc * 64 +
+                               (lane >> 3) * 16);
+      for (int p = 0; p < pr.n; ++p) {
+        const uint32_t ma = pr.ma[p], mb = pr.mb[p];
+        uint32_t m[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m[e] = a[e / 4][e % 4] & ma;
+        const uint32_t ah[4] = {bytes_of<true>(m[0], m[2]),
+                                bytes_of<true>(m[1], m[3]),
+                                bytes_of<true>(m[4], m[6]),
+                                bytes_of<true>(m[5], m[7])};
+        const uint32_t al[4] = {bytes_of<false>(m[0], m[2]),
+                                bytes_of<false>(m[1], m[3]),
+                                bytes_of<false>(m[4], m[6]),
+                                bytes_of<false>(m[5], m[7])};
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const uint32_t k0 = kf[j][0] & mb, k1 = kf[j][1] & mb,
+                         k2 = kf[j][2] & mb, k3 = kf[j][3] & mb;
+          const uint32_t bh[2] = {bytes_of<true>(k0, k1),
+                                  bytes_of<true>(k2, k3)};
+          const uint32_t bl[2] = {bytes_of<false>(k0, k1),
+                                  bytes_of<false>(k2, k3)};
+          mma_s8(hh[j], ah, bh);
+          mma_hl(cr[j], ah, bl);
+          mma_lh(cr[j], al, bh);
+          mma_ll(ll[j], al, bl);
+        }
+      }
+    }
+  }
+
+  // s_int of score (j, e), wrapping as the reference's int32 dot
+  __device__ __forceinline__ int score(int j, int e) const {
+    if constexpr (sizeof(Q) == 1) {
+      return hh[j][e];
+    } else {
+      return (int)(((uint32_t)hh[j][e] << 16) + ((uint32_t)cr[j][e] << 8) +
+                   (uint32_t)ll[j][e]);
+    }
+  }
 };
 
-// One (batch * q head, 64-row q tile) and output columns [c0, c0 + 128).
-// Q is the raw operand type (int8_t or int16_t).  Each KV tile: its V
-// columns and key scales in flight (cp.async) while the score tile is walked
-// (the block's 128 threads as 8 x 16 tiles of 8 q rows x 4 keys), then
-// s = s_int * q_scale * k_scale * scale (f32, the reference's order), the
-// softmax and PV as in flash_l2r_kernel.
+// The KV tile: 64 keys, 32 for int16 q, k with f32 v (fa::wide_kv)
 template <typename T, typename Q>
-__global__ void __launch_bounds__(fa::kThreads)
+__host__ __device__ constexpr int wide_kv() {
+  return fa::wide_kv((int)sizeof(Q), (int)sizeof(Q), (int)sizeof(T));
+}
+
+// One (batch * q head, 64-row q tile) and output columns [256 y, 256 y +
+// 256).  Q is the raw operand type (int8_t or int16_t).  Each step (KV tile,
+// d chunk) has the next step's copies in flight (K, and at a tile's first
+// chunk its V columns and key scales); at a tile's last chunk each warp
+// dequantizes its half, s = s_int * q_scale * k_scale * scale (f32, the
+// reference's order), the pair runs the softmax over the halves, then PV.
+template <typename T, typename Q>
+__global__ void __launch_bounds__(fa::kWThreads, 1)
     flash_l2r_wide_kernel(const Q* __restrict__ qq,
                           const float* __restrict__ qsc,
                           const Q* __restrict__ kq,
                           const float* __restrict__ ksc,
                           const T* __restrict__ v, T* __restrict__ out,
-                          fa::Shape s, WideProducts pr, int vec) {
-  using L = WideSmem<T>;
-  constexpr int NT = fa::kBKV / 8;  // n8 score tiles per warp
-  constexpr int DT = fa::kDC / 8;   // n8 output tiles per warp
+                          fa::Shape s, WideProducts pr, int vec_qk,
+                          int vec_v) {
+  constexpr int KV = wide_kv<T, Q>();
+  constexpr int NT = KV / 8;   // n8 score tiles of a KV tile
+  constexpr int NTW = NT / 2;  // ... of this warp's half
   extern __shared__ __align__(16) int8_t smem[];
-  int32_t* qs = reinterpret_cast<int32_t*>(smem + L::kQs);
-  int32_t* ks = reinterpret_cast<int32_t*>(smem + L::kKs);
-  int32_t* st = reinterpret_cast<int32_t*>(smem + L::kSt);
-  const float* ss = reinterpret_cast<const float*>(smem + L::kS);
+  const fa::WideLayout L((int)sizeof(Q), (int)sizeof(Q), (int)sizeof(T), KV,
+                         s.dh);
   const fa::Block blk = fa::block_of(s);
-  const int c0 = blockIdx.y * fa::kDC;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int tx = tid % 16, ty = tid / 16;  // keys 4tx.., q rows 8ty..
+  const fa::WideWarp w(s, KV);
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  float* xs = reinterpret_cast<float*>(smem + L.x) + w.rg * 16 * L.xp;
 
   const size_t kv_stride = (size_t)s.kv_heads * s.dh;
   const size_t kvb = ((size_t)blk.b * s.skv * s.kv_heads + blk.kvh) * s.dh;
-  const auto qop = l2r16::operand<Q>(
-      qq + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) * s.dh,
-      (long long)s.heads * s.dh, 1, 0, 0, s.sq - blk.q0, s.dh);
+  const size_t q_stride = (size_t)s.heads * s.dh;
+  const Q* qb = qq + (((size_t)blk.b * s.sq + blk.q0) * s.heads + blk.h) *
+                         s.dh;
+  int t0, t1;
+  fa::kv_tiles<KV>(s, blk.q0, t0, t1);
+  const int steps = (t1 - t0) * L.nch;
+  auto issue = [&](int step) {  // into the slots read two steps ago
+    const int tile = t0 + step / L.nch, ch = step % L.nch;
+    const int kv0 = tile * KV, rows = s.skv - kv0;
+    const size_t off = kvb + (size_t)kv0 * kv_stride;
+    if (L.nch > 1)
+      fa::stage_slab<Q>(smem + L.q + (step & 1) * fa::kBQ * L.qp, L.qp, qb,
+                        q_stride, fa::kBQ, s.sq - blk.q0, ch * L.dw, L.dw,
+                        s.dh, vec_qk);
+    fa::stage_slab<Q>(smem + L.k + (step & 1) * KV * L.kp, L.kp, kq + off,
+                      kv_stride, KV, rows, ch * L.dw, L.dw, s.dh, vec_qk);
+    if (ch == 0) {
+      const int buf = (tile - t0) & 1;
+      fa::stage_slab<T>(smem + L.v + buf * KV * L.vp, L.vp, v + off,
+                        kv_stride, KV, rows, blockIdx.y * fa::kWCols, L.vw,
+                        s.dh, vec_v);
+      for (int r = threadIdx.x; r < KV; r += fa::kWThreads) {
+        const bool ok = r < rows;
+        fa::cp_async4(
+            smem + L.sc + (buf * KV + r) * 4,
+            ok ? ksc + ((size_t)blk.b * s.skv + kv0 + r) * s.kv_heads +
+                     blk.kvh
+               : ksc,
+            ok);
+      }
+    }
+  };
+  if (steps) {
+    if (L.nch == 1)  // q resident for the whole band
+      fa::stage_slab<Q>(smem + L.q, L.qp, qb, q_stride, fa::kBQ,
+                        s.sq - blk.q0, 0, L.dw, s.dh, vec_qk);
+    issue(0);
+  }
+  fa::cp_async_commit();
 
-  fa::WarpRows<DT> wr;  // rows g and g + 8 of the warp's 16, and the carry
-  wr.init(blk);
+  fa::WarpRows<16> wr;  // rows g and g + 8 of the row group, 128 columns
+  wr.init(blk, w.rg);
   float q_scale[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -388,99 +558,84 @@ __global__ void __launch_bounds__(fa::kThreads)
                      ? qsc[((size_t)blk.b * s.sq + wr.row[h]) * s.heads + blk.h]
                      : 0.f;
 
-  int t0, t1;
-  fa::kv_tiles(s, blk.q0, t0, t1);
-  for (int tile = t0; tile < t1; ++tile) {
-    const int kv0 = tile * fa::kBKV, rows = s.skv - kv0;
-    // V's columns [c0, c0 + 128) and the key scales, in flight meanwhile
-    fa::stage_cols<T, fa::kDC>(smem + L::kV, L::kVRow,
-                               v + kvb + (size_t)kv0 * kv_stride, kv_stride,
-                               rows, c0, s.dh, vec);
-    for (int r = tid; r < fa::kBKV; r += fa::kThreads) {
-      const bool ok = r < rows;
-      fa::cp_async4(
-          smem + L::kS + r * 4,
-          ok ? ksc + ((size_t)blk.b * s.skv + kv0 + r) * s.kv_heads + blk.kvh
-             : ksc,
-          ok);
-    }
+  ScoreAcc<Q, NTW> sa;
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);
     fa::cp_async_commit();
-
-    // ---- s_int = the walk's products, each over the whole dh
-    const auto kop = l2r16::operand<Q>(kq + kvb + (size_t)kv0 * kv_stride,
-                                       (long long)kv_stride, 1, 0, 0, rows,
-                                       s.dh);
-    uint32_t acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-    for (int p = 0; p < pr.n; ++p)
-      for (int d0 = 0; d0 < s.dh; d0 += kIBK) {
-        l2r16::stage<Q, fa::kBQ, kIBK, fa::kThreads>(qs, kIP, qop, 0, d0, 0,
-                                                     0, pr.ma[p]);
-        l2r16::stage<Q, fa::kBKV, kIBK, fa::kThreads>(ks, kIP, kop, 0, d0, 0,
-                                                      0, pr.mb[p]);
-        __syncthreads();
-        l2r16::mac<8, 4, kIBK>(acc, qs + ty * 8, kIP, ks + tx * 4, kIP);
-        __syncthreads();
-      }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<uint4*>(st + (ty * 8 + i) * kIP + tx * 4) =
-          make_uint4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    fa::cp_async_wait<0>();
+    fa::cp_async_wait<1>();  // everything but the copies just started
     __syncthreads();
+    const int tile = t0 + step / L.nch, ch = step % L.nch;
+    const int buf = (tile - t0) & 1;
+    if (ch == 0) sa.zero();
 
-    // ---- scores (f32, the reference's order), masks, online softmax
-    float p[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          p[j][2 * h + e] =
-              (float)st[(warp * 16 + g + 8 * h) * kIP + j * 8 + 2 * t + e] *
-              q_scale[h] * ss[j * 8 + 2 * t + e] * s.scale;
-    wr.softmax(s, kv0, p);
+    // ---- s_int += the walk's products over this chunk, on the tensor cores
+    const int8_t* qs = smem + L.q +
+                       (L.nch > 1 ? (step & 1) * fa::kBQ * L.qp : 0) +
+                       w.rg * 16 * L.qp;
+    const int8_t* ks = smem + L.k + (step & 1) * KV * L.kp + w.kb * L.kp;
+    const int dn = min(L.dw, s.dh - ch * L.dw);  // d columns of this chunk
+    for (int kc = 0; kc < (dn + 31) / 32; ++kc)
+      sa.step(qs, L.qp, ks, L.kp, kc, pr);
 
-    // ---- acc += p @ v, this block's columns
-    if constexpr (sizeof(T) == 2)
-      wr.pv_bf16(p, smem + L::kV, L::kVRow);
-    else
-      fa::pv_f32(wr, p,
-                 reinterpret_cast<float*>(smem + L::kP) + warp * 16 * kPPitch,
-                 smem + L::kV, L::kVRow);
-    __syncthreads();  // the V columns, scales and scores are refilled next
+    if (ch == L.nch - 1) {
+      // ---- scores (f32, the reference's order), the pair's softmax
+      const float* ss =
+          reinterpret_cast<const float*>(smem + L.sc) + buf * KV + w.kb;
+      float sc[NTW][4];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sc[j][2 * h + e] = (float)sa.score(j, 2 * h + e) * q_scale[h] *
+                               ss[j * 8 + 2 * t + e] * s.scale;
+      float p[NT][4];  // the pair's whole tile
+      wr.softmax_pair(s, tile * KV, w.kb, w.half, w.rg, xs, L.xp, sc, p);
+      if (w.ncols > 0) {
+        const int8_t* vs =
+            smem + L.v + buf * KV * L.vp + w.half * 128 * (int)sizeof(T);
+        if constexpr (sizeof(T) == 2)
+          wr.pv_bf16(p, vs, L.vp, w.ncols);
+        else
+          wr.pv_tf32x3(p, reinterpret_cast<const float*>(vs), L.vp / 4,
+                       w.ncols);
+      }
+    }
+    __syncthreads();  // these slots and the exchange are refilled next
   }
+  fa::cp_async_wait<0>();
 
-  fa::store_cols(wr, s, blk, out, c0);
+  if (w.ncols > 0) wr.store(s, blk, out, w.c0);
 }
 
 template <typename T, typename Q>
 cudaError_t launch_wide(const void* qq, const void* qsc, const void* kq,
                         const void* ksc, const void* v, void* out,
-                        const fa::Shape& s, const WideProducts& pr, int vec,
-                        cudaStream_t stream) {
-  const int bytes = WideSmem<T>::kBytes;
+                        const fa::Shape& s, const WideProducts& pr,
+                        int vec_qk, int vec_v, cudaStream_t stream) {
+  constexpr int KV = wide_kv<T, Q>();
+  const fa::WideLayout L((int)sizeof(Q), (int)sizeof(Q), (int)sizeof(T), KV,
+                         s.dh);
   static int set_on = -1;  // the card the attribute was set for
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev != set_on) {
-    err = cudaFuncSetAttribute(flash_l2r_wide_kernel<T, Q>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    err = cudaFuncSetAttribute(
+        flash_l2r_wide_kernel<T, Q>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa::wide_max_bytes((int)sizeof(Q), (int)sizeof(Q), (int)sizeof(T),
+                           KV));
     if (err != cudaSuccess) return err;
     set_on = dev;
   }
   const long long blocks =
       (long long)s.batch * s.heads * ((s.sq + fa::kBQ - 1) / fa::kBQ);
-  const dim3 grid((unsigned)blocks, (s.dh + fa::kDC - 1) / fa::kDC);
-  flash_l2r_wide_kernel<T, Q><<<grid, fa::kThreads, bytes, stream>>>(
+  const dim3 grid((unsigned)blocks, (s.dh + fa::kWCols - 1) / fa::kWCols);
+  flash_l2r_wide_kernel<T, Q><<<grid, fa::kWThreads, L.bytes, stream>>>(
       (const Q*)qq, (const float*)qsc, (const Q*)kq, (const float*)ksc,
-      (const T*)v, (T*)out, s, pr, vec);
+      (const T*)v, (T*)out, s, pr, vec_qk, vec_v);
   return cudaGetLastError();
 }
 
@@ -536,24 +691,31 @@ extern "C" int flash_attention_l2r_wide(
   WideProducts pr = {};
   pr.n = n_products;
   const int top = elem_bytes == 1 ? 0xFF : 0xFFFF;
+  const uint32_t rep = elem_bytes == 1 ? 0x01010101u : 0x00010001u;
   for (int p = 0; p < n_products; ++p) {
     if (mask_a[p] < 0 || mask_a[p] > top || mask_b[p] < 0 || mask_b[p] > top)
       return (int)cudaErrorInvalidValue;
-    pr.ma[p] = (uint32_t)mask_a[p];
-    pr.mb[p] = (uint32_t)mask_b[p];
+    pr.ma[p] = (uint32_t)mask_a[p] * rep;
+    pr.mb[p] = (uint32_t)mask_b[p] * rep;
   }
   const fa::Shape s = {batch,  sq, skv, heads, kv_heads, dh, causal ? 1 : 0,
                        has_window ? 1 : 0, window, scale};
   const int vsize = is_bf16 ? 2 : 4;
-  const int vec = (dh * vsize) % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const int vec_qk = (dh * elem_bytes) % 16 == 0 &&
+                     ((uintptr_t)qq | (uintptr_t)kq) % 16 == 0;
+  const int vec_v = (dh * vsize) % 16 == 0 && (uintptr_t)v % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (elem_bytes == 1)
     return (int)(is_bf16 ? launch_wide<__nv_bfloat16, int8_t>(
-                               qq, q_scale, kq, k_scale, v, out, s, pr, vec, st)
+                               qq, q_scale, kq, k_scale, v, out, s, pr,
+                               vec_qk, vec_v, st)
                          : launch_wide<float, int8_t>(qq, q_scale, kq, k_scale,
-                                                      v, out, s, pr, vec, st));
+                                                      v, out, s, pr, vec_qk,
+                                                      vec_v, st));
   return (int)(is_bf16 ? launch_wide<__nv_bfloat16, int16_t>(
-                             qq, q_scale, kq, k_scale, v, out, s, pr, vec, st)
+                             qq, q_scale, kq, k_scale, v, out, s, pr, vec_qk,
+                             vec_v, st)
                        : launch_wide<float, int16_t>(qq, q_scale, kq, k_scale,
-                                                     v, out, s, pr, vec, st));
+                                                     v, out, s, pr, vec_qk,
+                                                     vec_v, st));
 }

@@ -17,19 +17,22 @@ scores, and their plain versions.
   truncates the walk.  PV runs on the bf16 tensor cores for bf16 v and
   as f32 FMAs for f32 v.
 
-Both take any head width: above 128 (recurrentgemma-2b's 256) a column
-block kernel splits the output's head dim over blocks of 128 columns and
-recomputes QK^T in each.  B4 on int16 q and k (n_bits 9-16), and on int8
-above 128, takes its wide entry ``flash_attention_l2r_wide``: the score
-tile walked through kernels B1-B3's integer routine
-(``l2r_gemm/csrc/l2r_int16.cuh``), wrapping as the reference's int32
-dot; both routes count as ``LAUNCHES["flash_attention_l2r"]``.
+Both take any head width.  Above 128 (recurrentgemma-2b's 256) they take
+the wide layout of ``csrc/flash_softmax.cuh``: 8 warps own 64 q rows and
+up to 256 output columns (a column grid dimension only above dh 256), the
+two warps of a row group each compute half of a KV tile's scores over the
+whole dh and their exps and exchange p, so each score is computed once.
+B4 on int16 q and k (n_bits 9-16), and on int8 above 128, takes its wide
+entry ``flash_attention_l2r_wide`` in that layout, QK^T on the int8
+tensor cores (an int16 product as its byte split,
+:func:`l2r_byte_split_scores`, mod 2^32 as the reference's int32 dot);
+both routes count as ``LAUNCHES["flash_attention_l2r"]``.
 
 Both run the warp-layout online softmax, bf16 PV and epilogue of
-``csrc/flash_softmax.cuh`` (4 warps of 16 q rows, K and V double-buffered
-through ``cp.async``) and differ in how they fill a score tile.  Layouts
-are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv, dh), out
-(B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
+``csrc/flash_softmax.cuh`` (4 warps of 16 q rows up to dh 128, K and V
+double-buffered through ``cp.async``) and differ in how they fill a score
+tile.  Layouts are the reference's: q (B, Sq, H, dh), k and v (B, Skv, Kv,
+dh), out (B, Sq, H, dh) in v's dtype; kv head = q head // (H / Kv).
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.  The
@@ -75,7 +78,8 @@ from repro_torch.kernels import _build
 __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
            "flash_attention_l2r_plain", "l2r_operands", "l2r_score_tile",
-           "l2r_masks", "l2r_width", "l2r_wide", "l2r_kernel_operands",
+           "l2r_masks", "l2r_byte_split_scores", "l2r_width", "l2r_wide",
+           "l2r_kernel_operands",
            "flash_attention_l2r_launch", "plain_grads", "FlashAttentionL2R",
            "visible_pairs", "attention_ops", "flash_cost"]
 
@@ -235,7 +239,7 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
     kernel: q, k, v contiguous, all f32 or all bf16, any dh (above 128 the
-    column-block kernel).
+    wide layout).
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
     if _build.as_op(q):
@@ -370,16 +374,46 @@ def l2r_masks(n_bits: int, log2_radix: int, levels: int | None
             for il, ih, jl, jh in msdf_products(d, levels)]
 
 
+def l2r_byte_split_scores(qq, kq, n_bits: int = 16, log2_radix: int = 4,
+                          levels: int | None = None) -> torch.Tensor:
+    """The int32 score tile of the walk over raw int16 codes as kernel B4's
+    wide route computes it on the int8 tensor cores: qq (..., Q, dh) and kq
+    (..., S, dh) int16 -> (..., Q, S) int32.  For each product of
+    :func:`l2r_masks` both operands are masked in their raw 16 bits (the top
+    plane's sign extension included) and read back as int16, split as
+    x = 256 xh + xl (xh = x >> 8 in [-128, 127], xl = x & 0xff in [0, 255]),
+    and the byte-pair products xh.yh, xh.yl + xl.yh and xl.yl, each an exact
+    int32 below dh 32,896, are combined as (hh << 16) + (cross << 8) + ll
+    mod 2^32: the reference's wrapping int32 dot.  The dots run in f64
+    (exact on any device)."""
+    def split(x, mask):
+        x = x.to(torch.int32) & mask
+        x = x - ((x & 0x8000) << 1)  # the masked bits read as int16
+        return (x >> 8).to(torch.float64), (x & 0xFF).to(torch.float64)
+
+    def dot(a, b):
+        return torch.matmul(a, b.transpose(-1, -2)).to(torch.int64)
+
+    acc = torch.zeros(torch.broadcast_shapes(qq.shape[:-2], kq.shape[:-2])
+                      + (qq.shape[-2], kq.shape[-2]), dtype=torch.int64,
+                      device=qq.device)
+    for ma, mb in l2r_masks(n_bits, log2_radix, levels):
+        (qh, ql), (kh, kl) = split(qq, ma), split(kq, mb)
+        acc += ((dot(qh, kh) << 16) + ((dot(qh, kl) + dot(ql, kh)) << 8)
+                + dot(ql, kl))
+    return wrap_int32(acc)
+
+
 def l2r_wide(dh: int, n_bits: int = 8) -> bool:
     """Does B4 take its wide route: int16 q and k (n_bits > 8), or a head
-    wider than the tensor-core route's 128."""
+    wider than the base route's 128."""
     return n_bits > 8 or dh > 128
 
 
 def l2r_width(dh: int, n_bits: int = 8) -> int:
-    """The head width kernel B4 stages: on its tensor-core route dh
-    zero-padded to 32, 64 or 128 (whole k32 steps of the int8 mma); on its
-    wide route (:func:`l2r_wide`) dh itself."""
+    """The head width kernel B4 reads: on its base route dh zero-padded to
+    32, 64 or 128 (whole k32 steps of the int8 mma); on its wide route
+    (:func:`l2r_wide`) dh itself (the kernel zero-fills shared memory)."""
     if l2r_wide(dh, n_bits):
         return dh
     return max(32, 1 << (dh - 1).bit_length())
@@ -388,7 +422,7 @@ def l2r_width(dh: int, n_bits: int = 8) -> int:
 def l2r_kernel_operands(q, k, v, n_bits: int = 8, log2_radix: int = 2):
     """What kernel B4 reads, made on the card: q and k quantized per vector
     (``quantize_per_vector``) as raw int8 (int16 for n_bits > 8) with their
-    f32 scales, and on the tensor-core route the three zero-padded to
+    f32 scales, and on the base route the three zero-padded to
     :func:`l2r_width` when dh is not 32, 64 or 128 (exact: zero columns add
     nothing to a score, and the padded output columns are not written).
     Returns (qq, q_scale, kq, k_scale, v), each contiguous.  No plane
@@ -495,8 +529,9 @@ def flash_attention_l2r(q, k, v, n_bits: int = 8, log2_radix: int = 2,
     float, ``levels`` truncates the MSDF walk.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: v f32 or bf16, any dh; int8 q, k up to dh 128 on the tensor
-    cores, int16 (n_bits 9-16) and wider heads on its wide route.
+    kernel: v f32 or bf16, any dh; int8 q, k up to dh 128 on its base
+    route, int16 (n_bits 9-16) and wider heads on its wide route (QK^T on
+    the tensor cores in both).
     """
     b, sq, h, dh, skv, kvh = _shapes(q, k, v)
     if _build.as_op(q):

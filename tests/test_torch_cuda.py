@@ -547,12 +547,14 @@ def test_b4_b5_reject_what_they_do_not_take(dev):
         fa.flash_attention(q, k, v.to(torch.bfloat16))
 
 
-# heads wider than 128 (column blocks) and B4 on int16 q, k
+# heads wider than 128 (the wide layout) and B4 on int16 q, k
 WIDE_ATTN = [  # (sq, skv, h, kvh, dh, causal, window)
     (130, 130, 2, 1, 256, True, None),
     (100, 100, 4, 2, 256, True, 40),
     (70, 130, 2, 1, 200, False, None),
     (33, 70, 2, 2, 136, True, None),
+    (150, 150, 10, 1, 256, True, 48),  # recurrentgemma-2b's 10 heads on 1
+    (70, 100, 2, 1, 320, True, None),  # above 256: two column blocks
 ]
 
 
@@ -567,6 +569,33 @@ def test_b5_wide_heads_match_plain(dev, case, dtype):
     assert fa.LAUNCHES["flash_attention"] == before + 1
     _close(got, fa.flash_attention_kernel_plain(q, k, v, causal, window),
            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bits,log2_radix", [(12, 4), (16, 4), (16, 2)])
+def test_byte_split_scores_are_the_plain_walk_on_the_card(dev, n_bits,
+                                                          log2_radix):
+    """B4's int16 byte split as its plain version computes it, on CUDA
+    tensors, bit for bit the plain walk's scores at every level prefix
+    (full-range codes, the extremes included, dh 256)."""
+    from repro_torch.core.quant import (plane_count, stack_planes_lhs,
+                                        stack_planes_rhs)
+
+    g = torch.Generator(device=dev).manual_seed(n_bits + log2_radix)
+    hi = 1 << (n_bits - 1)
+    q = torch.randint(-hi, hi, (2, 16, 256), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int16)
+    k = torch.randint(-hi, hi, (2, 24, 256), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int16)
+    q[0, :2], k[0, :2] = -hi, hi - 1
+    qs = stack_planes_lhs(q, n_bits, log2_radix)
+    ks = stack_planes_rhs(k, n_bits, log2_radix, axis=-1)
+    d = plane_count(n_bits, log2_radix)
+    for levels in [*range(1, 2 * d), None]:
+        got = fa.l2r_byte_split_scores(q, k, n_bits, log2_radix, levels)
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got, fa.l2r_score_tile(qs, ks, n_bits, log2_radix,
+                                                  levels)), levels
 
 
 @pytest.mark.cuda

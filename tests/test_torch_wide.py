@@ -9,7 +9,10 @@ at dh 256; B2's stream at D = 3 and 16), the reference's integer
 accumulators of a full-width VGG-16 conv layer and of the FC head at
 ``QuantConfig(n_bits=12, log2_radix=4)`` (int16 planes, D = 3; fc6's K
 wraps int32, as the reference's accumulator does), and
-``chunked_attention`` at recurrentgemma-2b's head width.  Integer results
+``chunked_attention`` at recurrentgemma-2b's head width; and B4's int16
+byte split, as its plain version computes the score tile the kernel runs
+on the int8 tensor cores, against the reference's level walk and its int32
+dot of the masked operands.  Integer results
 compare bit for bit; float ones to tests/test_torch_flash_attention.py's
 limits: 3e-5 in f32, one output ulp (2^-7 |x|) plus 1e-4 in bf16 on the
 same KV tiles.  One intra-op thread, small shapes.
@@ -27,6 +30,7 @@ import torch
 from repro.configs.recurrentgemma_2b import SMOKE as J_SMOKE
 from repro.core import l2r_gemm as jg
 from repro.core import quant as jq
+from repro.core.l2r_attention import attn_scores_stacked as j_scores
 from repro.core.quant import stack_planes_lhs as j_lhs
 from repro.core.quant import stack_planes_rhs as j_rhs
 from repro.kernels import flash_attention as jfa
@@ -198,3 +202,45 @@ def test_chunked_attention_at_dh256_matches_reference(dtype):
                                  for x in (q, k, v)), **kw)
     assert str(got.dtype).split(".")[-1] == str(ref.dtype)
     _close(got, ref, dtype)
+
+
+def _walk_prefixes():
+    """(n_bits, log2_radix, levels): n_bits 12 and 16 at radix 4 and 16,
+    every level prefix of the walk and full depth."""
+    return [(nb, r, lv) for nb, r in ((12, 2), (12, 4), (16, 2), (16, 4))
+            for lv in [*range(1, 2 * tq.plane_count(nb, r)), None]]
+
+
+@pytest.mark.parametrize("n_bits,log2_radix,levels", _walk_prefixes())
+def test_byte_split_scores_match_reference(n_bits, log2_radix, levels):
+    """B4's int16 byte split (mask each product's operands in their raw
+    16 bits, split into an s8 high and a u8 low byte, three byte-pair
+    products combined mod 2^32), as ``l2r_byte_split_scores`` computes it,
+    bit for bit the port's plane-stack walk (``l2r_score_tile``), the
+    reference's level walk (``attn_scores_stacked``) and the reference's
+    int32 dot of the masked int16 operands summed over the products; dh
+    256, full-range codes with the extremes of the n_bits range."""
+    rng = np.random.default_rng(100 * n_bits + log2_radix)
+    hi = 1 << (n_bits - 1)
+    q = rng.integers(-hi, hi, (8, DH)).astype(np.int16)
+    k = rng.integers(-hi, hi, (16, DH)).astype(np.int16)
+    q[0], q[1], k[0], k[1] = -hi, hi - 1, -hi, hi - 1
+    tq_, tk_ = torch.from_numpy(q), torch.from_numpy(k)
+    got = tfk.l2r_byte_split_scores(tq_, tk_, n_bits, log2_radix, levels)
+    assert got.dtype == torch.int32 and got.shape == (8, 16)
+    tile = tfk.l2r_score_tile(t_lhs(tq_, n_bits, log2_radix),
+                              t_rhs(tk_, n_bits, log2_radix, axis=-1),
+                              n_bits, log2_radix, levels)
+    np.testing.assert_array_equal(got.numpy(), tile.numpy())
+    walk = j_scores(jnp.asarray(q)[None, :, None, None],
+                    jnp.asarray(k)[None, :, None], n_bits, log2_radix,
+                    levels)[0, 0, 0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(walk))
+    dot = jnp.zeros((8, 16), jnp.int32)
+    for ma, mb in tfk.l2r_masks(n_bits, log2_radix, levels):
+        qm = (q.astype(np.int32) & ma).astype(np.int16)
+        km = (k.astype(np.int32) & mb).astype(np.int16)
+        dot = dot + jax.lax.dot_general(
+            jnp.asarray(qm), jnp.asarray(km), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(dot))
