@@ -25,7 +25,9 @@ Phases (any failure exits non-zero; nothing is caught):
      B1, B2 and B3 at fc8's shape.  The ragged checks (2a, 2c, 2e) run the
      int8 configs and the wide ones (WIDE_CONFIGS: (6, 2) and (7, 1), D =
      3 and 7 on B2's tensor cores; (12, 4), (16, 4), (16, 2) and (16, 1),
-     int16 planes with D 3-16 on the int16 entries of B1-B3); 2h times
+     int16 planes with D 3-16 on the int16 entries of B1-B3: B1's and
+     B3's on the tensor cores through the byte split, B2's on the CUDA
+     cores); 2h times
      each wide config at fc8 (M 8, K 4096, N 1000) for B1, B2 and B3 bit
      for bit beside its plain version, its bound (an int16 product as four
      int8 products) and torch._int_mm (int8 configs; none for int16);
@@ -319,7 +321,10 @@ Phases (any failure exits non-zero; nothing is caught):
      the pair-schedule FC head (3 B3 a head, int16) bit for bit its plain
      version and the stacked schedule; the reference's default
      ``L2R_CERTIFY=warn`` warnings (fc6's K overflows int32) counted as
-     shown, not silenced; timed and profiled.
+     shown, not silenced; timed and profiled; 25b B1's int16 entry at
+     each of the forward's GEMM shapes and B3's at fc6-fc8, bit for bit
+     their plain versions, kernel_ms beside the bound (B1 and B3 run an
+     int16 product on the int8 tensor cores as its byte split).
 Then one JSON line per kernel (B1-B6; each with its ``routes``: the C
 entries, the domain each takes and this run's rows on it; B1, B4 and B5 also with the
 launches and times of phases 13-14, B2 with the head's of phase 15, B1
@@ -348,6 +353,11 @@ recurrentgemma-2b, deepseek-moe-16b or whisper-base) in one process.
 
 13a's decode step profiled (device ms, device events) and 15e's batcher
 tokens/s (a warm run, then three timed), no audit active.
+
+    python3 chip_smoke.py --int16
+
+2h's rows and phase 25 (with 25b) alone, one JSON line (phase 25's top-1
+floor is 0 here; the full run holds it to phase 3's).
 The script takes its package from ``src/`` beside it, so a copy of it in
 another checkout profiles that checkout's code: an older commit and this
 one can be compared in one call on one card.
@@ -904,7 +914,8 @@ def phase_wide_rows(dev) -> dict:
             bound_ms, by = cost_bound(*cost)
             row = {"name": "fc8", "m": m, "k": k, "n": n, "count": 1,
                    "n_bits": nb, "log2_radix": r, "planes": d,
-                   "route": "int16, CUDA cores" if nb > 8
+                   "route": ("int16, CUDA cores" if kid == "B2" else
+                             "int16, tensor cores (byte split)") if nb > 8
                    else "int8, tensor cores",
                    "ms": time_ms(fn), "kernel_ms": stream_ms(fn),
                    "plain_ms": time_ms(plain, iters=3, warmup=1),
@@ -920,9 +931,9 @@ def phase_wide_rows(dev) -> dict:
     return rows
 
 
-_IDS = ((re.compile(r"stacked_kernel|gemm_kernel<1,"), "B1"),
-        (re.compile(r"stream_kernel|gemm_kernel<2,"), "B2"),
-        (re.compile(r"pairs_kernel|gemm_kernel<3,"), "B3"),
+_IDS = ((re.compile(r"stacked_kernel|stacked16_kernel"), "B1"),
+        (re.compile(r"stream_kernel|stream16_kernel"), "B2"),
+        (re.compile(r"pairs_kernel|pairs16_kernel"), "B3"),
         (re.compile(r"flash_kernel|flash_wide_kernel"), "B5"),
         (re.compile(r"flash_l2r_kernel|flash_l2r_wide_kernel"), "B4"))
 
@@ -6718,6 +6729,65 @@ def phase_graph(dev, lm: dict, train: dict, dry: dict) -> dict:
 W12 = (12, 4)
 
 
+def w12_kernel_rows(dev) -> dict:
+    """25b: B1's int16 entry at each of VGG-16's main-path GEMMs and B3's
+    at fc6-fc8, at W12A12 (n_bits 12, radix 16, D = 3, full depth, B as
+    the weight cache holds it): bit for bit their plain versions, then
+    kernel_ms (back-to-back launches; the conv taps add into out=) and
+    device_ms (the profiler's time of the kernel alone) beside the bound
+    of the work (kernel.stacked_cost / pairs_cost at n_bits 12:
+    four int8 products an int16 product, two bytes an element)."""
+    from repro_torch.core.quant import stack_planes_lhs, stack_planes_rhs
+    from repro_torch.kernels.l2r_gemm import kernel
+
+    nb, r = W12
+    d = nb // r
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows: dict[str, list] = {"B1": [], "B3": []}
+    for sh in main_path_shapes():
+        m, k, n, acc = sh["m"], sh["k"], sh["n"], sh["accumulate"]
+        a, b = operands(g, dev, m, k, n, nb)
+        sa, sb = stack_planes_lhs(a, nb, r), stack_planes_rhs(b, nb, r)
+        sbk = k_major(sb)
+        got = kernel.l2r_gemm_stacked_planes(sa, sbk, nb, r)
+        ref = kernel.l2r_gemm_stacked_planes_plain(sa, sb, nb, r)
+        require(torch.equal(got, ref),
+                f"25b: B1 int16 != plain at {sh['name']} M={m} K={k} N={n}")
+        out = torch.zeros((m, n), dtype=torch.int32, device=dev) \
+            if acc else None
+        bound_ms, by = cost_bound(*kernel.stacked_cost(
+            m, k, n, d, accumulate=bool(acc), n_bits=nb))
+        b1 = lambda: kernel.l2r_gemm_stacked_planes(  # noqa: E731
+            sa, sbk, nb, r, out=out)
+        rows["B1"].append({
+            **sh, "kernel_ms": stream_ms(b1), "device_ms": device_ms(b1, "B1"),
+            "bound_ms": bound_ms, "bound_by": by,
+            "max_abs_err": max_err(got, ref)})
+        if sh["name"] in ("fc6", "fc7", "fc8"):
+            got = kernel.l2r_gemm_pairs(a, b, nb, r)
+            ref = kernel.l2r_gemm_pairs_plain(a, b, nb, r)
+            require(torch.equal(got, ref),
+                    f"25b: B3 int16 != plain at {sh['name']}")
+            bound_ms, by = cost_bound(*kernel.pairs_cost(m, k, n, d,
+                                                         n_bits=nb))
+            b3 = lambda: kernel.l2r_gemm_pairs(a, b, nb, r)  # noqa: E731
+            rows["B3"].append({
+                **sh, "accumulate": False, "kernel_ms": stream_ms(b3),
+                "device_ms": device_ms(b3, "B3"), "bound_ms": bound_ms,
+                "bound_by": by, "max_abs_err": max_err(got, ref)})
+        del a, b, sa, sb, sbk, got, ref, out
+    torch.cuda.empty_cache()
+    out = {}
+    for kid, per in (("B1", "forward"), ("B3", "head")):
+        for key in ("kernel_ms", "device_ms", "bound_ms"):
+            if all(isinstance(x[key], float) for x in rows[kid]):
+                out[f"{kid}_{key}_{per}"] = sum(x[key] * x["count"]
+                                                for x in rows[kid])
+        out[f"{kid}_shapes"] = rows[kid]
+    print("phase 25b: " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_w12_vgg(dev, top1_w8: float) -> dict:
     """Phase 25: phase 3's VGG-16 (224x224, batch 8, 1000 classes, the
     same seeded weights and 3 batches) at ``QuantConfig(n_bits=12,
@@ -6730,7 +6800,9 @@ def phase_w12_vgg(dev, top1_w8: float) -> dict:
     pair-schedule FC head (3 B3 launches a head, int16) bit for bit its
     plain version and the stacked schedule.  The reference's guard
     (``L2R_CERTIFY``, default warn) warns that fc6's K overflows int32: the
-    warnings are counted as they are shown, not silenced."""
+    warnings are counted as they are shown, not silenced.  Then 25b
+    (:func:`w12_kernel_rows`): B1 and B3 at the forward's and the head's
+    shapes, each beside its bound."""
     import warnings
 
     from repro_torch.analysis.overflow import AccumulatorOverflowWarning
@@ -6850,6 +6922,7 @@ def phase_w12_vgg(dev, top1_w8: float) -> dict:
         warnings.showwarning = show
     require(any(re.search(r" k=25088\b", m) for m in seen),
             f"25: no int32 overflow warning at fc6's K ({len(seen)} shown)")
+    rows = w12_kernel_rows(dev)
     out = {"config": {"n_bits": W12[0], "log2_radix": W12[1],
                       "levels": n_lv},
            "launches": n["l2r_stacked_gemm"], "forward_s": timed,
@@ -6867,7 +6940,7 @@ def phase_w12_vgg(dev, top1_w8: float) -> dict:
            "overflow_warnings": len(seen),
            "overflow_warning_ks": sorted({int(k.group(1)) for k in (
                re.search(r" k=(\d+)", m) for m in seen) if k}),
-           "seconds": time.perf_counter() - t_phase}
+           **rows, "seconds": time.perf_counter() - t_phase}
     print("phase 25: " + json.dumps(out), flush=True)
     return out
 
@@ -6925,11 +6998,14 @@ def kernel_routes(wide: dict, b5_wide: list, b4_wide: list, w12: dict,
                 "on": "mma.sync s8"},
                {"entry": "l2r_stacked_gemm16",
                 "takes": "int16 planes (n_bits 9-16), D <= 16",
-                "on": "CUDA cores (l2r_int16.cuh)",
+                "on": "mma.sync s8 / u8, the byte split (l2r_gemm16.cuh)",
                 "launches_phase25": w12["launches"],
                 "images_per_s_phase25": w12["images_per_s"],
                 "device_ms_phase25_forward": w12["profile"].get("B1_ms"),
-                "shapes": fc8}],
+                "kernel_ms_phase25_forward": w12["B1_kernel_ms_forward"],
+                "device_ms_phase25_shapes": w12.get("B1_device_ms_forward"),
+                "bound_ms_phase25_forward": w12["B1_bound_ms_forward"],
+                "shapes": fc8, "shapes_phase25": w12["B1_shapes"]}],
         "B2": [{"entry": "l2r_streaming_gemm", "takes": "int8 planes, D 1-8",
                 "on": "mma.sync s8",
                 "shapes": [r for r in wide["B2"] if r["n_bits"] <= 8]},
@@ -6942,10 +7018,14 @@ def kernel_routes(wide: dict, b5_wide: list, b4_wide: list, w12: dict,
                 "on": "mma.sync s8"},
                {"entry": "l2r_pairs_gemm16",
                 "takes": "int16 operands (n_bits 9-16)",
-                "on": "CUDA cores (l2r_int16.cuh)",
+                "on": "mma.sync s8 / u8, the byte split (l2r_gemm16.cuh)",
                 "launches_phase25": w12["pairs_launches"]["l2r_pairs_gemm"],
                 "head_ms_phase25": w12["pairs_head_ms"],
-                "shapes": [r for r in wide["B3"] if r["n_bits"] > 8]}],
+                "kernel_ms_phase25_head": w12["B3_kernel_ms_head"],
+                "device_ms_phase25_shapes": w12.get("B3_device_ms_head"),
+                "bound_ms_phase25_head": w12["B3_bound_ms_head"],
+                "shapes": [r for r in wide["B3"] if r["n_bits"] > 8],
+                "shapes_phase25": w12["B3_shapes"]}],
         "B4": [{"entry": "flash_attention_l2r",
                 "takes": "int8 q, k, dh <= 128", "on": "mma.sync s8"},
                {"entry": "flash_attention_l2r_wide",
@@ -7150,6 +7230,13 @@ def main() -> int:
         print("hot path: " + json.dumps(
             {"card": smi, "src": str(ROOT / "src"), **hot_path(dev)}),
             flush=True)
+        return 0
+    if sys.argv[1:] == ["--int16"]:
+        _build.build_all()
+        print("int16: " + json.dumps(
+            {"card": smi, "src": str(ROOT / "src"),
+             "wide": phase_wide_rows(dev),
+             "w12": phase_w12_vgg(dev, top1_w8=0.0)}), flush=True)
         return 0
     if sys.argv[1:2] == ["--mixer-profile"] and len(sys.argv) == 3:
         _build.build_all()

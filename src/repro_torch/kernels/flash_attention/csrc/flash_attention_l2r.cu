@@ -55,16 +55,18 @@
 //    flash_softmax.cuh (8 warps own 64 q rows and up to 256 output columns,
 //    the two warps of a row group each walk half of a KV tile's keys over
 //    the whole dh, dequantize them and take their p, and exchange p, so
-//    each score is computed once), QK^T on mma.sync.m16n8k32 as here, an int16 product as
-//    its byte split (s8.s8, s8.u8 + u8.s8 and u8.u8 products combined mod
-//    2^32, below), f32 PV as B5's 3xTF32 split, 32-key tiles for int16 with
-//    f32 v (shared memory).  Every launch of B4 runs QK^T on the tensor
+//    each score is computed once), QK^T on mma.sync.m16n8k32 as here, an
+//    int16 product as its byte split (s8.s8, s8.u8 + u8.s8 and u8.u8
+//    products combined mod 2^32, l2r_gemm/csrc/l2r_byte_split.cuh), f32 PV
+//    as B5's 3xTF32 split, 32-key tiles for int16 with f32 v (shared
+//    memory).  Every launch of B4 runs QK^T on the tensor
 //    cores.
 // Not yet: wgmma, TMA, a persistent grid, and the exps on fewer cores.
 //
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
+#include "../../l2r_gemm/csrc/l2r_byte_split.cuh"
 #include "flash_softmax.cuh"
 
 namespace {
@@ -325,56 +327,17 @@ cudaError_t dispatch(int width, const void* qq, const void* qsc,
 // int16 q, k at any dh and int8 q, k above dh 128, in the wide layout of
 // flash_softmax.cuh.  QK^T on the int8 tensor cores: a pair's warp runs its
 // half of the keys over the whole dh in k32 steps of mma.sync.m16n8k32, the
-// walk's masks applied to the fragments in registers.  An int16 operand,
-// masked first (the top plane's sign extension included, as the raw bits
-// hold it), is split as x = 256 xh + xl (xh = x >> 8 as s8, xl = x & 0xff as
-// u8), and
-//   x . y = 2^16 xh.yh + 2^8 (xh.yl + xl.yh) + xl.yl
-// over s8.s8, s8.u8 + u8.s8 (one accumulator) and u8.u8 products, combined
-// in unsigned 32-bit arithmetic: the reference's wrapping int32 dot mod 2^32
-// in any order.  No byte accumulator can overflow below dh 32,896 (2 * 128 *
-// 255 * dh < 2^31), so the exactness does not rest on how mma wraps.  The
-// bytes of an int16 fragment come from ldmatrix of the int16 rows: lane
-// (g, t) reads elements {2t, 2t + 1, 8 + 2t, 9 + 2t} of each 16 and byte
-// permutes put their high or low bytes in one register, the same k order
-// for q and k, so the sum is unchanged.
+// walk's masks applied to the fragments in registers.  An int16 operand
+// runs as its byte split (l2r_gemm/csrc/l2r_byte_split.cuh): s8.s8, s8.u8 +
+// u8.s8 and u8.u8 products combined mod 2^32, the reference's wrapping int32
+// dot; no byte accumulator can overflow below dh 32,896, so the exactness
+// does not rest on how mma wraps.
 constexpr int kWideProducts = 16;  // a prefix of the walk: at most D <= 16
 
 struct WideProducts {
   int n;
   uint32_t ma[kWideProducts], mb[kWideProducts];  // masks in every lane
 };
-
-__device__ __forceinline__ void mma_hl(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_lh(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_ll(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The high (s8) or low (u8) bytes of two words of int16 pairs, x's first
-template <bool HI>
-__device__ __forceinline__ uint32_t bytes_of(uint32_t x, uint32_t y) {
-  return __byte_perm(x, y, HI ? 0x7531 : 0x6420);
-}
 
 // The score accumulators of a warp's NTW key tiles: int8 q, k one int32
 // sum; int16 the three byte-pair sums
@@ -434,31 +397,16 @@ struct ScoreAcc {
       for (int j = 0; j < NTW; ++j)
         fa::ldsm_x4(kf[j], ks + (j * 8 + (lane & 7)) * kp + kc * 64 +
                                (lane >> 3) * 16);
+      const uint32_t x[8] = {a[0][0], a[0][1], a[0][2], a[0][3],
+                             a[1][0], a[1][1], a[1][2], a[1][3]};
       for (int p = 0; p < pr.n; ++p) {
-        const uint32_t ma = pr.ma[p], mb = pr.mb[p];
-        uint32_t m[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) m[e] = a[e / 4][e % 4] & ma;
-        const uint32_t ah[4] = {bytes_of<true>(m[0], m[2]),
-                                bytes_of<true>(m[1], m[3]),
-                                bytes_of<true>(m[4], m[6]),
-                                bytes_of<true>(m[5], m[7])};
-        const uint32_t al[4] = {bytes_of<false>(m[0], m[2]),
-                                bytes_of<false>(m[1], m[3]),
-                                bytes_of<false>(m[4], m[6]),
-                                bytes_of<false>(m[5], m[7])};
+        uint32_t ah[4], al[4];
+        l2r::split_a(x, pr.ma[p], ah, al);
 #pragma unroll
         for (int j = 0; j < NTW; ++j) {
-          const uint32_t k0 = kf[j][0] & mb, k1 = kf[j][1] & mb,
-                         k2 = kf[j][2] & mb, k3 = kf[j][3] & mb;
-          const uint32_t bh[2] = {bytes_of<true>(k0, k1),
-                                  bytes_of<true>(k2, k3)};
-          const uint32_t bl[2] = {bytes_of<false>(k0, k1),
-                                  bytes_of<false>(k2, k3)};
-          mma_s8(hh[j], ah, bh);
-          mma_hl(cr[j], ah, bl);
-          mma_lh(cr[j], al, bh);
-          mma_ll(ll[j], al, bl);
+          uint32_t bh[2], bl[2];
+          l2r::split_b(kf[j], pr.mb[p], bh, bl);
+          l2r::mma_bytes(hh[j], cr[j], ll[j], ah, al, bh, bl);
         }
       }
     }
@@ -469,8 +417,7 @@ struct ScoreAcc {
     if constexpr (sizeof(Q) == 1) {
       return hh[j][e];
     } else {
-      return (int)(((uint32_t)hh[j][e] << 16) + ((uint32_t)cr[j][e] << 8) +
-                   (uint32_t)ll[j][e]);
+      return (int)l2r::combine(hh[j][e], cr[j][e], ll[j][e]);
     }
   }
 };

@@ -74,6 +74,7 @@ from repro_torch.core.quant import (QuantConfig, _int_dtype, plane_count,
                                     stack_planes_lhs, stack_planes_rhs)
 from repro_torch.device import no_tf32
 from repro_torch.kernels import _build
+from repro_torch.kernels.l2r_gemm.kernel import byte_split_matmul
 
 __all__ = ["LAUNCHES", "flash_attention_kernel",
            "flash_attention_kernel_plain", "flash_attention_l2r",
@@ -378,30 +379,12 @@ def l2r_byte_split_scores(qq, kq, n_bits: int = 16, log2_radix: int = 4,
                           levels: int | None = None) -> torch.Tensor:
     """The int32 score tile of the walk over raw int16 codes as kernel B4's
     wide route computes it on the int8 tensor cores: qq (..., Q, dh) and kq
-    (..., S, dh) int16 -> (..., Q, S) int32.  For each product of
-    :func:`l2r_masks` both operands are masked in their raw 16 bits (the top
-    plane's sign extension included) and read back as int16, split as
-    x = 256 xh + xl (xh = x >> 8 in [-128, 127], xl = x & 0xff in [0, 255]),
-    and the byte-pair products xh.yh, xh.yl + xl.yh and xl.yl, each an exact
-    int32 below dh 32,896, are combined as (hh << 16) + (cross << 8) + ll
-    mod 2^32: the reference's wrapping int32 dot.  The dots run in f64
-    (exact on any device)."""
-    def split(x, mask):
-        x = x.to(torch.int32) & mask
-        x = x - ((x & 0x8000) << 1)  # the masked bits read as int16
-        return (x >> 8).to(torch.float64), (x & 0xFF).to(torch.float64)
-
-    def dot(a, b):
-        return torch.matmul(a, b.transpose(-1, -2)).to(torch.int64)
-
-    acc = torch.zeros(torch.broadcast_shapes(qq.shape[:-2], kq.shape[:-2])
-                      + (qq.shape[-2], kq.shape[-2]), dtype=torch.int64,
-                      device=qq.device)
-    for ma, mb in l2r_masks(n_bits, log2_radix, levels):
-        (qh, ql), (kh, kl) = split(qq, ma), split(kq, mb)
-        acc += ((dot(qh, kh) << 16) + ((dot(qh, kl) + dot(ql, kh)) << 8)
-                + dot(ql, kl))
-    return wrap_int32(acc)
+    (..., S, dh) int16 -> (..., Q, S) int32, the byte split of each product
+    of :func:`l2r_masks` (``kernels/l2r_gemm/kernel.py:byte_split_matmul``,
+    one fold: a head is far below the 32,896 elements at which a byte
+    accumulator could leave int32)."""
+    return byte_split_matmul(qq, kq.transpose(-1, -2),
+                             l2r_masks(n_bits, log2_radix, levels), fold=None)
 
 
 def l2r_wide(dh: int, n_bits: int = 8) -> bool:

@@ -1,6 +1,6 @@
-// Device helpers shared by kernels B2 (l2r_streaming_gemm.cu) and B3
-// (l2r_pairs_gemm.cu): the s8 tensor-core product, ldmatrix and cp.async.
-// Kernel B1 (l2r_stacked_gemm.cu) keeps its own copies.
+// Device helpers shared by kernels B1-B3 (l2r_stacked_gemm.cu,
+// l2r_streaming_gemm.cu, l2r_pairs_gemm.cu) and, through l2r_byte_split.cuh,
+// B4: the s8 tensor-core product, ldmatrix and cp.async.
 
 #pragma once
 

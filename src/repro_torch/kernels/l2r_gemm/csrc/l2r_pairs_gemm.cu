@@ -47,12 +47,16 @@
 //  * Operands that are not 16-byte aligned (conv1_1's K = 3, ragged tests)
 //    are staged with byte loads, two stages, into the same layout.
 //
+// int16 operands (n_bits 9-16) take the entry l2r_pairs_gemm16: the same
+// products on the same tensor cores through the byte split, each int16
+// product four int8 products (l2r_gemm16.cuh).
+//
 // The launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <algorithm>
 
-#include "l2r_int16.cuh"
+#include "l2r_gemm16.cuh"
 #include "l2r_mma.cuh"
 
 namespace {
@@ -322,25 +326,63 @@ extern "C" int l2r_pairs_gemm(const void* a, const void* b, void* c, int m,
   return launch<4, 2, 2, 3>(async, m, n, k, s, pa, pb, pc, pl);
 }
 
+namespace {
+
+// The int16 route (l2r_gemm16.cuh), one instantiation a tile
+template <int MT, int NT, int WARPS_M, int STAGES, bool ASYNC>
+__global__ void __launch_bounds__(gemm16::kThreads)
+pairs16_kernel(const int16_t* __restrict__ A, const int16_t* __restrict__ B,
+               int32_t* __restrict__ C, int M, int N, int lda, int ldb,
+               const __grid_constant__ gemm16::Plan pl, int chunks_per_split,
+               int overwrite) {
+  gemm16::body<true, MT, NT, WARPS_M, STAGES, ASYNC>(
+      A, B, C, M, N, lda, ldb, pl, chunks_per_split, overwrite != 0);
+}
+
+template <int MT, int NT, int WARPS_M, int STAGES>
+cudaError_t launch16(bool async, int m, int n, int k, const gemm16::Plan& pl,
+                     cudaStream_t s, const int16_t* a, const int16_t* b,
+                     int32_t* c) {
+  return gemm16::launch<true, MT * 16 * WARPS_M, NT * 8 * (8 / WARPS_M),
+                        STAGES>(
+      &pairs16_kernel<MT, NT, WARPS_M, STAGES, true>,
+      &pairs16_kernel<MT, NT, WARPS_M, STAGES, false>, async, m, n, k, n, pl,
+      true, s, a, b, c);
+}
+
+}  // namespace
+
 // The int16 route (n_bits 9-16): C (m, n) int32 = sum over products p of
 // (aq & ma[p]) @ (bq & mb[p]) on raw int16 aq (m, k) and bq (k, n), both
-// row-major, 16-bit masks, through l2r_int16.cuh (B staged column by column:
-// the unit-stride axis first).  Returns a cudaError_t as int.
+// row-major, 16-bit masks, on the tensor cores through the byte split
+// (l2r_gemm16.cuh: B transposed by ldmatrix.trans).  C need not be
+// initialised.  Returns a cudaError_t as int.
 extern "C" int l2r_pairs_gemm16(const void* a, const void* b, void* c, int m,
                                 int n, int k, int n_products, const int* ma,
                                 const int* mb, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || n_products < 1 || n_products > 16)
+  if (m < 1 || n < 1 || k < 1 || n_products < 1 ||
+      n_products > gemm16::kMaxMasked)
     return (int)cudaErrorInvalidValue;
-  l2r16::Walk w = {};
-  w.n = n_products;
+  gemm16::Plan pl = {};
+  pl.n = n_products;
+  pl.d = 1;
+  pl.k = k;
+  pl.g = 1;
   for (int p = 0; p < n_products; ++p) {
     if (ma[p] < 0 || ma[p] > 0xFFFF || mb[p] < 0 || mb[p] > 0xFFFF)
       return (int)cudaErrorInvalidValue;
-    w.p[p] = {0, 0, 0, 0, (uint16_t)ma[p], (uint16_t)mb[p], 0,
-              (uint8_t)(p == n_products - 1)};
+    pl.ma[p] = (uint32_t)ma[p] * 0x00010001u;
+    pl.mb[p] = (uint32_t)mb[p] * 0x00010001u;
   }
-  const auto A = l2r16::operand<int16_t>(a, k, 1, 0, 0, m, k);
-  const auto B = l2r16::operand<int16_t>(b, 1, n, 0, 0, n, k);
-  return (int)l2r16::run<3>(A, B, c, m, n, w, nullptr, 1, false, true,
-                         (cudaStream_t)stream);
+  const bool async = k % 8 == 0 && n % 8 == 0 && (uintptr_t)a % 16 == 0 &&
+                     (uintptr_t)b % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* pa = (const int16_t*)a;
+  const auto* pb = (const int16_t*)b;
+  auto* pc = (int32_t*)c;
+  if (m <= 16)  // 16 x 128
+    return launch16<1, 2, 1, 3>(async, m, n, k, pl, s, pa, pb, pc);
+  if (n <= 64)  // 128 x 64
+    return launch16<2, 4, 4, 4>(async, m, n, k, pl, s, pa, pb, pc);
+  return launch16<2, 4, 2, 4>(async, m, n, k, pl, s, pa, pb, pc);
 }

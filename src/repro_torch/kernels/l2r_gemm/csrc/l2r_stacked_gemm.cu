@@ -56,8 +56,8 @@
 // drop the D-times-wider activation stacks.
 //
 // int16 stacks (n_bits 9-16) take the entry l2r_stacked_gemm16: the same
-// products through the CUDA-core routine of l2r_int16.cuh (the tensor cores
-// take no int16 operand).
+// products on the same tensor cores through the byte split, each int16
+// product four int8 products (l2r_gemm16.cuh).
 //
 // The kernel adds into C, which the caller initialises.  The launch uses the
 // caller's stream, allocates nothing, and returns cudaGetLastError() so the
@@ -68,9 +68,14 @@
 
 #include <algorithm>
 
-#include "l2r_int16.cuh"
+#include "l2r_gemm16.cuh"
 
 namespace {
+
+using l2r::cp_async16;
+using l2r::cp_async_commit;
+using l2r::cp_async_wait;
+using l2r::ldmatrix_x4;
 
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kMaxProducts = 64;   // D^2 plane pairs for D <= 8
@@ -85,38 +90,6 @@ struct Plan {
   uint8_t il[kMaxProducts], ih[kMaxProducts];  // A plane range of product p
   uint8_t jl[kMaxProducts], jh[kMaxProducts];  // B plane range of product p
 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const int8_t* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !ok
-__device__ __forceinline__ void cp_async16(int8_t* dst, const int8_t* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // MT x NT m16n8 tiles per warp, WARPS_M x (8 / WARPS_M) warps: a BM x BN
 // tile per block.  ASYNC: cp.async ring of STAGES (16-aligned operands);
@@ -262,7 +235,8 @@ stacked_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
             for (int q = 0; q < 4; ++q) af[q] |= r[q];
           }
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af, bf[j]);
+          for (int j = 0; j < NT; ++j)
+            l2r::mma_s8(acc[i][j], af, bf[j][0], bf[j][1]);
         }
       }
     }
@@ -429,28 +403,66 @@ extern "C" int l2r_stacked_gemm(const void* a, const void* bt, void* c, int m,
   return launch_tile<4, 4, 2, 3>(async, m, n, s, pa, pb, pc, lda, ldb, pl);
 }
 
+namespace {
+
+// The int16 route (l2r_gemm16.cuh), one instantiation a tile
+template <int MT, int NT, int WARPS_M, int STAGES, bool ASYNC>
+__global__ void __launch_bounds__(gemm16::kThreads)
+stacked16_kernel(const int16_t* __restrict__ A, const int16_t* __restrict__ Bt,
+                 int32_t* __restrict__ C, int M, int N, int lda, int ldb,
+                 const __grid_constant__ gemm16::Plan pl, int chunks_per_split,
+                 int overwrite) {
+  gemm16::body<false, MT, NT, WARPS_M, STAGES, ASYNC>(
+      A, Bt, C, M, N, lda, ldb, pl, chunks_per_split, overwrite != 0);
+}
+
+template <int MT, int NT, int WARPS_M, int STAGES>
+cudaError_t launch16(bool async, int m, int n, int lda, int ldb,
+                     const gemm16::Plan& pl, cudaStream_t s, const int16_t* a,
+                     const int16_t* bt, int32_t* c) {
+  return gemm16::launch<false, MT * 16 * WARPS_M, NT * 8 * (8 / WARPS_M),
+                        STAGES>(
+      &stacked16_kernel<MT, NT, WARPS_M, STAGES, true>,
+      &stacked16_kernel<MT, NT, WARPS_M, STAGES, false>, async, m, n, lda,
+      ldb, pl, false, s, a, bt, c);
+}
+
+}  // namespace
+
 // The int16 route: C (m, n) int32 += the plane-range products over int16
 // stacks a (m, lda) and bt (n, ldb), laid out as above (elements, not bytes),
-// D <= 16, through l2r_int16.cuh.  Returns a cudaError_t as int.
+// D <= 16, on the tensor cores through the byte split (l2r_gemm16.cuh).
+// Returns a cudaError_t as int.
 extern "C" int l2r_stacked_gemm16(const void* a, const void* bt, void* c,
                                   int m, int n, int lda, int ldb, int d, int k,
                                   int n_products, const int* il, const int* ih,
                                   const int* jl, const int* jh, void* stream) {
   if (m < 1 || n < 1 || k < 1 || d < 1 || d > 16 || n_products < 1 ||
-      n_products > l2r16::kMaxProducts || lda < d * k || ldb < d * k)
+      n_products > gemm16::kMaxProducts || lda < d * k || ldb < d * k)
     return (int)cudaErrorInvalidValue;
-  l2r16::Walk w = {};
-  w.n = n_products;
+  gemm16::Plan pl = {};
+  pl.n = n_products;
+  pl.d = d;
+  pl.k = k;
   for (int p = 0; p < n_products; ++p) {
     if (il[p] < 0 || il[p] > ih[p] || ih[p] >= d || jl[p] < 0 ||
         jl[p] > jh[p] || jh[p] >= d)
       return (int)cudaErrorInvalidValue;
-    w.p[p] = {(uint8_t)il[p], (uint8_t)ih[p], (uint8_t)jl[p], (uint8_t)jh[p],
-              0xFFFF, 0xFFFF, 0, (uint8_t)(p == n_products - 1)};
+    pl.il[p] = (uint8_t)il[p];
+    pl.ih[p] = (uint8_t)ih[p];
+    pl.jl[p] = (uint8_t)jl[p];
+    pl.jh[p] = (uint8_t)jh[p];
   }
-  const auto A = l2r16::operand<int16_t>(a, lda, 1, 0, k, m, k);
-  const auto B = l2r16::operand<int16_t>(bt, ldb, 1, (long long)(d - 1) * k,
-                                         -(long long)k, n, k);
-  return (int)l2r16::run<1>(A, B, c, m, n, w, nullptr, 1, true, false,
-                         (cudaStream_t)stream);
+  pl.g = gemm16::slots(pl);
+  const bool async = k % 8 == 0 && lda % 8 == 0 && ldb % 8 == 0 &&
+                     (uintptr_t)a % 16 == 0 && (uintptr_t)bt % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* pa = (const int16_t*)a;
+  const auto* pb = (const int16_t*)bt;
+  auto* pc = (int32_t*)c;
+  if (m <= 16)  // 16 x 128
+    return launch16<1, 2, 1, 3>(async, m, n, lda, ldb, pl, s, pa, pb, pc);
+  if (n <= 64)  // 128 x 64
+    return launch16<2, 4, 4, 4>(async, m, n, lda, ldb, pl, s, pa, pb, pc);
+  return launch16<2, 4, 2, 4>(async, m, n, lda, ldb, pl, s, pa, pb, pc);
 }

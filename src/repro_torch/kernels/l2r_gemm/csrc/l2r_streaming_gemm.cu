@@ -399,7 +399,8 @@ extern "C" int l2r_streaming_gemm(const void* a, const void* bt, void* c,
 
 // The int16 route: C (n_levels, m, n) int32 = (accumulate: C +) the level
 // prefixes of the walk over int16 stacks a (m, lda) and bt (n, ldb), laid out
-// as above (elements), D <= 16, through l2r_int16.cuh; level_count as above.
+// as above (elements), D <= 16, through l2r_int16.cuh on the CUDA cores;
+// level_count as above.
 // Returns a cudaError_t as int.
 extern "C" int l2r_streaming_gemm16(const void* a, const void* bt, void* c,
                                     int m, int n, int lda, int ldb, int d,
@@ -420,10 +421,10 @@ extern "C" int l2r_streaming_gemm16(const void* a, const void* bt, void* c,
     }
     w.p[w.n - 1].flush = 1;
   }
-  const auto A = l2r16::operand<int16_t>(a, lda, 1, 0, k, m, k);
-  const auto B = l2r16::operand<int16_t>(bt, ldb, 1, (long long)(d - 1) * k,
-                                         -(long long)k, n, k);
-  return (int)l2r16::run<2>(A, B, c, m, n, w, (const int*)level_count, n_levels,
+  const auto A = l2r16::operand(a, lda, 0, k, m, k);
+  const auto B =
+      l2r16::operand(bt, ldb, (long long)(d - 1) * k, -(long long)k, n, k);
+  return (int)l2r16::run(A, B, c, m, n, w, (const int*)level_count, n_levels,
                          accumulate != 0, accumulate == 0,
                          (cudaStream_t)stream);
 }

@@ -18,12 +18,14 @@ versions.
   plane-range products of ``msdf_products`` (byte masks), B read row-major
   as the weight cache holds it.
 
-The three kernels have their own pipelines; B2 and B3 share device helpers
-(``csrc/l2r_mma.cuh``).  On int16 planes (n_bits 9-16, which the tensor
-cores do not take) each wrapper launches its kernel's int16 entry
-(``l2r_stacked_gemm16``, ``l2r_streaming_gemm16``, ``l2r_pairs_gemm16``):
-the same walk through one CUDA-core routine shared by the three
-(``csrc/l2r_int16.cuh``), counted in the same ``LAUNCHES[name]``.
+The three kernels have their own pipelines and share device helpers
+(``csrc/l2r_mma.cuh``).  On int16 planes (n_bits 9-16) each wrapper
+launches its kernel's int16 entry, counted in the same ``LAUNCHES[name]``:
+B1's and B3's (``l2r_stacked_gemm16``, ``l2r_pairs_gemm16``) run the same
+walk on the int8 tensor cores through the byte split (``csrc/l2r_gemm16.cuh``
+on ``csrc/l2r_byte_split.cuh``; its plain form is
+:func:`byte_split_matmul`), B2's (``l2r_streaming_gemm16``) on the CUDA
+cores (``csrc/l2r_int16.cuh``).
 
 Each wrapper dispatches on the operands' device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version.
@@ -49,7 +51,8 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.core.l2r_gemm import l2r_matmul_int, stacked_gemm_planes
+from repro_torch.core.l2r_gemm import (l2r_matmul_int, stacked_gemm_planes,
+                                      wrap_int32)
 from repro_torch.core.online import (msdf_level_slices, msdf_products,
                                     plane_bits)
 from repro_torch.core.progressive import scan_plain
@@ -62,7 +65,7 @@ __all__ = ["LAUNCHES", "stacked_schedule", "streaming_schedule",
            "l2r_gemm_stacked_planes_plain", "l2r_gemm_streaming_planes",
            "l2r_gemm_streaming_planes_plain", "l2r_gemm_pairs",
            "l2r_gemm_pairs_plain", "stacked_cost", "slab_cost",
-           "streaming_cost", "pairs_cost"]
+           "streaming_cost", "pairs_cost", "byte_split_matmul", "FOLD"]
 
 #: kernel launches per library since the counts were last reset (plain
 #: calls are not counted)
@@ -310,6 +313,60 @@ def pairs_cost(m: int, k: int, n: int, d: int = 4,
             (m * k + k * n) * e + m * n * 4)
 
 
+# ---------------------------------------------------------- the byte split
+#: contraction elements between the int16 routes' folds of their byte
+#: accumulators (csrc/l2r_gemm16.cuh: 1,024 passes of 32)
+FOLD = 32768
+
+
+def byte_split_matmul(aq: torch.Tensor, bq: torch.Tensor, masks,
+                      fold: int | None = FOLD) -> torch.Tensor:
+    """The int16 product as the int16 routes compute it on the int8 tensor
+    cores: ``aq`` (..., M, K) and ``bq`` (..., K, N) int16 codes -> (..., M,
+    N) int32, the sum over ``masks`` ((mask_a, mask_b) 16-bit pairs, one
+    per product of the walk) of (aq & mask_a) @ (bq & mask_b) mod 2^32.
+
+    Each masked operand is read back as int16 (the top plane's sign
+    extension included, as the raw bits hold it) and split as x = 256 xh +
+    xl (xh = x >> 8 in [-128, 127], xl = x & 0xff in [0, 255]); the
+    byte-pair sums xh.yh, xh.yl + xl.yh and xl.yl over each slice of
+    ``fold`` contraction elements are the kernels' three accumulators
+    between folds, exact int32, and are combined as (hh << 16) + (cross <<
+    8) + ll mod 2^32: the reference's wrapping int32 dot.  (The kernels
+    fold after 32,768 elements summed over the products; any grouping gives
+    the same bits mod 2^32.)  A slice whose byte sum leaves int32 raises: at
+    most 32,896 elements keep the cross sum inside.  ``fold=None`` sums the
+    whole contraction in one slice.  The dots run in f64 (exact on any
+    device)."""
+    def split(x, mask):
+        x = x.to(torch.int32) & mask
+        x = x - ((x & 0x8000) << 1)  # the masked bits read as int16
+        return (x >> 8).to(torch.float64), (x & 0xFF).to(torch.float64)
+
+    k = aq.shape[-1]
+    step = fold or max(k, 1)
+    acc = torch.zeros(torch.broadcast_shapes(aq.shape[:-2], bq.shape[:-2])
+                      + (aq.shape[-2], bq.shape[-1]), dtype=torch.int64,
+                      device=aq.device)
+    for ma, mb in masks:
+        (ah, al), (bh, bl) = split(aq, ma), split(bq, mb)
+        for k0 in range(0, k, step):
+            a_h, a_l = ah[..., k0:k0 + step], al[..., k0:k0 + step]
+            b_h, b_l = bh[..., k0:k0 + step, :], bl[..., k0:k0 + step, :]
+            sums = [torch.matmul(x, y).to(torch.int64) for x, y in
+                    ((a_h, b_h), (a_h, b_l), (a_l, b_h), (a_l, b_l))]
+            hh, cross, ll = sums[0], sums[1] + sums[2], sums[3]
+            for part in (hh, cross, ll):
+                if part.numel() and (part.min() < -(1 << 31)
+                                     or part.max() >= 1 << 31):
+                    raise OverflowError(
+                        f"a byte accumulator leaves int32 over {step} "
+                        f"elements of contraction: fold at most every "
+                        f"32,896")
+            acc += (hh << 16) + (cross << 8) + ll
+    return wrap_int32(acc)
+
+
 # ------------------------------------------------------------- B1: stacked
 def l2r_gemm_stacked_planes_plain(
     a_stack: torch.Tensor,
@@ -369,8 +426,8 @@ def l2r_gemm_stacked_planes(
     depth; any other table as its plane pairs.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: int8 stacks (n_bits <= 8) on the tensor cores, int16 stacks
-    (n_bits 9-16) through its int16 entry.
+    kernel on the tensor cores: int8 stacks (n_bits <= 8) as they are,
+    int16 stacks (n_bits 9-16) through its int16 entry, the byte split.
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     _check_out(out, (m, n), a_stack.device)
@@ -491,7 +548,7 @@ def l2r_gemm_streaming_planes(
     weight caches) is read in place, a row-major one transposed once.
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel: int8 stacks (D 1-8) on the tensor cores, int16 stacks (n_bits
-    9-16, D up to 16) through its int16 entry.
+    9-16, D up to 16) through its int16 entry on the CUDA cores.
     """
     m, k, n = _check(a_stack, b_rev, n_bits, log2_radix)
     d = n_bits // log2_radix
@@ -605,8 +662,9 @@ def l2r_gemm_pairs(aq: torch.Tensor, bq: torch.Tensor, n_bits: int = 8,
     bit-identical to ``l2r_matmul_int(levels)``.  The kernel runs the
     pair list as :func:`pairs_plan`'s plane-range products, masking the
     raw tiles (both read row-major in place).  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel: int8 operands on the
-    tensor cores, int16 (n_bits 9-16) through its int16 entry.
+    plain version; a CUDA tensor launches the kernel on the tensor cores:
+    int8 operands as they are, int16 (n_bits 9-16) through its int16
+    entry, the byte split.
     """
     if aq.ndim != 2 or bq.ndim != 2 or aq.shape[1] != bq.shape[0]:
         raise ValueError(f"operands must be (M, K) x (K, N), got "

@@ -17,6 +17,7 @@ from repro_torch.core import progressive as tp
 from repro_torch.core.quant import (QuantConfig, quantize, quantize_weights,
                                     stack_planes_lhs, stack_planes_rhs)
 from repro_torch.core.ipu import simulate_cipu
+from repro_torch.core.l2r_gemm import wrap_int32
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import msdf_ipu
 from repro_torch.kernels.l2r_gemm import kernel
@@ -83,11 +84,15 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 # int16 planes (n_bits 9-16): the int16 entries of B1-B3, D up to 16
 WIDE_CONFIGS = [(12, 4), (16, 4), (16, 2), (16, 1)]
+# B1's and B3's int16 tiles beyond SHAPES + SPLIT_SHAPES: 128 x 64 (N <= 64)
+# with K a multiple of 8 but not of 32, and with N or K off the 16-byte
+# pieces; 64 x 128 with a ragged K tail
+INT16_SHAPES = [(200, 72, 64), (150, 40, 33), (257, 200, 136)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bits,log2_radix", WIDE_CONFIGS)
-@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES)
+@pytest.mark.parametrize("m,k,n", SHAPES + SPLIT_SHAPES + INT16_SHAPES)
 def test_int16_planes_match_plain(dev, m, k, n, n_bits, log2_radix):
     """B1 (prefix tables, a one-level slab, B K-major and row-major), B2
     (every plane, out=) and B3 on int16 planes, bit for bit their plain
@@ -124,6 +129,49 @@ def test_int16_planes_match_plain(dev, m, k, n, n_bits, log2_radix):
     kernel.l2r_gemm_streaming_planes(sa, sb, n_bits, log2_radix)
     kernel.l2r_gemm_pairs(a, b, n_bits, log2_radix)
     assert all(kernel.LAUNCHES[name] == before[name] + 1 for name in before)
+
+
+def _extreme_int16(dev, m, k, n, seed):
+    """int16 codes whose byte split drives the cross accumulator past 2^31
+    within 32,900 elements of contraction: -32513 (high byte -128, low byte
+    255) up to there, random extremes of the int16 range after it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ends = torch.tensor([-32768, -32513, -256, 255, 32512, 32767],
+                        dtype=torch.int16, device=dev)
+    a = torch.full((m, k), -32513, dtype=torch.int16, device=dev)
+    b = torch.full((k, n), -32513, dtype=torch.int16, device=dev)
+    a[:, 32900:] = ends[torch.randint(0, 6, (m, k - 32900), generator=g,
+                                      device=dev)]
+    b[32900:] = ends[torch.randint(0, 6, (k - 32900, n), generator=g,
+                                   device=dev)]
+    return a, b
+
+
+@pytest.mark.cuda
+def test_int16_fold_at_k_33000(dev):
+    """B1 and B3 on int16 operands at K = 33,000 of extreme codes, where a
+    byte accumulator would pass 2^31 without its fold: bit for bit the
+    exact product mod 2^32 (f64 on the card: every partial sum is an
+    integer below 2^53).  264 output tiles of 64 x 128 fill a wave of
+    resident blocks, so each block walks its tile's whole contraction
+    and folds at 32,768.  Then B1's fold after 1,024 passes of many
+    products: D = 16 from level 1 (255 plane pairs) over 5 chunks."""
+    m, k, n = 8448, 33000, 256
+    a, b = _extreme_int16(dev, m, k, n, seed=11)
+    ref = wrap_int32(
+        (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64))
+    sa = stack_planes_lhs(a, 16, 4)
+    sbk = stack_planes_rhs(b, 16, 4).t().contiguous().t()
+    assert torch.equal(kernel.l2r_gemm_stacked_planes(sa, sbk, 16, 4), ref)
+    del sa, sbk
+    assert torch.equal(kernel.l2r_gemm_pairs(a, b, 16, 4), ref)
+    del a, b, ref
+    sa, sb = _stacks(dev, 40, 160, 70, 16, 1, seed=12)
+    for lv in (None, 20):
+        assert torch.equal(
+            kernel.l2r_gemm_stacked_planes(sa, sb, 16, 1, lv, first_level=1),
+            kernel.l2r_gemm_stacked_planes_plain(sa, sb, 16, 1, lv,
+                                                 first_level=1)), lv
 
 
 @pytest.mark.cuda
